@@ -1,0 +1,23 @@
+"""gpsat_tpu_torch — local-expert optimal interpolation in PyTorch and CUDA.
+
+A port of ``gpsat_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100. Module
+paths mirror ``gpsat_tpu`` so each function's counterpart sits at the same
+place; ``vmap`` over experts becomes an explicit leading batch dimension B.
+The package imports nothing of ``gpsat_tpu`` and never imports ``jax``.
+
+The hot 64x64 diagonal-block Cholesky + inverse runs in a hand-written
+CUDA kernel (``csrc/block_chol.cu``, bound in ``ops/block_chol.py``); a CPU
+tensor takes that kernel's plain PyTorch version instead.
+
+Entry points run on the card unless the caller passes ``device="cpu"``.
+"""
+
+import torch
+
+# GP linear algebra needs true-f32 matmuls: TF32 keeps ~3 decimal digits and
+# breaks Cholesky conditioning, the way bf16 passes did on the TPU
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
+__version__ = "0.1.0"

@@ -1,0 +1,77 @@
+"""Exact Gaussian-process regression — functional core, batched over B.
+
+Port of the functional part of ``gpsat_tpu/models/gpr.py``: ``neg_lml``
+(the fused analytic-gradient LML), ``posterior_factors`` (the diagonal-block
+factor pair) and ``predict``. Data is ``{"X": [B, N, D], "y": [B, N],
+"mask": [B, N]}``; params are dicts of [B, ...] tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gpsat_tpu_torch.models import means as MF
+from gpsat_tpu_torch.ops import kernels as K
+from gpsat_tpu_torch.ops import linalg as LA
+from gpsat_tpu_torch.ops import transforms as T
+from gpsat_tpu_torch.ops.fused_lml import masked_gpr_lml_fused
+
+PARAM_NAMES = ["lengthscales", "kernel_variance", "likelihood_variance"]
+
+
+def neg_lml(uparams: dict, data: dict, *, kernel: str, bijectors: dict, jitter: float = 0.0):
+    """Negative log marginal likelihood [B] of padded tiles.
+
+    uparams: unconstrained {"lengthscales": [B, D], "kernel_variance": [B],
+    "likelihood_variance": [B]}. Gradients reach uparams (through the
+    bijectors) and, via the fused VJP, y.
+    """
+    p = T.forward_params(uparams, bijectors)
+    data = MF.center_y(p, data)
+    return -masked_gpr_lml_fused(
+        kernel,
+        data["X"],
+        data["y"],
+        data["mask"],
+        p["lengthscales"],
+        p["kernel_variance"],
+        p["likelihood_variance"],
+        jitter,
+    )
+
+
+def posterior_factors(cparams: dict, data: dict, *, kernel: str, jitter: float = 0.0):
+    """Factor pair for fitted tiles: (L, alpha, W) with alpha = K^-1 y [B, N, 1]
+    and W = L^-1."""
+    m = data["mask"].to(data["X"].dtype)
+    Kf = K.gram(kernel, data["X"], data["X"], cparams["lengthscales"], cparams["kernel_variance"])
+    Km = LA.mask_gram(LA.add_diag(Kf, cparams["likelihood_variance"] + jitter), m)
+    ym = (data["y"] * m)[:, :, None]
+    L, W = LA.chol_winv_batched(Km)
+    alpha = torch.matmul(W.transpose(1, 2), torch.matmul(W, ym))
+    return L, alpha, W
+
+
+def predict(cparams: dict, data: dict, Xnew: torch.Tensor, *, kernel: str, jitter: float = 0.0, full_cov: bool = False):
+    """Posterior mean/variance at Xnew [B, P, D] (already coords_scale'd).
+
+    Returns f_mean, f_var, y_var [B, P] (and f_cov [B, P, P] when full_cov).
+    Padded training rows contribute nothing (zeroed cross-gram).
+    """
+    m = data["mask"].to(Xnew.dtype)
+    data = MF.center_y(cparams, data)
+    _, alpha, W = posterior_factors(cparams, data, kernel=kernel, jitter=jitter)
+    Ks = K.gram(kernel, data["X"], Xnew, cparams["lengthscales"], cparams["kernel_variance"])
+    Ks = Ks * m[:, :, None]
+    f_mean = MF.add_mean(cparams, Xnew, torch.matmul(Ks.transpose(1, 2), alpha)[:, :, 0])
+    v = torch.matmul(W, Ks)
+    f_var = K.gram_diag(kernel, Xnew, cparams["kernel_variance"]) - torch.sum(v * v, dim=1)
+    out = {
+        "f_mean": f_mean,
+        "f_var": f_var,
+        "y_var": f_var + cparams["likelihood_variance"][:, None],
+    }
+    if full_cov:
+        Kss = K.gram(kernel, Xnew, Xnew, cparams["lengthscales"], cparams["kernel_variance"])
+        out["f_cov"] = Kss - torch.matmul(v.transpose(1, 2), v)
+    return out

@@ -1,0 +1,269 @@
+"""Batched expert execution on one device.
+
+Port of ``gpsat_tpu/parallel/engine.py`` without the device mesh. The JAX
+engine vmaps one tile's fit-and-predict over the expert axis; here every
+step acts on the whole [B, ...] batch: batched single-eval L-BFGS on the
+masked objective, then the masked posterior predict. Dead tiles (mask
+all-zero) pad the batch to a power of two and are dropped on the host.
+
+Entry points default to the CUDA device and raise without one, unless the
+caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from gpsat_tpu_torch.models.functional import ModelCore
+from gpsat_tpu_torch.optim.lbfgs import minimize_lbfgs_single_eval
+from gpsat_tpu_torch.parallel.batching import TileBatch, pad_batch_to
+
+
+def resolve_device(device=None) -> torch.device:
+    """None means the CUDA device, which must exist: there is no fallback."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device available; pass device='cpu' to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _no_mesh(mesh):
+    if mesh is not None:
+        raise NotImplementedError("mesh= (sharding experts across GPUs) is not ported yet; see ROADMAP.md")
+
+
+def _fit_predict_batched(
+    core: ModelCore,
+    data: Dict[str, torch.Tensor],
+    Xnew: torch.Tensor,
+    uparams0: Dict[str, torch.Tensor],
+    *,
+    fixed_params: tuple,
+    max_iter: int,
+    optimise: bool,
+    tol_grad: float,
+    tol_f: float,
+    memory_size: int,
+):
+    """All padded tiles of a batch: optimise parameters, then predict."""
+    u_free0 = {k: v for k, v in uparams0.items() if k not in fixed_params}
+    u_fixed = {k: v for k, v in uparams0.items() if k in fixed_params}
+
+    def objective(u_free):
+        return core.objective({**u_free, **u_fixed}, data)
+
+    B = data["X"].shape[0]
+    dev = data["X"].device
+    if optimise and u_free0:
+        res = minimize_lbfgs_single_eval(
+            objective, u_free0, max_iter=max_iter, tol_grad=tol_grad, tol_f=tol_f, memory_size=memory_size
+        )
+        u_opt = {**res.params, **u_fixed}
+        converged, num_iter, final_obj = res.converged, res.num_iter, res.final_value
+        stalled, failed = res.stalled, res.failed
+    else:
+        u_opt = uparams0
+        converged = torch.ones(B, dtype=torch.bool, device=dev)
+        num_iter = torch.zeros(B, dtype=torch.int64, device=dev)
+        with torch.no_grad():
+            final_obj = objective(u_free0)
+        stalled = torch.zeros(B, dtype=torch.bool, device=dev)
+        failed = torch.zeros(B, dtype=torch.bool, device=dev)
+
+    with torch.no_grad():
+        cparams = core.forward(u_opt)
+        pred = core.predict(cparams, data, Xnew)
+    return {
+        "params": cparams,
+        "pred": pred,
+        "objective": final_obj,
+        "converged": converged,
+        "num_iter": num_iter,
+        "stalled": stalled,
+        # linesearch collapse / non-finite objective: the third exit class
+        "failed": failed,
+    }
+
+
+def make_batched_runner(
+    core: ModelCore,
+    *,
+    fixed_params: tuple = (),
+    max_iter: int = 500,
+    optimise: bool = True,
+    tol_grad: Optional[float] = None,
+    tol_f: Optional[float] = None,
+    linesearch: Optional[str] = None,
+    memory_size: int = 10,
+    mesh=None,
+    device=None,
+) -> Callable:
+    """Build the batch program: (X, y, mask, Xnew, uparams0) -> results.
+
+    Inputs are [B, ...] tensors (moved to the runner's device); results are
+    tensors on that device with the JAX runner's keys: params, pred,
+    objective, converged, num_iter, stalled, failed.
+
+    tol_grad/tol_f default by compute dtype: 1e-6/1e-11 in f64 (scipy
+    L-BFGS-B parity) but 1e-3/1e-6 in f32, whose arithmetic noise sits
+    above the f64-grade thresholds. Only the single-eval line search is
+    ported; linesearch=None selects it in f32 and must be given as
+    "single_eval" in f64 (the JAX default there, zoom, is not ported).
+    """
+    _no_mesh(mesh)
+    dev = resolve_device(device)
+
+    def runner(X, y, mask, Xnew, uparams0):
+        X, y, mask, Xnew = (torch.as_tensor(a, device=dev) for a in (X, y, mask, Xnew))
+        f32 = X.dtype == torch.float32
+        tg = tol_grad if tol_grad is not None else (1e-3 if f32 else 1e-6)
+        tf = tol_f if tol_f is not None else (1e-6 if f32 else 1e-11)
+        ls = linesearch if linesearch is not None else ("single_eval" if f32 else "zoom")
+        if ls != "single_eval":
+            raise NotImplementedError(f"linesearch={ls!r} is not ported; use 'single_eval' (see ROADMAP.md)")
+        return _fit_predict_batched(
+            core,
+            {"X": X, "y": y, "mask": mask},
+            Xnew,
+            {k: torch.as_tensor(v, device=dev) for k, v in uparams0.items()},
+            fixed_params=tuple(fixed_params),
+            max_iter=max_iter,
+            optimise=optimise,
+            tol_grad=tg,
+            tol_f=tf,
+            memory_size=memory_size,
+        )
+
+    runner.device = dev
+    return runner
+
+
+def _smart_init(batch: TileBatch) -> Dict[str, np.ndarray]:
+    """Data-driven per-tile initialisation: lengthscales from the masked
+    coordinate spread, variances from the observed variance."""
+    m = batch.mask > 0
+    Xm = np.where(m[..., None], batch.X, np.nan)
+    ym = np.where(m, batch.y, np.nan)
+    with np.errstate(all="ignore"):
+        ls = np.nanstd(Xm, axis=1)
+        var_y = np.nanvar(ym, axis=1)
+    ls = np.where(np.isfinite(ls) & (ls > 0), ls, 1.0)
+    var_y = np.where(np.isfinite(var_y) & (var_y > 0), var_y, 1.0)
+    return {
+        "lengthscales": ls.astype(batch.X.dtype),
+        "kernel_variance": var_y.astype(batch.X.dtype),
+        "likelihood_variance": (0.1 * var_y).astype(batch.X.dtype),
+    }
+
+
+def run_tile_batch_async(
+    batch: TileBatch,
+    init_cparams: Dict[str, np.ndarray],
+    runner: Callable,
+    core: ModelCore,
+    *,
+    mesh=None,
+    pad_multiple: Optional[int] = None,
+    device=None,
+) -> Callable[[], Dict[str, np.ndarray]]:
+    """Run one shape bucket; returns finalize(), which copies the results to
+    the host and strips dead-tile padding.
+
+    The L-BFGS loop syncs with the host once per iteration to test for
+    remaining active lanes, so this returns after the optimisation; the
+    predict may still be in flight on the device until finalize().
+
+    init_cparams: constrained params, each either unbatched (applied to all
+    experts) or with a leading [B] axis (per-expert warm starts);
+    ``smart_init=True`` fills the unset ones from ``_smart_init``.
+    """
+    _no_mesh(mesh)
+    dev = resolve_device(device)
+    if runner.device != dev:
+        raise ValueError(f"runner was built for {runner.device}, batch runs on {dev}")
+    init_cparams = dict(init_cparams)
+    if init_cparams.pop("smart_init", False):
+        init_cparams = {**_smart_init(batch), **init_cparams}
+
+    B = batch.B
+    # pad the expert axis to a power of two (or the next multiple of
+    # pad_multiple) so different-sized buckets share shapes
+    if pad_multiple:
+        B_pad = int(-(-B // int(pad_multiple)) * int(pad_multiple))
+    else:
+        B_pad = 1
+        while B_pad < B:
+            B_pad *= 2
+    batch = pad_batch_to(batch, B_pad)
+
+    D = batch.X.shape[-1]
+    dtype = batch.X.dtype
+    defaults = core.init_cparams(D, dtype=dtype)
+    cparams0 = {}
+    for k, dflt in defaults.items():
+        v = np.asarray(init_cparams.get(k, dflt), dtype=dtype)
+        pshape = np.shape(dflt)
+        if v.ndim == len(pshape) + 1 and v.shape[0] == B:
+            # per-expert values for the unpadded batch: pad with defaults
+            if batch.B != B:
+                v = np.concatenate([v, np.broadcast_to(dflt, (batch.B - B,) + pshape)], axis=0)
+        else:
+            v = np.broadcast_to(v, (batch.B,) + pshape).copy()
+        cparams0[k] = torch.as_tensor(v, device=dev)
+    uparams0 = core.inverse(cparams0)
+
+    out = runner(
+        torch.as_tensor(batch.X, device=dev),
+        torch.as_tensor(batch.y, device=dev),
+        torch.as_tensor(batch.mask, device=dev),
+        torch.as_tensor(batch.Xnew, device=dev),
+        uparams0,
+    )
+
+    def finalize():
+        live = batch.expert_index >= 0
+
+        def host(t):
+            return t.detach().cpu().numpy()[live]
+
+        res = {
+            "expert_index": batch.expert_index[live],
+            "num_obs": batch.num_obs[live],
+            "objective": host(out["objective"]),
+            "converged": host(out["converged"]),
+            "num_iter": host(out["num_iter"]),
+            "stalled": host(out["stalled"]),
+            "failed": host(out["failed"]),
+            "f_mean": host(out["pred"]["f_mean"]),
+            "f_var": host(out["pred"]["f_var"]),
+            "y_var": host(out["pred"]["y_var"]),
+            "pred_mask": batch.pred_mask[live],
+            "obs_mean": batch.obs_mean[live],
+        }
+        for k in core.param_names:
+            res[k] = host(out["params"][k])
+        return res
+
+    return finalize
+
+
+def run_tile_batch(
+    batch: TileBatch,
+    init_cparams: Dict[str, np.ndarray],
+    runner: Callable,
+    core: ModelCore,
+    *,
+    mesh=None,
+    pad_multiple: Optional[int] = None,
+    device=None,
+) -> Dict[str, np.ndarray]:
+    """Execute one shape bucket; returns host-side arrays [B, ...]."""
+    return run_tile_batch_async(
+        batch, init_cparams, runner, core, mesh=mesh, pad_multiple=pad_multiple, device=device
+    )()

@@ -1,0 +1,31 @@
+"""Analytic FLOP counts for the exact-GPR main path.
+
+Port of the two main-path counts of ``gpsat_tpu/utils/flops.py``.
+Convention: 1 fused multiply-add = 2 FLOPs; Cholesky N^3/3, triangular
+inverse N^3/3, dense matmul [n,k]x[k,m] = 2nkm. These are MODEL flops (the
+work the math requires), so achieved FLOP/s = model flops / seconds
+compares across implementations.
+"""
+
+from __future__ import annotations
+
+
+def gpr_fused_iter_flops(N: int, D: int) -> float:
+    """One L-BFGS iteration of the fused value+grad masked LML on an
+    N-point tile (every single-eval iteration runs forward + analytic
+    backward):
+
+      gram distance matmul   2 N^2 D
+      Cholesky               N^3 / 3
+      blocked tri inverse    N^3 / 3
+      Kinv = W^T W           2 N^3      (dense matmul, counted as executed)
+      value solve + alpha    ~4 N^2
+      backward contractions  (4 + 2D) N^2
+    """
+    return (2.0 / 3.0 + 2.0) * N**3 + (2.0 * D + 2 * D + 8.0) * N**2
+
+
+def gpr_predict_flops(N: int, P: int, D: int) -> float:
+    """Posterior mean+var at P points given the factorisation: cross gram
+    2NPD + the W Ks product (2 N^2 P)."""
+    return 2.0 * N * P * D + 2.0 * N**2 * P

@@ -1,0 +1,71 @@
+"""The port's diagonal-block factor pair (gpsat_tpu_torch/ops/block_chol.py
+and ops/linalg.chol_winv_batched) against the Pallas kernel it replaces and
+against numpy.
+
+On the CPU, ``factor_blocks`` runs its plain PyTorch version; the CUDA
+kernel itself is checked on the card by tests/test_torch_cuda.py and
+chip_smoke.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from gpsat_tpu.ops.pallas.block_chol import factor_blocks as pallas_factor_blocks
+from gpsat_tpu_torch.ops import block_chol as BC
+from gpsat_tpu_torch.ops.linalg import chol_winv_batched
+
+T = 64
+
+
+def _spd_blocks(B, seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((B, T, T)).astype(dtype)
+    return A @ np.swapaxes(A, 1, 2) + T * np.eye(T, dtype=dtype)
+
+
+def test_reference_matches_pallas_kernel():
+    # same f32 inputs through the Pallas kernel (interpret mode) and the
+    # port's plain version of the CUDA kernel. atol 2e-5: both run the same
+    # 64 f32 steps, in other summation orders; L entries are O(10).
+    K = _spd_blocks(7, seed=0)
+    Lp, Wp = (np.asarray(a) for a in pallas_factor_blocks(jnp.asarray(K), interpret=True))
+    L, W = (a.numpy() for a in BC.factor_blocks(torch.from_numpy(K)))
+    np.testing.assert_allclose(L, Lp, rtol=0, atol=2e-5)
+    np.testing.assert_allclose(W, Wp, rtol=0, atol=2e-5)
+    assert np.all(np.triu(L, 1) == 0.0) and np.all(np.triu(W, 1) == 0.0)
+
+
+def test_non_spd_block_gives_nan():
+    # a non-positive pivot must give NaN in both outputs (no clamping);
+    # the SPD block beside it stays finite
+    K = torch.from_numpy(np.stack([np.eye(T, dtype=np.float32), -np.eye(T, dtype=np.float32)]))
+    L, W = BC.factor_blocks(K)
+    assert torch.isfinite(L[0]).all() and torch.isfinite(W[0]).all()
+    assert torch.isnan(L[1]).any() and torch.isnan(W[1]).any()
+
+
+def test_factor_blocks_rejects_bad_shapes_and_counts_no_cpu_launch():
+    with pytest.raises(ValueError):
+        BC.factor_blocks(torch.zeros(2, 32, 32))
+    with pytest.raises(ValueError):
+        BC.factor_blocks(torch.zeros(64, 64))
+    before = BC.factor_blocks.launches
+    BC.factor_blocks(torch.from_numpy(_spd_blocks(1, seed=1)))
+    assert BC.factor_blocks.launches == before  # the counter counts kernel launches only
+
+
+def test_chol_winv_batched_f64_matches_numpy():
+    # f64 through the plain block version: exact to roundoff (N=192, 3 blocks)
+    rng = np.random.default_rng(1)
+    B, N = 3, 192
+    A = rng.standard_normal((B, N, N)) / np.sqrt(N)
+    K = A @ np.swapaxes(A, 1, 2) + np.eye(N)
+    L, W = (a.numpy() for a in chol_winv_batched(torch.from_numpy(K)))
+    np.testing.assert_allclose(L, np.linalg.cholesky(K), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(L @ W, np.broadcast_to(np.eye(N), (B, N, N)), rtol=0, atol=1e-12)
+    assert np.all(np.triu(W, 1) == 0.0)
+    with pytest.raises(ValueError):
+        chol_winv_batched(torch.eye(100, dtype=torch.float64)[None])

@@ -1,0 +1,169 @@
+"""The port's whole slice (gpsat_tpu_torch/parallel/engine.py down to the
+factor pair) against the JAX engine, on one small f64 workload, plus the
+port's device rule and import isolation."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from gpsat_tpu.models.functional import make_gpr_core as jax_make_gpr_core
+from gpsat_tpu.ops import linalg as JLA
+from gpsat_tpu.parallel import batching as JB
+from gpsat_tpu.parallel import engine as JE
+from gpsat_tpu_torch.convert import batch_from_numpy, params_from_numpy
+from gpsat_tpu_torch.models.functional import make_gpr_core
+from gpsat_tpu_torch.parallel import engine as TE
+
+REPO = Path(__file__).resolve().parent.parent
+B, N, P, D = 4, 128, 8, 2
+TOLS = dict(tol_grad=1e-6, tol_f=1e-11)
+
+
+def _jax_batch():
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-6, 6, (B, N, D))
+    y = np.sin(X[..., 0]) * np.cos(X[..., 1]) + 0.1 * rng.normal(size=(B, N))
+    mask = np.ones((B, N))
+    fill = rng.integers(int(0.6 * N), N + 1, size=B)
+    for i, f in enumerate(fill):
+        mask[i, f:] = 0.0
+    Xnew = rng.uniform(-4, 4, (B, P, D))
+    return JB.TileBatch(
+        X=X, y=y, mask=mask, Xnew=Xnew, pred_mask=np.ones((B, P)),
+        obs_mean=np.zeros(B), expert_index=np.arange(B), num_obs=fill,
+    )
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """One JAX runner compile and run, and the port on the same batch."""
+    batch = _jax_batch()
+    JLA.set_fast_inverse(True)
+    try:
+        core = jax_make_gpr_core()
+        runner = JE.make_batched_runner(core, linesearch="single_eval", **TOLS)
+        ref = JE.run_tile_batch(batch, {"smart_init": True}, runner, core)
+    finally:
+        JLA.set_fast_inverse(None)
+    tcore = make_gpr_core()
+    trunner = TE.make_batched_runner(tcore, linesearch="single_eval", device="cpu", **TOLS)
+    got = TE.run_tile_batch(batch_from_numpy(batch), {"smart_init": True}, trunner, tcore, device="cpu")
+    return batch, ref, got
+
+
+def test_slice_f64_matches_jax_engine(runs):
+    _, ref, got = runs
+    np.testing.assert_array_equal(got["converged"], ref["converged"])
+    np.testing.assert_array_equal(got["expert_index"], ref["expert_index"])
+    assert not got["failed"].any()
+    # both stop on |df| <= 1e-11 |f| near a flat optimum: a last-bit
+    # difference in f (other factorisation, other sum order) can fire that
+    # test an iteration or two apart, so one lane of four may differ in
+    # num_iter; that lane is held to the flat optimum's own band below
+    same = got["num_iter"] == ref["num_iter"]
+    assert same.sum() >= B - 1, (got["num_iter"], ref["num_iter"])
+    # relative to max(|ref|, 1e-6), i.e. a 1e-12 absolute floor under the
+    # 1e-6 bound: a lane whose noise variance converges to ~1e-11 (noise-free
+    # optimum) differs there by roundoff alone (~1e-17 absolute)
+    for k in ("lengthscales", "kernel_variance", "likelihood_variance"):
+        rel = np.abs(got[k] - ref[k]) / np.maximum(np.abs(ref[k]), 1e-6)
+        rel = rel.reshape(B, -1).max(1)
+        assert rel[same].max() <= 1e-6, (k, rel)
+        assert rel.max() <= 1e-5, (k, rel)
+    for k in ("f_mean", "f_var", "y_var"):
+        err = np.abs(got[k] - ref[k]).max(1)
+        assert err[same].max() <= 1e-8, (k, err)
+        assert err.max() <= 1e-6, (k, err)
+    np.testing.assert_allclose(got["objective"], ref["objective"], rtol=1e-10)
+
+
+def test_params_carried_across_predict_like_jax(runs):
+    # the JAX result's hyperparameters, converted, give JAX's predictions
+    batch, ref, _ = runs
+    tcore = make_gpr_core()
+    cp = params_from_numpy({k: ref[k] for k in tcore.param_names}, "cpu", torch.float64)
+    data = {k: torch.from_numpy(getattr(batch, k)) for k in ("X", "y", "mask")}
+    with torch.no_grad():
+        pred = tcore.predict(cp, data, torch.from_numpy(batch.Xnew))
+    for k in ("f_mean", "f_var", "y_var"):
+        np.testing.assert_allclose(pred[k].numpy(), ref[k], rtol=0, atol=1e-10, err_msg=k)
+    # the same through the runner with optimise=False
+    runner = TE.make_batched_runner(tcore, optimise=False, linesearch="single_eval", device="cpu")
+    init = {k: ref[k] for k in tcore.param_names}
+    res = TE.run_tile_batch(batch_from_numpy(batch), init, runner, tcore, device="cpu")
+    for k in ("f_mean", "f_var", "y_var"):
+        np.testing.assert_allclose(res[k], ref[k], rtol=0, atol=1e-10, err_msg=k)
+    assert (res["num_iter"] == 0).all() and res["converged"].all()
+
+
+def test_nan_lane_stays_in_its_lane(runs):
+    # one tile with a NaN observation fails alone; the other lanes follow
+    # exactly the trajectories of the clean run
+    batch, _, clean = runs
+    bad = batch_from_numpy(batch)
+    bad.y[1, 3] = np.nan
+    tcore = make_gpr_core()
+    runner = TE.make_batched_runner(tcore, linesearch="single_eval", device="cpu", **TOLS)
+    res = TE.run_tile_batch(bad, {"smart_init": True}, runner, tcore, device="cpu")
+    assert res["failed"][1] and not res["converged"][1]
+    ok = np.arange(B) != 1
+    np.testing.assert_array_equal(res["num_iter"][ok], clean["num_iter"][ok])
+    np.testing.assert_array_equal(res["f_mean"][ok], clean["f_mean"][ok])
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-card rule cannot be observed")
+    core = make_gpr_core()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TE.make_batched_runner(core)
+    runner = TE.make_batched_runner(core, device="cpu")
+    batch = batch_from_numpy(_jax_batch())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TE.run_tile_batch(batch, {}, runner, core)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TE.run_tile_batch_async(batch, {}, runner, core)
+
+
+def test_unported_options_raise():
+    core = make_gpr_core()
+    with pytest.raises(NotImplementedError):
+        TE.make_batched_runner(core, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError):
+        make_gpr_core(profile_variance=True)
+    runner = TE.make_batched_runner(core, device="cpu", max_iter=1)  # f64 default line search is zoom
+    with pytest.raises(NotImplementedError):
+        TE.run_tile_batch(batch_from_numpy(_jax_batch()), {}, runner, core, device="cpu")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_gpsat_tpu():
+    code = (
+        "import sys, gpsat_tpu_torch.parallel.engine, gpsat_tpu_torch.convert, gpsat_tpu_torch.utils.flops\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'gpsat_tpu' or m.startswith('gpsat_tpu.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+    sources = sorted((REPO / "gpsat_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    for path in sources:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "gpsat_tpu", "optax"), f"{path.relative_to(REPO)} imports {mod}"
