@@ -1,20 +1,34 @@
 """Smoke run of the PyTorch/CUDA port (gpsat_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py              # one card; exits non-zero on any failure
-    python3 chip_smoke.py --profile    # also write a torch.profiler table of one
-                                       # main-path run to chiprun_out/profile.txt
+    python3 chip_smoke.py --profile    # also write torch.profiler tables of one
+                                       # main-path and one profiled-path run to
+                                       # chiprun_out/profile*.txt
+    python3 chip_smoke.py --kernels    # phases 1 and 2 only (no result line)
 
 Phases (each prints on its own lines; any failure raises):
 
-1. build     compile gpsat_tpu_torch/csrc/block_chol.cu with nvcc for sm_90a
-2. kernel    the CUDA factor_blocks against its plain PyTorch version on the
-             card at the main path's [512, 64, 64] f32, a non-SPD block's NaN,
-             and CUDA-event times of the kernel, the plain version and one
-             library call (cholesky_ex + solve_triangular) as the yardstick
+1. build     compile gpsat_tpu_torch/csrc/{block_chol,panel_chol,cholesky}.cu
+             with nvcc for sm_90a, all three at once
+2. kernel    each CUDA kernel against its plain PyTorch version on the card at
+             the shapes its path gives it ([512, 64, 64], [512, 128, 128],
+             [512, 512, 512] f32; kernel 3 also at [8, 1024, 1024] and
+             [8, 128, 128]), its contract case (NaN or clamp), and CUDA-event
+             times of the kernel, the plain version and one library call as
+             the yardstick
 3. main      bench.py's workload (B=512, N=512, P=64, D=2, Matern32, f32,
-             single-eval L-BFGS) through the port's engine: a warm-up call,
-             then one timed call with the kernel launch counter read around it
+             single-eval L-BFGS) through the port's engine on the "block"
+             route: a warm-up call, then one timed call with the kernels'
+             launch counters set to 0 before it and read after it
 4. accuracy  the first 16 tiles, f32 on the card against f64 on the CPU
+5. panel     phase 3's workload on the "panel" route (kernel 2 in the
+             objective, kernel 3 in the predict), held against phase 3's
+             predictions
+6. profiled  phase 3's workload through the profiled-variance core (kernel 3
+             in the objective and in finalize_params, kernel 1 in the
+             predict); the first 8 tiles against the same core in f64 on the
+             CPU, on the lanes where neither run collapsed to the pure-noise
+             point
 
 Then one {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 Imports nothing of JAX or of gpsat_tpu.
@@ -36,10 +50,24 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 B, N, P, D = 512, 512, 64, 2
 T = 64
 CPU_TILES = 16
+PROFILED_CPU_TILES = 8
+KERNELS = ("block_chol", "panel_chol", "cholesky")
 # f32 card vs f64 CPU on predictions: raw f32 optima sit ~3e-3 from f64 gold
 # (flat optima; the repo's accuracy logs), so 1e-2 catches a wrong path
 # without failing on f32 hyperparameter drift
 PRED_BOUND = 1e-2
+# two f32 runs on the card from the same init, on different factor routes:
+# trajectories may part (other roundoff), each ends within the f32 band of the
+# same flat optimum, so the same bound holds between them
+ROUTE_BOUND = 1e-2
+# a lane of the profiled surface that ran to the pure-noise stationary point
+# (lengthscales -> 0, about one lane in eight): every lengthscale far below
+# the ~0.5 spacing of the workload's points
+COLLAPSED_LS = 0.05
+# at least this share of the compared tiles must be lanes where neither the
+# card's f32 run nor the CPU's f64 run collapsed
+MIN_COMPARED_SHARE = 0.5
+RUN_KW = dict(max_iter=100, linesearch="single_eval", tol_grad=1e-3, tol_f=1e-6)
 
 
 def check(cond, msg):
@@ -93,12 +121,47 @@ def bench_workload(dtype=np.float32):
     return batch, init
 
 
+def spd_batch(Bn, n, seed):
+    """[Bn, n, n] f32 SPD matrices on the card: A A^T + n I, entries O(sqrt n)."""
+    import torch
+
+    A = torch.from_numpy(np.random.default_rng(seed).standard_normal((Bn, n, n)).astype(np.float32)).cuda()
+    return torch.matmul(A, A.transpose(1, 2)) + n * torch.eye(n, device=A.device)
+
+
+def kernel_entry(name, source, replaces, shape, err, ms, plain_ms, library_ms, nbytes, flops, **details):
+    """One row of the {"kernels": [...]} line, with the kernel's bound: the
+    larger of its bytes (each input read once, each output written once) over
+    the card's memory rate and its operations over the f32 peak."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    log("kernel", name=name, shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms, **details)
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": None,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+    }
+
+
+def upper_is_zero(*mats):
+    import torch
+
+    return all(float(torch.triu(M, 1).abs().max()) == 0.0 for M in mats)
+
+
 def phase_kernel(BC):
     import torch
 
-    rng = np.random.default_rng(0)
-    A = rng.standard_normal((B, T, T)).astype(np.float32)
-    K = torch.from_numpy(A @ np.swapaxes(A, 1, 2) + T * np.eye(T, dtype=np.float32)).cuda()
+    K = spd_batch(B, T, seed=0)
     L, W = BC.factor_blocks(K)
     torch.cuda.synchronize()
     Lr, Wr = BC.factor_blocks_reference(K)
@@ -108,103 +171,157 @@ def phase_kernel(BC):
     err_LW = float((torch.matmul(L, W) - eye).abs().max())
     # f32, 64 dependent steps, FMA-contracted in the kernel and not in the
     # plain version; L entries are O(10): 1e-4 absolute
-    check(err_L <= 1e-4 and err_W <= 1e-4, f"kernel vs plain version: |dL| {err_L}, |dW| {err_W}")
-    check(err_LW <= 1e-4, f"max |LW - I| = {err_LW}")
-    check(float(torch.triu(L, 1).abs().max()) == 0.0 and float(torch.triu(W, 1).abs().max()) == 0.0,
-          "strict upper triangles not zero")
+    check(err_L <= 1e-4 and err_W <= 1e-4, f"block kernel vs plain version: |dL| {err_L}, |dW| {err_W}")
+    check(err_LW <= 1e-4, f"block kernel: max |LW - I| = {err_LW}")
+    check(upper_is_zero(L, W), "block kernel: strict upper triangles not zero")
     bad = torch.stack([eye, -eye]).contiguous()
     Ln, Wn = BC.factor_blocks(bad)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(Ln[0]).all()) and bool(torch.isnan(Ln[1]).any()) and bool(torch.isnan(Wn[1]).any()),
           "a -I block must give NaN in L and W, an I block beside it finite values")
 
-    ms = time_ms(lambda: BC.factor_blocks(K))
-    plain_ms = time_ms(lambda: BC.factor_blocks_reference(K))
-
     def library():
         Lc, _ = torch.linalg.cholesky_ex(K)
         return torch.linalg.solve_triangular(Lc, eye.expand(B, T, T), upper=False)
 
-    library_ms = time_ms(library)
     # least work: read K once, write L and W once; Cholesky T^3/3 + inverse T^3/3 flops
-    bytes_ms = 3 * B * T * T * 4 / HBM_BYTES_PER_S * 1e3
-    ops_ms = B * (2.0 / 3.0) * T**3 / F32_FLOPS_PER_S * 1e3
-    entry = {
-        "name": "block_chol.factor_blocks",
-        "route": "cuda",
-        "source": "gpsat_tpu_torch/csrc/block_chol.cu",
-        "replaces": "gpsat_tpu/ops/pallas/block_chol.py:50",
-        "launches": None,
-        "max_abs_err": max(err_L, err_W),
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
-    }
-    log("kernel", shape=[B, T, T], err_L=err_L, err_W=err_W, max_abs_LW_minus_I=err_LW, nan_case="ok",
-        ms=ms, plain_ms=plain_ms, library_ms=library_ms, bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms)
-    return entry
+    return kernel_entry(
+        "block_chol.factor_blocks", "gpsat_tpu_torch/csrc/block_chol.cu", "gpsat_tpu/ops/pallas/block_chol.py:50",
+        [B, T, T], max(err_L, err_W), time_ms(lambda: BC.factor_blocks(K)),
+        time_ms(lambda: BC.factor_blocks_reference(K)), time_ms(library),
+        nbytes=3 * B * T * T * 4, flops=B * (2.0 / 3.0) * T**3,
+        err_L=err_L, err_W=err_W, max_abs_LW_minus_I=err_LW, nan_case="ok",
+    )
 
 
-def phase_main(BC, profile: bool):
+def phase_kernel_panel(PC):
     import torch
 
-    from gpsat_tpu_torch.models.functional import make_gpr_core
+    TP = PC.T_PANEL
+    K = spd_batch(B, TP, seed=1)
+    L, W = PC.factor_panels(K)
+    torch.cuda.synchronize()
+    Lr, Wr = PC.factor_panels_reference(K)
+    err_L = float((L - Lr).abs().max())
+    err_W = float((W - Wr).abs().max())
+    eye = torch.eye(TP, device=K.device)
+    err_LW = float((torch.matmul(L, W) - eye).abs().max())
+    err_LLt = float((torch.matmul(L, L.transpose(1, 2)) - K).abs().max())
+    # f32, 128 dependent steps, FMA-contracted in the kernel and not in the
+    # plain version; L entries are O(10), Linv entries O(0.1), K entries up to
+    # ~300: the bounds the JAX package holds its kernel to (2e-4 on L, 2e-5 on
+    # L Linv - I), 2e-5 on Linv, and 1e-5 of K's entries on L L^T
+    check(err_L <= 2e-4 and err_W <= 2e-5, f"panel kernel vs plain version: |dL| {err_L}, |dW| {err_W}")
+    check(err_LW <= 2e-5, f"panel kernel: max |L Linv - I| = {err_LW}")
+    check(err_LLt <= 2e-3, f"panel kernel: max |L L^T - K| = {err_LLt}")
+    check(upper_is_zero(L, W), "panel kernel: strict upper triangles not zero")
+    # the contract is the 1e-30 pivot clamp: an all-zero block gives finite
+    # values equal to the plain version's, the identity block beside it is exact
+    odd = torch.stack([torch.zeros_like(eye), eye]).contiguous()
+    Lz, Wz = PC.factor_panels(odd)
+    torch.cuda.synchronize()
+    Lzr, Wzr = PC.factor_panels_reference(odd)
+    check(bool(torch.isfinite(Lz).all()) and bool(torch.isfinite(Wz).all()), "an all-zero block must give finite values")
+    check(torch.allclose(Lz, Lzr, rtol=1e-6, atol=0) and torch.allclose(Wz, Wzr, rtol=1e-6, atol=0),
+          "the clamp case differs from the plain version")
+    check(torch.equal(Lz[1], eye) and torch.equal(Wz[1], eye), "an identity block must come back exactly")
+
+    def library():
+        Lc, _ = torch.linalg.cholesky_ex(K)
+        return torch.linalg.solve_triangular(Lc, eye.expand(B, TP, TP), upper=False)
+
+    return kernel_entry(
+        "panel_chol.factor_panels", "gpsat_tpu_torch/csrc/panel_chol.cu", "gpsat_tpu/ops/pallas/panel_chol.py:41",
+        [B, TP, TP], max(err_L, err_W), time_ms(lambda: PC.factor_panels(K)),
+        time_ms(lambda: PC.factor_panels_reference(K), reps=5, warm=1), time_ms(library),
+        nbytes=3 * B * TP * TP * 4, flops=B * (2.0 / 3.0) * TP**3,
+        err_L=err_L, err_W=err_W, max_abs_LLinv_minus_I=err_LW, max_abs_LLt_minus_K=err_LLt, clamp_case="ok",
+    )
+
+
+def phase_kernel_cholesky(CH):
+    import torch
+
+    def compare(Bn, n, seed):
+        K = spd_batch(Bn, n, seed)
+        L = CH.cholesky(K)
+        torch.cuda.synchronize()
+        err = float((L - CH.cholesky_reference(K)).abs().max())
+        err_LLt = float((torch.matmul(L, L.transpose(1, 2)) - K).abs().max())
+        # f32 roundoff of this factorisation against f64 is ~2e-5 on L
+        # (entries up to ~50) and ~1e-6 of K's entries (up to ~2n) on L L^T:
+        # 2e-4 absolute against the plain version, 1e-5 of n on L L^T
+        check(err <= 2e-4, f"cholesky kernel vs plain version at {[Bn, n, n]}: {err}")
+        check(err_LLt <= 1e-5 * n, f"cholesky kernel: max |L L^T - K| at {[Bn, n, n]} = {err_LLt}")
+        check(upper_is_zero(L), f"cholesky kernel: strict upper triangle not zero at {[Bn, n, n]}")
+        return K, err, err_LLt
+
+    K, err, err_LLt = compare(B, N, seed=2)
+    edges = {str([Bn, n, n]): compare(Bn, n, seed=3)[1] for Bn, n in ((8, 1024), (8, 128))}
+    eye = torch.eye(CH.BLOCK * 2, device=K.device)
+    Ln = CH.cholesky(torch.stack([eye, -eye]).contiguous())
+    torch.cuda.synchronize()
+    check(torch.equal(Ln[0], eye) and bool(torch.isnan(Ln[1]).any()),
+          "a -I matrix must give NaN, an I matrix beside it must come back exactly")
+
+    return kernel_entry(
+        "cholesky.cholesky", "gpsat_tpu_torch/csrc/cholesky.cu", "gpsat_tpu/ops/pallas/cholesky.py:90",
+        [B, N, N], err, time_ms(lambda: CH.cholesky(K)),
+        time_ms(lambda: CH.cholesky_reference(K), reps=3, warm=1), time_ms(lambda: torch.linalg.cholesky_ex(K)),
+        nbytes=2 * B * N * N * 4, flops=B * N**3 / 3.0,
+        max_abs_LLt_minus_K=err_LLt, edge_max_abs_err=edges, nan_case="ok",
+    )
+
+
+def counters():
+    from gpsat_tpu_torch.ops.block_chol import factor_blocks
+    from gpsat_tpu_torch.ops.cholesky import cholesky
+    from gpsat_tpu_torch.ops.panel_chol import factor_panels
+
+    return {"block_chol": factor_blocks, "panel_chol": factor_panels, "cholesky": cholesky}
+
+
+def drive(phase, core, batch, init, profile_to=None):
+    """One path at the full width through the engine: a warm-up call, then
+    one timed call with every kernel's launch count set to 0 just before it
+    and read just after. Returns (results, launches by kernel)."""
+    import torch
+
     from gpsat_tpu_torch.parallel.engine import make_batched_runner, run_tile_batch
     from gpsat_tpu_torch.utils.flops import gpr_fused_iter_flops, gpr_predict_flops
 
-    batch, init = bench_workload()
-    core = make_gpr_core(jitter=1e-5)
-    runner = make_batched_runner(core, max_iter=100, linesearch="single_eval", tol_grad=1e-3, tol_f=1e-6)
-
+    runner = make_batched_runner(core, fixed_params=core.default_fixed_params, **RUN_KW)
     t0 = time.perf_counter()
     run_tile_batch(batch, init, runner, core)
     first_s = time.perf_counter() - t0
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    BC.factor_blocks.launches = 0
+    for fn in counters().values():
+        fn.launches = 0
     t0 = time.perf_counter()
     res = run_tile_batch(batch, init, runner, core)  # finalize() copies to host: synchronised
     steady_s = time.perf_counter() - t0
-    launches = BC.factor_blocks.launches
+    launches = {k: fn.launches for k, fn in counters().items()}
 
     conv = int(res["converged"].sum())
     it_max = int(res["num_iter"].max())
     flops = B * it_max * gpr_fused_iter_flops(N, D) + B * gpr_predict_flops(N, P, D)
-    out = {
-        "experts_per_s": B / steady_s,
-        "steady_s": steady_s,
-        "first_call_s": first_s,
-        "converged": conv,
-        "B": B,
-        "iters_mean": float(res["num_iter"].mean()),
-        "iters_max": it_max,
-        "stall_exits": int(res["stalled"].sum()),
-        "failed_exits": int(res["failed"].sum()),
-        "achieved_tflops": flops / steady_s / 1e12,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "factor_blocks_launches": launches,
-        # 8 diagonal blocks per factor pair; one pair per L-BFGS value+grad
-        # (the initial one plus one per iteration of the slowest lane) and
-        # one in predict
-        "launches_expected": (it_max + 2) * (N // T),
-    }
-    log("main", **out)
-    check(launches > 0, "the main path launched no block_chol kernel")
-    check(np.isfinite(res["f_mean"]).all() and np.isfinite(res["f_var"]).all(), "non-finite predictions")
-    check(conv >= 0.9 * B, f"only {conv}/{B} lanes converged")
+    log(phase, core=core.name, experts_per_s=B / steady_s, steady_s=steady_s, first_call_s=first_s, converged=conv, B=B,
+        iters_mean=float(res["num_iter"].mean()), iters_max=it_max, stall_exits=int(res["stalled"].sum()),
+        failed_exits=int(res["failed"].sum()), achieved_tflops=flops / steady_s / 1e12,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches)
+    check(np.isfinite(res["f_mean"]).all() and np.isfinite(res["f_var"]).all(), f"{phase}: non-finite predictions")
+    check(conv >= 0.9 * B, f"{phase}: only {conv}/{B} lanes converged")
 
-    if profile:
+    if profile_to:
+        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile as tprofile
 
         with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             run_tile_batch(batch, init, runner, core)
             traced_s = time.perf_counter() - t0
-        from torch.autograd import DeviceType
-
         events = prof.key_averages()
         # the kernels' own rows only (an aten op's row repeats the time of
         # the kernels it launched); one stream, so kernels do not overlap
@@ -212,11 +329,22 @@ def phase_main(BC, profile: bool):
         table = events.table(sort_by="self_device_time_total", row_limit=25)
         outdir = ROOT / "chiprun_out"
         outdir.mkdir(exist_ok=True)
-        (outdir / "profile.txt").write_text(table)
+        (outdir / profile_to).write_text(table)
         print(table, flush=True)
-        log("profile", traced_s=traced_s, device_busy_s=device_s, device_busy_share=device_s / traced_s)
+        log("profile", path=phase, traced_s=traced_s, device_busy_s=device_s, device_busy_share=device_s / traced_s)
         check(0.0 < device_s <= traced_s, f"device busy {device_s} s of a {traced_s} s traced call")
-    return batch, init, launches
+    return res, launches, it_max
+
+
+def phase_main(batch, init, profile: bool):
+    from gpsat_tpu_torch.models.functional import make_gpr_core
+
+    res, launches, it_max = drive("main", make_gpr_core(jitter=1e-5), batch, init, "profile.txt" if profile else None)
+    # 8 diagonal blocks per factor pair; one pair per L-BFGS value+grad (the
+    # initial one plus one per iteration of the slowest lane) and one in predict
+    expected = {"block_chol": (it_max + 2) * (N // T), "panel_chol": 0, "cholesky": 0}
+    check(launches == expected, f"main path launches {launches}, expected {expected}")
+    return res, launches["block_chol"]
 
 
 def phase_accuracy(batch, init):
@@ -230,10 +358,7 @@ def phase_accuracy(batch, init):
     sub = take_batch(batch, idx)
     sub_init = {k: v[idx] for k, v in init.items()}
     core = make_gpr_core(jitter=1e-5)
-    gpu = run_tile_batch(
-        sub, sub_init, make_batched_runner(core, max_iter=100, linesearch="single_eval", tol_grad=1e-3, tol_f=1e-6),
-        core,
-    )
+    gpu = run_tile_batch(sub, sub_init, make_batched_runner(core, **RUN_KW), core)
     t0 = time.perf_counter()
     cpu = run_tile_batch(
         cast_batch(sub, np.float64), {k: v.astype(np.float64) for k, v in sub_init.items()},
@@ -249,6 +374,58 @@ def phase_accuracy(batch, init):
     check(dmean <= PRED_BOUND and dvar <= PRED_BOUND, f"card vs CPU f64: dmean {dmean}, dvar {dvar}")
 
 
+def phase_panel(batch, init, main_res):
+    from gpsat_tpu_torch.models.functional import make_gpr_core
+    from gpsat_tpu_torch.ops.panel_chol import T_PANEL
+
+    res, launches, it_max = drive("panel", make_gpr_core(jitter=1e-5, factor="panel"), batch, init)
+    # 4 diagonal 128-blocks per factor pair, one pair per value+grad; the
+    # predict factors once with the full Cholesky kernel and never with kernel 1
+    expected = {"block_chol": 0, "panel_chol": (it_max + 1) * (N // T_PANEL), "cholesky": 1}
+    check(launches == expected, f"panel path launches {launches}, expected {expected}")
+    dmean = float(np.abs(res["f_mean"] - main_res["f_mean"]).max())
+    dvar = float(np.abs(res["f_var"] - main_res["f_var"]).max())
+    log("panel_vs_block", max_abs_dmean=dmean, max_abs_dvar=dvar, bound=ROUTE_BOUND,
+        same_num_iter=int((res["num_iter"] == main_res["num_iter"]).sum()))
+    check(dmean <= ROUTE_BOUND and dvar <= ROUTE_BOUND, f"panel vs block route: dmean {dmean}, dvar {dvar}")
+    return launches["panel_chol"]
+
+
+def phase_profiled(batch, init, profile: bool):
+    from gpsat_tpu_torch.models.functional import make_gpr_core
+    from gpsat_tpu_torch.parallel.batching import cast_batch, take_batch
+    from gpsat_tpu_torch.parallel.engine import make_batched_runner, run_tile_batch
+
+    core = make_gpr_core(jitter=1e-5, profile_variance=True)
+    res, launches, it_max = drive("profiled", core, batch, init, "profile_profiled.txt" if profile else None)
+    # one full Cholesky per value+grad and one in finalize_params; the predict
+    # takes the "block" pair: 8 launches of kernel 1
+    expected = {"block_chol": N // T, "panel_chol": 0, "cholesky": it_max + 2}
+    check(launches == expected, f"profiled path launches {launches}, expected {expected}")
+
+    idx = np.arange(PROFILED_CPU_TILES)
+    sub = take_batch(batch, idx)
+    sub_init = {k: v[idx].astype(np.float64) for k, v in init.items()}
+    t0 = time.perf_counter()
+    cpu = run_tile_batch(
+        cast_batch(sub, np.float64), sub_init,
+        make_batched_runner(core, fixed_params=core.default_fixed_params, linesearch="single_eval",
+                            tol_grad=1e-6, tol_f=1e-11, device="cpu"),
+        core, device="cpu",
+    )
+    cpu_s = time.perf_counter() - t0
+    collapsed_all = int((res["lengthscales"].max(-1) < COLLAPSED_LS).sum())
+    keep = ~((res["lengthscales"][idx].max(-1) < COLLAPSED_LS) | (cpu["lengthscales"].max(-1) < COLLAPSED_LS))
+    check(keep.sum() >= MIN_COMPARED_SHARE * len(idx), f"only {int(keep.sum())}/{len(idx)} tiles collapsed on neither side")
+    dmean = float(np.abs(res["f_mean"][idx] - cpu["f_mean"])[keep].max())
+    dvar = float(np.abs(res["f_var"][idx] - cpu["f_var"])[keep].max())
+    log("profiled_accuracy", tiles=len(idx), compared=int(keep.sum()), collapsed_lanes_of_B=collapsed_all,
+        max_abs_dmean=dmean, max_abs_dvar=dvar, bound=PRED_BOUND, converged_cpu_f64=int(cpu["converged"].sum()),
+        cpu_f64_s=cpu_s)
+    check(dmean <= PRED_BOUND and dvar <= PRED_BOUND, f"profiled, card vs CPU f64: dmean {dmean}, dvar {dvar}")
+    return launches["cholesky"]
+
+
 def main(argv) -> int:
     import torch
 
@@ -256,7 +433,12 @@ def main(argv) -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gpsat_tpu_torch.ops import _build
     from gpsat_tpu_torch.ops import block_chol as BC
+    from gpsat_tpu_torch.ops import cholesky as CH
+    from gpsat_tpu_torch.ops import panel_chol as PC
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -265,20 +447,24 @@ def main(argv) -> int:
     log("device", card=card, torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0])
 
     t0 = time.perf_counter()
-    lib = BC.build_library()
-    BC._load_lib()
-    log("build", seconds=time.perf_counter() - t0, library=str(lib.relative_to(ROOT)))
-    nvcc_log = Path(str(lib) + ".log")
-    if nvcc_log.exists():
-        print(nvcc_log.read_text().strip(), flush=True)
+    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, all started together
+        libs = list(pool.map(_build.build_library, KERNELS))
+    log("build", seconds=time.perf_counter() - t0, libraries=[str(lib.relative_to(ROOT)) for lib in libs])
+    for lib in libs:
+        print(Path(str(lib) + ".log").read_text().strip(), flush=True)
 
-    entry = phase_kernel(BC)
-    batch, init, launches = phase_main(BC, profile="--profile" in argv)
-    entry["launches"] = launches
+    entries = [phase_kernel(BC), phase_kernel_panel(PC), phase_kernel_cholesky(CH)]
+    if "--kernels" in argv:
+        return 0
+    profile = "--profile" in argv
+    batch, init = bench_workload()
+    main_res, entries[0]["launches"] = phase_main(batch, init, profile)
     phase_accuracy(batch, init)
+    entries[1]["launches"] = phase_panel(batch, init, main_res)
+    entries[2]["launches"] = phase_profiled(batch, init, profile)
 
     print(f"card: {card}", flush=True)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

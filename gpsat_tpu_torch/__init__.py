@@ -5,9 +5,12 @@ paths mirror ``gpsat_tpu`` so each function's counterpart sits at the same
 place; ``vmap`` over experts becomes an explicit leading batch dimension B.
 The package imports nothing of ``gpsat_tpu`` and never imports ``jax``.
 
-The hot 64x64 diagonal-block Cholesky + inverse runs in a hand-written
-CUDA kernel (``csrc/block_chol.cu``, bound in ``ops/block_chol.py``); a CPU
-tensor takes that kernel's plain PyTorch version instead.
+Three hand-written CUDA kernels replace the JAX package's Pallas kernels:
+the 64x64 diagonal-block Cholesky + inverse (``csrc/block_chol.cu``, bound in
+``ops/block_chol.py``), the 128x128 one (``csrc/panel_chol.cu``,
+``ops/panel_chol.py``) and the full blocked Cholesky (``csrc/cholesky.cu``,
+``ops/cholesky.py``), all built and loaded by ``ops/_build.py``. A CPU tensor
+takes the kernel's plain PyTorch version instead.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

@@ -5,6 +5,11 @@ returns them (``run_tile_batch`` result columns, or a stored params table)
 into the port's tensors. ``batch_from_numpy`` copies any object with the
 ``TileBatch`` attributes into the port's ``TileBatch``. Neither imports
 the JAX package.
+
+The profiled-variance GPR core (``make_gpr_core(profile_variance=True)``)
+keeps the standard parameter names and returns standard
+``(kernel_variance, likelihood_variance)`` from both packages, so its results
+are carried by ``params_from_numpy`` as they are: there is no extra state.
 """
 
 from __future__ import annotations

@@ -1,0 +1,103 @@
+"""Build and load the package's hand-written CUDA kernels.
+
+Every kernel source under ``gpsat_tpu_torch/csrc/`` has a plain C interface
+and is compiled on its own with ``nvcc`` for ``sm_90a`` into a shared
+library in ``gpsat_tpu_torch/build/`` (listed in ``.gitignore``) at first
+use, then loaded with ctypes. The library's name carries a hash of the
+source, the shared headers and the flags, so an edited source is rebuilt and
+an unchanged one is not. ``nvcc``'s resource report (``-Xptxas -v``) is kept
+beside the library as ``<library>.log``.
+
+A failed build raises; nothing here gives way to a kernel's plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Sequence
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xptxas", "-v"]
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _find_nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found (looked on PATH and in /usr/local/cuda/bin)")
+    return nvcc
+
+
+def build_library(name: str) -> Path:
+    """Compile csrc/<name>.cu (once per content of the source, the shared
+    ``*.cuh`` headers and the flags) and return the library path."""
+    source = CSRC / f"{name}.cu"
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    lib_path = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_find_nvcc(), *NVCC_FLAGS, "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source.name} ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    Path(str(lib_path) + ".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib_path)  # atomic: a concurrent build never sees a partial file
+    return lib_path
+
+
+def load_library(name: str, symbols: Dict[str, Sequence]) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built if need be. ``symbols``
+    maps each exported function to its ctypes argument types; all return the
+    ``cudaError_t`` of their launch as an int."""
+    lib = _libs.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build_library(name)))
+        for symbol, argtypes in symbols.items():
+            fn = getattr(lib, symbol)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _libs[name] = lib
+    return lib
+
+
+def check_kernel_input(name: str, K, shape_ok: bool, shape_text: str):
+    """The refusals every kernel wrapper shares: shape, device, dtype,
+    layout. Returns True when ``K`` lies on the CPU (the caller then runs
+    the plain version), False for a CUDA tensor the kernel takes."""
+    if not shape_ok:
+        raise ValueError(f"{name} takes {shape_text}, got {tuple(K.shape)}")
+    if K.device.type == "cpu":
+        return True
+    if K.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {K.device}")
+    if K.dtype != torch.float32:
+        raise TypeError(f"the CUDA kernel takes float32 only, got {K.dtype}")
+    if not K.is_contiguous():
+        raise ValueError("the CUDA kernel takes a contiguous tensor")
+    if K.shape[0] > 2**31 - 1:
+        raise ValueError(f"batch {K.shape[0]} exceeds the kernel's grid limit")
+    return False
+
+
+def launch(name: str, fn, K, *args) -> None:
+    """Call a library entry on ``K``'s device and current stream; raise on a
+    non-zero ``cudaError_t``."""
+    with torch.cuda.device(K.device):
+        err = fn(*args, torch.cuda.current_stream(K.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")

@@ -12,67 +12,21 @@ Port of the Pallas TPU kernel ``gpsat_tpu/ops/pallas/block_chol.py``
 A non-positive pivot gives NaN in both outputs (no clamping): downstream
 finite-checks rely on it. Strict upper triangles are zero on output.
 
-The kernel library is compiled with ``nvcc`` for ``sm_90a`` at first use,
-into ``gpsat_tpu_torch/build/`` (listed in ``.gitignore``), and loaded with
-ctypes. Each successful kernel launch adds one to ``factor_blocks.launches``.
+The kernel library is built and loaded by ``ops/_build.py`` at first use.
+Each successful kernel launch adds one to ``factor_blocks.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from gpsat_tpu_torch.ops import _build
+
 T_BLOCK = 64
-
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "block_chol.cu"
-BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xptxas", "-v"]
-
-_lib = None
-
-
-def _find_nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found (looked on PATH and in /usr/local/cuda/bin)")
-    return nvcc
-
-
-def build_library() -> Path:
-    """Compile csrc/block_chol.cu into the build directory (once per source
-    content) and return the library path. ``nvcc``'s resource report
-    (``-Xptxas -v``) is kept beside it as ``<library>.log``."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libblock_chol_{digest}.so"
-    if lib_path.exists():
-        return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    Path(str(lib_path) + ".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib_path)  # atomic: a concurrent builder never sees a partial file
-    return lib_path
-
-
-def _load_lib() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
-        fn = lib.gpsat_cholinv64_f32
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+_VP, _INT = ctypes.c_void_p, ctypes.c_int
+_SYMBOLS = {"gpsat_cholinv64_f32": [_VP, _VP, _VP, _INT, _VP]}
 
 
 def factor_blocks_reference(Kd: torch.Tensor):
@@ -101,29 +55,16 @@ def factor_blocks(Kd: torch.Tensor):
 
     CUDA tensors launch the hand-written kernel (f32, contiguous) and raise
     on anything it does not take; CPU tensors run the plain version."""
-    if Kd.ndim != 3 or Kd.shape[1:] != (T_BLOCK, T_BLOCK):
-        raise ValueError(f"factor_blocks takes [B, {T_BLOCK}, {T_BLOCK}], got {tuple(Kd.shape)}")
-    if Kd.device.type == "cpu":
+    shape_ok = Kd.ndim == 3 and Kd.shape[1:] == (T_BLOCK, T_BLOCK)
+    if _build.check_kernel_input("factor_blocks", Kd, shape_ok, f"[B, {T_BLOCK}, {T_BLOCK}]"):
         return factor_blocks_reference(Kd)
-    if Kd.device.type != "cuda":
-        raise ValueError(f"factor_blocks: unsupported device {Kd.device}")
-    if Kd.dtype != torch.float32:
-        raise TypeError(f"the CUDA kernel takes float32 only, got {Kd.dtype}")
-    if not Kd.is_contiguous():
-        raise ValueError("the CUDA kernel takes a contiguous tensor")
     B = Kd.shape[0]
-    if B > 2**31 - 1:
-        raise ValueError(f"batch {B} exceeds the kernel's grid limit")
     L = torch.empty_like(Kd)
     W = torch.empty_like(Kd)
     if B == 0:
         return L, W
-    lib = _load_lib()
-    with torch.cuda.device(Kd.device):
-        stream = torch.cuda.current_stream(Kd.device).cuda_stream
-        err = lib.gpsat_cholinv64_f32(Kd.data_ptr(), L.data_ptr(), W.data_ptr(), B, stream)
-    if err != 0:
-        raise RuntimeError(f"block_chol kernel launch failed: cudaError {err}")
+    lib = _build.load_library("block_chol", _SYMBOLS)
+    _build.launch("block_chol", lib.gpsat_cholinv64_f32, Kd, Kd.data_ptr(), L.data_ptr(), W.data_ptr(), B)
     factor_blocks.launches += 1
     return L, W
 

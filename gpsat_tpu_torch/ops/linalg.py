@@ -1,18 +1,36 @@
 """Masked dense linear algebra for padded expert tiles, batched over B.
 
-Port of the part of ``gpsat_tpu/ops/linalg.py`` on the exact-GPR main path.
-Every tile is padded to a bucket size N and carries a row-validity mask;
-padded rows/columns are neutralised inside the Gram matrix (identity
-row/col), so the factor has unit diagonal there, solves give zero on padded
-rows, and the LML, predictions and gradients are those of the unpadded
-problem.
+Port of ``gpsat_tpu/ops/linalg.py`` for the exact-GPR family. Every tile is
+padded to a bucket size N and carries a row-validity mask; padded
+rows/columns are neutralised inside the Gram matrix (identity row/col), so
+the factor has unit diagonal there, solves give zero on padded rows, and the
+LML, predictions and gradients are those of the unpadded problem.
+
+All functions take a leading expert dimension B. Where the JAX package picks
+a factor route from environment variables at trace time, these functions take
+it as an argument (``factor``) and read no environment variable:
+
+  "block"      64x64 diagonal blocks from ``block_chol.factor_blocks``
+  "panel"      128x128 diagonal blocks from ``panel_chol.factor_panels``
+  "cholesky"   ``cholesky`` (the blocked kernel) + ``tri_inv_blocked``
+  "recursive"  ``recursive_chol.chol_winv_recursive`` (plain PyTorch)
 """
 
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 
+from gpsat_tpu_torch.ops import kernels as KK
 from gpsat_tpu_torch.ops.block_chol import T_BLOCK, factor_blocks
+from gpsat_tpu_torch.ops.cholesky import cholesky
+from gpsat_tpu_torch.ops.panel_chol import T_PANEL, factor_panels
+from gpsat_tpu_torch.ops.recursive_chol import chol_winv_recursive
+
+FACTOR_ROUTES = ("block", "panel", "cholesky", "recursive")
+PAIR_ROUTES = ("block", "cholesky", "recursive")
 
 
 def mask_gram(K: torch.Tensor, mask: torch.Tensor, diag_value: float = 1.0) -> torch.Tensor:
@@ -30,40 +48,220 @@ def add_diag(K: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
     return K + value.reshape(-1, 1, 1) * eye
 
 
-def chol_winv_batched(K: torch.Tensor):
-    """Blocked Cholesky and full triangular inverse of [B, N, N] SPD tiles.
+def safe_cholesky(K: torch.Tensor, jitter: float = 0.0):
+    """Cholesky with optional jitter; returns (L, ok [B]). ok is False where
+    the factorisation produced non-finite values."""
+    if jitter:
+        K = add_diag(K, jitter)
+    L = cholesky(K)
+    ok = torch.isfinite(torch.diagonal(L, dim1=-2, dim2=-1)).all(-1)
+    return L, ok
 
-    Port of ``_chol_winv_batched``. The 64x64 diagonal blocks (and their
-    inverses) come from ``block_chol.factor_blocks``; the panel scaling,
-    trailing updates and the block-column W assembly are batched matmuls.
-    Returns (L, W = L^-1), both [B, N, N], written into preallocated
-    tensors.
-    """
-    T = T_BLOCK
-    B, N, _ = K.shape
-    if N % T != 0:
-        raise ValueError(f"N={N} is not a multiple of the {T}-row block")
-    Nb = N // T
-    L = K.new_zeros(B, N, N)
-    W = K.new_zeros(B, N, N)
 
-    A = K  # trailing matrix
-    for p in range(Nb):
-        s, e = p * T, (p + 1) * T
-        Ld, Di = factor_blocks(A[:, :T, :T].contiguous())
-        L[:, s:e, s:e] = Ld
-        W[:, s:e, s:e] = Di
-        if p < Nb - 1:
-            Lpan = torch.matmul(A[:, T:, :T], Di.transpose(1, 2))  # [B, N - e, T]
-            L[:, e:, s:e] = Lpan
-            A = A[:, T:, T:] - torch.matmul(Lpan, Lpan.transpose(1, 2))
+def tri_solve(L: torch.Tensor, B: torch.Tensor, *, lower: bool = True, trans: bool = False) -> torch.Tensor:
+    """Solve L x = B (or L^T x = B with ``trans``) for triangular L."""
+    if trans:
+        return torch.linalg.solve_triangular(L.transpose(-1, -2), B, upper=lower)
+    return torch.linalg.solve_triangular(L, B, upper=not lower)
 
-    # W assembly, one block column at a time: row-block i of column k needs
-    # W rows k..i-1 of the same column, one [T, (i-k)T] x [(i-k)T, T] matmul
+
+def _assemble_winv(L: torch.Tensor, W: torch.Tensor, T: int) -> torch.Tensor:
+    """Fill the off-diagonal blocks of W = L^-1 in place, given its T-sized
+    diagonal blocks: W[i,k] = -W[i,i] (sum_j L[i,j] W[j,k]), one block column
+    at a time, so each (i, k) is one [T, (i-k)T] x [(i-k)T, T] matmul."""
+    Nb = L.shape[-1] // T
     for k in range(Nb):
         ks, ke = k * T, (k + 1) * T
         for i in range(k + 1, Nb):
             is_, ie = i * T, (i + 1) * T
             acc = torch.matmul(L[:, is_:ie, ks:is_], W[:, ks:is_, ks:ke])
             W[:, is_:ie, ks:ke] = -torch.matmul(W[:, is_:ie, is_:ie], acc)
-    return L, W
+    return W
+
+
+def tri_inv_blocked(L: torch.Tensor, T: int = 64) -> torch.Tensor:
+    """W = L^-1 for lower-triangular L [B, N, N], blocked: only the T-sized
+    diagonal blocks are solved (one stacked triangular solve), every
+    off-diagonal block is a matmul. N that is not a multiple of T is
+    identity-padded: inv([[L,0],[0,I]]) = [[L^-1,0],[0,I]]."""
+    B, N, _ = L.shape
+    eye = torch.eye(min(N, T), dtype=L.dtype, device=L.device)
+    if N <= T:
+        return tri_solve(L, eye.expand(B, N, N))
+    if N % T != 0:
+        P = N + (-N) % T
+        Lp = torch.eye(P, dtype=L.dtype, device=L.device).repeat(B, 1, 1)
+        Lp[:, :N, :N] = L
+        return tri_inv_blocked(Lp, T=T)[:, :N, :N]
+    diag = torch.stack([L[:, s : s + T, s : s + T] for s in range(0, N, T)], dim=1)  # [B, N/T, T, T]
+    return tri_inv_from_diag(L, tri_solve(diag, eye.expand(B, N // T, T, T)), T)
+
+
+def chol_inv(K: torch.Tensor, T: int = 64):
+    """(L, W = L^-1) of SPD tiles by ``cholesky`` + ``tri_inv_blocked``."""
+    L = cholesky(K)
+    return L, tri_inv_blocked(L, T)
+
+
+def _blocked_cholesky(K: torch.Tensor, T: int, factor_diag):
+    """Right-looking blocked Cholesky of [B, N, N] driven by a diagonal-block
+    factor pair ``factor_diag([B, T, T]) -> (L, L^-1)``; the panel scaling
+    and trailing updates are batched matmuls. Returns (L [B, N, N], the
+    diagonal blocks' inverses as a list of N/T [B, T, T])."""
+    B, N, _ = K.shape
+    if N % T != 0:
+        raise ValueError(f"N={N} is not a multiple of the {T}-row block")
+    Nb = N // T
+    L = K.new_zeros(B, N, N)
+    Wdiags = []
+    A = K  # trailing matrix
+    for p in range(Nb):
+        s, e = p * T, (p + 1) * T
+        Ld, Di = factor_diag(A[:, :T, :T].contiguous())
+        L[:, s:e, s:e] = Ld
+        Wdiags.append(Di)
+        if p < Nb - 1:
+            Lpan = torch.matmul(A[:, T:, :T], Di.transpose(1, 2))  # [B, N - e, T]
+            L[:, e:, s:e] = Lpan
+            A = A[:, T:, T:] - torch.matmul(Lpan, Lpan.transpose(1, 2))
+    return L, Wdiags
+
+
+def chol_panels_batched(K: torch.Tensor):
+    """Blocked Cholesky of [B, N, N] on the 128-block kernel
+    (``panel_chol.factor_panels``). Port of ``_chol_panels_batched``.
+    Returns (L [B, N, N], Wdiag [B, N/128, 128, 128]) with
+    Wdiag[:, p] = inv(L[:, pT:(p+1)T, pT:(p+1)T])."""
+    L, Wdiags = _blocked_cholesky(K, T_PANEL, factor_panels)
+    return L, torch.stack(Wdiags, dim=1)
+
+
+def tri_inv_from_diag(L: torch.Tensor, Wdiag: torch.Tensor, T: int = T_PANEL) -> torch.Tensor:
+    """W = L^-1 given the diagonal blocks' inverses Wdiag [B, N/T, T, T]."""
+    W = torch.zeros_like(L)
+    for i in range(L.shape[-1] // T):
+        W[:, i * T : (i + 1) * T, i * T : (i + 1) * T] = Wdiag[:, i]
+    return _assemble_winv(L, W, T)
+
+
+def tri_solve_from_diag(L: torch.Tensor, Wdiag: torch.Tensor, b: torch.Tensor, T: int = T_PANEL) -> torch.Tensor:
+    """Solve L v = b (lower, b [B, N, k]) by block forward substitution with
+    the diagonal blocks' inverses: N/T steps of matmuls."""
+    vs = []
+    for p in range(L.shape[-1] // T):
+        s, e = p * T, (p + 1) * T
+        rhs = b[:, s:e]
+        if p:
+            rhs = rhs - torch.matmul(L[:, s:e, :s], torch.cat(vs, dim=1))
+        vs.append(torch.matmul(Wdiag[:, p], rhs))
+    return torch.cat(vs, dim=1)
+
+
+def chol_winv_batched(K: torch.Tensor):
+    """Blocked Cholesky and full triangular inverse of [B, N, N] SPD tiles.
+
+    Port of ``_chol_winv_batched``. The 64x64 diagonal blocks (and their
+    inverses) come from ``block_chol.factor_blocks``; the panel scaling,
+    trailing updates and the block-column W assembly are batched matmuls.
+    Returns (L, W = L^-1), both [B, N, N].
+    """
+    L, Wdiags = _blocked_cholesky(K, T_BLOCK, factor_blocks)
+    return L, tri_inv_from_diag(L, torch.stack(Wdiags, dim=1), T_BLOCK)
+
+
+def chol_winv_pair(K: torch.Tensor, factor: str = "block"):
+    """(L, W = L^-1) of [B, N, N] SPD tiles by the named route; not
+    differentiable (see ``chol_winv``)."""
+    if factor == "block":
+        return chol_winv_batched(K)
+    if factor == "recursive":
+        return chol_winv_recursive(K)
+    if factor == "cholesky":
+        return chol_inv(K)
+    raise ValueError(f"chol_winv_pair: factor must be one of {PAIR_ROUTES}, got {factor!r}")
+
+
+class _CholWinv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, K, factor):
+        L, W = chol_winv_pair(K, factor)
+        ctx.save_for_backward(L, W)
+        return L, W
+
+    @staticmethod
+    def backward(ctx, dL, dW):
+        L, W = ctx.saved_tensors
+        Wt = W.transpose(-1, -2)
+        # W = L^-1: dL += -W^T dW W^T. Cotangents above the diagonal are
+        # meaningless (both primals are exactly zero there): mask them.
+        dLtot = torch.tril(dL - torch.matmul(Wt, torch.matmul(torch.tril(dW), Wt)))
+        # Cholesky pullback (Murray 2016) with W in hand: both triangular
+        # solves are matmuls
+        M = torch.matmul(L.transpose(-1, -2), dLtot)
+        Phi = torch.tril(M) - 0.5 * torch.diag_embed(torch.diagonal(M, dim1=-2, dim2=-1))
+        dK = torch.matmul(Wt, torch.matmul(Phi, W))
+        return 0.5 * (dK + dK.transpose(-1, -2)), None
+
+
+def chol_winv(K: torch.Tensor, factor: str = "block"):
+    """Differentiable (L, W = L^-1) factor pair: ``chol_winv_pair`` with the
+    analytic pullback, for consumers whose gradients flow through the
+    factorisation (the kernels have no derivative of their own)."""
+    return _CholWinv.apply(K, factor)
+
+
+def chol_winv_padded(K: torch.Tensor, T: int = T_BLOCK, factor: str = "block"):
+    """``chol_winv`` with identity padding to the next multiple of T:
+    chol([[K, 0], [0, I]]) = [[L, 0], [0, I]] and likewise for the inverse,
+    so the top-left slices are exact. The recursive route takes any N and
+    skips the pad. Differentiable."""
+    B, N, _ = K.shape
+    pad = (-N) % T
+    if factor == "recursive" or pad == 0:
+        return chol_winv(K, factor)
+    P = N + pad
+    Kp = torch.eye(P, dtype=K.dtype, device=K.device).repeat(B, 1, 1)
+    Kp[:, :N, :N] = K
+    L, W = chol_winv(Kp, factor)
+    return L[:, :N, :N], W[:, :N, :N]
+
+
+def cho_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve K x = B given K = L L^T."""
+    return tri_solve(L, tri_solve(L, B), trans=True)
+
+
+def logdet_from_chol(L: torch.Tensor) -> torch.Tensor:
+    return 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
+
+
+def masked_gpr_lml(
+    X: torch.Tensor,
+    y: torch.Tensor,
+    mask: torch.Tensor,
+    lengthscales: torch.Tensor,
+    kernel_variance: torch.Tensor,
+    likelihood_variance: torch.Tensor,
+    *,
+    kernel: str = "Matern32",
+    jitter: float = 0.0,
+    fast_inverse: Optional[bool] = None,
+) -> torch.Tensor:
+    """Log marginal likelihood [B] of exact GPR on padded tiles, with
+    gradients by autograd through ``cholesky`` (unlike ops/fused_lml).
+
+    lml = -1/2 y^T K^-1 y - 1/2 log|K| - n/2 log(2 pi),  K = Kf + sigma_n^2 I,
+    n = sum(mask). ``fast_inverse`` (default: f32 only) takes the quadratic
+    form through W = L^-1 instead of two triangular solves.
+    """
+    m = mask.to(X.dtype)
+    n = m.sum(-1)
+    Kf = KK.gram(kernel, X, X, lengthscales, kernel_variance)
+    L = cholesky(mask_gram(add_diag(Kf, likelihood_variance + jitter), m))
+    ym = (y * m)[:, :, None]
+    if X.dtype == torch.float32 if fast_inverse is None else fast_inverse:
+        v = torch.matmul(tri_inv_blocked(L), ym)
+        quad = torch.sum(v * v, dim=(1, 2))
+    else:
+        quad = torch.sum(ym * cho_solve(L, ym), dim=(1, 2))
+    return -0.5 * quad - 0.5 * logdet_from_chol(L) - 0.5 * n * math.log(2.0 * math.pi)

@@ -52,6 +52,9 @@ def _fit_predict_batched(
     memory_size: int,
 ):
     """All padded tiles of a batch: optimise parameters, then predict."""
+    if optimise and core.device_init is not None:
+        with torch.no_grad():
+            uparams0 = core.device_init(uparams0, data)
     u_free0 = {k: v for k, v in uparams0.items() if k not in fixed_params}
     u_fixed = {k: v for k, v in uparams0.items() if k in fixed_params}
 
@@ -72,12 +75,14 @@ def _fit_predict_batched(
         converged = torch.ones(B, dtype=torch.bool, device=dev)
         num_iter = torch.zeros(B, dtype=torch.int64, device=dev)
         with torch.no_grad():
-            final_obj = objective(u_free0)
+            final_obj = (core.report_objective or core.objective)(uparams0, data)
         stalled = torch.zeros(B, dtype=torch.bool, device=dev)
         failed = torch.zeros(B, dtype=torch.bool, device=dev)
 
     with torch.no_grad():
         cparams = core.forward(u_opt)
+        if optimise and core.finalize_params is not None:
+            cparams = core.finalize_params(cparams, data)
         pred = core.predict(cparams, data, Xnew)
     return {
         "params": cparams,
@@ -109,6 +114,10 @@ def make_batched_runner(
     Inputs are [B, ...] tensors (moved to the runner's device); results are
     tensors on that device with the JAX runner's keys: params, pred,
     objective, converged, num_iter, stalled, failed.
+
+    fixed_params are held at their initial values; pass
+    ``core.default_fixed_params`` for a core that names some (the profiled
+    GPR core holds kernel_variance).
 
     tol_grad/tol_f default by compute dtype: 1e-6/1e-11 in f64 (scipy
     L-BFGS-B parity) but 1e-3/1e-6 in f32, whose arithmetic noise sits

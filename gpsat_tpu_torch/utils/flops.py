@@ -4,7 +4,9 @@ Port of the two main-path counts of ``gpsat_tpu/utils/flops.py``.
 Convention: 1 fused multiply-add = 2 FLOPs; Cholesky N^3/3, triangular
 inverse N^3/3, dense matmul [n,k]x[k,m] = 2nkm. These are MODEL flops (the
 work the math requires), so achieved FLOP/s = model flops / seconds
-compares across implementations.
+compares across implementations. They hold for every factor route and for
+the profiled-variance objective alike: each does one Cholesky, one full
+triangular inverse and one W^T W per evaluation, whichever kernel factors.
 """
 
 from __future__ import annotations

@@ -10,6 +10,9 @@ import pytest
 import torch
 
 from gpsat_tpu_torch.ops import block_chol as BC
+from gpsat_tpu_torch.ops import cholesky as CH
+from gpsat_tpu_torch.ops import linalg as LA
+from gpsat_tpu_torch.ops import panel_chol as PC
 from gpsat_tpu_torch.ops.linalg import chol_winv_batched
 
 T = 64
@@ -65,5 +68,90 @@ def test_driver_on_card_matches_cpu_f64():
     K = _spd(8, 256, seed=1)
     L, W = chol_winv_batched(torch.from_numpy(K).to(dev))
     L64, W64 = chol_winv_batched(torch.from_numpy(K).double())
+    assert float((L.double().cpu() - L64).abs().max()) <= 1e-4
+    assert float((W.double().cpu() - W64).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_panel_kernel_matches_reference_and_keeps_the_clamp():
+    dev = _cuda()
+    TP = PC.T_PANEL
+    K = torch.from_numpy(_spd(40, TP, seed=2)).to(dev)
+    before = PC.factor_panels.launches
+    L, W = PC.factor_panels(K)
+    torch.cuda.synchronize()
+    assert PC.factor_panels.launches == before + 1
+    Lr, Wr = PC.factor_panels_reference(K)
+    # f32 on the card, 128 dependent steps, O(1) entries here
+    assert float((L - Lr).abs().max()) <= 1e-5
+    assert float((W - Wr).abs().max()) <= 1e-5
+    eye = torch.eye(TP, device=dev)
+    assert float((torch.matmul(L, W) - eye).abs().max()) <= 2e-5
+    assert float(torch.triu(L, 1).abs().max()) == 0.0 and float(torch.triu(W, 1).abs().max()) == 0.0
+    # the clamp: an all-zero block is finite and equals the plain version's
+    odd = torch.stack([torch.zeros_like(eye), eye]).contiguous()
+    Lz, Wz = PC.factor_panels(odd)
+    Lzr, Wzr = PC.factor_panels_reference(odd)
+    assert torch.isfinite(Lz).all() and torch.isfinite(Wz).all()
+    assert torch.allclose(Lz, Lzr, rtol=1e-6, atol=0) and torch.allclose(Wz, Wzr, rtol=1e-6, atol=0)
+    with pytest.raises(TypeError):
+        PC.factor_panels(eye[None].double())
+    with pytest.raises(ValueError):
+        PC.factor_panels(torch.eye(2 * TP, device=dev).reshape(4, TP, TP).transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N", [(3, 128), (5, 384), (2, 1024)])
+def test_cholesky_kernel_matches_reference(B, N):
+    dev = _cuda()
+    K = torch.from_numpy(_spd(B, N, seed=3)).to(dev)
+    before = CH.cholesky.launches
+    L = CH.cholesky(K)
+    torch.cuda.synchronize()
+    assert CH.cholesky.launches == before + 1  # one call of the host entry, however many kernels it launches
+    # f32 on the card vs the plain version and vs f64 LAPACK; cond(K) <= ~5
+    assert float((L - CH.cholesky_reference(K)).abs().max()) <= 1e-5
+    L64 = torch.linalg.cholesky(K.double().cpu())
+    assert float((L.double().cpu() - L64).abs().max()) <= 1e-5
+    assert float(torch.triu(L, 1).abs().max()) == 0.0
+    # an unbatched matrix takes the kernel too
+    assert torch.equal(CH.cholesky(K[0].contiguous()), L[0])
+
+
+@pytest.mark.cuda
+def test_cholesky_kernel_nan_dispatch_and_refusals():
+    dev = _cuda()
+    eye = torch.eye(256, device=dev)
+    L = CH.cholesky(torch.stack([eye, -eye]).contiguous())
+    assert torch.equal(L[0], eye) and torch.isnan(L[1]).any()
+    # outside the kernel's domain the library arm runs and counts no launch
+    before = CH.cholesky.launches
+    L100 = CH.cholesky(torch.from_numpy(_spd(2, 100, seed=4)).to(dev))
+    L64 = CH.cholesky(eye[None].double())
+    assert CH.cholesky.launches == before
+    assert L100.shape == (2, 100, 100) and torch.equal(L64[0], eye.double())
+    assert torch.isnan(CH.cholesky(-eye[None, :100, :100].contiguous())).all()
+    with pytest.raises(ValueError):
+        CH.cholesky(torch.from_numpy(_spd(2, 256, seed=7)).to(dev).transpose(1, 2))
+    # the backward runs on the card through the kernel's output
+    K = torch.from_numpy(_spd(2, 128, seed=5)).to(dev).requires_grad_(True)
+    torch.log(torch.diagonal(CH.cholesky(K), dim1=1, dim2=2)).sum().backward()
+    want = 0.5 * torch.linalg.inv(K.detach().double())  # d(0.5 logdet K)/dK
+    assert float((K.grad.double() - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_factor_routes_agree_on_card():
+    # the four routes' pairs through their kernels, f32, against f64 on the CPU
+    dev = _cuda()
+    K = _spd(4, 256, seed=6)
+    L64, W64 = chol_winv_batched(torch.from_numpy(K).double())
+    Kd = torch.from_numpy(K).to(dev)
+    for factor in LA.PAIR_ROUTES:
+        L, W = LA.chol_winv_pair(Kd, factor)
+        assert float((L.double().cpu() - L64).abs().max()) <= 1e-4, factor
+        assert float((W.double().cpu() - W64).abs().max()) <= 1e-4, factor
+    L, Wdiag = LA.chol_panels_batched(Kd)
+    W = LA.tri_inv_from_diag(L, Wdiag)
     assert float((L.double().cpu() - L64).abs().max()) <= 1e-4
     assert float((W.double().cpu() - W64).abs().max()) <= 1e-4

@@ -135,8 +135,13 @@ def test_unported_options_raise():
     core = make_gpr_core()
     with pytest.raises(NotImplementedError):
         TE.make_batched_runner(core, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_gpr_core(profile_variance=True)
+    # the profiled core is ported, but only over plain positive variances
+    from gpsat_tpu_torch.ops import transforms as TT
+
+    with pytest.raises(AssertionError):
+        make_gpr_core(profile_variance=True, bijectors={"kernel_variance": TT.interval(0.1, 5.0)})
+    with pytest.raises(ValueError):
+        make_gpr_core(factor="lapack")
     runner = TE.make_batched_runner(core, device="cpu", max_iter=1)  # f64 default line search is zoom
     with pytest.raises(NotImplementedError):
         TE.run_tile_batch(batch_from_numpy(_jax_batch()), {}, runner, core, device="cpu")
@@ -154,6 +159,8 @@ def _imported_modules(path: Path):
 def test_port_imports_neither_jax_nor_gpsat_tpu():
     code = (
         "import sys, gpsat_tpu_torch.parallel.engine, gpsat_tpu_torch.convert, gpsat_tpu_torch.utils.flops\n"
+        "import gpsat_tpu_torch.ops._build, gpsat_tpu_torch.ops.panel_chol, gpsat_tpu_torch.ops.cholesky\n"
+        "import gpsat_tpu_torch.ops.recursive_chol, gpsat_tpu_torch.ops.linalg, gpsat_tpu_torch.ops.fused_lml\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'gpsat_tpu' or m.startswith('gpsat_tpu.')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -167,3 +174,4 @@ def test_port_imports_neither_jax_nor_gpsat_tpu():
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "gpsat_tpu", "optax"), f"{path.relative_to(REPO)} imports {mod}"
+        assert "GPSAT_" not in path.read_text(), f"{path.relative_to(REPO)} names a GPSAT_* environment variable"

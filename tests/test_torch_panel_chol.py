@@ -1,0 +1,98 @@
+"""The port's 128-block factor pair (gpsat_tpu_torch/ops/panel_chol.py) and
+the blocked factorisation built on it (ops/linalg.chol_panels_batched,
+tri_inv_from_diag, tri_solve_from_diag) against the Pallas kernel and the
+JAX functions they replace, and against numpy.
+
+On the CPU, ``factor_panels`` runs its plain PyTorch version; the CUDA
+kernel itself is checked on the card by tests/test_torch_cuda.py and
+chip_smoke.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from gpsat_tpu.ops import linalg as JLA
+from gpsat_tpu.ops.pallas.panel_chol import factor_panels as pallas_factor_panels
+from gpsat_tpu_torch.ops import linalg as LA
+from gpsat_tpu_torch.ops import panel_chol as PC
+
+T = 128
+
+
+def _spd_blocks(B, seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((B, T, T)).astype(dtype)
+    return A @ np.swapaxes(A, 1, 2) + T * np.eye(T, dtype=dtype)
+
+
+def test_reference_matches_pallas_kernel():
+    # same f32 inputs through the Pallas kernel (interpret mode) and the
+    # port's plain version of the CUDA kernel; the JAX package's own test
+    # holds the Pallas kernel to numpy at these tolerances (L entries are
+    # O(10), 128 dependent f32 steps in other summation orders)
+    K = _spd_blocks(3, seed=0)
+    Lp, Ip = (np.asarray(a) for a in pallas_factor_panels(jnp.asarray(K), interpret=True))
+    L, Inv = (a.numpy() for a in PC.factor_panels(torch.from_numpy(K)))
+    np.testing.assert_allclose(L, Lp, rtol=0, atol=2e-4)
+    np.testing.assert_allclose(Inv, Ip, rtol=0, atol=2e-5)
+    np.testing.assert_allclose(L @ Inv, np.broadcast_to(np.eye(T), K.shape), rtol=0, atol=2e-5)
+    assert np.all(np.triu(L, 1) == 0.0) and np.all(np.triu(Inv, 1) == 0.0)
+
+
+def test_reference_f64_matches_numpy():
+    K = _spd_blocks(2, seed=1, dtype=np.float64)
+    L, Inv = (a.numpy() for a in PC.factor_panels(torch.from_numpy(K)))
+    np.testing.assert_allclose(L, np.linalg.cholesky(K), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(L @ Inv, np.broadcast_to(np.eye(T), K.shape), rtol=0, atol=1e-10)
+
+
+def test_zero_pivot_is_clamped_like_the_pallas_kernel():
+    # the contract is the 1e-30 clamp: an all-zero block gives finite values
+    # (L = 1e-15 I, Linv = 1e15 I), the identity block beside it is exact
+    K = np.stack([np.zeros((T, T), np.float32), np.eye(T, dtype=np.float32)])
+    Lp, Ip = (np.asarray(a) for a in pallas_factor_panels(jnp.asarray(K), interpret=True))
+    L, Inv = (a.numpy() for a in PC.factor_panels(torch.from_numpy(K)))
+    assert np.isfinite(L).all() and np.isfinite(Inv).all()
+    np.testing.assert_allclose(L, Lp, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(Inv, Ip, rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(L[1], np.eye(T, dtype=np.float32))
+
+
+def test_factor_panels_rejects_bad_shapes_and_counts_no_cpu_launch():
+    with pytest.raises(ValueError):
+        PC.factor_panels(torch.zeros(2, 64, 64))
+    with pytest.raises(ValueError):
+        PC.factor_panels(torch.zeros(128, 128))
+    before = PC.factor_panels.launches
+    PC.factor_panels(torch.from_numpy(_spd_blocks(1, seed=2)))
+    assert PC.factor_panels.launches == before  # the counter counts kernel launches only
+
+
+def test_blocked_factor_and_diag_helpers_match_jax():
+    # N=256 (two 128-blocks), f64: the port's plain block version vs JAX's
+    # LAPACK factor fed to the same JAX helpers; same algebra, other
+    # summation orders, so 1e-10 absolute on O(1) entries
+    rng = np.random.default_rng(3)
+    B, N = 2, 256
+    A = rng.standard_normal((B, N, N)) / np.sqrt(N)
+    K = A @ np.swapaxes(A, 1, 2) + np.eye(N)
+    b = rng.standard_normal((B, N, 2))
+
+    Lj, Wdj = jax.vmap(JLA._chol_panel_pair_unbatched)(jnp.asarray(K))
+    Wj = jax.vmap(JLA.tri_inv_from_diag)(Lj, Wdj)
+    vj = jax.vmap(JLA.tri_solve_from_diag)(Lj, Wdj, jnp.asarray(b))
+
+    L, Wdiag = LA.chol_panels_batched(torch.from_numpy(K))
+    assert tuple(Wdiag.shape) == (B, N // T, T, T)
+    W = LA.tri_inv_from_diag(L, Wdiag)
+    v = LA.tri_solve_from_diag(L, Wdiag, torch.from_numpy(b))
+    np.testing.assert_allclose(L.numpy(), np.asarray(Lj), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(Wdiag.numpy(), np.asarray(Wdj), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(W.numpy(), np.asarray(Wj), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(v.numpy(), np.asarray(vj), rtol=0, atol=1e-10)
+    with pytest.raises(ValueError):
+        LA.chol_panels_batched(torch.eye(192, dtype=torch.float64)[None])

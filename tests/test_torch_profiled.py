@@ -1,0 +1,227 @@
+"""The port's factor routes of the fused LML, its profiled-variance LML and
+the profiled GPR core end to end (gpsat_tpu_torch/ops/fused_lml.py,
+models/gpr.py, models/functional.py, parallel/engine.py) against the JAX
+functions they replace, in f64 on the same numpy inputs."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from gpsat_tpu.models.functional import make_gpr_core as jax_make_gpr_core
+from gpsat_tpu.ops import fused_lml as JF
+from gpsat_tpu.ops import linalg as JLA
+from gpsat_tpu.parallel import batching as JB
+from gpsat_tpu.parallel import engine as JE
+from gpsat_tpu_torch.convert import batch_from_numpy, params_from_numpy
+from gpsat_tpu_torch.models.functional import make_gpr_core
+from gpsat_tpu_torch.ops import fused_lml as TF
+from gpsat_tpu_torch.ops import linalg as LA
+from gpsat_tpu_torch.parallel import engine as TE
+
+JITTER = 1e-5
+NAMES = ("y", "ls", "var", "noise")
+
+
+def _inputs(B, N, nvalid, seed=2, D=2):
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-3, 3, (B, N, D))
+    y = np.sin(X[..., 0]) + 0.1 * rng.standard_normal((B, N))
+    m = np.ones((B, N))
+    m[:, nvalid:] = 0
+    ls = rng.uniform(0.6, 1.9, (B, D))
+    kv = rng.uniform(0.5, 1.5, B)
+    lv = rng.uniform(0.01, 0.2, B)
+    return X, y, m, ls, kv, lv
+
+
+def _torch_value_and_grads(fn, args, diff=(1, 3, 4, 5)):
+    ts = [torch.from_numpy(a) for a in args]
+    leaves = [ts[i].requires_grad_(True) for i in diff]
+    val = fn(*ts)
+    grads = torch.autograd.grad(val.sum(), leaves)
+    return val.detach().numpy(), [g.numpy() for g in grads]
+
+
+def _assert_close(val, grads, val_ref, grads_ref, names, tol=1e-9, msg=""):
+    np.testing.assert_allclose(val, val_ref, rtol=tol, err_msg=msg)
+    for g, gr, name in zip(grads, grads_ref, names):
+        np.testing.assert_allclose(g, gr, rtol=tol, atol=tol * np.abs(gr).max(), err_msg=f"{msg} d/d{name}")
+
+
+def test_all_factor_routes_match_jax_fused_lml_f64():
+    # N=256: two 128-blocks for the panel route, four 64-blocks for the block
+    # route, one split of the recursion. f64: the same math through four
+    # factorisations, equal to roundoff; 1e-9 leaves room for the Gram's
+    # cancellation near the diagonal
+    args = _inputs(B=2, N=256, nvalid=200)
+
+    def jf(X, y, m, ls, kv, lv):
+        return JF.masked_gpr_lml_fused("Matern32", X, y, m, ls, kv, lv, JITTER)
+
+    val_j, grads_j = jax.vmap(jax.value_and_grad(jf, argnums=(1, 3, 4, 5)))(*(jnp.asarray(a) for a in args))
+    for factor in LA.FACTOR_ROUTES:
+        val, grads = _torch_value_and_grads(
+            lambda *a: TF.masked_gpr_lml_fused("Matern32", *a, JITTER, factor), args
+        )
+        _assert_close(val, grads, np.asarray(val_j), [np.asarray(g) for g in grads_j], NAMES, msg=factor)
+    with pytest.raises(ValueError):
+        TF.masked_gpr_lml_fused("Matern32", *(torch.from_numpy(a) for a in args), JITTER, "lapack")
+
+
+def test_autodiff_lml_matches_fused_and_jax():
+    # ops/linalg.masked_gpr_lml differentiates through the Cholesky's own
+    # backward; both of its quadratic-form arms against the JAX function
+    # (value) and the fused analytic gradients
+    args = _inputs(B=2, N=64, nvalid=50, seed=3)
+    X, y, m, ls, kv, lv = args
+    want = np.stack(
+        [np.asarray(JLA.masked_gpr_lml(*(jnp.asarray(a[b]) for a in args), kernel="Matern32", jitter=JITTER)) for b in range(2)]
+    )
+    val_f, grads_f = _torch_value_and_grads(lambda *a: TF.masked_gpr_lml_fused("Matern32", *a, JITTER, "recursive"), args)
+    for fast in (False, True):
+        val, grads = _torch_value_and_grads(
+            lambda *a: LA.masked_gpr_lml(*a, kernel="Matern32", jitter=JITTER, fast_inverse=fast), args
+        )
+        np.testing.assert_allclose(val, want, rtol=1e-10)
+        _assert_close(val, grads, val_f, grads_f, NAMES, msg=f"fast_inverse={fast}")
+
+
+def test_profiled_lml_matches_jax_f64():
+    # value, gradients (y, lengthscales, tau) and sigma2_hat against the JAX
+    # functions called directly, with one all-masked lane (the engine's batch
+    # padding): value 0, sigma2 1, zero gradients there
+    X, y, m, ls, _, tau = _inputs(B=3, N=128, nvalid=100, seed=4)
+    m[2] = 0.0
+    args = (X, y, m, ls, tau)
+
+    def jf(X, y, m, ls, tau):
+        return JF.masked_gpr_lml_profiled("Matern32", X, y, m, ls, tau, JITTER)
+
+    jargs = [jnp.asarray(a) for a in args]
+    val_j, grads_j = jax.vmap(jax.value_and_grad(jf, argnums=(1, 3, 4)))(*jargs)
+    sig_j = jax.vmap(lambda *a: JF.profiled_sigma2("Matern32", *a, JITTER))(*jargs)
+
+    val, grads = _torch_value_and_grads(
+        lambda *a: TF.masked_gpr_lml_profiled("Matern32", *a, JITTER), args, diff=(1, 3, 4)
+    )
+    _assert_close(val, grads, np.asarray(val_j), [np.asarray(g) for g in grads_j], ("y", "ls", "tau"))
+    assert val[2] == 0.0 and all(np.all(g[2] == 0.0) for g in grads)
+    sig = TF.profiled_sigma2("Matern32", *(torch.from_numpy(a) for a in args), JITTER).numpy()
+    np.testing.assert_allclose(sig, np.asarray(sig_j), rtol=1e-9)
+    assert sig[2] == 1.0
+
+    # lml_profiled(ls, tau) == lml_joint(ls, sigma2_hat, tau * sigma2_hat)
+    joint = TF.masked_gpr_lml_fused(
+        "Matern32", *(torch.from_numpy(a) for a in (X, y, m, ls, sig, tau * sig)), JITTER * float(sig[0]), "cholesky"
+    )
+    np.testing.assert_allclose(val[0], joint.numpy()[0], rtol=1e-9)
+
+
+# --------------------------------------------------------------------------
+# the slice as a whole: the profiled core through both engines
+# --------------------------------------------------------------------------
+
+B, N, P, D = 8, 128, 4, 2
+TOLS = dict(tol_grad=1e-6, tol_f=1e-11)
+
+
+def _jax_batch():
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-6, 6, (B, N, D))
+    y = np.sin(X[..., 0]) * np.cos(X[..., 1]) + 0.1 * rng.normal(size=(B, N))
+    mask = np.ones((B, N))
+    fill = rng.integers(int(0.7 * N), N + 1, size=B)
+    for i, f in enumerate(fill):
+        mask[i, f:] = 0.0
+    Xnew = rng.uniform(-4, 4, (B, P, D))
+    batch = JB.TileBatch(
+        X=X, y=y, mask=mask, Xnew=Xnew, pred_mask=np.ones((B, P)),
+        obs_mean=np.zeros(B), expert_index=np.arange(B), num_obs=fill,
+    )
+    var_y = np.nanvar(np.where(mask > 0, y, np.nan), axis=1)
+    init = {
+        "lengthscales": np.nanstd(np.where(mask[..., None] > 0, X, np.nan), axis=1),
+        "kernel_variance": var_y,
+        "likelihood_variance": 0.1 * var_y,
+    }
+    return batch, init
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """One JAX runner compile and run of the profiled core, and the port on
+    the same batch, both with the fused LML in f64 and single-eval L-BFGS."""
+    batch, init = _jax_batch()
+    JLA.set_fast_inverse(True)
+    try:
+        core = jax_make_gpr_core(profile_variance=True)
+        runner = JE.make_batched_runner(
+            core, fixed_params=core.default_fixed_params, linesearch="single_eval", max_iter=200, **TOLS
+        )
+        ref = JE.run_tile_batch(batch, init, runner, core)
+    finally:
+        JLA.set_fast_inverse(None)
+    tcore = make_gpr_core(profile_variance=True)
+    trunner = TE.make_batched_runner(
+        tcore, fixed_params=tcore.default_fixed_params, linesearch="single_eval", max_iter=200, device="cpu", **TOLS
+    )
+    got = TE.run_tile_batch(batch_from_numpy(batch), init, trunner, tcore, device="cpu")
+    return batch, ref, got
+
+
+def test_profiled_slice_f64_matches_jax_engine(runs):
+    _, ref, got = runs
+    assert tuple(make_gpr_core(profile_variance=True).default_fixed_params) == ("kernel_variance",)
+    np.testing.assert_array_equal(got["converged"], ref["converged"])
+    assert not got["failed"].any()
+    # both stop on |df| <= 1e-11 |f| near a flat optimum, where f carries
+    # ~1e-12 of roundoff from the factorisation and the sums: on about half
+    # the lanes that test fires some iterations apart (the port earlier).
+    # Lanes with equal iteration counts followed the same trajectory and are
+    # held to roundoff; the others to the flat optimum's own band (seen:
+    # 2e-7 relative on parameters, 4e-8 on predictions)
+    same = got["num_iter"] == ref["num_iter"]
+    assert same.sum() >= B // 2, (got["num_iter"], ref["num_iter"])
+    assert np.abs(got["num_iter"] - ref["num_iter"]).max() <= 10, (got["num_iter"], ref["num_iter"])
+    for k in ("lengthscales", "kernel_variance", "likelihood_variance"):
+        rel = (np.abs(got[k] - ref[k]) / np.abs(ref[k])).reshape(B, -1).max(1)
+        assert rel[same].max() <= 1e-8, (k, rel)
+        assert rel.max() <= 2e-6, (k, rel)
+    for k in ("f_mean", "f_var", "y_var"):
+        err = np.abs(got[k] - ref[k]).max(1)
+        assert err[same].max() <= 1e-10, (k, err)
+        assert err.max() <= 5e-7, (k, err)
+    np.testing.assert_allclose(got["objective"], ref["objective"], rtol=1e-9)
+
+
+def test_profiled_params_carry_over_and_predict_only_reports_joint_objective(runs):
+    # the JAX result is in the standard (kernel_variance, likelihood_variance)
+    # parameterisation: converted as is, it gives JAX's predictions, and a
+    # predict-only run of the profiled core reports the JOINT objective there,
+    # which equals the profiled objective at the optimum the JAX run reported
+    batch, ref, _ = runs
+    tcore = make_gpr_core(profile_variance=True)
+    cp = params_from_numpy({k: ref[k] for k in tcore.param_names}, "cpu", torch.float64)
+    data = {k: torch.from_numpy(getattr(batch, k)) for k in ("X", "y", "mask")}
+    with torch.no_grad():
+        pred = tcore.predict(cp, data, torch.from_numpy(batch.Xnew))
+    for k in ("f_mean", "f_var", "y_var"):
+        np.testing.assert_allclose(pred[k].numpy(), ref[k], rtol=0, atol=1e-9, err_msg=k)
+
+    runner = TE.make_batched_runner(
+        tcore, fixed_params=tcore.default_fixed_params, optimise=False, linesearch="single_eval", device="cpu"
+    )
+    init = {k: ref[k] for k in tcore.param_names}
+    res = TE.run_tile_batch(batch_from_numpy(batch), init, runner, tcore, device="cpu")
+    for k in tcore.param_names:  # loaded params are honoured verbatim: no device_init, no finalize
+        np.testing.assert_allclose(res[k], ref[k], rtol=1e-12, err_msg=k)
+    # the JAX profiled objective scales the jitter by sigma2_hat (A carries
+    # jitter, K = sigma2 A); the joint objective adds it unscaled. jitter is
+    # 0 here, so the two agree to roundoff
+    np.testing.assert_allclose(res["objective"], ref["objective"], rtol=1e-9)
+    with torch.no_grad():
+        wrong = tcore.objective(tcore.inverse(cp), data).numpy()
+    assert np.abs(wrong - ref["objective"]).max() > 1e-3  # the profiled objective would misread the lv slot
