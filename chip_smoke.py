@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py              # one card; exits non-zero on any failure
     python3 chip_smoke.py --profile    # also write torch.profiler tables of one
-                                       # main-path and one profiled-path run to
+                                       # main-path, one panel-path and one
+                                       # profiled-path run to
                                        # chiprun_out/profile*.txt
     python3 chip_smoke.py --kernels    # phases 1 and 2 only (no result line)
 
@@ -15,7 +16,9 @@ Phases (each prints on its own lines; any failure raises):
              [512, 512, 512] f32; kernel 3 also at [8, 1024, 1024] and
              [8, 128, 128]), its contract case (NaN or clamp), and CUDA-event
              times of the kernel, the plain version and one library call as
-             the yardstick
+             the yardstick; kernel 2 is also timed back to back (20 launches
+             between one event pair), which leaves out the wrapper's host
+             time
 3. main      bench.py's workload (B=512, N=512, P=64, D=2, Matern32, f32,
              single-eval L-BFGS) through the port's engine on the "block"
              route: a warm-up call, then one timed call with the kernels'
@@ -52,6 +55,8 @@ T = 64
 CPU_TILES = 16
 PROFILED_CPU_TILES = 8
 KERNELS = ("block_chol", "panel_chol", "cholesky")
+# the __global__ functions of those sources, as the profiler names them
+OWN_KERNELS = ("cholinv64_kernel", "panel128_kernel", "chol_")
 # f32 card vs f64 CPU on predictions: raw f32 optima sit ~3e-3 from f64 gold
 # (flat optima; the repo's accuracy logs), so 1e-2 catches a wrong path
 # without failing on f32 hyperparameter drift
@@ -129,14 +134,16 @@ def spd_batch(Bn, n, seed):
     return torch.matmul(A, A.transpose(1, 2)) + n * torch.eye(n, device=A.device)
 
 
-def kernel_entry(name, source, replaces, shape, err, ms, plain_ms, library_ms, nbytes, flops, **details):
+def kernel_entry(name, source, replaces, shape, err, ms, plain_ms, library_ms, nbytes, flops, row_extra=None,
+                 **details):
     """One row of the {"kernels": [...]} line, with the kernel's bound: the
     larger of its bytes (each input read once, each output written once) over
-    the card's memory rate and its operations over the f32 peak."""
+    the card's memory rate and its operations over the f32 peak. ``row_extra``
+    adds keys to the row; ``details`` go to the log line only."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS_PER_S * 1e3
     log("kernel", name=name, shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms, **details)
+        bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms, **(row_extra or {}), **details)
     return {
         "name": name,
         "route": "cuda",
@@ -149,7 +156,27 @@ def kernel_entry(name, source, replaces, shape, err, ms, plain_ms, library_ms, n
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
+        **(row_extra or {}),
     }
+
+
+def back_to_back_ms(fn, launches=20, reps=5):
+    """Median over ``reps`` of (one event pair around ``launches`` calls) /
+    ``launches``: the kernel's own time once the host runs ahead of it."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return float(np.median(times))
 
 
 def upper_is_zero(*mats):
@@ -235,7 +262,10 @@ def phase_kernel_panel(PC):
         [B, TP, TP], max(err_L, err_W), time_ms(lambda: PC.factor_panels(K)),
         time_ms(lambda: PC.factor_panels_reference(K), reps=5, warm=1), time_ms(library),
         nbytes=3 * B * TP * TP * 4, flops=B * (2.0 / 3.0) * TP**3,
+        row_extra={"ms_back_to_back": back_to_back_ms(lambda: PC.factor_panels(K)),
+                   "library_ms_back_to_back": back_to_back_ms(library)},
         err_L=err_L, err_W=err_W, max_abs_LLinv_minus_I=err_LW, max_abs_LLt_minus_K=err_LLt, clamp_case="ok",
+        blocks_per_sm=PC.blocks_per_sm(),
     )
 
 
@@ -326,12 +356,15 @@ def drive(phase, core, batch, init, profile_to=None):
         # the kernels' own rows only (an aten op's row repeats the time of
         # the kernels it launched); one stream, so kernels do not overlap
         device_s = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA) / 1e6
+        own = {e.key: e.self_device_time_total / 1e6 for e in events
+               if e.device_type == DeviceType.CUDA and any(k in e.key for k in OWN_KERNELS)}
         table = events.table(sort_by="self_device_time_total", row_limit=25)
         outdir = ROOT / "chiprun_out"
         outdir.mkdir(exist_ok=True)
         (outdir / profile_to).write_text(table)
         print(table, flush=True)
-        log("profile", path=phase, traced_s=traced_s, device_busy_s=device_s, device_busy_share=device_s / traced_s)
+        log("profile", path=phase, traced_s=traced_s, device_busy_s=device_s, device_busy_share=device_s / traced_s,
+            own_kernels_device_s=own, own_kernels_share_of_device=sum(own.values()) / device_s if device_s else None)
         check(0.0 < device_s <= traced_s, f"device busy {device_s} s of a {traced_s} s traced call")
     return res, launches, it_max
 
@@ -374,11 +407,12 @@ def phase_accuracy(batch, init):
     check(dmean <= PRED_BOUND and dvar <= PRED_BOUND, f"card vs CPU f64: dmean {dmean}, dvar {dvar}")
 
 
-def phase_panel(batch, init, main_res):
+def phase_panel(batch, init, main_res, profile: bool):
     from gpsat_tpu_torch.models.functional import make_gpr_core
     from gpsat_tpu_torch.ops.panel_chol import T_PANEL
 
-    res, launches, it_max = drive("panel", make_gpr_core(jitter=1e-5, factor="panel"), batch, init)
+    res, launches, it_max = drive("panel", make_gpr_core(jitter=1e-5, factor="panel"), batch, init,
+                                  "profile_panel.txt" if profile else None)
     # 4 diagonal 128-blocks per factor pair, one pair per value+grad; the
     # predict factors once with the full Cholesky kernel and never with kernel 1
     expected = {"block_chol": 0, "panel_chol": (it_max + 1) * (N // T_PANEL), "cholesky": 1}
@@ -460,7 +494,7 @@ def main(argv) -> int:
     batch, init = bench_workload()
     main_res, entries[0]["launches"] = phase_main(batch, init, profile)
     phase_accuracy(batch, init)
-    entries[1]["launches"] = phase_panel(batch, init, main_res)
+    entries[1]["launches"] = phase_panel(batch, init, main_res, profile)
     entries[2]["launches"] = phase_profiled(batch, init, profile)
 
     print(f"card: {card}", flush=True)

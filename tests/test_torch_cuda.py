@@ -101,6 +101,36 @@ def test_panel_kernel_matches_reference_and_keeps_the_clamp():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 133])
+def test_panel_kernel_batches(B):
+    # one block, a few, and 133 (more than one wave of two blocks per SM on
+    # 132 SMs leaves a ragged last wave); entries like the panel route's
+    # (A A^T + 128 I: K up to ~300, L O(10), Linv O(0.1)) at the bounds the
+    # card holds the kernel to, then the clamp and identity cases among them
+    dev = _cuda()
+    TP = PC.T_PANEL
+    rng = np.random.default_rng(8)
+    A = rng.standard_normal((B, TP, TP)).astype(np.float32)
+    K = torch.from_numpy(A @ np.swapaxes(A, 1, 2) + TP * np.eye(TP, dtype=np.float32)).to(dev)
+    L, W = PC.factor_panels(K)
+    torch.cuda.synchronize()
+    Lr, Wr = PC.factor_panels_reference(K)
+    assert float((L - Lr).abs().max()) <= 2e-4
+    assert float((W - Wr).abs().max()) <= 2e-5
+    eye = torch.eye(TP, device=dev)
+    assert float((torch.matmul(L, W) - eye).abs().max()) <= 2e-5
+    assert float(torch.triu(L, 1).abs().max()) == 0.0 and float(torch.triu(W, 1).abs().max()) == 0.0
+    K[B // 2] = 0.0
+    K[-1] = eye
+    L, W = PC.factor_panels(K)
+    Lr, Wr = PC.factor_panels_reference(K)
+    assert torch.isfinite(L).all() and torch.isfinite(W).all()
+    assert torch.allclose(L[B // 2], Lr[B // 2], rtol=1e-6, atol=0)
+    assert torch.allclose(W[B // 2], Wr[B // 2], rtol=1e-6, atol=0)
+    assert torch.equal(L[-1], eye) and torch.equal(W[-1], eye)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,N", [(3, 128), (5, 384), (2, 1024)])
 def test_cholesky_kernel_matches_reference(B, N):
     dev = _cuda()

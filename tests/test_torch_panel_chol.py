@@ -96,3 +96,45 @@ def test_blocked_factor_and_diag_helpers_match_jax():
     np.testing.assert_allclose(v.numpy(), np.asarray(vj), rtol=0, atol=1e-10)
     with pytest.raises(ValueError):
         LA.chol_panels_batched(torch.eye(192, dtype=torch.float64)[None])
+
+
+# The CUDA kernel runs a blocked order (32-column panels, the inverse by
+# sub-diagonals of 32x32 blocks); its plain PyTorch emulation runs here and
+# is held to the contract, factor_panels_reference, which the test above
+# holds to the Pallas kernel.
+
+
+def test_blocked_emulation_f64_matches_reference():
+    # the same algebra in another order: roundoff of f64 on O(10) entries
+    K = torch.from_numpy(_spd_blocks(2, seed=4, dtype=np.float64))
+    L, Inv = PC.factor_panels_blocked_emulation(K)
+    Lr, Ir = PC.factor_panels_reference(K)
+    np.testing.assert_allclose(L.numpy(), Lr.numpy(), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(Inv.numpy(), Ir.numpy(), rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+def test_blocked_emulation_f32_within_the_kernel_bounds(seed):
+    # the bounds the card holds the kernel to: 2e-4 on L (entries O(10)),
+    # 2e-5 on Linv and on L Linv - I
+    K = torch.from_numpy(_spd_blocks(3, seed=seed))
+    L, Inv = PC.factor_panels_blocked_emulation(K)
+    Lr, Ir = PC.factor_panels_reference(K)
+    assert float((L - Lr).abs().max()) <= 2e-4
+    assert float((Inv - Ir).abs().max()) <= 2e-5
+    LW = np.matmul(L.numpy().astype(np.float64), Inv.numpy().astype(np.float64))
+    np.testing.assert_allclose(LW, np.broadcast_to(np.eye(T), LW.shape), rtol=0, atol=2e-5)
+    assert np.all(np.triu(L.numpy(), 1) == 0.0) and np.all(np.triu(Inv.numpy(), 1) == 0.0)
+
+
+def test_blocked_emulation_keeps_the_clamp():
+    # an all-zero block: every pivot is clamped (L = 1e-15 I, Linv = 1e15 I);
+    # the identity block beside it comes back exactly
+    K = torch.stack([torch.zeros(T, T), torch.eye(T)])
+    L, Inv = PC.factor_panels_blocked_emulation(K)
+    Lr, Ir = PC.factor_panels_reference(K)
+    assert torch.isfinite(L).all() and torch.isfinite(Inv).all()
+    assert torch.allclose(L, Lr, rtol=1e-6, atol=0) and torch.allclose(Inv, Ir, rtol=1e-6, atol=0)
+    assert torch.equal(L[1], torch.eye(T)) and torch.equal(Inv[1], torch.eye(T))
+    with pytest.raises(ValueError):
+        PC.factor_panels_blocked_emulation(torch.zeros(1, 96, 96), nb=64)
