@@ -4,7 +4,8 @@
     python3 chip_smoke.py --profile    # also write torch.profiler tables of one
                                        # main-path, one panel-path and one
                                        # profiled-path run to
-                                       # chiprun_out/profile*.txt
+                                       # chiprun_out/profile*.txt, and split
+                                       # kernel 3's time by __global__
     python3 chip_smoke.py --kernels    # phases 1 and 2 only (no result line)
 
 Phases (each prints on its own lines; any failure raises):
@@ -18,7 +19,8 @@ Phases (each prints on its own lines; any failure raises):
              times of the kernel, the plain version and one library call as
              the yardstick; kernel 2 is also timed back to back (20 launches
              between one event pair), which leaves out the wrapper's host
-             time
+             time; kernels 2 and 3 report their blocks per SM, and with
+             --profile kernel 3 its device time per __global__ function
 3. main      bench.py's workload (B=512, N=512, P=64, D=2, Matern32, f32,
              single-eval L-BFGS) through the port's engine on the "block"
              route: a warm-up call, then one timed call with the kernels'
@@ -179,6 +181,24 @@ def back_to_back_ms(fn, launches=20, reps=5):
     return float(np.median(times))
 
 
+def device_ms_by_kernel(fn, match, calls=5):
+    """Device time per call (ms) of each CUDA kernel whose name contains
+    ``match``, from torch.profiler over ``calls`` calls of ``fn`` after one
+    warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / calls for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and match in e.key}
+
+
 def upper_is_zero(*mats):
     import torch
 
@@ -269,7 +289,7 @@ def phase_kernel_panel(PC):
     )
 
 
-def phase_kernel_cholesky(CH):
+def phase_kernel_cholesky(CH, profile: bool):
     import torch
 
     def compare(Bn, n, seed):
@@ -288,17 +308,20 @@ def phase_kernel_cholesky(CH):
 
     K, err, err_LLt = compare(B, N, seed=2)
     edges = {str([Bn, n, n]): compare(Bn, n, seed=3)[1] for Bn, n in ((8, 1024), (8, 128))}
-    eye = torch.eye(CH.BLOCK * 2, device=K.device)
+    eye = torch.eye(N, device=K.device)
     Ln = CH.cholesky(torch.stack([eye, -eye]).contiguous())
     torch.cuda.synchronize()
     check(torch.equal(Ln[0], eye) and bool(torch.isnan(Ln[1]).any()),
           "a -I matrix must give NaN, an I matrix beside it must come back exactly")
 
+    # the host entry's __global__ functions (diagonal with its panel, trailing)
+    split = device_ms_by_kernel(lambda: CH.cholesky(K), "chol_") if profile else None
     return kernel_entry(
         "cholesky.cholesky", "gpsat_tpu_torch/csrc/cholesky.cu", "gpsat_tpu/ops/pallas/cholesky.py:90",
         [B, N, N], err, time_ms(lambda: CH.cholesky(K)),
         time_ms(lambda: CH.cholesky_reference(K), reps=3, warm=1), time_ms(lambda: torch.linalg.cholesky_ex(K)),
         nbytes=2 * B * N * N * 4, flops=B * N**3 / 3.0,
+        row_extra={"blocks_per_sm": CH.blocks_per_sm(), "device_ms_by_kernel": split},
         max_abs_LLt_minus_K=err_LLt, edge_max_abs_err=edges, nan_case="ok",
     )
 
@@ -487,10 +510,10 @@ def main(argv) -> int:
     for lib in libs:
         print(Path(str(lib) + ".log").read_text().strip(), flush=True)
 
-    entries = [phase_kernel(BC), phase_kernel_panel(PC), phase_kernel_cholesky(CH)]
+    profile = "--profile" in argv
+    entries = [phase_kernel(BC), phase_kernel_panel(PC), phase_kernel_cholesky(CH, profile)]
     if "--kernels" in argv:
         return 0
-    profile = "--profile" in argv
     batch, init = bench_workload()
     main_res, entries[0]["launches"] = phase_main(batch, init, profile)
     phase_accuracy(batch, init)

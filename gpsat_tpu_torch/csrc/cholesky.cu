@@ -3,37 +3,44 @@
 //
 // Replaces the Pallas TPU kernel gpsat_tpu/ops/pallas/cholesky.py
 // (_chol_kernel with _unblocked_chol_block and _tri_inv_block, called through
-// _pallas_chol_batched). Same contract: for each 128x128 diagonal block, an
-// unblocked factorisation (rsqrt pivot, no clamp: a non-positive pivot gives
-// NaN in that matrix and in no other), the inverse of that factor, the panel
-// below it times the inverse transposed, and the trailing matrix minus the
-// panel times its transpose; the strict upper triangle of the output is
-// zero. All products are plain f32 fused multiply-adds: no tensor cores, so
-// no reduced-precision inputs.
-//
-// The TPU kernel keeps the whole matrix in on-chip memory. Here a 512^2
-// matrix is 1 MB and a thread block has 227 KB of shared memory, so the
-// matrix stays in global memory (the L2 holds 50 MB of it) and each block
-// step is three kernels on the caller's stream, after one copy pass:
-//
-//   copy      out = lower triangle of K, zeros above (float4, grid-stride)
-//   diag      one thread block per matrix: the diagonal block and, unless it
-//             is the last, its inverse, both in shared memory
-//             (tri_block128.cuh); the inverse goes to a [batch, 128, 128]
-//             scratch tensor
-//   panel     one thread block per 64-row strip of the panel: strip and
-//             inverse in shared memory, 4x8 outputs per thread, in place
-//   trailing  one thread block per 64x64 tile of the trailing lower triangle:
-//             the two 64x128 panel strips in shared memory, 4x4 outputs per
-//             thread; tiles above the diagonal are never touched
+// _pallas_chol_batched). Same contract: per 128-block step the factor of the
+// diagonal block (rsqrt pivot, no clamp: a non-positive pivot gives NaN in
+// that matrix and in no other), the panel below it times the inverse of that
+// factor transposed, and the trailing matrix minus the panel times its
+// transpose; an identity comes back exactly; the strict upper triangle of
+// the output is zero. All products are plain f32 fused multiply-adds: no
+// tensor cores, so no reduced-precision inputs.
 //
 // What bounds it on an H100: at the profiled path's [512, 512, 512] it reads
 // K and writes L, 2 * 512 * 1 MB = 1.07 GB, 0.32 ms at 3.35 TB/s, and does
 // 512 * 512^3 / 3 = 22.9 GFLOP, 0.34 ms at the 67 TFLOP/s f32 peak: about
-// even, operations by a little. The design above is simple and right first:
-// it re-reads the panel from L2 for every tile, leaves the SMs one block each
-// during the diagonal step, and has no software pipelining. Those are for a
-// later change.
+// even, operations by a little. The matrix (1 MB at N=512) stays in global
+// memory, the L2 holding the panel between kernels; each block step k is two
+// kernels on the caller's stream:
+//
+//   diag      one thread block per matrix, two per SM: the 128x128 diagonal
+//             block's factor and the inverse of it, by the blocked 128-factor
+//             of factor128.cuh with the NaN pivot (kClamp = false); L11 and
+//             zeros right of it in its 128 rows go out as float4. Then the
+//             panel below, L21 = A21 * W11^T as a product by 32x32 blocks
+//             that skips W11's upper blocks (10 of 16), 64 rows at a time
+//             double-buffered by cp.async through the freed A region, the
+//             results stored from registers. The last step has no panel and
+//             skips the inverse.
+//   trailing  one thread block per 128x128 tile of the trailing lower
+//             triangle: C -= L21_I * L21_J^T, each thread an 8x8 register
+//             tile (a warp a 32x64 region) that starts as C, K = 128 in
+//             chunks of 32 brought in by cp.async and double-buffered, float4
+//             shared loads from rows of stride 36 floats (consecutive rows 4
+//             banks apart); on a diagonal tile the two warps whose region
+//             lies above the diagonal compute nothing and the others write
+//             the lower triangle only. No register cap: at 128 registers
+//             (two blocks per SM) it spilled and ran 3-7 % slower than at
+//             one block per SM without spills, on an H100.
+//
+// Step 0 reads K where a later step reads the output, so no copy pass runs:
+// the diagonal kernel writes every element of the diagonal blocks and the
+// zeros above them, the trailing kernel every element of the lower tiles.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -41,169 +48,269 @@
 
 #include <cuda_runtime.h>
 
-#include "tri_block128.cuh"
+#include "factor128.cuh"
 
 namespace {
 
-using gpsat::LD128;
-using gpsat::T128;
+namespace f128 = gpsat::f128;
+using f128::ld4;
+using f128::st4;
 
+constexpr int T = f128::T;       // block step and trailing tile side
+constexpr int NB = f128::NB;
 constexpr int MAX_N = 1024;
-constexpr int TILE = 64;  // rows of a panel strip, side of a trailing tile
+constexpr int MAX_DEVICES = 64;
 
-constexpr int COPY_THREADS = 256;
-constexpr int DIAG_THREADS = 512;
-constexpr int GEMM_THREADS = 256;
+constexpr int TRAIL_THREADS = 256;
+constexpr int KC = 32;                             // K chunk of the trailing product
+constexpr int LDS = KC + 4;                        // a chunk row's stride in shared memory
+constexpr int CHUNK_FLOATS = T * LDS;              // one operand's chunk: 128 rows
+constexpr size_t TRAIL_SMEM = 2 * 2 * CHUNK_FLOATS * sizeof(float);  // two stages of two operands
 
-constexpr size_t DIAG_SMEM = 2 * gpsat::BLOCK128_BYTES;                        // A and its inverse
-constexpr size_t PANEL_SMEM = (TILE + T128) * LD128 * sizeof(float);          // strip and inverse
-constexpr size_t TRAIL_SMEM = 2 * static_cast<size_t>(TILE) * LD128 * sizeof(float);  // two strips
+__device__ __forceinline__ float4 zero4() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
 
-// out = tril(K) for every matrix; n is a multiple of 4, so a float4 never
-// straddles two rows.
-__global__ void __launch_bounds__(COPY_THREADS)
-chol_copy_lower_kernel(const float4* __restrict__ K, float4* __restrict__ out, size_t total4, int n) {
-    const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
-    for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total4; i += stride) {
-        const size_t e = i * 4;
-        const int c = static_cast<int>(e % n);
-        const int r = static_cast<int>((e / n) % n);
-        float4 v = K[i];
-        if (c > r) v.x = 0.0f;
-        if (c + 1 > r) v.y = 0.0f;
-        if (c + 2 > r) v.z = 0.0f;
-        if (c + 3 > r) v.w = 0.0f;
-        out[i] = v;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+// The panel below the diagonal block at (k, k), by all threads of the
+// diagonal kernel, once W holds the block's inverse and A is free: L21 =
+// A21 W^T by 32x32 blocks, L_sJ = sum_{K<=J} A_sK W_JK^T, 64 rows at a time
+// through the two halves of A (the next 64 rows' copy in flight while these
+// are multiplied). Group g takes strip s = g % 2 of the 64 rows and column
+// blocks {3, 0} (g < 2) or {2, 1}: five block products each. Results go
+// from registers to the output.
+__device__ __forceinline__ void panel(const float* S, float* D, float* A, float* W, int n, int k) {
+    constexpr int ROWS = T / 2;                      // rows per chunk
+    constexpr int ROW4 = T / 4;                      // float4 per row
+    constexpr int HALF = ROWS * f128::LDA;           // one buffer
+    constexpr int COPIES = ROWS * ROW4 / f128::THREADS;
+    const int tid = threadIdx.x;
+    const int g = tid % f128::GROUP, grp = tid / f128::GROUP, r0 = g / 8, c0 = g % 8;
+    const int s = grp % 2, J0 = grp < 2 ? 3 : 2;     // column blocks J0 and 3 - J0
+    const int chunks = (n - k - T) / ROWS;
+
+    auto copy = [&](int chunk) {
+        float* buf = A + (chunk % 2) * HALF;
+        const float* src = S + static_cast<size_t>(k + T + chunk * ROWS) * n + k;
+#pragma unroll
+        for (int u = 0; u < COPIES; ++u) {
+            const int e = tid + u * f128::THREADS, r = e / ROW4, c = (e % ROW4) * 4;
+            cp_async16(buf + r * f128::LDA + c, src + static_cast<size_t>(r) * n + c);
+        }
+        cp_async_commit();
+    };
+
+    copy(0);
+#pragma unroll 1
+    for (int chunk = 0; chunk < chunks; ++chunk) {
+        if (chunk + 1 < chunks) {
+            copy(chunk + 1);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+        const float* X = A + (chunk % 2) * HALF + s * NB * f128::LDA;
+        float* out = D + static_cast<size_t>(k + T + chunk * ROWS + s * NB) * n + k;
+#pragma unroll 1
+        for (int t = 0; t < 2; ++t) {
+            const int J = t == 0 ? J0 : 3 - J0;
+            float acc[4][4];
+            f128::zero_tile(acc);
+            for (int Kb = 0; Kb <= J; ++Kb)
+                f128::tile_abt<false>(acc, X + Kb * NB, f128::LDA, f128::wtile(W, J, Kb),
+                                      f128::LDW, r0, c0);
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+#pragma unroll
+                for (int p = 0; p < 4; ++p) out[static_cast<size_t>(r0 + 8 * q) * n + J * NB + c0 + 8 * p] = acc[q][p];
+        }
+        __syncthreads();  // the buffer is read before the copy two chunks on overwrites it
     }
 }
 
-// Factor the diagonal block at (k, k) of every matrix in place; with
-// kInverse also write its inverse to winv[b] (zeros above the diagonal).
-template <bool kInverse>
-__global__ void __launch_bounds__(DIAG_THREADS)
-chol_diag_kernel(float* __restrict__ out, float* __restrict__ winv, int n, int k) {
-    extern __shared__ float smem[];
-    float* A = smem;
-    float* Wi = smem + T128 * LD128;
+// Factor the diagonal block at (k, k) of every matrix and, with kPanel, the
+// panel below it. src is K at step 0 and out after it.
+template <bool kPanel>
+__global__ void __launch_bounds__(f128::THREADS, 2)
+chol_diag_kernel(const float* src, float* out, int n, int k) {
+    extern __shared__ __align__(16) float smem[];
+    float* A = smem;                      // the diagonal block; then two buffers of 64 panel rows
+    float* W = smem + f128::A_FLOATS;     // the ten lower tiles of the block's inverse
+    float* buf = W + f128::W_FLOATS;      // the diagonal step's broadcast buffers
 
     const int tid = threadIdx.x;
-    float* M = out + static_cast<size_t>(blockIdx.x) * n * n + static_cast<size_t>(k) * n + k;
+    const size_t base = static_cast<size_t>(blockIdx.x) * n * n;
+    const float* S = src + base;
+    float* D = out + base;
+    constexpr int ROW4 = T / 4;           // float4 per row of a 128-block
 
-    for (int e = tid; e < T128 * T128; e += DIAG_THREADS) {
-        const int r = e / T128, c = e % T128;
-        A[r * LD128 + c] = M[static_cast<size_t>(r) * n + c];  // zeros above the diagonal, never read
-        if constexpr (kInverse) Wi[r * LD128 + c] = 0.0f;
+    // the block's lower 32x32 blocks into A, zeros above the diagonal (after
+    // step 0 the trailing kernel has written the lower triangle only)
+    for (int e = tid; e < T * ROW4; e += f128::THREADS) {
+        const int r = e / ROW4, c = (e % ROW4) * 4;
+        if (c / NB <= r / NB) {
+            float4 v = ld4(S + static_cast<size_t>(k + r) * n + k + c);
+            if (c > r) v.x = 0.0f;
+            if (c + 1 > r) v.y = 0.0f;
+            if (c + 2 > r) v.z = 0.0f;
+            if (c + 3 > r) v.w = 0.0f;
+            st4(A + r * f128::LDA + c, v);
+        }
     }
     __syncthreads();
 
-    gpsat::factor_block128</*kClamp=*/false, kInverse, DIAG_THREADS>(A, Wi);
+    f128::factor</*kClamp=*/false>(A, W, buf);
 
-    float* Wout = winv + static_cast<size_t>(blockIdx.x) * T128 * T128;
-    for (int e = tid; e < T128 * T128; e += DIAG_THREADS) {
-        const int r = e / T128, c = e % T128;
-        if (r >= c) M[static_cast<size_t>(r) * n + c] = A[r * LD128 + c];
-        if constexpr (kInverse) Wout[e] = Wi[r * LD128 + c];  // rows were filled up to the diagonal only
+    // L11 out (zeros in its upper blocks), and zeros right of it in its rows
+    for (int e = tid; e < T * ROW4; e += f128::THREADS) {
+        const int r = e / ROW4, c = (e % ROW4) * 4;
+        st4(D + static_cast<size_t>(k + r) * n + k + c, c / NB <= r / NB ? ld4(A + r * f128::LDA + c) : zero4());
+    }
+    const int right4 = (n - k - T) / 4;
+    for (int e = tid; e < T * right4; e += f128::THREADS) {
+        const int r = e / right4, c = (e % right4) * 4;
+        st4(D + static_cast<size_t>(k + r) * n + k + T + c, zero4());
+    }
+    if constexpr (kPanel) {
+        f128::invert(A, W);  // W = L11^-1; A is free
+        panel(S, D, A, W, n, k);
     }
 }
 
-// Panel below the diagonal block at (k, k): P <- P W^T, W the block's
-// inverse, one 64-row strip per thread block, in place (the strip is in
-// shared memory before any of it is written).
-__global__ void __launch_bounds__(GEMM_THREADS)
-chol_panel_kernel(float* __restrict__ out, const float* __restrict__ winv, int n, int k) {
-    extern __shared__ float smem[];
-    float* P = smem;                  // [TILE][LD128]
-    float* W = smem + TILE * LD128;   // [T128][LD128]
-
-    const int tid = threadIdx.x;
-    const int strips = (n - k - T128) / TILE;
-    const int b = blockIdx.x / strips, s = blockIdx.x % strips;
-    float* Pg = out + static_cast<size_t>(b) * n * n + static_cast<size_t>(k + T128 + s * TILE) * n + k;
-    const float* Wg = winv + static_cast<size_t>(b) * T128 * T128;
-
-    for (int e = tid; e < TILE * T128; e += GEMM_THREADS) {
-        const int r = e / T128, c = e % T128;
-        P[r * LD128 + c] = Pg[static_cast<size_t>(r) * n + c];
+// Columns chunk * 32 .. chunk * 32 + 31 of the 128 panel rows at Pa (and,
+// unless diag, at Pb) into one stage: 8 float4 per row, 4 copies per thread
+// and operand, in one cp.async group.
+__device__ __forceinline__ void load_chunk(float* stage, const float* Pa, const float* Pb, bool diag, int n,
+                                           int chunk, int tid) {
+    constexpr int ROW4 = KC / 4;
+    const int r = tid / ROW4, c = (tid % ROW4) * 4;
+    const int off = r * n + chunk * KC + c;      // within one matrix: fits an int
+    const int step = TRAIL_THREADS / ROW4 * n;   // 32 rows
+    float* s = stage + r * LDS + c;
+#pragma unroll
+    for (int u = 0; u < T * ROW4 / TRAIL_THREADS; ++u) {
+        cp_async16(s + u * (TRAIL_THREADS / ROW4) * LDS, Pa + off + u * step);
+        if (!diag) cp_async16(s + CHUNK_FLOATS + u * (TRAIL_THREADS / ROW4) * LDS, Pb + off + u * step);
     }
-    for (int e = tid; e < T128 * T128; e += GEMM_THREADS) W[(e / T128) * LD128 + e % T128] = Wg[e];
-    __syncthreads();
-
-    // thread (ty, tx) of 16 x 16: rows 4 ty .. 4 ty + 3, columns tx + 16 q
-    const int ty = tid / 16, tx = tid % 16;
-    float acc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 8; ++q) acc[i][q] = 0.0f;
-    for (int j = 0; j < T128; ++j) {
-        float p[4], w[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) p[i] = P[(4 * ty + i) * LD128 + j];
-#pragma unroll
-        for (int q = 0; q < 8; ++q) w[q] = W[(tx + 16 * q) * LD128 + j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int q = 0; q < 8; ++q) acc[i][q] += p[i] * w[q];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 8; ++q) Pg[static_cast<size_t>(4 * ty + i) * n + tx + 16 * q] = acc[i][q];
+    cp_async_commit();
 }
 
 // Trailing matrix below and right of the block step at k: C <- C - P P^T on
-// its lower triangle, one 64x64 tile per thread block.
-__global__ void __launch_bounds__(GEMM_THREADS)
-chol_trailing_kernel(float* __restrict__ out, int n, int k) {
-    extern __shared__ float smem[];
-    float* Pa = smem;                  // rows of the tile:    [TILE][LD128]
-    float* Pb = smem + TILE * LD128;   // columns of the tile: [TILE][LD128]
+// its lower triangle, one 128x128 tile per thread block. The panel P (the
+// columns k .. k + 127) is read from out; C from csrc, which is K at step 0
+// and out after it; the result goes to out.
+__global__ void __launch_bounds__(TRAIL_THREADS, 1)
+chol_trailing_kernel(const float* csrc, float* out, int n, int k) {
+    extern __shared__ __align__(16) float smem[];  // [stage][operand][128][LDS]
 
-    const int tid = threadIdx.x;
-    const int nt = (n - k - T128) / TILE;
-    const int tiles = nt * (nt + 1) / 2;
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int m = (n - k - T) / T;
+    const int tiles = m * (m + 1) / 2;
     const int b = blockIdx.x / tiles;
     int tj = blockIdx.x % tiles, ti = 0;
     while (tj > ti) {  // tile number -> (ti, tj) with ti >= tj, row by row
         tj -= ti + 1;
         ++ti;
     }
-    float* M = out + static_cast<size_t>(b) * n * n;
-    const int r0 = k + T128 + ti * TILE, c0 = k + T128 + tj * TILE;
+    const bool diag = ti == tj;
+    const size_t base = static_cast<size_t>(b) * n * n;
+    const int row0 = k + T + ti * T, col0 = k + T + tj * T;
+    const float* Pa = out + base + static_cast<size_t>(row0) * n + k;  // the tile's rows of the panel
+    const float* Pb = out + base + static_cast<size_t>(col0) * n + k;  // its columns' rows
 
-    for (int e = tid; e < TILE * T128; e += GEMM_THREADS) {
-        const int r = e / T128, c = e % T128;
-        Pa[r * LD128 + c] = M[static_cast<size_t>(r0 + r) * n + k + c];
-        Pb[r * LD128 + c] = M[static_cast<size_t>(c0 + r) * n + k + c];
-    }
-    __syncthreads();
+    // warp (wr, wc): rows 32 wr .. 32 wr + 31, columns 64 wc .. 64 wc + 63 of
+    // the tile; lane (lr, lc): rows 32 wr + lr + 4 i, columns 64 wc + lc + 8 j
+    const int wr = warp / 2, wc = warp % 2, lr = lane / 8, lc = lane % 8;
+    const bool active = !diag || 64 * wc <= 32 * wr + 31;
+    load_chunk(smem, Pa, Pb, diag, n, 0, tid);
 
-    // thread (ty, tx) of 16 x 16: rows ty + 16 i, columns tx + 16 q
-    const int ty = tid / 16, tx = tid % 16;
-    float acc[4][4];
+    // acc starts as C (above the diagonal of a diagonal tile: never read or
+    // written); its loads overlap the first chunk's copy
+    const float* C = csrc + base + static_cast<size_t>(row0) * n + col0;
+    float acc[8][8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = 0.0f;
-    for (int j = 0; j < T128; ++j) {
-        float a[4], bb[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = Pa[(ty + 16 * i) * LD128 + j];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) bb[q] = Pb[(tx + 16 * q) * LD128 + j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[i][q] += a[i] * bb[q];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            const int r = r0 + ty + 16 * i, c = c0 + tx + 16 * q;
-            if (r >= c) M[static_cast<size_t>(r) * n + c] -= acc[i][q];
+        for (int j = 0; j < 8; ++j) {
+            const int r = 32 * wr + lr + 4 * i, c = 64 * wc + lc + 8 * j;
+            acc[i][j] = active && (!diag || r >= c) ? C[static_cast<size_t>(r) * n + c] : 0.0f;
         }
+
+    constexpr int CHUNKS = T / KC;
+#pragma unroll 1
+    for (int chunk = 0; chunk < CHUNKS; ++chunk) {
+        if (chunk + 1 < CHUNKS) {
+            load_chunk(smem + ((chunk + 1) & 1) * 2 * CHUNK_FLOATS, Pa, Pb, diag, n, chunk + 1, tid);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+        if (active) {
+            const float* sa = smem + (chunk & 1) * 2 * CHUNK_FLOATS;
+            const float* sb = diag ? sa : sa + CHUNK_FLOATS;
+            const float* xa = sa + (32 * wr + lr) * LDS;
+            const float* yb = sb + (64 * wc + lc) * LDS;
+            // acc -= x y^T, the rows in two halves of four (fewer live
+            // registers); the negation is an FFMA operand modifier
+#pragma unroll
+            for (int kk = 0; kk < KC; kk += 4) {
+#pragma unroll
+                for (int h = 0; h < 8; h += 4) {
+                    float4 x[4];
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) x[i] = ld4(xa + 4 * (h + i) * LDS + kk);
+#pragma unroll
+                    for (int j = 0; j < 8; ++j) {
+                        const float4 y = ld4(yb + 8 * j * LDS + kk);
+#pragma unroll
+                        for (int i = 0; i < 4; ++i) {
+                            float& a = acc[h + i][j];
+                            a = fmaf(-x[i].x, y.x, a);
+                            a = fmaf(-x[i].y, y.y, a);
+                            a = fmaf(-x[i].z, y.z, a);
+                            a = fmaf(-x[i].w, y.w, a);
+                        }
+                    }
+                }
+            }
+        }
+        __syncthreads();  // the stage is read before the next round's copy overwrites it
+    }
+
+    if (!active) return;
+    float* D = out + base + static_cast<size_t>(row0) * n + col0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const int r = 32 * wr + lr + 4 * i;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            const int c = 64 * wc + lc + 8 * j;
+            if (!diag || r >= c) D[static_cast<size_t>(r) * n + c] = acc[i][j];
+        }
+    }
+}
+
+bool configured[MAX_DEVICES];  // the shared-memory opt-in, set once per device
+
+cudaError_t configure() {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < MAX_DEVICES && configured[dev]) return cudaSuccess;
+    constexpr cudaFuncAttribute kDyn = cudaFuncAttributeMaxDynamicSharedMemorySize;
+    constexpr int kDiag = static_cast<int>(f128::SMEM_BYTES), kTrail = static_cast<int>(TRAIL_SMEM);
+    err = cudaFuncSetAttribute(chol_diag_kernel<true>, kDyn, kDiag);
+    if (err == cudaSuccess) err = cudaFuncSetAttribute(chol_diag_kernel<false>, kDyn, kDiag);
+    if (err == cudaSuccess) err = cudaFuncSetAttribute(chol_trailing_kernel, kDyn, kTrail);
+    if (err == cudaSuccess && dev < MAX_DEVICES) configured[dev] = true;
+    return err;
 }
 
 inline bool fits_grid(long long blocks) { return blocks > 0 && blocks <= 2147483647LL; }
@@ -212,56 +319,48 @@ inline bool fits_grid(long long blocks) { return blocks > 0 && blocks <= 2147483
 
 extern "C" {
 
-// K, out: device pointers to [batch, n, n] contiguous f32, 16-byte aligned;
-// winv: scratch of [batch, 128, 128] f32 (unused when n == 128); stream: a
-// cudaStream_t. Launches every kernel of the factorisation on that stream and
-// returns the first cudaError_t that is not 0 (0 on success).
-int gpsat_cholesky_f32(const void* K, void* out, void* winv, int batch, int n, void* stream) {
+// K, out: device pointers to [batch, n, n] contiguous f32, 16-byte aligned,
+// not overlapping; stream: a cudaStream_t. Launches every kernel of the
+// factorisation on that stream and returns the first cudaError_t that is not
+// 0 (0 on success).
+int gpsat_cholesky_f32(const void* K, void* out, int batch, int n, void* stream) {
     if (batch <= 0) return 0;
-    if (n < T128 || n > MAX_N || n % T128 != 0) return static_cast<int>(cudaErrorInvalidValue);
-    const int worst_tiles = ((MAX_N - T128) / TILE) * ((MAX_N - T128) / TILE + 1) / 2;
+    if (n < T || n > MAX_N || n % T != 0) return static_cast<int>(cudaErrorInvalidValue);
+    const int worst_tiles = (MAX_N / T - 1) * (MAX_N / T) / 2;
     if (!fits_grid(static_cast<long long>(batch) * worst_tiles)) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = configure();
+    if (err != cudaSuccess) return static_cast<int>(err);
 
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const float* src = static_cast<const float*>(K);
     float* o = static_cast<float*>(out);
-    float* w = static_cast<float*>(winv);
-    cudaError_t err;
-
-#define CHOL_TRY(call)                                       \
-    do {                                                      \
-        err = (call);                                         \
-        if (err != cudaSuccess) return static_cast<int>(err); \
-    } while (0)
-
-    constexpr cudaFuncAttribute kDyn = cudaFuncAttributeMaxDynamicSharedMemorySize;
-    CHOL_TRY(cudaFuncSetAttribute(chol_diag_kernel<true>, kDyn, static_cast<int>(DIAG_SMEM)));
-    CHOL_TRY(cudaFuncSetAttribute(chol_diag_kernel<false>, kDyn, static_cast<int>(DIAG_SMEM)));
-    CHOL_TRY(cudaFuncSetAttribute(chol_panel_kernel, kDyn, static_cast<int>(PANEL_SMEM)));
-    CHOL_TRY(cudaFuncSetAttribute(chol_trailing_kernel, kDyn, static_cast<int>(TRAIL_SMEM)));
-
-    const size_t total4 = static_cast<size_t>(batch) * n * n / 4;
-    const size_t want = (total4 + COPY_THREADS - 1) / COPY_THREADS;
-    const int copy_blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-    chol_copy_lower_kernel<<<copy_blocks, COPY_THREADS, 0, st>>>(
-        static_cast<const float4*>(K), static_cast<float4*>(out), total4, n);
-    CHOL_TRY(cudaGetLastError());
-
-    for (int k = 0; k < n; k += T128) {
-        if (k + T128 == n) {
-            chol_diag_kernel<false><<<batch, DIAG_THREADS, DIAG_SMEM, st>>>(o, w, n, k);
-            CHOL_TRY(cudaGetLastError());
-            break;
+    for (int k = 0; k < n; k += T) {
+        if (k + T == n) {
+            chol_diag_kernel<false><<<batch, f128::THREADS, f128::SMEM_BYTES, st>>>(src, o, n, k);
+            return static_cast<int>(cudaGetLastError());
         }
-        chol_diag_kernel<true><<<batch, DIAG_THREADS, DIAG_SMEM, st>>>(o, w, n, k);
-        CHOL_TRY(cudaGetLastError());
-        const int nt = (n - k - T128) / TILE;
-        chol_panel_kernel<<<batch * nt, GEMM_THREADS, PANEL_SMEM, st>>>(o, w, n, k);
-        CHOL_TRY(cudaGetLastError());
-        chol_trailing_kernel<<<batch * (nt * (nt + 1) / 2), GEMM_THREADS, TRAIL_SMEM, st>>>(o, n, k);
-        CHOL_TRY(cudaGetLastError());
+        chol_diag_kernel<true><<<batch, f128::THREADS, f128::SMEM_BYTES, st>>>(src, o, n, k);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return static_cast<int>(err);
+        const int m = (n - k - T) / T;
+        chol_trailing_kernel<<<batch * (m * (m + 1) / 2), TRAIL_THREADS, TRAIL_SMEM, st>>>(src, o, n, k);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return static_cast<int>(err);
+        src = o;
     }
-#undef CHOL_TRY
     return 0;
+}
+
+// How many blocks of the diagonal kernel (with its panel) and of the
+// trailing kernel the current device holds on one SM at once.
+int gpsat_cholesky_blocks_per_sm(int* diag, int* trailing) {
+    cudaError_t err = configure();
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(diag, chol_diag_kernel<true>, f128::THREADS,
+                                                            f128::SMEM_BYTES);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(trailing, chol_trailing_kernel, TRAIL_THREADS, TRAIL_SMEM);
+    return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -19,6 +19,12 @@ Inside the kernel's domain a non-positive pivot gives NaN in that matrix only
 pullback (Murray 2016) in plain PyTorch with two triangular solves, as in the
 JAX package, which has no backward kernel either.
 
+The kernel is blocked for the card: per 128-block step a diagonal kernel
+(the blocked 128-factor of ``csrc/factor128.cuh``, which kernel 2 shares,
+with this contract's pivot, then the panel) and a trailing kernel.
+``cholesky_blocked_emulation`` runs that same order in plain PyTorch, for
+the tests only.
+
 The kernel library is built and loaded by ``ops/_build.py`` at first use.
 One call of the kernel's host entry launches several ``__global__``
 functions on the caller's stream (see the source) and adds one to
@@ -32,11 +38,15 @@ import ctypes
 import torch
 
 from gpsat_tpu_torch.ops import _build
+from gpsat_tpu_torch.ops.panel_chol import NB, factor_panels_blocked_emulation
 
 BLOCK = 128
 MAX_N = 1024
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
-_SYMBOLS = {"gpsat_cholesky_f32": [_VP, _VP, _VP, _INT, _INT, _VP]}
+_SYMBOLS = {
+    "gpsat_cholesky_f32": [_VP, _VP, _INT, _INT, _VP],
+    "gpsat_cholesky_blocks_per_sm": [ctypes.POINTER(_INT), ctypes.POINTER(_INT)],
+}
 
 
 def in_kernel_domain(K: torch.Tensor) -> bool:
@@ -90,6 +100,48 @@ def cholesky_reference(K: torch.Tensor, T: int = BLOCK) -> torch.Tensor:
     return torch.tril(out)
 
 
+def cholesky_blocked_emulation(K: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel's order of operations in plain PyTorch (tests only), on
+    [B, N, N] with N a multiple of 128, per 128-block step:
+
+    1. the diagonal block's factor and inverse W by the blocked 128-factor
+       (``factor_panels_blocked_emulation`` with the rsqrt pivot);
+    2. the panel by 32x32 blocks over W's lower blocks only,
+       L_sJ = sum_{K<=J} A_sK W_JK^T;
+    3. the trailing matrix minus the panel times its transpose.
+    """
+    B, N, n = K.shape
+    if n != N or N % BLOCK != 0:
+        raise ValueError(f"cholesky_blocked_emulation takes [B, N, N], N a multiple of {BLOCK}, got {tuple(K.shape)}")
+    out = K.clone()
+    for k in range(0, N, BLOCK):
+        e = k + BLOCK
+        Lkk, Wkk = factor_panels_blocked_emulation(out[:, k:e, k:e], pivot="rsqrt")
+        out[:, k:e, k:e] = Lkk
+        if e < N:
+            A21 = out[:, e:, k:e]
+            panel = torch.zeros_like(A21)
+            for J in range(0, BLOCK, NB):
+                for Kb in range(0, J + NB, NB):
+                    WJK = Wkk[:, J : J + NB, Kb : Kb + NB]
+                    panel[:, :, J : J + NB] += torch.matmul(A21[:, :, Kb : Kb + NB], WJK.transpose(1, 2))
+            out[:, e:, k:e] = panel
+            out[:, e:, e:] -= torch.matmul(panel, panel.transpose(1, 2))
+    return torch.tril(out)
+
+
+def blocks_per_sm() -> dict:
+    """How many thread blocks of the diagonal kernel and of the trailing kernel
+    one SM of the current card holds at once (the CUDA occupancy query; needs
+    a card)."""
+    lib = _build.load_library("cholesky", _SYMBOLS)
+    diag, trailing = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.gpsat_cholesky_blocks_per_sm(ctypes.byref(diag), ctypes.byref(trailing))
+    if err != 0:
+        raise RuntimeError(f"cholesky occupancy query failed: cudaError {err}")
+    return {"chol_diag_kernel": diag.value, "chol_trailing_kernel": trailing.value}
+
+
 def _kernel(K: torch.Tensor) -> torch.Tensor:
     """[B, N, N] f32 CUDA tensor inside the kernel's domain -> L."""
     if not K.is_contiguous():
@@ -100,9 +152,8 @@ def _kernel(K: torch.Tensor) -> torch.Tensor:
     L = torch.empty_like(K)
     if B == 0:
         return L
-    winv = torch.empty((B, BLOCK, BLOCK), dtype=K.dtype, device=K.device)
     lib = _build.load_library("cholesky", _SYMBOLS)
-    _build.launch("cholesky", lib.gpsat_cholesky_f32, K, K.data_ptr(), L.data_ptr(), winv.data_ptr(), B, N)
+    _build.launch("cholesky", lib.gpsat_cholesky_f32, K, K.data_ptr(), L.data_ptr(), B, N)
     cholesky.launches += 1
     return L
 

@@ -11,8 +11,9 @@ Port of the Pallas TPU kernel ``gpsat_tpu/ops/pallas/panel_chol.py``
   contract both are held to.
 
 The kernel is blocked (four panels of 32 columns, the inverse assembled by
-sub-diagonals of 32x32 blocks). ``factor_panels_blocked_emulation`` runs
-that same order in plain PyTorch, for the tests only.
+sub-diagonals of 32x32 blocks; the device code is ``csrc/factor128.cuh``,
+which kernel 3 shares). ``factor_panels_blocked_emulation`` runs that same
+order in plain PyTorch, for the tests only.
 
 The pivot is ``sqrt(max(a_kk, 1e-30))`` and the column is scaled by its
 reciprocal: a zero pivot gives finite values (an all-zero block gives
@@ -66,28 +67,38 @@ def factor_panels_reference(Kd: torch.Tensor):
     return torch.tril(A), torch.tril(W)
 
 
-def _diag_factor_inverse(A: torch.Tensor):
-    """The kernel's diagonal step on [B, nb, nb]: nb right-looking steps with
-    the clamped pivot, and the inverse by forward elimination in the same
-    sweep (row j of W scaled by 1/d, then subtracted from the rows below)."""
+def _diag_factor_inverse(A: torch.Tensor, pivot: str):
+    """The kernel's diagonal step on [B, nb, nb]: nb right-looking steps and
+    the inverse by forward elimination in the same sweep (row j of W scaled,
+    then subtracted from the rows below). ``pivot`` "clamp" is kernel 2's
+    rule, d = sqrt(max(a_jj, 1e-30)) with both scales 1/d; "rsqrt" is kernel
+    3's, r = rsqrt(a_jj), d = a_jj r, the column scaled by r and row j of W by
+    1/d (NaN for a non-positive pivot)."""
     A = A.clone()
     B, nb, _ = A.shape
     W = torch.eye(nb, dtype=A.dtype, device=A.device).expand(B, nb, nb).clone()
     for j in range(nb):
-        d = torch.sqrt(torch.clamp_min(A[:, j, j], PIVOT_FLOOR))
-        dinv = 1.0 / d
+        if pivot == "clamp":
+            d = torch.sqrt(torch.clamp_min(A[:, j, j], PIVOT_FLOOR))
+            colscale = wscale = 1.0 / d
+        else:
+            colscale = torch.rsqrt(A[:, j, j])
+            d = A[:, j, j] * colscale
+            wscale = 1.0 / d
         A[:, j, j] = d
-        A[:, j + 1 :, j] *= dinv[:, None]
-        W[:, j, : j + 1] *= dinv[:, None]
+        A[:, j + 1 :, j] *= colscale[:, None]
+        W[:, j, : j + 1] *= wscale[:, None]
         col = A[:, j + 1 :, j]
         A[:, j + 1 :, j + 1 :] -= col[:, :, None] * col[:, None, :]
         W[:, j + 1 :, : j + 1] -= col[:, :, None] * W[:, j, None, : j + 1]
     return torch.tril(A), W
 
 
-def factor_panels_blocked_emulation(Kd: torch.Tensor, nb: int = NB):
+def factor_panels_blocked_emulation(Kd: torch.Tensor, nb: int = NB, pivot: str = "clamp"):
     """The CUDA kernel's blocked order in plain PyTorch (tests only), on
-    [B, T, T] blocks with T a multiple of ``nb``:
+    [B, T, T] blocks with T a multiple of ``nb``, with the pivot rule of
+    kernel 2 ("clamp") or of kernel 3 ("rsqrt", see ``_diag_factor_inverse``;
+    csrc/factor128.cuh holds the code both kernels share):
 
     1. per panel k: the diagonal block's factor and inverse W_kk;
        L21 = A21 W_kk^T; A22 -= L21 L21^T (only its lower blocks are read);
@@ -97,12 +108,14 @@ def factor_panels_blocked_emulation(Kd: torch.Tensor, nb: int = NB):
     B, T, t = Kd.shape
     if t != T or T % nb:
         raise ValueError(f"blocks must be square with a side that is a multiple of {nb}, got {tuple(Kd.shape)}")
+    if pivot not in ("clamp", "rsqrt"):
+        raise ValueError(f"pivot must be 'clamp' or 'rsqrt', got {pivot!r}")
     nk = T // nb
     A = Kd.clone()
     Wd = []
     for k in range(nk):
         s, r = slice(k * nb, (k + 1) * nb), slice((k + 1) * nb, T)
-        Lkk, Wkk = _diag_factor_inverse(A[:, s, s])
+        Lkk, Wkk = _diag_factor_inverse(A[:, s, s], pivot)
         A[:, s, s] = Lkk
         Wd.append(Wkk)
         if k + 1 < nk:

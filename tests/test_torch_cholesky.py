@@ -47,6 +47,57 @@ def test_reference_matches_pallas_kernel(N):
     assert np.all(np.triu(L, 1) == 0.0)
     # an unbatched matrix takes the same arm
     np.testing.assert_array_equal(CH.cholesky(torch.from_numpy(K[0])).numpy(), L[0])
+    # the CUDA kernel's blocked order (32-wide panels inside each 128-block,
+    # the panel by blocks of the inverse) on the same input: another f32
+    # summation order, held to the same bound against both
+    Le = CH.cholesky_blocked_emulation(torch.from_numpy(K)).numpy()
+    assert np.abs(Le - Lp).max() / np.abs(Lp).max() < 5e-6
+    assert np.abs(Le - Lref).max() / np.abs(Lref).max() < 5e-6
+    assert np.all(np.triu(Le, 1) == 0.0)
+
+
+def _spd_card(B, N, seed, dtype):
+    # chip_smoke.py's kernel-3 input: A A^T + N I, A standard normal, so K's
+    # entries reach ~2N and L's ~sqrt(2N)
+    A = np.random.default_rng(seed).standard_normal((B, N, N)).astype(dtype)
+    return A @ np.swapaxes(A, 1, 2) + N * np.eye(N, dtype=dtype)
+
+
+def test_blocked_emulation_f64_matches_reference():
+    # B=2, N=256 in f64: the same algebra in another order; L's entries are
+    # up to ~20, so 1e-10 absolute is f64 roundoff with room
+    K = torch.from_numpy(_spd_card(2, 256, seed=10, dtype=np.float64))
+    np.testing.assert_allclose(
+        CH.cholesky_blocked_emulation(K).numpy(), CH.cholesky_reference(K).numpy(), rtol=0, atol=1e-10
+    )
+
+
+@pytest.mark.parametrize("seed", [11, 12])
+def test_blocked_emulation_f32_within_the_kernel_bounds(seed):
+    # the bounds the card holds the kernel to (chip_smoke.py phase 2): 2e-4
+    # absolute against the plain version, max |L L^T - K| <= 1e-5 N
+    N = 256
+    K = torch.from_numpy(_spd_card(2, N, seed, np.float32))
+    L = CH.cholesky_blocked_emulation(K)
+    assert float((L - CH.cholesky_reference(K)).abs().max()) <= 2e-4
+    assert float((torch.matmul(L, L.transpose(1, 2)) - K).abs().max()) <= 1e-5 * N
+    assert float(torch.triu(L, 1).abs().max()) == 0.0
+
+
+def test_blocked_emulation_keeps_nan_isolation_and_exact_identity():
+    # the rsqrt pivot with no clamp: -I gives NaN, and so does a matrix that
+    # fails only in its second 128-block (its first 128 rows stay exact); the
+    # identity beside them comes back exactly
+    N = 256
+    eye = torch.eye(N)
+    late = eye.clone()
+    late[200, 200] = -1.0
+    L = CH.cholesky_blocked_emulation(torch.stack([eye, -eye, late]))
+    assert torch.equal(L[0], eye)
+    assert torch.isnan(L[1]).any() and torch.isnan(L[2]).any()
+    assert torch.equal(L[2, :128], eye[:128])
+    with pytest.raises(ValueError):
+        CH.cholesky_blocked_emulation(torch.zeros(1, 192, 192))
 
 
 def test_non_spd_matrix_gives_nan_on_both_arms():

@@ -131,7 +131,7 @@ def test_panel_kernel_batches(B):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,N", [(3, 128), (5, 384), (2, 1024)])
+@pytest.mark.parametrize("B,N", [(3, 128), (5, 384), (2, 1024), (1, 512), (133, 512)])
 def test_cholesky_kernel_matches_reference(B, N):
     dev = _cuda()
     K = torch.from_numpy(_spd(B, N, seed=3)).to(dev)
@@ -168,6 +168,31 @@ def test_cholesky_kernel_nan_dispatch_and_refusals():
     torch.log(torch.diagonal(CH.cholesky(K), dim1=1, dim2=2)).sum().backward()
     want = 0.5 * torch.linalg.inv(K.detach().double())  # d(0.5 logdet K)/dK
     assert float((K.grad.double() - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cholesky_kernel_nan_beside_identity_n512():
+    # N=512: the diagonal, panel and trailing kernels all run. A -I matrix,
+    # one that fails only in its third 128-block, an identity and an SPD
+    # matrix in one batch: NaN in the failing two only, the identity exact,
+    # the first 256 rows of the late failure exact, the SPD matrix as the
+    # plain version has it (1e-5 on O(1) entries, cond(K) <= ~5)
+    dev = _cuda()
+    N = 512
+    eye = torch.eye(N, device=dev)
+    late = eye.clone()
+    late[300, 300] = -1.0
+    spd = torch.from_numpy(_spd(1, N, seed=9)).to(dev)[0]
+    L = CH.cholesky(torch.stack([eye, -eye, late, spd]).contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(L[0], eye)
+    assert torch.isnan(L[1]).any() and torch.isnan(L[2]).any()
+    assert torch.equal(L[2, :256], eye[:256])
+    assert torch.isfinite(L[3]).all()
+    assert float((L[3] - CH.cholesky_reference(spd[None])[0]).abs().max()) <= 1e-5
+    assert float(torch.triu(L[3], 1).abs().max()) == 0.0
+    blocks = CH.blocks_per_sm()  # the diagonal kernel's design needs two per SM, the trailing kernel's one
+    assert blocks["chol_diag_kernel"] >= 2 and blocks["chol_trailing_kernel"] >= 1, blocks
 
 
 @pytest.mark.cuda

@@ -138,3 +138,22 @@ def test_blocked_emulation_keeps_the_clamp():
     assert torch.equal(L[1], torch.eye(T)) and torch.equal(Inv[1], torch.eye(T))
     with pytest.raises(ValueError):
         PC.factor_panels_blocked_emulation(torch.zeros(1, 96, 96), nb=64)
+
+
+def test_blocked_emulation_rsqrt_pivot_is_kernel_3s_rule():
+    # kernel 3's pivot rule (r = rsqrt(a_jj), L_jj = a_jj r, no clamp) on the
+    # same blocked order: on SPD blocks in f64 the same factor and inverse as
+    # the plain version to roundoff (1e-10 on O(10) entries); a zero or
+    # negative block gives NaN where the clamp gives finite values; the
+    # identity block comes back exactly
+    K = torch.from_numpy(_spd_blocks(2, seed=7, dtype=np.float64))
+    L, Inv = PC.factor_panels_blocked_emulation(K, pivot="rsqrt")
+    Lr, Ir = PC.factor_panels_reference(K)
+    np.testing.assert_allclose(L.numpy(), Lr.numpy(), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(Inv.numpy(), Ir.numpy(), rtol=0, atol=1e-10)
+    odd = torch.stack([torch.zeros(T, T), -torch.eye(T), torch.eye(T)])
+    L, Inv = PC.factor_panels_blocked_emulation(odd, pivot="rsqrt")
+    assert torch.isnan(L[0]).any() and torch.isnan(L[1]).any() and torch.isnan(Inv[1]).any()
+    assert torch.equal(L[2], torch.eye(T)) and torch.equal(Inv[2], torch.eye(T))
+    with pytest.raises(ValueError):
+        PC.factor_panels_blocked_emulation(odd, pivot="sqrt")
