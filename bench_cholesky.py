@@ -11,7 +11,9 @@ directory that .gitignore lists). Libraries are built from
 `winv` scratch argument (the design before the shared 128-factor) gets one.
 
 Each kernel's output is first held against `cholesky_reference` with
-chip_smoke.py's bounds (2e-4 absolute, max |L L^T - K| <= 1e-5 N). Then the
+chip_smoke.py's bounds (2e-4 absolute, max |L L^T - K| <= 1e-5 N), and the
+parent's L against the change's bit for bit (`torch.equal`; reported, not
+required). Then the
 variants are timed in the order parent, change, library, library, change,
 parent (repeated --rounds times) on chip_smoke.py's kernel-3 input, with
 chip_smoke.py's CUDA-event timers: per call (one call between an event pair,
@@ -104,7 +106,7 @@ def main(argv) -> int:
     Lr = CH.cholesky_reference(K)
     stream = torch.cuda.current_stream().cuda_stream
 
-    fns, records = {}, []
+    fns, outs, records = {}, {}, []
     for name, path in paths.items():
         lib = ctypes.CDLL(str(path))
         entry = lib.gpsat_cholesky_f32
@@ -133,6 +135,13 @@ def main(argv) -> int:
         if not ok:
             raise RuntimeError(f"{name} disagrees with the plain version: {rec}")
         fns[name] = call
+        outs[name] = L.clone()
+
+    if "parent" in outs:
+        rec = {"bit_identical_to_parent": torch.equal(outs["parent"], outs["change"])}
+        print(json.dumps(rec), flush=True)
+        records.append(rec)
+    del outs
 
     fns["library"] = lambda: torch.linalg.cholesky_ex(K)
     first = [n for n in ("parent", "change") if n in fns] + ["library"]

@@ -76,7 +76,7 @@ def main(argv) -> int:
     ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import HBM_BYTES_PER_S, back_to_back_ms, spd_batch, time_ms
+    from chip_smoke import HBM_BYTES_PER_S, back_to_back_ms, factor_bytes, spd_batch, time_ms
     from gpsat_tpu_torch.ops import panel_chol as PC
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -151,7 +151,7 @@ def main(argv) -> int:
         print(json.dumps(rec), flush=True)
         records.append(rec)
 
-    summary = {"card": card, "bound_ms": 3 * B * T * T * 4 / HBM_BYTES_PER_S * 1e3}
+    summary = {"card": card, "bound_ms": factor_bytes(B, T, 2) / HBM_BYTES_PER_S * 1e3}
     for name in fns:
         rows = [r for r in records if r.get("variant") == name]
         summary[name] = {k: float(np.median([r[k] for r in rows])) for k in ("ms", "ms_back_to_back")}

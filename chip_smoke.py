@@ -15,17 +15,22 @@ Phases (each prints on its own lines; any failure raises):
 2. kernel    each CUDA kernel against its plain PyTorch version on the card at
              the shapes its path gives it ([512, 64, 64], [512, 128, 128],
              [512, 512, 512] f32; kernel 3 also at [8, 1024, 1024] and
-             [8, 128, 128]), its contract case (NaN or clamp), and CUDA-event
-             times of the kernel, the plain version and one library call as
-             the yardstick; kernel 2 is also timed back to back (20 launches
-             between one event pair), which leaves out the wrapper's host
-             time; kernels 2 and 3 report their blocks per SM, and with
-             --profile kernel 3 its device time per __global__ function
+             [8, 128, 128]), its contract cases (NaN or clamp, the identity),
+             and CUDA-event times of the kernel, the plain version and one
+             library call as the yardstick; kernels 1 and 2 are also timed
+             back to back (20 launches between one event pair), which leaves
+             out the wrapper's host time; every kernel reports its blocks per
+             SM, and with --profile kernel 3 its device time per __global__
+             function
 3. main      bench.py's workload (B=512, N=512, P=64, D=2, Matern32, f32,
              single-eval L-BFGS) through the port's engine on the "block"
              route: a warm-up call, then one timed call with the kernels'
              launch counters set to 0 before it and read after it
 4. accuracy  the first 16 tiles, f32 on the card against f64 on the CPU
+   f64       the same 16 tiles in f64 on the card on the "block", "panel" and
+             "cholesky" routes (the library arm of each: the kernels take f32
+             only, and no kernel may launch), each within 1e-5 of phase 4's
+             CPU f64 result
 5. panel     phase 3's workload on the "panel" route (kernel 2 in the
              objective, kernel 3 in the predict), held against phase 3's
              predictions
@@ -52,6 +57,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
+SECTOR_BYTES = 32  # the least the memory system moves at a time
 B, N, P, D = 512, 512, 64, 2
 T = 64
 CPU_TILES = 16
@@ -75,6 +81,11 @@ COLLAPSED_LS = 0.05
 # card's f32 run nor the CPU's f64 run collapsed
 MIN_COMPARED_SHARE = 0.5
 RUN_KW = dict(max_iter=100, linesearch="single_eval", tol_grad=1e-3, tol_f=1e-6)
+# the f64 runs: phase 4's CPU reference and phase f64 on the card
+CPU_F64_KW = dict(linesearch="single_eval", tol_grad=1e-6, tol_f=1e-11)
+# f64 on the card vs f64 on the CPU, the same fit in another summation
+# order: the north star's band for predictions
+F64_BOUND = 1e-5
 
 
 def check(cond, msg):
@@ -136,12 +147,22 @@ def spd_batch(Bn, n, seed):
     return torch.matmul(A, A.transpose(1, 2)) + n * torch.eye(n, device=A.device)
 
 
+def factor_bytes(Bn, n, outputs):
+    """Least bytes a factor of [Bn, n, n] f32 moves: the input's lower
+    triangle read in whole 32-byte sectors (rows start on a sector), and
+    ``outputs`` full n x n matrices written (their zero upper triangles too)."""
+    per_sector = SECTOR_BYTES // 4
+    read = sum(-(-(r + 1) // per_sector) for r in range(n)) * SECTOR_BYTES
+    return Bn * (read + outputs * n * n * 4)
+
+
 def kernel_entry(name, source, replaces, shape, err, ms, plain_ms, library_ms, nbytes, flops, row_extra=None,
                  **details):
     """One row of the {"kernels": [...]} line, with the kernel's bound: the
-    larger of its bytes (each input read once, each output written once) over
-    the card's memory rate and its operations over the f32 peak. ``row_extra``
-    adds keys to the row; ``details`` go to the log line only."""
+    larger of its bytes (what the function must read once and write once,
+    ``factor_bytes``) over the card's memory rate and its operations over
+    the f32 peak. ``row_extra`` adds keys to the row; ``details`` go to the
+    log line only."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS_PER_S * 1e3
     log("kernel", name=name, shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -226,18 +247,22 @@ def phase_kernel(BC):
     torch.cuda.synchronize()
     check(bool(torch.isfinite(Ln[0]).all()) and bool(torch.isnan(Ln[1]).any()) and bool(torch.isnan(Wn[1]).any()),
           "a -I block must give NaN in L and W, an I block beside it finite values")
+    check(torch.equal(Ln[0], eye) and torch.equal(Wn[0], eye), "an identity block must come back exactly")
 
     def library():
         Lc, _ = torch.linalg.cholesky_ex(K)
         return torch.linalg.solve_triangular(Lc, eye.expand(B, T, T), upper=False)
 
-    # least work: read K once, write L and W once; Cholesky T^3/3 + inverse T^3/3 flops
+    # least work: read K's lower triangle once, write L and W once; Cholesky
+    # T^3/3 + inverse T^3/3 flops
     return kernel_entry(
         "block_chol.factor_blocks", "gpsat_tpu_torch/csrc/block_chol.cu", "gpsat_tpu/ops/pallas/block_chol.py:50",
         [B, T, T], max(err_L, err_W), time_ms(lambda: BC.factor_blocks(K)),
         time_ms(lambda: BC.factor_blocks_reference(K)), time_ms(library),
-        nbytes=3 * B * T * T * 4, flops=B * (2.0 / 3.0) * T**3,
-        err_L=err_L, err_W=err_W, max_abs_LW_minus_I=err_LW, nan_case="ok",
+        nbytes=factor_bytes(B, T, 2), flops=B * (2.0 / 3.0) * T**3,
+        row_extra={"ms_back_to_back": back_to_back_ms(lambda: BC.factor_blocks(K)),
+                   "library_ms_back_to_back": back_to_back_ms(library), "blocks_per_sm": BC.blocks_per_sm()},
+        err_L=err_L, err_W=err_W, max_abs_LW_minus_I=err_LW, nan_case="ok", identity_case="ok",
     )
 
 
@@ -281,7 +306,7 @@ def phase_kernel_panel(PC):
         "panel_chol.factor_panels", "gpsat_tpu_torch/csrc/panel_chol.cu", "gpsat_tpu/ops/pallas/panel_chol.py:41",
         [B, TP, TP], max(err_L, err_W), time_ms(lambda: PC.factor_panels(K)),
         time_ms(lambda: PC.factor_panels_reference(K), reps=5, warm=1), time_ms(library),
-        nbytes=3 * B * TP * TP * 4, flops=B * (2.0 / 3.0) * TP**3,
+        nbytes=factor_bytes(B, TP, 2), flops=B * (2.0 / 3.0) * TP**3,
         row_extra={"ms_back_to_back": back_to_back_ms(lambda: PC.factor_panels(K)),
                    "library_ms_back_to_back": back_to_back_ms(library)},
         err_L=err_L, err_W=err_W, max_abs_LLinv_minus_I=err_LW, max_abs_LLt_minus_K=err_LLt, clamp_case="ok",
@@ -320,7 +345,7 @@ def phase_kernel_cholesky(CH, profile: bool):
         "cholesky.cholesky", "gpsat_tpu_torch/csrc/cholesky.cu", "gpsat_tpu/ops/pallas/cholesky.py:90",
         [B, N, N], err, time_ms(lambda: CH.cholesky(K)),
         time_ms(lambda: CH.cholesky_reference(K), reps=3, warm=1), time_ms(lambda: torch.linalg.cholesky_ex(K)),
-        nbytes=2 * B * N * N * 4, flops=B * N**3 / 3.0,
+        nbytes=factor_bytes(B, N, 1), flops=B * N**3 / 3.0,
         row_extra={"blocks_per_sm": CH.blocks_per_sm(), "device_ms_by_kernel": split},
         max_abs_LLt_minus_K=err_LLt, edge_max_abs_err=edges, nan_case="ok",
     )
@@ -418,8 +443,7 @@ def phase_accuracy(batch, init):
     t0 = time.perf_counter()
     cpu = run_tile_batch(
         cast_batch(sub, np.float64), {k: v.astype(np.float64) for k, v in sub_init.items()},
-        make_batched_runner(core, linesearch="single_eval", tol_grad=1e-6, tol_f=1e-11, device="cpu"),
-        core, device="cpu",
+        make_batched_runner(core, device="cpu", **CPU_F64_KW), core, device="cpu",
     )
     cpu_s = time.perf_counter() - t0
     dmean = float(np.abs(gpu["f_mean"] - cpu["f_mean"]).max())
@@ -428,6 +452,41 @@ def phase_accuracy(batch, init):
         converged_gpu=int(gpu["converged"].sum()), converged_cpu_f64=int(cpu["converged"].sum()), cpu_f64_s=cpu_s,
         torch_threads=torch.get_num_threads())
     check(dmean <= PRED_BOUND and dvar <= PRED_BOUND, f"card vs CPU f64: dmean {dmean}, dvar {dvar}")
+    return sub, sub_init, cpu
+
+
+def phase_f64(sub, sub_init, cpu):
+    """Phase 4's tiles in f64 on the card, on the block, panel and cholesky
+    routes with phase 4's CPU f64 settings: the kernels take f32 only, so f64
+    takes the library arm of each route and launches no kernel. Each route
+    is held against phase 4's CPU f64 result."""
+    import torch
+
+    from gpsat_tpu_torch.models.functional import make_gpr_core
+    from gpsat_tpu_torch.parallel.batching import cast_batch
+    from gpsat_tpu_torch.parallel.engine import make_batched_runner, run_tile_batch
+
+    batch64 = cast_batch(sub, np.float64)
+    init64 = {k: v.astype(np.float64) for k, v in sub_init.items()}
+    for factor in ("block", "panel", "cholesky"):
+        core = make_gpr_core(jitter=1e-5, factor=factor)
+        runner = make_batched_runner(core, **CPU_F64_KW)
+        for fn in counters().values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = run_tile_batch(batch64, init64, runner, core)
+        seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters().items()}
+        dmean = float(np.abs(res["f_mean"] - cpu["f_mean"]).max())
+        dvar = float(np.abs(res["f_var"] - cpu["f_var"]).max())
+        log("f64", factor=factor, tiles=len(sub.X), seconds=seconds, max_abs_dmean=dmean, max_abs_dvar=dvar,
+            bound=F64_BOUND, converged=int(res["converged"].sum()), iters_max=int(res["num_iter"].max()),
+            launches=launches, dtype=str(res["f_mean"].dtype))
+        check(res["f_mean"].dtype == np.float64 and np.isfinite(res["f_mean"]).all() and np.isfinite(res["f_var"]).all(),
+              f"f64 on the card, {factor} route: predictions not finite f64")
+        check(dmean <= F64_BOUND and dvar <= F64_BOUND, f"f64 card vs CPU, {factor} route: dmean {dmean}, dvar {dvar}")
+        check(not any(launches.values()), f"f64 on the {factor} route launched a kernel: {launches}")
+    torch.cuda.synchronize()
 
 
 def phase_panel(batch, init, main_res, profile: bool):
@@ -516,7 +575,7 @@ def main(argv) -> int:
         return 0
     batch, init = bench_workload()
     main_res, entries[0]["launches"] = phase_main(batch, init, profile)
-    phase_accuracy(batch, init)
+    phase_f64(*phase_accuracy(batch, init))
     entries[1]["launches"] = phase_panel(batch, init, main_res, profile)
     entries[2]["launches"] = phase_profiled(batch, init, profile)
 

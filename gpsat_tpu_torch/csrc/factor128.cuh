@@ -3,8 +3,10 @@
 //
 // Shared by panel_chol.cu (kernel 2: L and L^-1 of stacked 128x128 blocks)
 // and cholesky.cu (kernel 3: the diagonal step of the full blocked
-// Cholesky). The two differ only in the pivot rule, chosen by kClamp so that
-// each keeps the contract of the TPU kernel it replaces:
+// Cholesky); block_chol.cu (kernel 1, 64x64 blocks) takes only the one-warp
+// 32x32 step, with the rsqrt pivot, and the tile products. Kernels 2 and 3
+// differ only in the pivot rule, chosen by kClamp so that each keeps the
+// contract of the TPU kernel it replaces:
 //
 //   kClamp = true   d = sqrtf(max(a_jj, 1e-30)), column and row j of the
 //                   inverse scaled by __frcp_rn(d): a zero pivot stays finite
@@ -134,16 +136,17 @@ __device__ __forceinline__ void zero_tile(float (&acc)[4][4]) {
         for (int p = 0; p < 4; ++p) acc[q][p] = 0.0f;
 }
 
-// Warp 0: factor the 32x32 diagonal block at Ad (row stride LDA) in place
-// into L11 and write its inverse W11 to the tile Wd, both with zeros above
-// the diagonal. buf: 4 * NB floats of scratch. Only the lower triangle of
-// the block is read into any output.
-template <bool kClamp>
+// Warp 0: factor the 32x32 diagonal block at Ad (row stride kLda) in place
+// into L11 and write its inverse W11 to the tile Wd (row stride kLdw), both
+// with zeros above the diagonal. buf: 4 * NB floats of scratch. Only the
+// lower triangle of the block is read into any output. The strides default
+// to this header's; block_chol.cu passes its own for a 64x64 block.
+template <bool kClamp, int kLda = LDA, int kLdw = LDW>
 __device__ __forceinline__ void diag_factor_inverse(float* Ad, float* Wd, float* buf, int lane) {
     float a[NB], w[NB];
 #pragma unroll
     for (int c = 0; c < NB; c += 4) {
-        const float4 v = ld4(Ad + lane * LDA + c);
+        const float4 v = ld4(Ad + lane * kLda + c);
         a[c] = v.x, a[c + 1] = v.y, a[c + 2] = v.z, a[c + 3] = v.w;
     }
 #pragma unroll
@@ -207,8 +210,8 @@ __device__ __forceinline__ void diag_factor_inverse(float* Ad, float* Wd, float*
         lv.y = c + 1 <= lane ? a[c + 1] : 0.0f, wv.y = c + 1 <= lane ? w[c + 1] : 0.0f;
         lv.z = c + 2 <= lane ? a[c + 2] : 0.0f, wv.z = c + 2 <= lane ? w[c + 2] : 0.0f;
         lv.w = c + 3 <= lane ? a[c + 3] : 0.0f, wv.w = c + 3 <= lane ? w[c + 3] : 0.0f;
-        st4(Ad + lane * LDA + c, lv);
-        st4(Wd + lane * LDW + c, wv);
+        st4(Ad + lane * kLda + c, lv);
+        st4(Wd + lane * kLdw + c, wv);
     }
 }
 

@@ -7,9 +7,12 @@ Port of the functional part of ``gpsat_tpu/models/gpr.py``: ``neg_lml``
 "y": [B, N], "mask": [B, N]}``; params are dicts of [B, ...] tensors.
 ``factor`` names the factor route (ops/linalg.FACTOR_ROUTES).
 
-Both objectives use the fused analytic-gradient form in every dtype (the JAX
-package keeps an autodiff form for f64; it is ``ops/linalg.masked_gpr_lml``
-here and gives the same value and gradients).
+Both objectives use the fused analytic-gradient form in every dtype for the
+kernels that have it (``fused_lml.FUSED_KERNELS``; the JAX package keeps an
+autodiff form for f64, which gives the same value and gradients).
+``neg_lml`` fits RationalQuadratic, Cosine and White through the autodiff
+LML, ``ops/linalg.masked_gpr_lml``, as the reference does; the profiled
+objective takes the fused kernels only.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from gpsat_tpu_torch.models import means as MF
 from gpsat_tpu_torch.ops import kernels as K
 from gpsat_tpu_torch.ops import linalg as LA
 from gpsat_tpu_torch.ops import transforms as T
-from gpsat_tpu_torch.ops.fused_lml import masked_gpr_lml_fused, masked_gpr_lml_profiled, profiled_sigma2
+from gpsat_tpu_torch.ops.fused_lml import FUSED_KERNELS, masked_gpr_lml_fused, masked_gpr_lml_profiled, profiled_sigma2
 
 PARAM_NAMES = ["lengthscales", "kernel_variance", "likelihood_variance"]
 
@@ -30,10 +33,22 @@ def neg_lml(uparams: dict, data: dict, *, kernel: str, bijectors: dict, jitter: 
 
     uparams: unconstrained {"lengthscales": [B, D], "kernel_variance": [B],
     "likelihood_variance": [B]}. Gradients reach uparams (through the
-    bijectors) and, via the fused VJP, y.
+    bijectors) and y. A kernel outside ``FUSED_KERNELS`` takes the autodiff
+    LML, whose factor is ``linalg.cholesky`` whatever ``factor`` says.
     """
     p = T.forward_params(uparams, bijectors)
     data = MF.center_y(p, data)
+    if kernel not in FUSED_KERNELS:
+        return -LA.masked_gpr_lml(
+            data["X"],
+            data["y"],
+            data["mask"],
+            p["lengthscales"],
+            p["kernel_variance"],
+            p["likelihood_variance"],
+            kernel=kernel,
+            jitter=jitter,
+        )
     return -masked_gpr_lml_fused(
         kernel,
         data["X"],

@@ -77,8 +77,9 @@ def load_library(name: str, symbols: Dict[str, Sequence]) -> ctypes.CDLL:
 
 def check_kernel_input(name: str, K, shape_ok: bool, shape_text: str):
     """The refusals every kernel wrapper shares: shape, device, dtype,
-    layout. Returns True when ``K`` lies on the CPU (the caller then runs
-    the plain version), False for a CUDA tensor the kernel takes."""
+    layout (contiguous and 16-byte aligned: the kernels move float4).
+    Returns True when ``K`` lies on the CPU (the caller then runs the plain
+    version), False for a CUDA tensor the kernel takes."""
     if not shape_ok:
         raise ValueError(f"{name} takes {shape_text}, got {tuple(K.shape)}")
     if K.device.type == "cpu":
@@ -89,6 +90,8 @@ def check_kernel_input(name: str, K, shape_ok: bool, shape_text: str):
         raise TypeError(f"the CUDA kernel takes float32 only, got {K.dtype}")
     if not K.is_contiguous():
         raise ValueError("the CUDA kernel takes a contiguous tensor")
+    if K.data_ptr() % 16 != 0:
+        raise ValueError("the CUDA kernel takes a 16-byte aligned tensor")
     if K.shape[0] > 2**31 - 1:
         raise ValueError(f"batch {K.shape[0]} exceeds the kernel's grid limit")
     return False

@@ -32,6 +32,9 @@ from gpsat_tpu_torch.ops import linalg as LA
 _SQRT3 = 1.7320508075688772
 _SQRT5 = 2.23606797749979
 _R_FLOOR = 1e-36  # same r^2 floor as ops.kernels so values agree exactly
+# the kernels with a closed-form dK/dtheta here; the others take the
+# autodiff LML (ops/linalg.masked_gpr_lml)
+FUSED_KERNELS = ("Matern12", "Exponential", "Matern32", "Matern52", "RBF", "SquaredExponential")
 
 
 def _kernel_and_r(kernel: str, X, lengthscales, kernel_variance):
@@ -48,7 +51,7 @@ def _kernel_and_r(kernel: str, X, lengthscales, kernel_variance):
     elif kernel == "Matern52":
         k = kv * (1.0 + _SQRT5 * r + 5.0 / 3.0 * r2) * torch.exp(-_SQRT5 * r)
     else:
-        raise NotImplementedError(f"fused LML supports Matern12/32/52 + RBF, got {kernel}")
+        raise NotImplementedError(f"fused LML supports {FUSED_KERNELS}, got {kernel!r}")
     return k, r
 
 
@@ -63,7 +66,7 @@ def _dk_dl_factor(kernel: str, r, kernel_variance):
         return 3.0 * kv * torch.exp(-_SQRT3 * r)
     if kernel == "Matern52":
         return (5.0 / 3.0) * kv * (1.0 + _SQRT5 * r) * torch.exp(-_SQRT5 * r)
-    raise NotImplementedError(kernel)
+    raise NotImplementedError(f"fused LML supports {FUSED_KERNELS}, got {kernel!r}")
 
 
 def _factor_terms(factor: str, Km, ym):

@@ -1,6 +1,6 @@
 """Stationary covariance (Gram) construction, batched over experts.
 
-Port of ``gpsat_tpu/ops/kernels.py`` for Matern12/32/52 and RBF. Every
+Port of ``gpsat_tpu/ops/kernels.py``: all nine kernel names. Every
 function takes a leading expert dimension B: coordinates [B, N, D],
 lengthscales [B, D], variances [B].
 
@@ -9,6 +9,12 @@ lengthscales [B, D], variances [B].
   Matern32: s2 * (1 + sqrt(3) r) exp(-sqrt(3) r)
   Matern52: s2 * (1 + sqrt(5) r + 5 r^2/3) exp(-sqrt(5) r)
   RBF:      s2 * exp(-r^2 / 2)
+  RationalQuadratic: s2 * (1 + r^2 / (2 alpha))^(-alpha), alpha = 1
+  Cosine:   s2 * cos(2 pi sum_d (x1_d - x2_d) / l_d)   (a signed sum)
+  White:    zeros (the model's noise on the diagonal is the whole covariance)
+
+Only the first six have the fused analytic-gradient LML (``ops/fused_lml``);
+``models/gpr.neg_lml`` fits the other three through the autodiff LML.
 """
 
 from __future__ import annotations
@@ -19,8 +25,21 @@ import torch
 
 # smallest r^2 fed to sqrt: keeps d(sqrt)/dr2 finite at coincident points
 _R2_FLOOR = 1e-36
+# RationalQuadratic's shape: the reference's default, which its objective
+# and predict always use
+_RQ_ALPHA = 1.0
 
-KERNEL_NAMES = ("Matern12", "Exponential", "Matern32", "Matern52", "RBF", "SquaredExponential")
+KERNEL_NAMES = (
+    "Matern12",
+    "Exponential",
+    "Matern32",
+    "Matern52",
+    "RBF",
+    "SquaredExponential",
+    "RationalQuadratic",
+    "Cosine",
+    "White",
+)
 
 
 def scaled_squared_dist(X1: torch.Tensor, X2: torch.Tensor, lengthscales: torch.Tensor) -> torch.Tensor:
@@ -46,8 +65,15 @@ def gram(kernel: str, X1: torch.Tensor, X2: torch.Tensor, lengthscales: torch.Te
     """Cross-covariance k(X1, X2) -> [B, N, M]."""
     if kernel not in KERNEL_NAMES:
         raise ValueError(f"unknown kernel: {kernel}; valid: {KERNEL_NAMES}")
-    r2 = scaled_squared_dist(X1, X2, lengthscales)
     s2 = variance[:, None, None]
+    if kernel == "White":
+        return X1.new_zeros(X1.shape[0], X1.shape[1], X2.shape[1])
+    if kernel == "Cosine":
+        d = torch.sum((X1[:, :, None, :] - X2[:, None, :, :]) / lengthscales[:, None, None, :], dim=-1)
+        return s2 * torch.cos(2.0 * math.pi * d)
+    r2 = scaled_squared_dist(X1, X2, lengthscales)
+    if kernel == "RationalQuadratic":
+        return s2 * torch.pow(1.0 + r2 / (2.0 * _RQ_ALPHA), -_RQ_ALPHA)
     if kernel in ("RBF", "SquaredExponential"):
         return s2 * torch.exp(-0.5 * r2)
     r = _r_from_r2(r2)

@@ -14,6 +14,12 @@ it as an argument (``factor``) and read no environment variable:
   "panel"      128x128 diagonal blocks from ``panel_chol.factor_panels``
   "cholesky"   ``cholesky`` (the blocked kernel) + ``tri_inv_blocked``
   "recursive"  ``recursive_chol.chol_winv_recursive`` (plain PyTorch)
+
+The hand-written kernels take f32 only. On the card a Gram of any other
+dtype (f64 above all) leaves the "block" and "panel" routes for ``chol_inv``
+(``cholesky_ex`` + ``tri_inv_blocked``), as the JAX package sends every
+non-f32 Gram to XLA and as ``ops/cholesky`` does outside its kernel's
+domain. A CPU tensor takes the routes' plain versions in any dtype.
 """
 
 from __future__ import annotations
@@ -79,6 +85,11 @@ def _assemble_winv(L: torch.Tensor, W: torch.Tensor, T: int) -> torch.Tensor:
     return W
 
 
+def _diag_blocks(L: torch.Tensor, T: int) -> torch.Tensor:
+    """The T-sized diagonal blocks of [B, N, N], stacked: [B, N/T, T, T]."""
+    return torch.stack([L[:, s : s + T, s : s + T] for s in range(0, L.shape[-1], T)], dim=1)
+
+
 def tri_inv_blocked(L: torch.Tensor, T: int = 64) -> torch.Tensor:
     """W = L^-1 for lower-triangular L [B, N, N], blocked: only the T-sized
     diagonal blocks are solved (one stacked triangular solve), every
@@ -93,8 +104,7 @@ def tri_inv_blocked(L: torch.Tensor, T: int = 64) -> torch.Tensor:
         Lp = torch.eye(P, dtype=L.dtype, device=L.device).repeat(B, 1, 1)
         Lp[:, :N, :N] = L
         return tri_inv_blocked(Lp, T=T)[:, :N, :N]
-    diag = torch.stack([L[:, s : s + T, s : s + T] for s in range(0, N, T)], dim=1)  # [B, N/T, T, T]
-    return tri_inv_from_diag(L, tri_solve(diag, eye.expand(B, N // T, T, T)), T)
+    return tri_inv_from_diag(L, tri_solve(_diag_blocks(L, T), eye.expand(B, N // T, T, T)), T)
 
 
 def chol_inv(K: torch.Tensor, T: int = 64):
@@ -127,11 +137,24 @@ def _blocked_cholesky(K: torch.Tensor, T: int, factor_diag):
     return L, Wdiags
 
 
+def _library_route(K: torch.Tensor) -> bool:
+    """A CUDA Gram outside the kernels' dtype: it goes to ``chol_inv``."""
+    return K.device.type == "cuda" and K.dtype != torch.float32
+
+
 def chol_panels_batched(K: torch.Tensor):
     """Blocked Cholesky of [B, N, N] on the 128-block kernel
     (``panel_chol.factor_panels``). Port of ``_chol_panels_batched``.
     Returns (L [B, N, N], Wdiag [B, N/128, 128, 128]) with
-    Wdiag[:, p] = inv(L[:, pT:(p+1)T, pT:(p+1)T])."""
+    Wdiag[:, p] = inv(L[:, pT:(p+1)T, pT:(p+1)T]). A non-f32 CUDA Gram
+    takes ``cholesky`` and one triangular solve of the stacked diagonal
+    blocks instead."""
+    if _library_route(K):
+        if K.shape[-1] % T_PANEL != 0:
+            raise ValueError(f"N={K.shape[-1]} is not a multiple of the {T_PANEL}-row block")
+        L = cholesky(K)
+        eye = torch.eye(T_PANEL, dtype=K.dtype, device=K.device)
+        return L, tri_solve(_diag_blocks(L, T_PANEL), eye.expand(K.shape[0], K.shape[-1] // T_PANEL, -1, -1))
     L, Wdiags = _blocked_cholesky(K, T_PANEL, factor_panels)
     return L, torch.stack(Wdiags, dim=1)
 
@@ -163,8 +186,13 @@ def chol_winv_batched(K: torch.Tensor):
     Port of ``_chol_winv_batched``. The 64x64 diagonal blocks (and their
     inverses) come from ``block_chol.factor_blocks``; the panel scaling,
     trailing updates and the block-column W assembly are batched matmuls.
-    Returns (L, W = L^-1), both [B, N, N].
+    Returns (L, W = L^-1), both [B, N, N]. A non-f32 CUDA Gram takes
+    ``chol_inv`` instead.
     """
+    if _library_route(K):
+        if K.shape[-1] % T_BLOCK != 0:
+            raise ValueError(f"N={K.shape[-1]} is not a multiple of the {T_BLOCK}-row block")
+        return chol_inv(K, T_BLOCK)
     L, Wdiags = _blocked_cholesky(K, T_BLOCK, factor_blocks)
     return L, tri_inv_from_diag(L, torch.stack(Wdiags, dim=1), T_BLOCK)
 

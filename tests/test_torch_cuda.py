@@ -9,11 +9,14 @@ import numpy as np
 import pytest
 import torch
 
+from gpsat_tpu_torch.models.functional import make_gpr_core
 from gpsat_tpu_torch.ops import block_chol as BC
 from gpsat_tpu_torch.ops import cholesky as CH
 from gpsat_tpu_torch.ops import linalg as LA
 from gpsat_tpu_torch.ops import panel_chol as PC
 from gpsat_tpu_torch.ops.linalg import chol_winv_batched
+from gpsat_tpu_torch.parallel import engine as TE
+from gpsat_tpu_torch.parallel.batching import TileBatch
 
 T = 64
 
@@ -58,6 +61,59 @@ def test_block_kernel_nan_and_refusals():
         BC.factor_blocks(eye[None].double())
     with pytest.raises(ValueError):
         BC.factor_blocks(torch.eye(2 * T, device=dev).reshape(4, T, T).transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 133, 512])
+def test_block_kernel_batches(B):
+    # one matrix, a few, 133 (more blocks than SMs) and the main path's 512,
+    # entries like the driver's (A A^T / 64 + I), against the plain version
+    # (the TPU kernel's 64-step loop; the kernel runs 2x2 blocks of 32 with
+    # an approximate rsqrtf): 1e-4 on L, W and L W - I; then an identity,
+    # which must come back exactly, and zero upper triangles
+    dev = _cuda()
+    K = torch.from_numpy(_spd(B, T, seed=10 + B)).to(dev)
+    L, W = BC.factor_blocks(K)
+    torch.cuda.synchronize()
+    Lr, Wr = BC.factor_blocks_reference(K)
+    assert float((L - Lr).abs().max()) <= 1e-4
+    assert float((W - Wr).abs().max()) <= 1e-4
+    eye = torch.eye(T, device=dev)
+    assert float((torch.matmul(L, W) - eye).abs().max()) <= 1e-4
+    assert float(torch.triu(L, 1).abs().max()) == 0.0 and float(torch.triu(W, 1).abs().max()) == 0.0
+    K[-1] = eye
+    L, W = BC.factor_blocks(K)
+    assert torch.equal(L[-1], eye) and torch.equal(W[-1], eye)
+    assert BC.blocks_per_sm() >= 4  # 512 matrices in one wave on 132 SMs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor", ["block", "panel", "cholesky", "recursive"])
+def test_f64_tile_batch_on_card_matches_cpu(factor):
+    # f64 on the card takes the library arm of the kernel routes (the kernels
+    # take f32 only): the whole fit and predict runs on every route and lands
+    # where the same f64 run on the CPU does, to the north star's 1e-5
+    _cuda()
+    Bt, Nt, Pt, Dt = 4, 256, 8, 2
+    rng = np.random.default_rng(11)
+    X = rng.uniform(-6, 6, (Bt, Nt, Dt))
+    y = np.sin(X[..., 0]) * np.cos(X[..., 1]) + 0.1 * rng.normal(size=(Bt, Nt))
+    mask = np.ones((Bt, Nt))
+    fill = rng.integers(int(0.6 * Nt), Nt + 1, size=Bt)
+    for i, f in enumerate(fill):
+        mask[i, f:] = 0.0
+    batch = TileBatch(X=X, y=y, mask=mask, Xnew=rng.uniform(-4, 4, (Bt, Pt, Dt)), pred_mask=np.ones((Bt, Pt)),
+                      obs_mean=np.zeros(Bt), expert_index=np.arange(Bt), num_obs=fill)
+    core = make_gpr_core(jitter=1e-5, factor=factor)
+    kw = dict(linesearch="single_eval", tol_grad=1e-6, tol_f=1e-11)
+    res = {}
+    for device in ("cuda", "cpu"):
+        runner = TE.make_batched_runner(core, device=device, **kw)
+        res[device] = TE.run_tile_batch(batch, {"smart_init": True}, runner, core, device=device)
+    for key in ("f_mean", "f_var"):
+        assert res["cuda"][key].dtype == np.float64
+        assert float(np.abs(res["cuda"][key] - res["cpu"][key]).max()) <= 1e-5, (factor, key)
+    assert res["cuda"]["converged"].all() and not res["cuda"]["failed"].any()
 
 
 @pytest.mark.cuda

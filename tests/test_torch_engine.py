@@ -169,7 +169,8 @@ def test_port_imports_neither_jax_nor_gpsat_tpu():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
-    sources = sorted((REPO / "gpsat_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "bench_panel_chol.py"]
+    scripts = ("chip_smoke.py", "bench_block_chol.py", "bench_panel_chol.py", "bench_cholesky.py")
+    sources = sorted((REPO / "gpsat_tpu_torch").rglob("*.py")) + [REPO / name for name in scripts]
     for path in sources:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

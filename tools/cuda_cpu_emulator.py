@@ -76,7 +76,11 @@ inline float __frcp_rn(float x) { return 1.0f / x; }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 template <class T> inline T __ldg(const T* p) { return *p; }
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaFuncAttribute {
+    cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+    cudaFuncAttributePreferredSharedMemoryCarveout = 9
+};
+enum cudaSharedCarveout { cudaSharedmemCarveoutMaxL1 = 0, cudaSharedmemCarveoutMaxShared = 100 };
 typedef struct CUstream_st* cudaStream_t;
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
 template <class F> inline cudaError_t cudaFuncSetAttribute(F*, cudaFuncAttribute, int) { return cudaSuccess; }
@@ -113,7 +117,8 @@ def rewrite(text: str) -> str:
     text = re.sub(r"const unsigned d = static_cast<unsigned>\(__cvta_generic_to_shared\(dst\)\);", "", text)
     text = re.sub(r"asm volatile\(.*?\);", "", text, flags=re.S)
     text = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?float (\w+)\[\];", r"float* \1 = emu_smem;", text)
-    text = re.sub(r"__shared__ (float \w+\[[^\]]+\];)", r"static \1", text)  # blocks run one at a time
+    text = re.sub(r"__shared__ (?:__align__\(\d+\) )?(float \w+\[[^\]]+\];)", r"alignas(16) static \1",
+                  text)  # blocks run one at a time
     text = re.sub(r"([\w:]+(?:<[^<>;]*>)?)<<<([^,]+),\s*([^,]+),[^;]*?>>>\((.*?)\);",
                   r"emu_launch(\2, \3, [&]{ \1(\4); });", text, flags=re.S)
     return re.sub(r"^namespace \{", f"namespace {{\nalignas(16) float emu_smem[{SMEM_FLOATS}];", text, count=1,
@@ -193,14 +198,34 @@ def run_block_chol(lib) -> bool:
     fn = lib.gpsat_cholinv64_f32
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    K = spd(3, 64, seed=2)
-    L, W = torch.empty_like(K), torch.empty_like(K)
-    if fn(K.data_ptr(), L.data_ptr(), W.data_ptr(), K.shape[0], None) != 0:
-        raise RuntimeError("gpsat_cholinv64_f32 refused its input")
-    Lr, Wr = BC.factor_blocks_reference(K)
-    err_L, err_W = float((L - Lr).abs().max()), float((W - Wr).abs().max())
-    return check("block_chol [3, 64, 64]", err_L <= 1e-4 and err_W <= 1e-4, max_abs_err_L=err_L,
-                 max_abs_err_W=err_W)
+
+    def factor(K):
+        L, W = torch.full_like(K, float("nan")), torch.full_like(K, float("nan"))  # every element must be written
+        if fn(K.data_ptr(), L.data_ptr(), W.data_ptr(), K.shape[0], None) != 0:
+            raise RuntimeError("gpsat_cholinv64_f32 refused its input")
+        return L, W
+
+    ok = True
+    eye = torch.eye(64)
+    for B in (1, 3, 133):
+        K = spd(B, 64, seed=B)
+        L, W = factor(K)
+        Lr, Wr = BC.factor_blocks_reference(K)
+        Le, We = BC.factor_blocks_blocked_emulation(K)
+        err_L, err_W = float((L - Lr).abs().max()), float((W - Wr).abs().max())
+        emu_L, emu_W = float((L - Le).abs().max()), float((W - We).abs().max())
+        err_LW = float((L @ W - eye).abs().max())
+        upper = max(float(torch.triu(L, 1).abs().max()), float(torch.triu(W, 1).abs().max()))
+        ok &= check(f"block_chol [{B}, 64, 64]",
+                    max(err_L, err_W, err_LW) <= 1e-4 and max(emu_L, emu_W) <= 2e-5 and upper == 0.0,
+                    max_abs_err_L=err_L, max_abs_err_W=err_W, vs_emulation_L=emu_L, vs_emulation_W=emu_W,
+                    max_abs_LW_minus_I=err_LW)
+    L, W = factor(torch.stack([eye, -eye, spd(1, 64, seed=5)[0]]))
+    exact = torch.equal(L[0], eye) and torch.equal(W[0], eye)
+    nan = bool(torch.isnan(L[1]).any()) and bool(torch.isnan(W[1]).any())
+    finite = bool(torch.isfinite(L[2]).all()) and bool(torch.isfinite(W[2]).all())
+    return ok & check("block_chol I, -I, SPD", exact and nan and finite, identity_exact=exact, nan_in_minus_I=nan,
+                      spd_beside_finite=finite)
 
 
 RUNS = {"cholesky": run_cholesky, "panel_chol": run_panel_chol, "block_chol": run_block_chol}
