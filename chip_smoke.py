@@ -39,6 +39,14 @@ Phases (each prints on its own lines; any failure raises):
              predict); the first 8 tiles against the same core in f64 on the
              CPU, on the lanes where neither run collapsed to the pure-noise
              point
+7. oi        the orchestrator's sweep (gpsat_tpu_torch.experts.sweep, the
+             exact-GPR lane that LocalExpertOI.run drives) at the pan-Arctic
+             pipeline geometry of bench_pipeline.py: f32 on the card on the
+             "block" route, then the f64 polish on the card; 16 experts'
+             f32 predictions against an f64 fit on the CPU, and their polished
+             predictions against the CPU's polish from the same f32 optima.
+             It drives the sweep, not LocalExpertOI.run, because the card's
+             machine has no h5py for the results store
 
 Then one {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 Imports nothing of JAX or of gpsat_tpu.
@@ -86,6 +94,25 @@ CPU_F64_KW = dict(linesearch="single_eval", tol_grad=1e-6, tol_f=1e-11)
 # f64 on the card vs f64 on the CPU, the same fit in another summation
 # order: the north star's band for predictions
 F64_BOUND = 1e-5
+# phase 7: bench_pipeline.py's geometry and model config, not cut
+OI_EXTENT, OI_BIN, OI_EXPERT_RES, OI_PRED_RES = 4_500_000.0, 50_000.0, 200_000.0, 25_000.0
+OI_KW = dict(
+    coords_col=["x", "y"],
+    obs_col="z",
+    local_select=[{"col": ["x", "y"], "comp": "<", "val": 300_000.0}],
+    init_params={"kernel": "Matern32", "coords_scale": [50_000, 50_000], "obs_mean": "local",
+                 "noise_variance": 0.0025, "smart_init": True, "jitter": 1e-5},
+    constraints={"lengthscales": {"low": 5_000, "high": 2_000_000}},
+    min_obs=10,
+    pad_multiple=128,
+)
+OI_OPTIM = {"max_iter": 100, "polish": "f64"}
+OI_MAX_DIST = 200_000.0
+# an f64 reference fit whose objective is worse than the card's f32 fit's by
+# more than this stopped on another, worse stationary point; f32 roundoff
+# moves the objective of one optimum by ~1e-2 at these tile sizes
+WORSE_OPTIMUM_NATS = 1.0
+OI_MODE = "sweep"  # the card's machine has pandas but no h5py (PERF.md, section 6)
 
 
 def check(cond, msg):
@@ -393,28 +420,37 @@ def drive(phase, core, batch, init, profile_to=None):
     check(conv >= 0.9 * B, f"{phase}: only {conv}/{B} lanes converged")
 
     if profile_to:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile as tprofile
-
-        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run_tile_batch(batch, init, runner, core)
-            traced_s = time.perf_counter() - t0
-        events = prof.key_averages()
-        # the kernels' own rows only (an aten op's row repeats the time of
-        # the kernels it launched); one stream, so kernels do not overlap
-        device_s = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA) / 1e6
-        own = {e.key: e.self_device_time_total / 1e6 for e in events
-               if e.device_type == DeviceType.CUDA and any(k in e.key for k in OWN_KERNELS)}
-        table = events.table(sort_by="self_device_time_total", row_limit=25)
-        outdir = ROOT / "chiprun_out"
-        outdir.mkdir(exist_ok=True)
-        (outdir / profile_to).write_text(table)
-        print(table, flush=True)
-        log("profile", path=phase, traced_s=traced_s, device_busy_s=device_s, device_busy_share=device_s / traced_s,
-            own_kernels_device_s=own, own_kernels_share_of_device=sum(own.values()) / device_s if device_s else None)
-        check(0.0 < device_s <= traced_s, f"device busy {device_s} s of a {traced_s} s traced call")
+        trace(phase, lambda: run_tile_batch(batch, init, runner, core), profile_to)
     return res, launches, it_max
+
+
+def trace(phase, fn, profile_to):
+    """One traced call of ``fn``: its profiler table goes to
+    chiprun_out/``profile_to``, its device busy share and the port's own
+    kernels' device time to the log."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    events = prof.key_averages()
+    # the kernels' own rows only (an aten op's row repeats the time of
+    # the kernels it launched); one stream, so kernels do not overlap
+    device_s = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA) / 1e6
+    own = {e.key: e.self_device_time_total / 1e6 for e in events
+           if e.device_type == DeviceType.CUDA and any(k in e.key for k in OWN_KERNELS)}
+    table = events.table(sort_by="self_device_time_total", row_limit=25)
+    outdir = ROOT / "chiprun_out"
+    outdir.mkdir(exist_ok=True)
+    (outdir / profile_to).write_text(table)
+    print(table, flush=True)
+    log("profile", path=phase, traced_s=traced_s, device_busy_s=device_s, device_busy_share=device_s / traced_s,
+        own_kernels_device_s=own, own_kernels_share_of_device=sum(own.values()) / device_s if device_s else None)
+    check(0.0 < device_s <= traced_s, f"device busy {device_s} s of a {traced_s} s traced call")
 
 
 def phase_main(batch, init, profile: bool):
@@ -542,6 +578,159 @@ def phase_profiled(batch, init, profile: bool):
     return launches["cholesky"]
 
 
+def cell_centers(res):
+    """Cell centres of a res-sized grid over the pipeline's square domain, x
+    fastest (bench_pipeline.py's grid_2d_flatten)."""
+    edges = np.linspace(-OI_EXTENT, OI_EXTENT, int(2 * OI_EXTENT / res) + 1)
+    c = (edges[:-1] + edges[1:]) / 2.0
+    X, Y = np.meshgrid(c, c)
+    return X.ravel(), Y.ravel()
+
+
+def pipeline_inputs():
+    """bench_pipeline.py's data, numpy seed 0: a binned field at 50 km cells
+    with ~55 % occupancy, experts on the 200 km grid, a 25 km prediction
+    grid. Columns are dicts of arrays."""
+    rng = np.random.default_rng(0)
+    cx, cy = cell_centers(OI_BIN)
+    occupancy = (
+        np.sin(cx / 1.1e6) * np.cos(cy / 1.4e6)
+        + 0.6 * rng.standard_normal(len(cx)) * 0  # draws kept: they fix the seed's stream
+        + rng.uniform(0, 1, len(cx))
+    ) > 0.45
+    cx, cy = cx[occupancy], cy[occupancy]
+    z = (
+        0.3 * np.sin(cx / 8e5) * np.cos(cy / 6e5)
+        + 0.2 * np.sin((cx + cy) / 1.5e6)
+        + 0.05 * rng.standard_normal(len(cx))
+    )
+    ex, ey = cell_centers(OI_EXPERT_RES)
+    px, py = cell_centers(OI_PRED_RES)
+    return {"x": cx, "y": cy, "z": z}, {"x": ex, "y": ey}, {"x": px, "y": py}
+
+
+def phase_oi(profile: bool):
+    """The sweep at the pipeline geometry, f32 on the card with kernel 1 in
+    every evaluation, then the f64 polish on the card (no kernel: f64 takes
+    the library arm). Kernel launch counts are set to 0 just before the sweep
+    and read just after it. Returns kernel 1's launches."""
+    import torch
+
+    from gpsat_tpu_torch.data import select as sel
+    from gpsat_tpu_torch.data.prediction_locations import PredictionLocations
+    from gpsat_tpu_torch.experts import core_for, initial_cparams, sweep
+    from gpsat_tpu_torch.parallel import batching
+    from gpsat_tpu_torch.parallel.engine import make_batched_runner, polish_tile_batch, run_tile_batch
+
+    obs, experts, grid = pipeline_inputs()
+
+    def run(timers):
+        pred_loc = PredictionLocations("from_dataframe", coords_col=["x", "y"], df=grid, max_dist=OI_MAX_DIST)
+        return list(sweep(obs, experts, pred_loc=pred_loc, optim_kwargs=OI_OPTIM, timers=timers, **OI_KW))
+
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+    timers = {}
+    t0 = time.perf_counter()
+    out = run(timers)
+    wall_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters().items()}
+
+    skipped = [r for r in out if r.get("skipped")]
+    buckets = [r for r in out if not r.get("skipped")]
+    n_skipped = sum(len(r["expert_index"]) for r in skipped)
+    cat = {k: np.concatenate([r[k] for r in buckets]) for k in ("expert_index", "converged", "num_iter", "stalled",
+                                                                 "failed", "num_obs")}
+    coarse = {k: np.concatenate([r["coarse"][k] for r in buckets]) for k in ("converged", "num_iter", "stalled",
+                                                                            "failed")}
+    n = len(cat["expert_index"])
+    f_finite = all(np.isfinite(r["f_mean"]).all() and np.isfinite(r["f_var"]).all() for r in buckets)
+    # one factor pair of [B, Nmax, Nmax] per f32 value+grad (the initial one,
+    # one per iteration of the slowest lane) and one in the predict: Nmax/64
+    # launches each; the f64 polish launches none
+    nmax = batching.bucket_size(int(cat["num_obs"].max()))
+    expected = {"block_chol": sum((int(r["coarse"]["num_iter"].max()) + 2) * nmax // T for r in buckets),
+                "panel_chol": 0, "cholesky": 0}
+    log("oi", mode=OI_MODE, experts=len(experts["x"]), run=n, skipped=n_skipped, buckets=len(buckets),
+        observations=len(obs["x"]), prediction_points=int(sum(r["pred_mask"].sum() for r in buckets)),
+        nmax_obs=int(cat["num_obs"].max()), wall_s=wall_s, experts_per_s=n / wall_s,
+        phases_s=timers, converged_f32=int(coarse["converged"].sum()),
+        iters_f32_mean=float(coarse["num_iter"].mean()), iters_f32_max=int(coarse["num_iter"].max()),
+        stall_exits_f32=int(coarse["stalled"].sum()), failed_exits_f32=int(coarse["failed"].sum()),
+        converged_polish=int(cat["converged"].sum()), iters_polish_mean=float(cat["num_iter"].mean()),
+        iters_polish_max=int(cat["num_iter"].max()), stall_exits_polish=int(cat["stalled"].sum()),
+        failed_exits_polish=int(cat["failed"].sum()), launches=launches)
+    check(f_finite, "oi: non-finite predictions")
+    check(coarse["converged"].sum() >= 0.9 * n, f"oi: only {int(coarse['converged'].sum())}/{n} f32 lanes converged")
+    check(cat["converged"].sum() >= 0.9 * n, f"oi: only {int(cat['converged'].sum())}/{n} polished lanes converged")
+    check(launches == expected, f"oi launches {launches}, expected {expected}")
+
+    # 16 experts spread over the run: their tiles again, on the CPU
+    pick = np.sort(cat["expert_index"])[:: max(n // CPU_TILES, 1)][:CPU_TILES]
+    sub_experts = {c: v[pick] for c, v in experts.items()}
+    ix = sel.local_select_indices_all(obs, sub_experts, OI_KW["local_select"])
+    pcs = PredictionLocations("from_dataframe", coords_col=["x", "y"], df=grid, max_dist=OI_MAX_DIST).batch_call(
+        sub_experts)
+    ip, cons = OI_KW["init_params"], OI_KW["constraints"]
+    tiles = batching.assemble_tiles(
+        sel.columns_array(obs, ["x", "y"]), obs["z"], ix, pcs, expert_index=pick,
+        coords_scale=ip["coords_scale"], obs_mean=ip["obs_mean"])
+    check(len(tiles) == 1, f"oi: the compared experts' tiles fill {len(tiles)} buckets, not one")
+    batch = tiles[0]
+    core = core_for(ip, cons)
+    t0 = time.perf_counter()
+    cpu = run_tile_batch(batch, initial_cparams(core, ip, cons, 2), make_batched_runner(core, device="cpu", **CPU_F64_KW),
+                         core, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    coarse_all = {k: np.concatenate([r["coarse"][k] for r in buckets]) for k in ("expert_index", *core.param_names)}
+    t0 = time.perf_counter()
+    cpu_polish = polish_tile_batch(batch, coarse_all, core, max_iter=150, device="cpu")
+    cpu_polish_s = time.perf_counter() - t0
+
+    def card(key, which):
+        """The card's rows for the picked experts, each cut to its P_i."""
+        rows = {}
+        for r in buckets:
+            src = r["coarse"] if which == "coarse" else r
+            for j, e in enumerate(src["expert_index"]):
+                rows[int(e)] = src[key][j]
+        return rows
+
+    def diffs(ref, which):
+        """Per compared expert, max |card - ref| over f_mean and f_var."""
+        out = np.zeros(len(ref["expert_index"]))
+        for key in ("f_mean", "f_var"):
+            got = card(key, which)
+            for j, e in enumerate(ref["expert_index"]):
+                p = int(ref["pred_mask"][j].sum())
+                out[j] = max(out[j], float(np.abs(got[int(e)][:p] - ref[key][j][:p]).max()))
+        return out
+
+    # the single-eval f64 fit from the shared init can stop on a worse
+    # stationary point than the f32 fit found (the JAX package's f64 fit
+    # stops on the same one): compare the experts where it did not, and
+    # only where the card's f32 objective is the better one by > 1 nat
+    card_obj = card("objective", "coarse")
+    f32_obj = np.asarray([card_obj[int(e)] for e in cpu["expert_index"]], dtype=np.float64)
+    worse_ref = cpu["objective"] > f32_obj + WORSE_OPTIMUM_NATS
+    d_f32, d_polish = diffs(cpu, "coarse"), diffs(cpu_polish, "polished")
+    log("oi_accuracy", experts=len(pick), f32_vs_cpu_f64=float(d_f32[~worse_ref].max()), f32_bound=PRED_BOUND,
+        compared=int((~worse_ref).sum()), reference_on_worse_optimum={
+            int(e): {"cpu_f64_objective": float(cpu["objective"][j]), "card_f32_objective": float(f32_obj[j]),
+                     "max_abs_diff": float(d_f32[j])} for j, e in enumerate(cpu["expert_index"]) if worse_ref[j]},
+        polish_card_vs_cpu=float(d_polish.max()), polish_bound=F64_BOUND, cpu_f64_s=cpu_s,
+        cpu_polish_s=cpu_polish_s, converged_cpu_f64=int(cpu["converged"].sum()),
+        converged_cpu_polish=int(cpu_polish["converged"].sum()))
+    check((~worse_ref).sum() >= MIN_COMPARED_SHARE * len(pick),
+          f"oi: the CPU f64 fit stopped on a worse optimum on {int(worse_ref.sum())}/{len(pick)} experts")
+    check(d_f32[~worse_ref].max() <= PRED_BOUND, f"oi: card f32 vs CPU f64 on {len(pick)} experts: {d_f32}")
+    check(d_polish.max() <= F64_BOUND, f"oi: card polish vs CPU polish on {len(pick)} experts: {d_polish.max()}")
+    if profile:
+        trace("oi", lambda: run({}), "profile_oi.txt")
+    return launches["block_chol"]
+
+
 def main(argv) -> int:
     import torch
 
@@ -578,6 +767,7 @@ def main(argv) -> int:
     phase_f64(*phase_accuracy(batch, init))
     entries[1]["launches"] = phase_panel(batch, init, main_res, profile)
     entries[2]["launches"] = phase_profiled(batch, init, profile)
+    entries[0]["launches_oi"] = phase_oi(profile)
 
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -1,0 +1,130 @@
+"""Data loading: source -> filtered, column-derived DataFrame.
+
+The port's own copy of ``gpsat_tpu/data/dataloader.py::load`` and
+``add_cols`` (ref: GPSat/dataloader.py:1294-1800): suffix-based engine
+inference, where pushdown, col_funcs (derived columns via config_func,
+including tuple-key multi-output), row_select, col_select.
+
+Sources this slice reads: a DataFrame (or a dict of columns), a CSV/TSV
+file, and an HDF5 table through the port's ``TableStore``. Parquet, netCDF,
+zarr and reference-produced PyTables stores raise ``NotImplementedError``
+(ROADMAP.md Queue 1 item 9). pandas is imported when ``load`` runs.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import List, Optional, Union
+
+from gpsat_tpu_torch.data import select as sel
+from gpsat_tpu_torch.data.store import TableStore, is_pytables_store
+from gpsat_tpu_torch.utils.config_func import config_func
+
+FILE_SUFFIX_ENGINE_MAP = {
+    "csv": "read_csv",
+    "tsv": "read_csv",
+    "h5": "tablestore",
+    "hdf5": "tablestore",
+    "parquet": "parquet",
+    "zarr": "zarr",
+    "nc": "netcdf4",
+}
+_UNPORTED_ENGINES = ("parquet", "zarr", "netcdf4")
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} is not ported yet; see ROADMAP.md Queue 1 item 9")
+
+
+def add_cols(df, col_func_dict: Optional[dict] = None, filename=None, verbose: bool = False):
+    """Add derived columns in place; tuple keys assign multiple columns
+    (ref: GPSat/dataloader.py:46-134)."""
+    if col_func_dict is None:
+        col_func_dict = {}
+    for new_col, col_fun in col_func_dict.items():
+        if isinstance(new_col, tuple):
+            new_col = list(new_col)
+            vals = config_func(df=df, filename=filename, **col_fun)
+            assert len(vals) == len(new_col), (
+                f"columns: {new_col} have length: {len(new_col)} but function returned {len(vals)} outputs"
+            )
+            for i, v in enumerate(vals):
+                df[new_col[i]] = v
+        else:
+            df[new_col] = config_func(df=df, filename=filename, **col_fun)
+
+
+def _infer_engine(source: str) -> str:
+    suffix = re.sub("^.*\\.", "", source).lower()
+    assert suffix in FILE_SUFFIX_ENGINE_MAP, (
+        f"could not infer engine from suffix: '{suffix}'; known: {FILE_SUFFIX_ENGINE_MAP}"
+    )
+    return FILE_SUFFIX_ENGINE_MAP[suffix]
+
+
+def load(
+    source: Union[str, "pd.DataFrame", TableStore, dict],  # noqa: F821
+    where: Optional[Union[dict, List[dict]]] = None,
+    table: Optional[str] = None,
+    col_funcs: Optional[dict] = None,
+    row_select: Optional[List[dict]] = None,
+    col_select: Optional[List[str]] = None,
+    engine: Optional[str] = None,
+    source_kwargs: Optional[dict] = None,
+    reset_index: bool = False,
+    combine_row_select: str = "AND",
+    verbose: bool = False,
+    **kwargs,
+):
+    """Load + select + derive columns, in the reference's order:
+    where-pushdown -> col_funcs -> row_select -> col_select."""
+    import pandas as pd
+
+    source_kwargs = source_kwargs or {}
+    if isinstance(where, dict):
+        where = [where]
+
+    if isinstance(source, dict):
+        if "_dataframe_" in source:
+            raise ValueError(
+                "source is a serialized DataFrame fingerprint — in-memory "
+                "DataFrame sources don't survive a JSON round trip; use a "
+                "file path in configs written to disk"
+            )
+        # a DataFrame expressed as a column dict in a JSON config
+        source = pd.DataFrame(source)
+    if isinstance(source, pd.DataFrame):
+        df = sel.data_select(source, where=where)
+    elif isinstance(source, TableStore):
+        assert table is not None, "table must be provided when loading from a TableStore"
+        df = source.select(table, where=where).reset_index()
+    else:
+        assert isinstance(source, str), f"source type not handled: {type(source)}"
+        assert os.path.exists(source), f"source file does not exist: {source}"
+        eng = engine or _infer_engine(source)
+        if eng == "read_csv":
+            df = pd.read_csv(source, **source_kwargs)
+            df = sel.data_select(df, where=where)
+        elif eng == "tablestore":
+            assert table is not None, "table must be provided when loading from an h5 store"
+            if is_pytables_store(source):
+                raise _not_ported("reading a pandas-HDFStore (PyTables) file")
+            with TableStore(source, mode="r") as ts:
+                df = ts.select(table, where=where).reset_index()
+        elif eng in _UNPORTED_ENGINES:
+            raise _not_ported(f"the {eng} reader")
+        else:
+            raise ValueError(f"engine: {eng} not handled")
+
+    add_cols(df, col_funcs, filename=source if isinstance(source, str) else None, verbose=verbose)
+
+    if row_select is not None:
+        df = df.loc[sel.row_select_bool(df, row_select, combine=combine_row_select)]
+
+    if col_select is not None:
+        df = df.loc[:, col_select]
+
+    if reset_index:
+        df = df.reset_index(drop=True)
+    return df

@@ -1,0 +1,853 @@
+"""LocalExpertOI — the experiment orchestrator, exact-GPR lane.
+
+Port of ``gpsat_tpu/experts.py`` (ref: GPSat/local_experts.py:116-1279). It
+keeps the JAX package's config surface and results schema:
+
+  1. group experts by their global-select where-list (dynamic selects
+     evaluated per expert), loading each group's observations once;
+  2. compute every expert's local-selection index set and prediction
+     locations on the host;
+  3. assemble padded tile buckets (``parallel.batching``) and run each as
+     one batched program on the card (``parallel.engine``), optionally
+     followed by the f64 polish;
+  4. write the reference-schema result tables: oi_config, expert_locs,
+     run_details, preds, one table per stored hyperparameter, all
+     multi-indexed by expert coordinates with an optional table_suffix.
+
+Steps 2-3 are ``sweep``: it takes columns as a mapping of name -> array
+and needs neither pandas nor h5py. ``LocalExpertOI`` wraps it with loading,
+grouping, the min-obs skips and the store (pandas, h5py). Experts present in
+run_details are skipped on a rerun, and the config is checked against the
+stored oi_config, also for a store the JAX package wrote.
+
+The compute dtype is an argument of ``run`` (``dtype``, default
+``torch.float32``), as is the device (``device``, default the CUDA device);
+neither is stored in the config. Options outside the exact-GPR lane raise
+``NotImplementedError`` naming their ROADMAP.md item: carry_iters,
+two_stage_iters, load_params, replacement_threshold, models without a GPR
+core, mesh and profile_dir.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import json
+import os
+import time
+import warnings
+from typing import Iterator, Optional, Union
+
+import numpy as np
+import torch
+
+from gpsat_tpu_torch.data import dataloader as DL
+from gpsat_tpu_torch.data import select as sel
+from gpsat_tpu_torch.data.prediction_locations import PredictionLocations
+from gpsat_tpu_torch.data.store import TableStore, is_pytables_store
+from gpsat_tpu_torch.models import GPRModel, get_model
+from gpsat_tpu_torch.models.functional import ModelCore, make_gpr_core
+from gpsat_tpu_torch.models.gpr import PARAM_NAMES
+from gpsat_tpu_torch.ops import transforms as T
+from gpsat_tpu_torch.parallel import batching
+from gpsat_tpu_torch.parallel.engine import (
+    _no_mesh,
+    make_batched_runner,
+    polish_tile_batch,
+    resolve_device,
+    resolve_linesearch,
+    run_tile_batch_async,
+)
+from gpsat_tpu_torch.utils.misc import cprint, json_serializable
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet; see ROADMAP.md Queue 1 item {item}")
+
+
+@dataclasses.dataclass
+class LocalExpertData:
+    """Observation source + selection spec (ref: local_experts.py:43-112)."""
+
+    obs_col: Union[str, None] = None
+    coords_col: Union[list, None] = None
+    global_select: Union[list, None] = None
+    local_select: Union[list, None] = None
+    where: Union[list, None] = None
+    row_select: Union[list, None] = None
+    col_select: Union[list, None] = None
+    col_funcs: Union[dict, None] = None
+    table: Union[str, None] = None
+    data_source: object = None
+    engine: Union[str, None] = None
+    read_kwargs: Union[dict, None] = None
+
+    def load(self, where=None, **kwargs):
+        use_where = list(self.where) if self.where is not None else None
+        if where is not None:
+            where = where if isinstance(where, list) else [where]
+            use_where = (use_where or []) + where
+        return DL.load(
+            source=self.data_source,
+            where=use_where,
+            table=self.table,
+            col_funcs=self.col_funcs,
+            row_select=self.row_select,
+            col_select=self.col_select,
+            engine=self.engine,
+            source_kwargs=self.read_kwargs,
+            **kwargs,
+        )
+
+
+class _phase:
+    """Adds the seconds spent inside the block to ``timers[name]``.
+
+    Host phases are timed around their call sites; "device_fetch" is the
+    time the host waits for a bucket's results. Under the one-deep bucket
+    pipeline the card runs while the host stores the previous bucket, so the
+    phases need not sum to the run's wall time ("run_wall")."""
+
+    def __init__(self, timers: dict, name: str):
+        self.timers, self.name = timers, name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        self.timers[self.name] = self.timers.get(self.name, 0.0) + time.perf_counter() - self.t0
+        return False
+
+
+# --------------------------------------------------------------------------
+# config persistence (ref: GPSat/utils.py:1136-1327)
+# --------------------------------------------------------------------------
+
+
+def _comparable_config_str(oi_config, skip_keys=()) -> str:
+    """Canonical JSON of a config restricted to the keys config matching
+    should care about: run_kwargs/misc and any skip_valid_checks_on keys
+    are dropped, so a rerun that only changes e.g. store_every reuses the
+    same config_id."""
+    skip = set(skip_keys) | {"run_kwargs", "misc"}
+    cfg = {k: v for k, v in json_serializable(oi_config).items() if k not in skip}
+    return json.dumps(cfg, sort_keys=True)
+
+
+def get_previous_oi_config(store_path, oi_config, skip_valid_checks_on=None, table_name="oi_config"):
+    """Match the config against the stored ones; append it if new.
+
+    Returns (prev_config, skip_valid_checks_on, config_id).
+    """
+    import pandas as pd
+
+    skip_valid_checks_on = list(skip_valid_checks_on or [])
+    cfg_str = json.dumps(json_serializable(oi_config), sort_keys=True)
+    cmp_str = _comparable_config_str(oi_config, skip_valid_checks_on)
+    with TableStore(store_path) as store:
+        if table_name in store:
+            prev = store.select(table_name, set_index=False)
+            for _, row in prev.iterrows():
+                if _comparable_config_str(json.loads(row["config"]), skip_valid_checks_on) == cmp_str:
+                    return json.loads(row["config"]), skip_valid_checks_on, int(row["config_id"])
+            config_id = int(prev["config_id"].max()) + 1
+            prev_config = json.loads(prev.iloc[-1]["config"])
+        else:
+            config_id = 0
+            prev_config = oi_config
+        store.append(
+            table_name,
+            pd.DataFrame(
+                {"config_id": [config_id], "datetime": [datetime.datetime.now().isoformat()], "config": [cfg_str]}
+            ),
+        )
+    return prev_config, skip_valid_checks_on, config_id
+
+
+def check_prev_oi_config(prev_oi_config, oi_config, skip_valid_checks_on=None):
+    """Assert the configs agree, except for skipped keys (ref: utils.py:1276-1327)."""
+    skip_valid_checks_on = list(skip_valid_checks_on or []) + ["run_kwargs", "misc"]
+    prev = json_serializable(prev_oi_config)
+    cur = json_serializable(oi_config)
+    for k in cur.keys():
+        if k in skip_valid_checks_on:
+            continue
+        assert json.dumps(prev.get(k), sort_keys=True) == json.dumps(cur.get(k), sort_keys=True), (
+            f"config key '{k}' differs from the previously stored oi_config; "
+            f"use a new store_path, delete the store, or add '{k}' to skip_valid_checks_on"
+        )
+
+
+# --------------------------------------------------------------------------
+# the exact-GPR lane
+# --------------------------------------------------------------------------
+
+_ZOO_MODELS = ("SGPRModel", "GPflowSGPRModel", "SVGPModel", "GPflowSVGPModel", "VFFModel", "GPflowVFFModel",
+               "ASVGPModel", "GPflowASVGPModel")
+
+
+def make_core_for_model(model_cls, kernel: str, bijectors, init_params) -> ModelCore:
+    """Map a model class to its functional core (exact GPR only)."""
+    name = getattr(model_cls, "__name__", "")
+    if model_cls is GPRModel or name in ("GPRModel", "GPflowGPRModel"):
+        return make_gpr_core(
+            kernel=kernel,
+            bijectors=bijectors_from(bijectors),
+            jitter=init_params.get("jitter", 0.0),
+            mean_function=init_params.get("mean_function"),
+        )
+    if name in _ZOO_MODELS:
+        raise _not_ported(f"model {name}", 7)
+    raise _not_ported(f"a model without a batched core ({model_cls}, the host-serial lane)", 3)
+
+
+def bijectors_from(bij):
+    """Constraint bijectors -> the full bijector map (softplus for the
+    params without a constraint; ref: gpflow_models.py:416-494)."""
+    out = {name: T.POSITIVE for name in PARAM_NAMES}
+    if bij:
+        out.update(bij)
+    return out
+
+
+def core_for(init_params: dict, constraints=None, model_cls=GPRModel) -> ModelCore:
+    """The functional core for a model + init params + constraints.
+
+    Lengthscale constraints given in raw units are rescaled by coords_scale
+    (ref: local_experts.py:1110-1117)."""
+    ip = init_params or {}
+    bijectors = None
+    if constraints:
+        bijectors = {}
+        coords_scale = np.asarray(ip.get("coords_scale", 1.0), dtype=float).reshape(-1)
+        for pname, c in constraints.items():
+            low = np.asarray(c["low"], dtype=float)
+            high = np.asarray(c["high"], dtype=float)
+            if pname == "lengthscales" and ip.get("coords_scale") is not None:
+                low = low / coords_scale
+                high = high / coords_scale
+            bijectors[pname] = T.interval(low, high)
+    return make_core_for_model(model_cls, kernel=ip.get("kernel", "Matern32"), bijectors=bijectors, init_params=ip)
+
+
+def initial_cparams(core: ModelCore, init_params: dict, constraints, D: int) -> dict:
+    """Initial constrained params from init_params, nudged inside any
+    sigmoid constraint (ref: gpflow_models.py:470-479, tol 1e-2)."""
+    ip = init_params or {}
+    overrides = {}
+    kk = ip.get("kernel_kwargs", {}) or {}
+    if "lengthscales" in kk:
+        overrides["lengthscales"] = kk["lengthscales"]
+    if "variance" in kk:
+        overrides["kernel_variance"] = kk["variance"]
+    if ip.get("noise_variance") is not None:
+        overrides["likelihood_variance"] = ip["noise_variance"]
+    out = core.init_cparams(D, overrides=overrides)
+    if ip.get("smart_init"):
+        # data-driven per-tile init computed in the engine (a documented
+        # divergence from the reference's fixed unit init)
+        out["smart_init"] = True
+    if constraints:
+        coords_scale = np.asarray(ip.get("coords_scale", 1.0), dtype=float).reshape(-1)
+        for pname, c in constraints.items():
+            if pname not in out:
+                continue
+            low = np.asarray(c["low"], dtype=float)
+            high = np.asarray(c["high"], dtype=float)
+            if pname == "lengthscales" and ip.get("coords_scale") is not None:
+                low = low / coords_scale
+                high = high / coords_scale
+            out[pname] = np.reshape(T.move_within_tol(out[pname], low, high, tol=1e-2), np.shape(out[pname]))
+    return out
+
+
+def check_optim_kwargs(optim_kwargs: dict, dtype=torch.float32):
+    """Raise for the optimiser options this lane does not take."""
+    for k in ("carry_iters", "two_stage_iters"):
+        if optim_kwargs.get(k):
+            raise _not_ported(f"optim_kwargs {k!r} (unconverged-lane compaction)", 2)
+    resolve_linesearch(optim_kwargs.get("linesearch"), dtype)
+
+
+def sweep(
+    columns,
+    expert_locs,
+    *,
+    coords_col: list,
+    obs_col,
+    local_select: Optional[list],
+    pred_loc: PredictionLocations,
+    init_params: Optional[dict] = None,
+    constraints: Optional[dict] = None,
+    optim_kwargs: Optional[dict] = None,
+    optimise: bool = True,
+    predict: bool = True,
+    min_obs: int = 3,
+    max_batch_size: Optional[int] = None,
+    pad_multiple: Optional[int] = None,
+    dtype=torch.float32,
+    device=None,
+    timers: Optional[dict] = None,
+) -> Iterator[dict]:
+    """Fit and predict every expert of ``expert_locs`` on ``columns``.
+
+    ``columns`` and ``expert_locs`` are DataFrames or mappings of column
+    name -> array; nothing here imports pandas or h5py. The sweep runs local
+    selection, prediction locations, tile assembly, then each bucket on
+    ``device`` in ``dtype`` and, with ``optim_kwargs["polish"]`` "f64" (or
+    True), the f64 polish on the same device.
+
+    It yields, first, the experts skipped for fewer than ``min_obs``
+    observations (or no prediction location) as ``{"skipped": True,
+    "expert_index", "num_obs"}``, then one result dict per bucket: the
+    engine's keys, ``pred_coords`` (each expert's raw [P_i, D] prediction
+    coordinates), ``batch_s`` (seconds from dispatch to result) and, after
+    the polish, ``coarse`` (the result in ``dtype`` it started from).
+    ``expert_index`` counts rows of ``expert_locs``. Buckets run one deep:
+    a bucket's result is yielded after the next bucket is dispatched.
+    Seconds per phase accumulate into ``timers``.
+    """
+    dev = resolve_device(device)
+    ip = init_params or {}
+    optim_kwargs = dict(optim_kwargs or {})
+    check_optim_kwargs(optim_kwargs, dtype)
+    timers = {} if timers is None else timers
+    core = core_for(ip, constraints)
+    for k in ("learning_rate", "check_every", "persistence"):
+        if optim_kwargs.get(k) is not None:
+            warnings.warn(f"{k} only applies to Adam-optimized cores; ignored for {core.name}")
+    fixed = tuple(dict.fromkeys(tuple(optim_kwargs.get("fixed_params", ())) + tuple(core.default_fixed_params)))
+    runner = make_batched_runner(
+        core,
+        fixed_params=fixed,
+        max_iter=int(optim_kwargs.get("max_iter", 10_000)),
+        optimise=optimise,
+        linesearch=optim_kwargs.get("linesearch"),
+        max_linesearch_steps=int(optim_kwargs.get("max_linesearch_steps", 32)),
+        memory_size=int(optim_kwargs.get("memory_size", 10)),
+        device=dev,
+    )
+    polish = optimise and optim_kwargs.get("polish") in ("f64", True)
+
+    obs_name = obs_col if isinstance(obs_col, str) else obs_col[0]
+    E = sel.num_rows(expert_locs)
+    with _phase(timers, "host_select"):
+        sel_ix = sel.local_select_indices_all(columns, expert_locs, local_select or [])
+        pcs = pred_loc.batch_call(expert_locs) if predict else [np.zeros((0, len(coords_col)))] * E
+    run = [e for e in range(E) if len(sel_ix[e]) >= min_obs and not (predict and len(pcs[e]) == 0)]
+    if len(run) < E:
+        skipped = np.setdiff1d(np.arange(E), run)
+        yield {"skipped": True, "expert_index": skipped, "num_obs": np.asarray([len(sel_ix[e]) for e in skipped])}
+    if not run:
+        return
+
+    with _phase(timers, "host_assembly"):
+        tiles = batching.assemble_tiles(
+            sel.columns_array(columns, coords_col),
+            np.asarray(columns[obs_name], dtype=float),
+            [sel_ix[e] for e in run],
+            [pcs[e] for e in run],
+            expert_index=np.asarray(run),
+            expert_locs=sel.columns_array(expert_locs, coords_col)[run],
+            coords_scale=ip.get("coords_scale"),
+            obs_mean=ip.get("obs_mean"),
+            max_batch_size=max_batch_size,
+            # dense exact GPR keeps ~8 [B, Nmax, Nmax] buffers live
+            memory_cap=True,
+            device=dev,
+        )
+    init_cparams = initial_cparams(core, ip, constraints, len(coords_col))
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+
+    def finish(fin, batch, t0):
+        with _phase(timers, "device_fetch"):
+            res = fin()
+        if polish:
+            with _phase(timers, "polish"):
+                coarse = res
+                res = polish_tile_batch(
+                    batch, coarse, core,
+                    max_iter=int(optim_kwargs.get("polish_max_iter", 150)),
+                    fixed_params=tuple(optim_kwargs.get("fixed_params", ())),
+                    device=dev,
+                )
+            res["coarse"] = coarse
+        res["pred_coords"] = [pcs[int(e)] for e in res["expert_index"]]
+        res["batch_s"] = time.perf_counter() - t0
+        return res
+
+    pending = None
+    for b in tiles:
+        t0 = time.perf_counter()
+        with _phase(timers, "device_dispatch"):
+            # tiles are assembled in f64; the polish re-fits from them
+            fin = run_tile_batch_async(
+                batching.cast_batch(b, np_dtype), init_cparams, runner, core, pad_multiple=pad_multiple, device=dev
+            )
+        if pending is not None:
+            yield finish(*pending)  # the host stores it while the card runs b
+        pending = (fin, b, t0)
+    yield finish(*pending)
+
+
+# --------------------------------------------------------------------------
+# orchestrator
+# --------------------------------------------------------------------------
+
+
+class LocalExpertOI:
+    """Config-driven local-expert OI experiment (batched, on one card)."""
+
+    def __init__(
+        self,
+        expert_loc_config: Optional[dict] = None,
+        data_config: Optional[dict] = None,
+        model_config: Optional[dict] = None,
+        pred_loc_config: Optional[dict] = None,
+        local_expert_config=None,
+    ):
+        if local_expert_config is not None:
+            expert_loc_config = local_expert_config.expert_locs_config
+            data_config = local_expert_config.data_config
+            model_config = local_expert_config.model_config
+            pred_loc_config = local_expert_config.prediction_locs_config
+
+        # config dataclasses are accepted as well as dicts
+        def as_dict(cfg):
+            return cfg.to_dict() if hasattr(cfg, "to_dict") else cfg
+
+        self.config = {}
+        self.expert_locs = None
+        self.data = None
+        self.model = None
+        self.phase_timers = {}
+
+        self.set_expert_locations(**(as_dict(expert_loc_config) or {}))
+        self.set_data(**(as_dict(data_config) or {}))
+        self.set_model(**(as_dict(model_config) or {}))
+        self.set_pred_loc(**(as_dict(pred_loc_config) or {}))
+
+    # ---- setters (config capture mirrors _method_inputs_to_config) ----
+    def set_expert_locations(
+        self,
+        df=None,
+        file=None,
+        source=None,
+        where=None,
+        col_funcs=None,
+        keep_cols=None,
+        col_select=None,
+        row_select=None,
+        sort_by=None,
+        reset_index=False,
+        source_kwargs=None,
+        verbose=False,
+        **kwargs,
+    ):
+        cfg = {k: v for k, v in locals().items() if k not in ("self", "kwargs") and v is not None}
+        cfg.update(kwargs)
+        self.config["locations"] = json_serializable(cfg)
+
+        if col_select is None and keep_cols is not None:
+            col_select = keep_cols
+        if source is None:
+            source = df if df is not None else file
+        if source is None:
+            return None
+
+        locs = DL.load(
+            source=source,
+            where=where,
+            source_kwargs=source_kwargs,
+            col_funcs=col_funcs,
+            row_select=row_select,
+            col_select=col_select,
+            reset_index=reset_index,
+            verbose=verbose,
+            **kwargs,
+        )
+        if sort_by:
+            locs = locs.sort_values(sort_by)
+        self.expert_locs = locs
+
+    def set_data(self, **kwargs):
+        self.config["data"] = json_serializable({k: v for k, v in kwargs.items() if v is not None})
+        self.data = LocalExpertData(**kwargs)
+
+    def set_model(
+        self,
+        oi_model=None,
+        init_params=None,
+        constraints=None,
+        load_params=None,
+        optim_kwargs=None,
+        pred_kwargs=None,
+        params_to_store=None,
+        replacement_threshold=None,
+        replacement_model=None,
+        replacement_init_params=None,
+        replacement_constraints=None,
+        replacement_optim_kwargs=None,
+        replacement_pred_kwargs=None,
+    ):
+        cfg = {k: v for k, v in locals().items() if k != "self" and v is not None}
+        self.config["model"] = json_serializable(cfg)
+        if load_params:
+            raise _not_ported("load_params (warm starts from stored or given parameters)", 3)
+        if replacement_threshold is not None:
+            raise _not_ported("replacement_threshold (the replacement-model lane)", 3)
+        if isinstance(oi_model, dict):
+            raise _not_ported("oi_model given as {path_to_model, model_name} (the host-serial lane)", 3)
+
+        self.oi_model_name = oi_model if isinstance(oi_model, str) else getattr(oi_model, "__name__", str(oi_model))
+        self.model = get_model(oi_model) if isinstance(oi_model, str) else oi_model
+        self.model_init_params = init_params or {}
+        self.constraints = constraints
+        self.optim_kwargs = optim_kwargs or {}
+        self.pred_kwargs = pred_kwargs or {}
+        self.params_to_store = None if params_to_store == "all" else params_to_store
+
+    def set_pred_loc(self, **kwargs):
+        self.config["pred_loc"] = json_serializable({k: v for k, v in kwargs.items() if v is not None})
+        self.pred_loc = PredictionLocations(**kwargs)
+        if isinstance(self.data, LocalExpertData) and self.data.coords_col is not None:
+            self.pred_loc.coords_col = self.data.coords_col
+
+    # ---- helpers ----
+    @staticmethod
+    def _remove_previously_run_locations(store_path, xprt_locs, table="run_details"):
+        if not os.path.exists(store_path):
+            return xprt_locs
+        with TableStore(store_path) as store:
+            if table not in store:
+                return xprt_locs
+            prev = store.select(table)
+            idx_names = [n for n in prev.index.names if n is not None]
+            if not idx_names:
+                return xprt_locs
+            prev = prev.reset_index()[idx_names].drop_duplicates()
+        tmp = xprt_locs.merge(prev, how="left", on=idx_names, indicator="found_already")
+        keep = (tmp["found_already"] == "left_only").values
+        cprint(f"for table: {table} keeping {keep.sum()} / {len(keep)} expert locations", c="OKCYAN")
+        return xprt_locs.loc[keep].copy()
+
+    def _core_for(self, model_cls=None, init_params=None, constraints=None) -> ModelCore:
+        """The functional core for a model + init params."""
+        return core_for(
+            self.model_init_params if init_params is None else init_params,
+            self.constraints if constraints is None else constraints,
+            model_cls=self.model if model_cls is None else model_cls,
+        )
+
+    # ---- the sweep ----
+    def run(self, *args, **kwargs):
+        """Run the sweep (see _run for the full signature). Seconds per
+        phase accumulate into a fresh ``self.phase_timers`` for each call."""
+        self.phase_timers = {}
+        return self._run(*args, **kwargs)
+
+    def _run(
+        self,
+        store_path: str = None,
+        store_every: int = 10,
+        check_config_compatible: bool = True,
+        skip_valid_checks_on=None,
+        optimise: bool = True,
+        predict: bool = True,
+        min_obs: int = 3,
+        table_suffix: str = "",
+        mesh=None,
+        max_batch_size: Optional[int] = None,
+        pad_multiple: Optional[int] = None,
+        profile_dir: Optional[str] = None,
+        device=None,
+        dtype=torch.float32,
+    ):
+        """``device`` (default: the CUDA device, which must exist) and
+        ``dtype`` (``torch.float32`` or ``torch.float64``, or their names)
+        choose where and in what precision buckets run; they stand where
+        the JAX package's ``mesh`` and ``jax_enable_x64`` do, and are not
+        stored in the config."""
+        import pandas as pd
+
+        self.config["run_kwargs"] = json_serializable(
+            dict(
+                store_path=store_path,
+                store_every=store_every,
+                check_config_compatible=check_config_compatible,
+                skip_valid_checks_on=skip_valid_checks_on,
+                optimise=optimise,
+                predict=predict,
+                min_obs=min_obs,
+                table_suffix=table_suffix,
+            )
+        )
+        t_start = time.perf_counter()
+        timers = self.phase_timers
+
+        # every refusal comes before the store is touched
+        _no_mesh(mesh)
+        if profile_dir is not None:
+            raise _not_ported("profile_dir (tracing a run)", 3)
+        dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+        dev = resolve_device(device)
+        check_optim_kwargs(self.optim_kwargs, dtype)
+        param_names = self._core_for().param_names
+        assert isinstance(self.expert_locs, pd.DataFrame), "expert_locs must be a DataFrame — call set_expert_locations"
+        assert self.data is not None and self.data.data_source is not None, "'data_source' is None"
+        assert self.model is not None, "'model' is None — call set_model"
+        assert isinstance(store_path, str), f"store_path expected str, got: {type(store_path)}"
+        min_obs = max(int(min_obs), 1)
+
+        if os.path.dirname(store_path):
+            os.makedirs(os.path.dirname(store_path), exist_ok=True)
+
+        coords_col = self.data.coords_col
+
+        # --- config id / compat ---
+        prev_cfg, skip_checks, config_id = get_previous_oi_config(
+            store_path, self.config, skip_valid_checks_on, table_name=f"oi_config{table_suffix}"
+        )
+        if check_config_compatible:
+            check_prev_oi_config(prev_cfg, self.config, skip_checks)
+
+        # --- expert locations bookkeeping ---
+        store_locs = self._remove_previously_run_locations(
+            store_path, self.expert_locs.copy(), table=f"expert_locs{table_suffix}"
+        )
+        if len(store_locs):
+            with TableStore(store_path) as store:
+                store.append(f"expert_locs{table_suffix}", store_locs.set_index(coords_col))
+
+        xprt_locs = self._remove_previously_run_locations(
+            store_path, self.expert_locs.copy(), table=f"run_details{table_suffix}"
+        )
+        if len(xprt_locs) == 0:
+            cprint("all expert locations already run; nothing to do", c="OKGREEN")
+            return None
+
+        # --- group experts by their (dynamic) global-select where list ---
+        groups = {}
+        for i in range(len(xprt_locs)):
+            where = sel.get_where_list(
+                self.data.global_select or [], local_select=self.data.local_select, ref_loc=xprt_locs.iloc[[i]]
+            )
+            key = json.dumps(json_serializable(where), sort_keys=True, default=str)
+            groups.setdefault(key, {"where": where, "rows": []})
+            groups[key]["rows"].append(i)
+
+        device_name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+        model_name = f"gpsat_tpu_torch.{getattr(self.model, '__name__', str(self.model))}"
+        total = len(xprt_locs)
+        done = 0
+        for grp in groups.values():
+            with _phase(timers, "host_load"):
+                df = self.data.load(where=grp["where"] if grp["where"] else None, reset_index=True)
+            rows = np.asarray(grp["rows"])
+            results = sweep(
+                df,
+                xprt_locs.iloc[rows],
+                coords_col=coords_col,
+                obs_col=self.data.obs_col,
+                local_select=self.data.local_select,
+                pred_loc=self.pred_loc,
+                init_params=self.model_init_params,
+                constraints=self.constraints,
+                optim_kwargs=self.optim_kwargs,
+                optimise=optimise,
+                predict=predict,
+                min_obs=min_obs,
+                max_batch_size=max_batch_size,
+                pad_multiple=pad_multiple,
+                dtype=dtype,
+                device=dev,
+                timers=timers,
+            )
+            for res in results:
+                eis = rows[res["expert_index"]]
+                with _phase(timers, "host_store"):
+                    if res.get("skipped"):
+                        # record min-obs skips so restarts don't retry them
+                        # (ref: local_experts.py:988-1012)
+                        n = len(eis)
+                        tables = {
+                            f"run_details{table_suffix}": self._run_details_rows(
+                                xprt_locs, eis, coords_col, num_obs=res["num_obs"], run_time=np.full(n, np.nan),
+                                objective=np.full(n, np.nan), optimised=optimise, success=np.zeros(n, dtype=bool),
+                                num_iter=np.zeros(n), stalled=np.zeros(n, dtype=bool), model_name=model_name,
+                                device_name="", config_id=config_id,
+                            )
+                        }
+                    else:
+                        tables = self._result_tables(
+                            {**res, "expert_index": eis}, param_names, xprt_locs, coords_col, table_suffix,
+                            optimise, model_name, device_name, config_id, predict,
+                        )
+                    with TableStore(store_path) as store:
+                        for name, frame in tables.items():
+                            store.append(name, frame)
+                done += len(eis)
+                if not res.get("skipped"):
+                    cprint(f"{done} / {total} experts done ({res['batch_s']:.2f}s for batch of {len(eis)})",
+                           c="OKCYAN")
+
+        timers["run_wall"] = time.perf_counter() - t_start
+        split = ", ".join(f"{k} {v:.2f}s" for k, v in sorted(timers.items()))
+        cprint(f"phases: {split}", c="OKBLUE")
+        cprint(f"'run': {timers['run_wall']:.3f} seconds", c="OKGREEN")
+        return None
+
+    # ---- table building ----
+    @staticmethod
+    def _expert_index_batch(xprt_locs, eis, coords_col):
+        """(Multi)Index rows for many experts at once, one per entry of
+        ``eis`` (row positions into ``xprt_locs``), with the level dtypes
+        of the expert-location frame."""
+        import pandas as pd
+
+        if len(coords_col) == 1:
+            c = coords_col[0]
+            return pd.Index(xprt_locs[c].to_numpy()[eis], name=c)
+        return pd.MultiIndex.from_arrays([xprt_locs[c].to_numpy()[eis] for c in coords_col], names=coords_col)
+
+    def _run_details_rows(self, xprt_locs, eis, coords_col, *, num_obs, run_time, objective, optimised, success,
+                          num_iter, stalled, model_name, device_name, config_id):
+        """run_details rows for experts ``eis`` (ref schema:
+        local_experts.py:499-550)."""
+        import pandas as pd
+
+        B = len(eis)
+        return pd.DataFrame(
+            {
+                "_dim_0": np.zeros(B, dtype=int),
+                "num_obs": np.asarray(num_obs, dtype=int),
+                "run_time": np.asarray(run_time, dtype=float),
+                "objective_value": np.asarray(objective, dtype=float),
+                "parameters_optimised": np.full(B, bool(optimised)),
+                "optimise_success": np.asarray(success, dtype=bool),
+                # float column, as the JAX package's: NaN marks host models
+                # that hide their iteration count
+                "num_iter": np.asarray(num_iter, dtype=float),
+                # the exit was the L-BFGS stall guard, not a tolerance
+                "stalled": np.asarray(stalled, dtype=bool),
+                "model": np.full(B, model_name[:64], dtype=object),
+                "device": np.full(B, device_name[:64], dtype=object),
+                "config_id": np.full(B, config_id),
+            },
+            index=self._expert_index_batch(xprt_locs, eis, coords_col),
+        )
+
+    def _result_tables(self, res, param_names, xprt_locs, coords_col, table_suffix, optimise, model_name,
+                       device_name, config_id, predict) -> dict:
+        """One bucket's result tables: preds, run_details and one table per
+        stored parameter, built from the stacked result arrays with the JAX
+        package's row order, dtypes and index values."""
+        import pandas as pd
+
+        store_params = param_names if self.params_to_store is None else self.params_to_store
+        store_params = [p for p in store_params if p in res]
+        eis = np.asarray(res["expert_index"], dtype=int)
+        B = len(eis)
+        base_idx = self._expert_index_batch(xprt_locs, eis, coords_col)
+        tables = {}
+
+        pm = np.asarray(res["pred_mask"])
+        P_i = pm.sum(axis=1).astype(int) if pm.ndim == 2 else np.zeros(B, dtype=int)
+        if predict and P_i.sum() > 0:
+            # padded [B, Pmax] arrays flatten to concatenated [:P_i] rows
+            # (row-major boolean indexing == expert-major row order)
+            Pmax = pm.shape[1]
+            prefix = np.arange(Pmax)[None, :] < P_i[:, None]
+            pc_all = np.concatenate([np.asarray(pc)[:p] for pc, p in zip(res["pred_coords"], P_i) if p > 0])
+            data = {
+                "_dim_0": np.broadcast_to(np.arange(Pmax), (B, Pmax))[prefix],
+                "f*": np.asarray(res["f_mean"])[prefix],
+                "f*_var": np.asarray(res["f_var"])[prefix],
+                "y_var": np.asarray(res["y_var"])[prefix],
+                "f_bar": np.repeat(np.asarray(res["obs_mean"]), P_i),
+            }
+            for ci, c in enumerate(coords_col):
+                data[f"pred_loc_{c}"] = pc_all[:, ci]
+            pdf = pd.DataFrame(data)
+            pdf.index = base_idx.repeat(P_i)
+            tables[f"preds{table_suffix}"] = pdf
+
+        tables[f"run_details{table_suffix}"] = self._run_details_rows(
+            xprt_locs, eis, coords_col, num_obs=res["num_obs"], run_time=np.full(B, res["batch_s"] / max(B, 1)),
+            objective=res["objective"], optimised=optimise, success=res["converged"], num_iter=res["num_iter"],
+            stalled=res.get("stalled", np.zeros(B, dtype=bool)), model_name=model_name, device_name=device_name,
+            config_id=config_id,
+        )
+
+        for pname in store_params:
+            arr = np.asarray(res[pname])
+            if arr.ndim == 1:
+                arr = arr[:, None]  # scalars store as one _dim_0=0 row
+            shape = arr.shape[1:]
+            size = int(np.prod(shape))
+            # n-d params flatten with one _dim_k column per axis
+            # (ref: utils.py:1437-1496 array_to_dataframe)
+            dims = np.indices(shape).reshape(len(shape), -1)
+            data = {f"_dim_{k}": np.tile(dims[k], B) for k in range(len(shape))}
+            data[pname] = arr.reshape(B, -1).ravel()
+            pdf = pd.DataFrame(data)
+            pdf.index = base_idx.repeat(size)
+            tables[f"{pname}{table_suffix}"] = pdf
+        return tables
+
+
+# --------------------------------------------------------------------------
+# results reading (ref: local_experts.py:1467-1620)
+# --------------------------------------------------------------------------
+
+
+def get_results_from_h5file(
+    results_file: str,
+    global_col_funcs=None,
+    merge_on_expert_locations: bool = True,
+    select_tables=None,
+    table_suffix: str = "",
+    add_suffix_to_table: bool = True,
+    verbose: bool = False,
+):
+    """Read all (or selected) result tables plus the stored configs.
+
+    Returns (dict of DataFrames, list of configs). Reference-produced
+    PyTables stores are not read yet (ROADMAP.md Queue 1 item 9).
+    """
+    if is_pytables_store(results_file):
+        raise _not_ported("reading a pandas-HDFStore (PyTables) results file", 9)
+    out = {}
+    configs = []
+    with TableStore(results_file, mode="r") as store:
+        keys = store.keys()
+        if select_tables is not None:
+            want = [f"{t}{table_suffix}" if add_suffix_to_table else t for t in select_tables]
+            # configs are always read: readers need coords_col
+            keys = [k for k in keys if k in want or k == f"oi_config{table_suffix}"]
+        elif table_suffix:
+            keys = [k for k in keys if k.endswith(table_suffix)]
+        for k in keys:
+            if k.startswith("oi_config"):
+                cfg_df = store.select(k, set_index=False)
+                configs.extend(json.loads(c) for c in cfg_df["config"])
+                continue
+            out[k] = store.select(k).reset_index()
+
+        if global_col_funcs is not None:
+            for k in out:
+                DL.add_cols(out[k], global_col_funcs)
+
+        # merge expert-location metadata onto each table
+        el_key = f"expert_locs{table_suffix}"
+        if merge_on_expert_locations and el_key in store.keys():
+            el = store.select(el_key).reset_index()
+            for k in list(out.keys()):
+                if k.startswith("expert_locs"):
+                    continue
+                join_cols = [c for c in el.columns if c in out[k].columns]
+                if join_cols:
+                    extra = [c for c in el.columns if c not in join_cols]
+                    if extra:
+                        out[k] = out[k].merge(el, on=join_cols, how="left")
+    return out, configs

@@ -30,6 +30,10 @@ class ModelCore:
     param_names: tuple
     # params held fixed during optimisation unless explicitly trained
     default_fixed_params: tuple = ()
+    # optional host-side hook before padding: (TileBatch, init_cparams) ->
+    # init_cparams, for starts computed from the bucket's tiles. Applied by
+    # run_tile_batch_async after smart_init fills its params.
+    prepare_batch_init: Optional[Callable] = None
     # optional hook before optimisation: (uparams0, data) -> uparams0, for
     # data-dependent or reparameterised starts. Applied only when
     # optimise=True: predict-only runs honour loaded params verbatim.

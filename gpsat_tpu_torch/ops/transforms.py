@@ -108,3 +108,16 @@ def forward_params(unconstrained: dict, bijectors: dict) -> dict:
 
 def inverse_params(constrained: dict, bijectors: dict) -> dict:
     return {k: bijectors.get(k, POSITIVE).inverse(v) for k, v in constrained.items()}
+
+
+def move_within_tol(vals, low, high, tol: float = 1e-8) -> np.ndarray:
+    """Nudge values strictly inside [low+tol, high-tol] before applying a
+    sigmoid constraint (ref: GPSat/models/gpflow_models.py:470-479)."""
+    vals = np.atleast_1d(np.array(vals, dtype=float, copy=True))
+    low = np.broadcast_to(np.asarray(low, dtype=float), vals.shape)
+    high = np.broadcast_to(np.asarray(high, dtype=float), vals.shape)
+    half_min_width = np.min(high - low) / 2.0
+    tol = min(tol, half_min_width)
+    vals = np.where(vals > high - tol, high - tol, vals)
+    vals = np.where(vals < low + tol, low + tol, vals)
+    return vals

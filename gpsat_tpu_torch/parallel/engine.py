@@ -35,7 +35,19 @@ def resolve_device(device=None) -> torch.device:
 
 def _no_mesh(mesh):
     if mesh is not None:
-        raise NotImplementedError("mesh= (sharding experts across GPUs) is not ported yet; see ROADMAP.md")
+        raise NotImplementedError("mesh= (sharding experts across GPUs) is not ported yet; see ROADMAP.md Queue 1 item 8")
+
+
+def resolve_linesearch(linesearch: Optional[str], dtype) -> str:
+    """The line search a run uses: ``linesearch``, or by compute dtype
+    "single_eval" in f32 and "zoom" in f64 (the JAX engine's defaults).
+    Only "single_eval" is ported; any other raises NotImplementedError."""
+    ls = linesearch if linesearch is not None else ("single_eval" if dtype == torch.float32 else "zoom")
+    if ls != "single_eval":
+        raise NotImplementedError(
+            f"linesearch={ls!r} is not ported; use 'single_eval' (see ROADMAP.md Queue 1 item 5)"
+        )
+    return ls
 
 
 def _fit_predict_batched(
@@ -105,6 +117,7 @@ def make_batched_runner(
     tol_grad: Optional[float] = None,
     tol_f: Optional[float] = None,
     linesearch: Optional[str] = None,
+    max_linesearch_steps: int = 32,
     memory_size: int = 10,
     mesh=None,
     device=None,
@@ -124,6 +137,9 @@ def make_batched_runner(
     above the f64-grade thresholds. Only the single-eval line search is
     ported; linesearch=None selects it in f32 and must be given as
     "single_eval" in f64 (the JAX default there, zoom, is not ported).
+    max_linesearch_steps bounds the zoom and backtracking searches of the
+    JAX engine; the single-eval search takes one step per iteration and
+    ignores it, as the JAX one does.
     """
     _no_mesh(mesh)
     dev = resolve_device(device)
@@ -133,9 +149,7 @@ def make_batched_runner(
         f32 = X.dtype == torch.float32
         tg = tol_grad if tol_grad is not None else (1e-3 if f32 else 1e-6)
         tf = tol_f if tol_f is not None else (1e-6 if f32 else 1e-11)
-        ls = linesearch if linesearch is not None else ("single_eval" if f32 else "zoom")
-        if ls != "single_eval":
-            raise NotImplementedError(f"linesearch={ls!r} is not ported; use 'single_eval' (see ROADMAP.md)")
+        resolve_linesearch(linesearch, X.dtype)
         return _fit_predict_batched(
             core,
             {"X": X, "y": y, "mask": mask},
@@ -171,6 +185,61 @@ def _smart_init(batch: TileBatch) -> Dict[str, np.ndarray]:
     }
 
 
+def polish_tile_batch(
+    batch: TileBatch,
+    coarse_res: Dict[str, np.ndarray],
+    core: Optional[ModelCore] = None,
+    *,
+    jitter: float = 0.0,
+    max_iter: int = 25,
+    tols: Optional[dict] = None,
+    fixed_params: tuple = (),
+    linesearch: str = "single_eval",
+    mesh=None,
+    device=None,
+) -> Dict[str, np.ndarray]:
+    """f64 polish of a coarse (f32) batch result.
+
+    Re-optimises every expert in float64 from the coarse optima with a short
+    single-eval L-BFGS run (tol_grad 1e-6, tol_f 1e-11 unless ``tols`` says
+    otherwise), holding ``fixed_params`` and ``core.default_fixed_params``,
+    then predicts in float64: the accuracy tail that brings f32 predictions
+    within 1e-5 of the f64 optimum's. ``core`` defaults to
+    ``make_gpr_core(jitter=jitter)``.
+
+    It runs on the card unless ``device="cpu"``: the H100 has f64, where the
+    JAX package's TPU has not (it polishes on the CPU). The kernels take f32
+    only, so an f64 Gram on the card takes each factor route's library arm.
+
+    The coarse result is aligned to the batch by ``expert_index``, not by
+    row: the batch may hold dead tiles (expert_index -1, as the last split
+    of a coalesced bucket does) that the coarse result has dropped. The
+    result's rows follow the batch's live tiles.
+    """
+    from gpsat_tpu_torch.models.functional import make_gpr_core
+    from gpsat_tpu_torch.parallel.batching import cast_batch, take_batch
+
+    if core is None:
+        core = make_gpr_core(jitter=jitter)
+    batch64 = cast_batch(take_batch(batch, np.flatnonzero(batch.expert_index >= 0)), np.float64)
+    row_of = {int(e): i for i, e in enumerate(coarse_res["expert_index"])}
+    missing = [int(e) for e in batch64.expert_index if int(e) not in row_of]
+    if missing:
+        raise ValueError(f"coarse result has no row for experts {missing[:8]} of the batch")
+    rows = np.asarray([row_of[int(e)] for e in batch64.expert_index], dtype=np.int64)
+    init = {k: np.asarray(coarse_res[k], dtype=np.float64)[rows] for k in core.param_names}
+    runner = make_batched_runner(
+        core,
+        fixed_params=tuple(dict.fromkeys(tuple(fixed_params) + tuple(core.default_fixed_params))),
+        max_iter=max_iter,
+        linesearch=linesearch,
+        **(tols or dict(tol_grad=1e-6, tol_f=1e-11)),
+        mesh=mesh,
+        device=device,
+    )
+    return run_tile_batch(batch64, init, runner, core, device=device)
+
+
 def run_tile_batch_async(
     batch: TileBatch,
     init_cparams: Dict[str, np.ndarray],
@@ -199,6 +268,8 @@ def run_tile_batch_async(
     init_cparams = dict(init_cparams)
     if init_cparams.pop("smart_init", False):
         init_cparams = {**_smart_init(batch), **init_cparams}
+    if core.prepare_batch_init is not None:
+        init_cparams = core.prepare_batch_init(batch, init_cparams)
 
     B = batch.B
     # pad the expert axis to a power of two (or the next multiple of

@@ -266,3 +266,44 @@ def test_factor_routes_agree_on_card():
     W = LA.tri_inv_from_diag(L, Wdiag)
     assert float((L.double().cpu() - L64).abs().max()) <= 1e-4
     assert float((W.double().cpu() - W64).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_oi_sweep_with_polish_on_card_matches_cpu():
+    # the 2x2 expert grid of tests/test_experts_oi.py through the
+    # orchestrator's sweep (LocalExpertOI.run's device path; the card's
+    # machine has no h5py for the store), f32 + f64 polish on the card and on
+    # the CPU: the two f32 fits part by roundoff, each polish ends at the same
+    # f64 optimum, within the north star's 1e-5
+    dev = _cuda()
+    from gpsat_tpu_torch.data.prediction_locations import PredictionLocations
+    from gpsat_tpu_torch.experts import sweep
+
+    rng = np.random.default_rng(11)
+    n = 500
+    x, y = rng.uniform(0, 10, n), rng.uniform(0, 10, n)
+    t = rng.integers(0, 3, n).astype(float)
+    cols = {"x": x, "y": y, "t": t, "obs": np.sin(x) * np.cos(y) + 0.1 * rng.normal(size=n)}
+    experts = {"x": np.array([3.0, 3.0, 7.0, 7.0]), "y": np.array([3.0, 7.0, 3.0, 7.0]), "t": np.ones(4)}
+
+    def run(device):
+        pred_loc = PredictionLocations("shift_arrays", coords_col=["x", "y", "t"], x=np.array([-0.5, 0.0, 0.5]),
+                                       y=np.array([0.0]))
+        before = BC.factor_blocks.launches
+        (res,) = sweep(
+            cols, experts, coords_col=["x", "y", "t"], obs_col="obs",
+            local_select=[{"col": ["x", "y"], "comp": "<", "val": 4.0}, {"col": "t", "comp": "<=", "val": 1.0},
+                          {"col": "t", "comp": ">=", "val": -1.0}],
+            pred_loc=pred_loc, init_params={"kernel": "Matern32", "noise_variance": 0.01, "jitter": 1e-5},
+            constraints={"lengthscales": {"low": 0.1, "high": 20.0}},
+            optim_kwargs={"max_iter": 300, "polish": "f64", "polish_max_iter": 150}, device=device,
+        )
+        return res, BC.factor_blocks.launches - before
+
+    card, launched = run(dev)
+    cpu, _ = run("cpu")
+    assert launched > 0  # the f32 fit ran kernel 1; the f64 polish runs none
+    assert card["f_mean"].dtype == np.float64 and card["converged"].all() and cpu["converged"].all()
+    np.testing.assert_array_equal(card["expert_index"], cpu["expert_index"])
+    for k in ("f_mean", "f_var"):
+        assert float(np.abs(card[k] - cpu[k]).max()) <= 1e-5, k

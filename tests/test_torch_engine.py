@@ -18,6 +18,7 @@ from gpsat_tpu.parallel import batching as JB
 from gpsat_tpu.parallel import engine as JE
 from gpsat_tpu_torch.convert import batch_from_numpy, params_from_numpy
 from gpsat_tpu_torch.models.functional import make_gpr_core
+from gpsat_tpu_torch.parallel import batching as TB
 from gpsat_tpu_torch.parallel import engine as TE
 
 REPO = Path(__file__).resolve().parent.parent
@@ -117,6 +118,45 @@ def test_nan_lane_stays_in_its_lane(runs):
     np.testing.assert_array_equal(res["f_mean"][ok], clean["f_mean"][ok])
 
 
+def test_runner_takes_max_linesearch_steps_and_single_eval_ignores_it(runs):
+    # the orchestrator passes max_linesearch_steps; the single-eval search
+    # takes one step per iteration, so any value gives the same bits
+    batch = batch_from_numpy(runs[0])
+    tcore = make_gpr_core()
+    out = []
+    for steps in (1, 32, 1000):
+        runner = TE.make_batched_runner(tcore, linesearch="single_eval", max_linesearch_steps=steps, max_iter=10,
+                                        device="cpu", **TOLS)
+        out.append(TE.run_tile_batch(batch, {"smart_init": True}, runner, tcore, device="cpu"))
+    for res in out[1:]:
+        for k in ("num_iter", "f_mean", "f_var", "objective", "lengthscales", "kernel_variance"):
+            np.testing.assert_array_equal(res[k], out[0][k], err_msg=k)
+
+
+def test_prepare_batch_init_runs_before_padding_and_only_when_set(runs):
+    # three tiles pad to four lanes; the hook sees the three and its values
+    # reach the (predict-only) runner, and a core without one keeps the init
+    import dataclasses
+
+    batch = batch_from_numpy(runs[0])
+    sub = TB.take_batch(batch, np.arange(3))
+    seen = []
+
+    def hook(b, init):
+        seen.append(b.B)
+        return {**init, "kernel_variance": np.array([0.5, 1.5, 2.5])}
+
+    plain = make_gpr_core()
+    runner = TE.make_batched_runner(plain, optimise=False, linesearch="single_eval", device="cpu")
+    init = {"kernel_variance": np.ones(3), "smart_init": True}
+    hooked = TE.run_tile_batch(sub, init, runner, dataclasses.replace(plain, prepare_batch_init=hook), device="cpu")
+    assert seen == [3]
+    np.testing.assert_allclose(hooked["kernel_variance"], [0.5, 1.5, 2.5], rtol=1e-12)
+    res = TE.run_tile_batch(sub, init, runner, plain, device="cpu")
+    np.testing.assert_allclose(res["kernel_variance"], np.ones(3), rtol=1e-12)
+    np.testing.assert_array_equal(res["lengthscales"], hooked["lengthscales"])
+
+
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the no-card rule cannot be observed")
@@ -161,6 +201,9 @@ def test_port_imports_neither_jax_nor_gpsat_tpu():
         "import sys, gpsat_tpu_torch.parallel.engine, gpsat_tpu_torch.convert, gpsat_tpu_torch.utils.flops\n"
         "import gpsat_tpu_torch.ops._build, gpsat_tpu_torch.ops.panel_chol, gpsat_tpu_torch.ops.cholesky\n"
         "import gpsat_tpu_torch.ops.recursive_chol, gpsat_tpu_torch.ops.linalg, gpsat_tpu_torch.ops.fused_lml\n"
+        "import gpsat_tpu_torch.experts, gpsat_tpu_torch.local_expert_oi, gpsat_tpu_torch.models\n"
+        "import gpsat_tpu_torch.data.dataloader, gpsat_tpu_torch.data.store, gpsat_tpu_torch.data.select\n"
+        "import gpsat_tpu_torch.data.prediction_locations, gpsat_tpu_torch.utils.misc, gpsat_tpu_torch.utils.config_func\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'gpsat_tpu' or m.startswith('gpsat_tpu.')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
