@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py              # one card; exits non-zero on any failure
     python3 chip_smoke.py --profile    # also write torch.profiler tables of one
-                                       # main-path, one panel-path and one
-                                       # profiled-path run to
+                                       # main-path, panel-path, profiled-path,
+                                       # oi and post run to
                                        # chiprun_out/profile*.txt, and split
                                        # kernel 3's time by __global__
     python3 chip_smoke.py --kernels    # phases 1 and 2 only (no result line)
@@ -47,6 +47,15 @@ Phases (each prints on its own lines; any failure raises):
              predictions against the CPU's polish from the same f32 optima.
              It drives the sweep, not LocalExpertOI.run, because the card's
              machine has no h5py for the results store
+8. post      the flagship workflow after phase 7's geometry, on the card: (a)
+             the f32 fit with unconverged-lane compaction (carry_iters 25,
+             no polish), held against phase 7's f32 fit; (b) the
+             hyperparameter fields smoothed with the settings of
+             configs/sea_ice_freeboard_postprocessing.json, in f64 on the
+             card, against the same smoothing on the CPU; (c) the
+             predict-only re-run from the smoothed fields, 16 experts against
+             the same re-run in f64 on the CPU; (d) the glue of all
+             predictions, against a plain numpy weighted average
 
 Then one {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 Imports nothing of JAX or of gpsat_tpu.
@@ -113,6 +122,15 @@ OI_MAX_DIST = 200_000.0
 # moves the objective of one optimum by ~1e-2 at these tile sizes
 WORSE_OPTIMUM_NATS = 1.0
 OI_MODE = "sweep"  # the card's machine has pandas but no h5py (PERF.md, section 6)
+# phase 8: the fit's compaction, and the share of experts the checks must cover
+POST_OPTIM = {"max_iter": 100, "carry_iters": 25}
+MIN_SHARE = 0.9
+SMOOTH_CONFIG = ROOT / "configs" / "sea_ice_freeboard_postprocessing.json"
+# f64 on the card vs f64 on the CPU, the same weighted sums in another order
+SMOOTH_REL_BOUND = 1e-10
+GLUE_RADIUS, GLUE_R = 200_000.0, 3
+# the glue against its plain numpy version: the same f64 sums in another order
+GLUE_REL_BOUND = 1e-12
 
 
 def check(cond, msg):
@@ -121,7 +139,8 @@ def check(cond, msg):
 
 
 def log(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    # numpy scalars print as their Python values
+    print(json.dumps({"phase": phase, **kw}, default=lambda o: o.item()), flush=True)
 
 
 def time_ms(fn, reps=20, warm=3):
@@ -728,7 +747,263 @@ def phase_oi(profile: bool):
     check(d_polish.max() <= F64_BOUND, f"oi: card polish vs CPU polish on {len(pick)} experts: {d_polish.max()}")
     if profile:
         trace("oi", lambda: run({}), "profile_oi.txt")
-    return launches["block_chol"]
+    f32 = {}
+    for r in buckets:
+        c = r["coarse"]
+        for j, e in enumerate(c["expert_index"]):
+            p = int(c["pred_mask"][j].sum())
+            f32[int(e)] = {"num_iter": int(c["num_iter"][j]), "objective": float(c["objective"][j]),
+                           "f_mean": c["f_mean"][j][:p], "f_var": c["f_var"][j][:p]}
+    return launches["block_chol"], f32, int(coarse["num_iter"].max())
+
+
+def by_expert(buckets, keys):
+    """{expert: {key: value}} over a sweep's buckets; predictions cut to
+    the expert's P_i."""
+    out = {}
+    for r in buckets:
+        for j, e in enumerate(r["expert_index"]):
+            p = int(r["pred_mask"][j].sum())
+            out[int(e)] = {k: (r[k][j][:p] if k in ("f_mean", "f_var", "y_var") else r[k][j]) for k in keys}
+    return out
+
+
+def max_abs_pred_diff(a, b):
+    """max |a - b| over f_mean and f_var of two per-expert records."""
+    return max(float(np.abs(a[k] - b[k]).max()) for k in ("f_mean", "f_var"))
+
+
+def kernel1_launches(buckets, nmax):
+    """Kernel 1's launches for a sweep's buckets, derived from the code: one
+    factor pair of Nmax/64 launches per value+grad (the initial one, one per
+    iteration of a run's slowest lane) and one in each run's predict; a
+    carry bucket runs the head and, when it has unconverged lanes, the tail
+    (which evaluates again at the carried iterate); a predict-only bucket
+    runs one objective and one predict."""
+    runs = []
+    for r in buckets:
+        c = r.get("compaction")
+        if c is None:
+            runs.append(int(r["num_iter"].max()))
+            continue
+        runs.append(int(c["head_num_iter"].max()))
+        if c["tail_width"]:
+            runs.append(int(c["tail_num_iter"].max()))
+    return sum(it + 2 for it in runs) * (nmax // T)
+
+
+def preds_frame(buckets, experts):
+    """The results store's preds table (pandas) from a sweep's buckets:
+    one row per expert and prediction location, the expert's coordinates
+    beside it."""
+    import pandas as pd
+
+    parts = []
+    for r in buckets:
+        P_i = r["pred_mask"].sum(axis=1).astype(int)
+        prefix = np.arange(r["pred_mask"].shape[1])[None, :] < P_i[:, None]
+        pc = np.concatenate([np.asarray(c)[:p] for c, p in zip(r["pred_coords"], P_i)])
+        e = np.repeat(r["expert_index"], P_i)
+        parts.append(pd.DataFrame({
+            "x": experts["x"][e], "y": experts["y"][e], "pred_loc_x": pc[:, 0], "pred_loc_y": pc[:, 1],
+            "f*": r["f_mean"][prefix], "f*_var": r["f_var"][prefix], "y_var": r["y_var"][prefix],
+            "f_bar": np.repeat(r["obs_mean"], P_i),
+        }))
+    return pd.concat(parts, ignore_index=True)
+
+
+def glue_numpy(preds, radius, R, var):
+    """Plain weighted average of ``var`` per prediction location: the
+    product of the two axes' normal densities (sigma = radius / R) around
+    each expert, summed with np.bincount."""
+    s = radius / R
+    px, py = preds["pred_loc_x"].to_numpy(), preds["pred_loc_y"].to_numpy()
+    w = (np.exp(-0.5 * ((px - preds["x"].to_numpy()) / s) ** 2) / (s * np.sqrt(2 * np.pi))
+         * np.exp(-0.5 * ((py - preds["y"].to_numpy()) / s) ** 2) / (s * np.sqrt(2 * np.pi)))
+    locs, ids = np.unique(np.stack([px, py], axis=1), axis=0, return_inverse=True)
+    ids = ids.ravel()
+    return locs, np.bincount(ids, weights=w * preds[var].to_numpy()) / np.bincount(ids, weights=w)
+
+
+def phase_post(f32_oi, f32_it_max, profile: bool):
+    """Phase 8: fit (compaction) -> smooth -> predict-only re-run -> glue at
+    the pipeline geometry. Kernel launch counts are set to 0 just before the
+    fit and before the re-run, and read just after each. Returns kernel 1's
+    launches in the fit and in the re-run."""
+    import torch
+
+    from gpsat_tpu_torch.data.prediction_locations import PredictionLocations
+    from gpsat_tpu_torch.experts import sweep
+    from gpsat_tpu_torch.parallel import batching
+    from gpsat_tpu_torch.parallel.engine import padded_width
+    from gpsat_tpu_torch.postprocess import SmoothingConfig, glue_local_predictions, smooth_table
+
+    obs, experts, grid = pipeline_inputs()
+    seconds = {}
+
+    def pred_loc():
+        return PredictionLocations("from_dataframe", coords_col=["x", "y"], df=grid, max_dist=OI_MAX_DIST)
+
+    timers = {"fit": {}, "repredict": {}}
+
+    def fit(timers=None):
+        return [r for r in sweep(obs, experts, pred_loc=pred_loc(), optim_kwargs=POST_OPTIM, timers=timers, **OI_KW)
+                if not r.get("skipped")]
+
+    # (a) the fit, the lanes the head leaves unconverged resumed in a tail
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    buckets = fit(timers["fit"])
+    seconds["fit"] = time.perf_counter() - t0
+    launches_fit = {k: fn.launches for k, fn in counters().items()}
+    cat = {k: np.concatenate([r[k] for r in buckets]) for k in ("expert_index", "converged", "num_iter", "stalled",
+                                                                 "failed", "num_obs")}
+    n = len(cat["expert_index"])
+    nmax = batching.bucket_size(int(cat["num_obs"].max()))
+    comp = [r["compaction"] for r in buckets]
+    head_iters = np.concatenate([c["head_num_iter"] for c in comp])
+    tail_iters = np.concatenate([c["tail_num_iter"] for c in comp])
+    billed = sum(c["head_width"] * int(c["head_num_iter"].max()) + c["tail_width"] * int(
+        c["tail_num_iter"].max(initial=0)) for c in comp)
+    billed_oi = padded_width(n, OI_KW["pad_multiple"]) * f32_it_max
+    fit_by = by_expert(buckets, ("num_iter", "objective", "f_mean", "f_var"))
+    common = sorted(set(fit_by) & set(f32_oi))
+    same_iter = sum(fit_by[e]["num_iter"] == f32_oi[e]["num_iter"] for e in common)
+    d_obj = {e: abs(fit_by[e]["objective"] - f32_oi[e]["objective"]) for e in common}
+    other_optimum = {e: {"post_objective": fit_by[e]["objective"], "oi_objective": f32_oi[e]["objective"]}
+                     for e in common if d_obj[e] > WORSE_OPTIMUM_NATS}
+    compared = [e for e in common if d_obj[e] <= WORSE_OPTIMUM_NATS]
+    d_fit = max(max_abs_pred_diff(fit_by[e], f32_oi[e]) for e in compared) if compared else float("inf")
+    expected = {"block_chol": kernel1_launches(buckets, nmax), "panel_chol": 0, "cholesky": 0}
+    log("post_fit", experts=n, buckets=len(buckets), seconds=seconds["fit"], phases_s=timers["fit"],
+        head_width=[c["head_width"] for c in comp], tail_width=[c["tail_width"] for c in comp],
+        tail_lanes=[len(c["tail_rows"]) for c in comp], head_iters_mean=float(head_iters.mean()),
+        head_iters_max=int(head_iters.max()), tail_iters_mean=float(tail_iters.mean()) if len(tail_iters) else None,
+        tail_iters_max=int(tail_iters.max(initial=0)), iters_mean=float(cat["num_iter"].mean()),
+        iters_max=int(cat["num_iter"].max()), converged=int(cat["converged"].sum()),
+        stall_exits=int(cat["stalled"].sum()), failed_exits=int(cat["failed"].sum()),
+        lane_iterations_billed=billed, lane_iterations_billed_phase7=billed_oi,
+        billed_share_of_phase7=billed / billed_oi, same_num_iter_as_phase7=same_iter, compared=len(common),
+        max_abs_pred_diff_vs_phase7=d_fit, pred_bound=PRED_BOUND, other_optimum=other_optimum,
+        launches=launches_fit)
+    check(cat["converged"].sum() >= MIN_SHARE * n and not cat["failed"].any(),
+          f"post fit: {int(cat['converged'].sum())}/{n} converged, {int(cat['failed'].sum())} failed")
+    check(len(common) == n == len(f32_oi), f"post fit: {n} experts run, {len(f32_oi)} in phase 7")
+    check(same_iter >= MIN_SHARE * n, f"post fit: num_iter equal to phase 7's on {same_iter}/{n} experts")
+    check(len(compared) >= MIN_SHARE * n, f"post fit: objectives differ by > 1 nat on {len(other_optimum)}/{n}")
+    check(d_fit <= PRED_BOUND, f"post fit vs phase 7 f32 predictions: {d_fit}")
+    check(launches_fit == expected, f"post fit launches {launches_fit}, expected {expected}")
+
+    # (b) the hyperparameter fields, clipped and smoothed per slice
+    import pandas as pd
+
+    with open(SMOOTH_CONFIG) as f:
+        smooth_cfg = json.load(f)["smooth_config_dict"]
+    params = by_expert(buckets, ("lengthscales", "kernel_variance", "likelihood_variance"))
+    rows = np.asarray(sorted(params))
+    ex, ey = experts["x"][rows], experts["y"][rows]
+    loaded, d_smooth, seconds["smooth"], seconds["smooth_cpu"] = {}, 0.0, 0.0, 0.0
+    for name, cfg in smooth_cfg.items():
+        vals = np.stack([np.atleast_1d(params[e][name]) for e in rows]).astype(np.float64)
+        table = pd.DataFrame({"x": np.repeat(ex, vals.shape[1]), "y": np.repeat(ey, vals.shape[1]),
+                              "_dim_0": np.tile(np.arange(vals.shape[1]), len(rows)), name: vals.ravel()})
+        t0 = time.perf_counter()
+        card = smooth_table(table, name, ["x", "y"], ["x", "y"], SmoothingConfig(**cfg))
+        seconds["smooth"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = smooth_table(table, name, ["x", "y"], ["x", "y"], SmoothingConfig(**cfg), device="cpu")
+        seconds["smooth_cpu"] += time.perf_counter() - t0
+        a, b = card[name].to_numpy(), cpu[name].to_numpy()
+        check(len(card) == len(table) and np.isfinite(a).all(), f"smooth {name}: {len(card)} of {len(table)} rows finite")
+        d_smooth = max(d_smooth, float(np.max(np.abs(a - b) / np.abs(b))))
+        # back to [E, ...] rows of expert_locs: NaN where no expert ran
+        row_of = {(float(x), float(y)): e for x, y, e in zip(ex, ey, rows)}
+        erows = [row_of[(float(x), float(y))] for x, y in card.index.to_frame(index=False).to_numpy()]
+        got = np.full((len(experts["x"]), vals.shape[1]), np.nan)
+        got[erows, card["_dim_0"].to_numpy()] = a
+        loaded[name] = got if name == "lengthscales" else got[:, 0]
+    log("post_smooth", points=len(rows), seconds=seconds["smooth"], cpu_seconds=seconds["smooth_cpu"],
+        max_rel_card_vs_cpu=d_smooth, bound=SMOOTH_REL_BOUND, config=str(SMOOTH_CONFIG.relative_to(ROOT)))
+    check(d_smooth <= SMOOTH_REL_BOUND, f"smoothing, card vs CPU: {d_smooth}")
+
+    # (c) the predict-only re-run from the smoothed fields
+    def repredict(cols, locs, load, timers=None, **kw):
+        return [r for r in sweep(cols, locs, pred_loc=pred_loc(), optim_kwargs={"max_iter": 100}, optimise=False,
+                                 loaded_params=load, timers=timers, **{**OI_KW, **kw}) if not r.get("skipped")]
+
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    re_buckets = repredict(obs, experts, loaded, timers["repredict"])
+    seconds["repredict"] = time.perf_counter() - t0
+    launches_re = {k: fn.launches for k, fn in counters().items()}
+    expected = {"block_chol": kernel1_launches(re_buckets, nmax), "panel_chol": 0, "cholesky": 0}
+    re_by = by_expert(re_buckets, ("f_mean", "f_var", "num_iter"))
+    finite = all(np.isfinite(r["f_mean"]).all() and np.isfinite(r["f_var"]).all() for r in re_buckets)
+    pick = np.asarray(sorted(re_by))[:: max(len(re_by) // CPU_TILES, 1)][:CPU_TILES]
+    t0 = time.perf_counter()
+    cpu = repredict(obs, {c: v[pick] for c, v in experts.items()}, {k: v[pick] for k, v in loaded.items()},
+                    dtype=torch.float64, device="cpu", pad_multiple=None)
+    seconds["repredict_cpu16"] = time.perf_counter() - t0
+    cpu_by = by_expert(cpu, ("f_mean", "f_var"))
+    d_re = max(max_abs_pred_diff(re_by[int(e)], cpu_by[j]) for j, e in enumerate(pick))
+    log("post_repredict", experts=len(re_by), seconds=seconds["repredict"], phases_s=timers["repredict"], cpu_seconds_16=seconds["repredict_cpu16"],
+        prediction_points=int(sum(r["pred_mask"].sum() for r in re_buckets)), finite=finite,
+        max_abs_card_f32_vs_cpu_f64=d_re, compared=len(pick), bound=PRED_BOUND, launches=launches_re)
+    check(finite, "post re-run: non-finite predictions")
+    check(len(re_by) == n and all(re_by[e]["num_iter"] == 0 for e in re_by), "post re-run: experts or iterations")
+    check(len(cpu_by) == len(pick) and d_re <= PRED_BOUND, f"post re-run, card f32 vs CPU f64: {d_re}")
+    check(launches_re == expected, f"post re-run launches {launches_re}, expected {expected}")
+
+    # (d) the glue of every expert's predictions
+    t0 = time.perf_counter()
+    preds = preds_frame(re_buckets, experts)
+    seconds["preds_table"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    glued = glue_local_predictions(preds, inference_radius=GLUE_RADIUS, R=GLUE_R)
+    seconds["glue"] = time.perf_counter() - t0
+    keys = ["pred_loc_x", "pred_loc_y"]
+    glued = glued.sort_values(keys).reset_index(drop=True)
+    span = preds.groupby(keys)["f*"].agg(["min", "max"]).reset_index().sort_values(keys).reset_index(drop=True)
+    span = span.astype({"min": np.float64, "max": np.float64})  # the predictions are f32, the glue f64
+    n_locs = len(preds[keys].drop_duplicates())
+    values = glued[["f*", "f*_var", "y_var", "f_bar"]].to_numpy()
+    # a weighted mean of one value may round off it by an ulp
+    slack = 1e-12 * np.maximum(span["min"].abs(), span["max"].abs())
+    outside = np.maximum(span["min"] - slack - glued["f*"], glued["f*"] - span["max"] - slack).to_numpy()
+    inside = bool((outside <= 0).all())
+    d_glue = 0.0
+    for var in ("f*", "f*_var", "y_var", "f_bar"):
+        locs, plain = glue_numpy(preds, GLUE_RADIUS, GLUE_R, var)
+        check(np.array_equal(locs, glued[keys].to_numpy()), "glue: locations differ from the plain version's")
+        d_glue = max(d_glue, float(np.abs(glued[var].to_numpy() - plain).max() / np.abs(plain).max()))
+    log("post_glue", rows=len(preds), locations=len(glued), distinct_locations=n_locs, seconds=seconds["glue"],
+        preds_table_seconds=seconds["preds_table"], finite=bool(np.isfinite(values).all()), within_expert_span=inside,
+        outside_span={"count": int((outside > 0).sum()), "max": float(outside.max())},
+        max_rel_vs_numpy=d_glue, bound=GLUE_REL_BOUND)
+    check(len(glued) == n_locs, f"glue: {len(glued)} rows for {n_locs} locations")
+    check(np.isfinite(values).all(), "glue: non-finite values")
+    check(inside, "glue: a glued f* outside its contributing experts' range")
+    check(d_glue <= GLUE_REL_BOUND, f"glue vs plain numpy: {d_glue}")
+    log("post", seconds=seconds)
+
+    if profile:
+        def workflow():
+            bs = fit()
+            for name, cfg in smooth_cfg.items():
+                vals = np.stack([np.atleast_1d(params[e][name]) for e in rows]).ravel()
+                k = len(vals) // len(rows)
+                smooth_table(pd.DataFrame({"x": np.repeat(ex, k), "y": np.repeat(ey, k),
+                                           "_dim_0": np.tile(np.arange(k), len(rows)), name: vals}),
+                             name, ["x", "y"], ["x", "y"], SmoothingConfig(**cfg))
+            glue_local_predictions(preds_frame(repredict(obs, experts, loaded), experts), GLUE_RADIUS, GLUE_R)
+            return bs
+
+        trace("post", workflow, "profile_post.txt")
+    return launches_fit["block_chol"], launches_re["block_chol"]
 
 
 def main(argv) -> int:
@@ -767,7 +1042,8 @@ def main(argv) -> int:
     phase_f64(*phase_accuracy(batch, init))
     entries[1]["launches"] = phase_panel(batch, init, main_res, profile)
     entries[2]["launches"] = phase_profiled(batch, init, profile)
-    entries[0]["launches_oi"] = phase_oi(profile)
+    entries[0]["launches_oi"], f32_oi, f32_it_max = phase_oi(profile)
+    entries[0]["launches_post_fit"], entries[0]["launches_post_repredict"] = phase_post(f32_oi, f32_it_max, profile)
 
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

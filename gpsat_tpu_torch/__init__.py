@@ -15,6 +15,8 @@ takes the kernel's plain PyTorch version instead.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
+import os as _os
+
 import torch
 
 # GP linear algebra needs true-f32 matmuls: TF32 keeps ~3 decimal digits and
@@ -24,3 +26,14 @@ torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
 __version__ = "0.1.0"
+
+
+def get_parent_path(*sub_dirs: str) -> str:
+    """Path under the repository root (ref: GPSat/__init__.py helper)."""
+    parent = _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
+    return _os.path.join(parent, *sub_dirs)
+
+
+def get_config_path(*sub_dirs: str) -> str:
+    """Path under <repo>/configs (ref: GPSat/__init__.py:23-25)."""
+    return get_parent_path("configs", *sub_dirs)

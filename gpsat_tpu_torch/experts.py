@@ -8,8 +8,9 @@ keeps the JAX package's config surface and results schema:
   2. compute every expert's local-selection index set and prediction
      locations on the host;
   3. assemble padded tile buckets (``parallel.batching``) and run each as
-     one batched program on the card (``parallel.engine``), optionally
-     followed by the f64 polish;
+     one batched program on the card (``parallel.engine``), or as a head
+     and a compacted tail of its unconverged lanes (``carry_iters``,
+     ``two_stage_iters``), optionally followed by the f64 polish;
   4. write the reference-schema result tables: oi_config, expert_locs,
      run_details, preds, one table per stored hyperparameter, all
      multi-indexed by expert coordinates with an optional table_suffix.
@@ -22,16 +23,23 @@ stored oi_config, also for a store the JAX package wrote.
 
 The compute dtype is an argument of ``run`` (``dtype``, default
 ``torch.float32``), as is the device (``device``, default the CUDA device);
-neither is stored in the config. Options outside the exact-GPR lane raise
-``NotImplementedError`` naming their ROADMAP.md item: carry_iters,
-two_stage_iters, load_params, replacement_threshold, models without a GPR
-core, mesh and profile_dir.
+neither is stored in the config. ``load_params`` warm-starts experts from
+a results store (exact coordinate match, or ``nearest``), from direct
+values, or leaves the init as it is (``previous``); ``sweep`` takes the
+loaded values as arrays. Options outside the exact-GPR lane raise
+``NotImplementedError`` naming their ROADMAP.md item: replacement_threshold,
+models without a GPR core, mesh and profile_dir.
+
+Known divergence from the JAX package's docstring, kept as its code does:
+``load_params={"previous": True}`` leaves each batch's init unchanged; the
+JAX module docstring promises the previous batch's mean optimum.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import functools
 import json
 import os
 import time
@@ -57,8 +65,11 @@ from gpsat_tpu_torch.parallel.engine import (
     resolve_device,
     resolve_linesearch,
     run_tile_batch_async,
+    run_tile_batch_carry,
+    run_tile_batch_two_stage,
 )
-from gpsat_tpu_torch.utils.misc import cprint, json_serializable
+from gpsat_tpu_torch.utils.config_func import config_func
+from gpsat_tpu_torch.utils.misc import cprint, json_serializable, pandas_to_dict
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -261,12 +272,64 @@ def initial_cparams(core: ModelCore, init_params: dict, constraints, D: int) -> 
     return out
 
 
-def check_optim_kwargs(optim_kwargs: dict, dtype=torch.float32):
-    """Raise for the optimiser options this lane does not take."""
-    for k in ("carry_iters", "two_stage_iters"):
-        if optim_kwargs.get(k):
-            raise _not_ported(f"optim_kwargs {k!r} (unconverged-lane compaction)", 2)
-    resolve_linesearch(optim_kwargs.get("linesearch"), dtype)
+def check_optim_kwargs(optim_kwargs: dict, dtype=torch.float32, optimise: bool = True):
+    """Raise for a line search the port does not run. A predict-only run
+    searches nothing, and ``carry_iters`` runs its head and tail with the
+    single-eval search whatever ``linesearch`` says, as the JAX package
+    does."""
+    if optimise and not optim_kwargs.get("carry_iters"):
+        resolve_linesearch(optim_kwargs.get("linesearch"), dtype)
+
+
+def _compaction(core, optim_kwargs, runner, *, fixed, optimise, pad_multiple, dev):
+    """``(batch, init) -> results`` for a bucket run as a head on the whole
+    batch and a compacted tail of its unconverged lanes, or None.
+
+    ``carry_iters`` K: the head stops after K iterations and the tail
+    resumes its L-BFGS state (``run_tile_batch_carry``, single-eval; head and
+    tail share memory_size, the state's history length). ``two_stage_iters``
+    K: the tail, the sweep's own runner, restarts from the head's optima
+    (``run_tile_batch_two_stage``)."""
+    memory_size = int(optim_kwargs.get("memory_size", 10))
+    carry_k, two_k = optim_kwargs.get("carry_iters"), optim_kwargs.get("two_stage_iters")
+    if carry_k:
+        kw = dict(fixed_params=fixed, optimise=optimise, linesearch="single_eval", memory_size=memory_size,
+                  return_state=True, device=dev)
+        head = make_batched_runner(core, max_iter=int(carry_k), **kw)
+        tail = make_batched_runner(core, max_iter=int(optim_kwargs.get("max_iter", 10_000)), take_state=True, **kw)
+        return functools.partial(run_tile_batch_carry, runner_head=head, runner_tail=tail, core=core,
+                                 pad_multiple=pad_multiple, device=dev)
+    if two_k:
+        head = make_batched_runner(
+            core, fixed_params=fixed, max_iter=int(two_k), optimise=optimise,
+            linesearch=optim_kwargs.get("linesearch"),
+            max_linesearch_steps=int(optim_kwargs.get("max_linesearch_steps", 32)),
+            memory_size=memory_size, device=dev,
+        )
+        return functools.partial(run_tile_batch_two_stage, runner_head=head, runner_tail=runner, core=core,
+                                 pad_multiple=pad_multiple, device=dev)
+    return None
+
+
+def _bucket_init(init_cparams: dict, loaded: Optional[dict], expert_index: np.ndarray) -> dict:
+    """A bucket's initial params: the shared init, and where ``loaded`` is
+    given, per-expert rows of it ([E, ...] by expert, NaN where nothing was
+    loaded) over the shared values. Loading drops ``smart_init``, as the
+    JAX package's load does."""
+    if loaded is None:
+        return init_cparams
+    out = {k: v for k, v in init_cparams.items() if k != "smart_init"}
+    live = np.flatnonzero(expert_index >= 0)
+    for k, vals in loaded.items():
+        if k not in out:
+            continue
+        shared = np.asarray(out[k], dtype=float)
+        per = np.broadcast_to(shared, (len(expert_index),) + shared.shape).copy()
+        rows = np.asarray(vals, dtype=float)[expert_index[live]].reshape((len(live),) + shared.shape)
+        ok = ~np.isnan(rows.reshape(len(live), -1)).any(axis=1)
+        per[live[ok]] = rows[ok]
+        out[k] = per
+    return out
 
 
 def sweep(
@@ -285,6 +348,7 @@ def sweep(
     min_obs: int = 3,
     max_batch_size: Optional[int] = None,
     pad_multiple: Optional[int] = None,
+    loaded_params: Optional[dict] = None,
     dtype=torch.float32,
     device=None,
     timers: Optional[dict] = None,
@@ -295,7 +359,15 @@ def sweep(
     name -> array; nothing here imports pandas or h5py. The sweep runs local
     selection, prediction locations, tile assembly, then each bucket on
     ``device`` in ``dtype`` and, with ``optim_kwargs["polish"]`` "f64" (or
-    True), the f64 polish on the same device.
+    True), the f64 polish on the same device. ``optim_kwargs["carry_iters"]``
+    or ``["two_stage_iters"]`` run each bucket as a head and a compacted tail
+    (host-synchronous: the tail depends on the head's results), whose result
+    adds "compaction" (the engine's widths and iterations of each part).
+
+    ``loaded_params`` (name -> [E, ...] aligned with the rows of
+    ``expert_locs``) warm-starts each expert from its row; a row holding a
+    NaN keeps the shared init. ``LocalExpertOI`` fills it from
+    ``load_params``.
 
     It yields, first, the experts skipped for fewer than ``min_obs``
     observations (or no prediction location) as ``{"skipped": True,
@@ -310,7 +382,7 @@ def sweep(
     dev = resolve_device(device)
     ip = init_params or {}
     optim_kwargs = dict(optim_kwargs or {})
-    check_optim_kwargs(optim_kwargs, dtype)
+    check_optim_kwargs(optim_kwargs, dtype, optimise)
     timers = {} if timers is None else timers
     core = core_for(ip, constraints)
     for k in ("learning_rate", "check_every", "persistence"):
@@ -327,6 +399,8 @@ def sweep(
         memory_size=int(optim_kwargs.get("memory_size", 10)),
         device=dev,
     )
+    compaction = _compaction(core, optim_kwargs, runner, fixed=fixed, optimise=optimise, pad_multiple=pad_multiple,
+                             dev=dev)
     polish = optimise and optim_kwargs.get("polish") in ("f64", True)
 
     obs_name = obs_col if isinstance(obs_col, str) else obs_col[0]
@@ -379,11 +453,15 @@ def sweep(
     pending = None
     for b in tiles:
         t0 = time.perf_counter()
-        with _phase(timers, "device_dispatch"):
-            # tiles are assembled in f64; the polish re-fits from them
-            fin = run_tile_batch_async(
-                batching.cast_batch(b, np_dtype), init_cparams, runner, core, pad_multiple=pad_multiple, device=dev
-            )
+        init = _bucket_init(init_cparams, loaded_params, b.expert_index)
+        # tiles are assembled in f64; the polish re-fits from them
+        cast = batching.cast_batch(b, np_dtype)
+        if compaction is not None:
+            # runs whole when finish() asks for it, after the previous bucket
+            fin = functools.partial(compaction, cast, init)
+        else:
+            with _phase(timers, "device_dispatch"):
+                fin = run_tile_batch_async(cast, init, runner, core, pad_multiple=pad_multiple, device=dev)
         if pending is not None:
             yield finish(*pending)  # the host stores it while the card runs b
         pending = (fin, b, t0)
@@ -492,8 +570,6 @@ class LocalExpertOI:
     ):
         cfg = {k: v for k, v in locals().items() if k != "self" and v is not None}
         self.config["model"] = json_serializable(cfg)
-        if load_params:
-            raise _not_ported("load_params (warm starts from stored or given parameters)", 3)
         if replacement_threshold is not None:
             raise _not_ported("replacement_threshold (the replacement-model lane)", 3)
         if isinstance(oi_model, dict):
@@ -503,6 +579,7 @@ class LocalExpertOI:
         self.model = get_model(oi_model) if isinstance(oi_model, str) else oi_model
         self.model_init_params = init_params or {}
         self.constraints = constraints
+        self.model_load_params = load_params
         self.optim_kwargs = optim_kwargs or {}
         self.pred_kwargs = pred_kwargs or {}
         self.params_to_store = None if params_to_store == "all" else params_to_store
@@ -591,8 +668,9 @@ class LocalExpertOI:
             raise _not_ported("profile_dir (tracing a run)", 3)
         dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
         dev = resolve_device(device)
-        check_optim_kwargs(self.optim_kwargs, dtype)
-        param_names = self._core_for().param_names
+        check_optim_kwargs(self.optim_kwargs, dtype, optimise)
+        core = self._core_for()
+        param_names = core.param_names
         assert isinstance(self.expert_locs, pd.DataFrame), "expert_locs must be a DataFrame — call set_expert_locations"
         assert self.data is not None and self.data.data_source is not None, "'data_source' is None"
         assert self.model is not None, "'model' is None — call set_model"
@@ -636,6 +714,7 @@ class LocalExpertOI:
             groups.setdefault(key, {"where": where, "rows": []})
             groups[key]["rows"].append(i)
 
+        init_cparams = initial_cparams(core, self.model_init_params, self.constraints, len(coords_col))
         device_name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
         model_name = f"gpsat_tpu_torch.{getattr(self.model, '__name__', str(self.model))}"
         total = len(xprt_locs)
@@ -644,6 +723,12 @@ class LocalExpertOI:
             with _phase(timers, "host_load"):
                 df = self.data.load(where=grp["where"] if grp["where"] else None, reset_index=True)
             rows = np.asarray(grp["rows"])
+            with _phase(timers, "host_load_params"):
+                loaded = self._load_params_for_experts(
+                    xprt_locs.iloc[rows], coords_col, init_cparams, core, store_path
+                )
+            if loaded is False:
+                continue  # load failure policy: skip these experts
             results = sweep(
                 df,
                 xprt_locs.iloc[rows],
@@ -659,6 +744,7 @@ class LocalExpertOI:
                 min_obs=min_obs,
                 max_batch_size=max_batch_size,
                 pad_multiple=pad_multiple,
+                loaded_params=loaded,
                 dtype=dtype,
                 device=dev,
                 timers=timers,
@@ -696,6 +782,142 @@ class LocalExpertOI:
         cprint(f"phases: {split}", c="OKBLUE")
         cprint(f"'run': {timers['run_wall']:.3f} seconds", c="OKGREEN")
         return None
+
+    # ---- parameter loading (ref: local_experts.py:553-689) ----
+    _LOAD_RESERVED = ("file", "table_suffix", "previous", "previous_params", "param_names", "index_adjust")
+
+    def _load_params_for_experts(self, xprt_locs, coords_col, init_cparams, core, store_path):
+        """``load_params`` for a group of experts: the ``loaded_params`` of
+        ``sweep`` (name -> [E, ...] aligned with ``xprt_locs``'s rows, NaN
+        where nothing is loaded), None to keep the init, or False when the
+        file does not exist (a warning; the experts are skipped, as the JAX
+        package skips the bucket).
+
+        - ``previous``: the init unchanged (the JAX package's code; its
+          docstring's "previous batch's mean optimum" is not implemented).
+        - direct values without ``file``: the same values for every expert
+          (keys that are no parameter are ignored).
+        - ``file`` (default: the run's store) and ``table_suffix``: each
+          parameter table, matched on the expert coordinates exactly or,
+          with ``nearest``, at the closest stored expert; a stored row with
+          a NaN is not loaded.
+
+        The file is read once per group of experts, before the group's
+        sweep: with ``nearest`` reading the run's own store, the experts of
+        the same group's earlier buckets are not yet there (the JAX package
+        reads it again before each bucket)."""
+        lp = self.model_load_params
+        if not lp or lp.get("previous", False):
+            return None
+        E = len(xprt_locs)
+        direct = {k: v for k, v in lp.items() if k not in self._LOAD_RESERVED}
+        if direct and "file" not in lp:
+            return {
+                k: np.broadcast_to(np.reshape(np.asarray(v, dtype=float), np.shape(init_cparams[k])),
+                                   (E,) + np.shape(init_cparams[k]))
+                for k, v in direct.items() if k in init_cparams
+            }
+        file = lp.get("file", store_path)
+        suffix = lp.get("table_suffix", "")
+        if not os.path.exists(file):
+            warnings.warn(f"load_params file does not exist: {file}")
+            return False
+        if is_pytables_store(file):
+            raise _not_ported("load_params from a pandas-HDFStore (PyTables) results file", 9)
+        locs = np.stack([xprt_locs[c].to_numpy() for c in coords_col], axis=1)
+        out = {}
+        with TableStore(file, mode="r") as store:
+            for pname in core.param_names:
+                tbl = f"{pname}{suffix}"
+                if tbl not in store:
+                    continue
+                pdf = store.select(tbl).reset_index()
+                dim_cols = sorted(c for c in pdf.columns if c.startswith("_dim_"))
+                pdf = pdf.sort_values(list(coords_col) + dim_cols, kind="stable")
+                keys = pdf[coords_col].to_numpy()
+                vals = pdf[pname].to_numpy(dtype=float)
+                # one group of rows per stored expert, in coordinate order
+                starts = np.flatnonzero(np.r_[True, (keys[1:] != keys[:-1]).any(axis=1)])
+                groups = np.split(vals, starts[1:])
+                row_of = {tuple(k): j for j, k in enumerate(keys[starts].tolist())}
+                shape = np.shape(init_cparams[pname])
+                got = np.full((E,) + shape, np.nan)
+                tree = None
+                if lp.get("nearest", False) and len(groups):
+                    from scipy.spatial import cKDTree
+
+                    tree = cKDTree(keys[starts].astype(float))
+                for e, loc in enumerate(locs.tolist()):
+                    j = row_of.get(tuple(loc))
+                    if j is None and tree is not None:
+                        j = int(tree.query(np.asarray(loc, dtype=float))[1])
+                    if j is None or np.isnan(groups[j]).any():
+                        continue  # nan params are not loaded (ref: :670-681)
+                    got[e] = groups[j].reshape(shape) if shape else groups[j][0]
+                out[pname] = got
+        return out
+
+    def load_params(
+        self,
+        model,
+        previous=None,
+        previous_params=None,
+        file=None,
+        param_names=None,
+        ref_loc=None,
+        index_adjust=None,
+        table_suffix: str = "",
+        **param_dict,
+    ) -> int:
+        """Set a model's parameters from a results file at one expert
+        location, from previous params, or from explicit values (ref:
+        local_experts.py:553-606; the same signature and return contract: 0
+        on success, 1 if a file read yields no parameters). ``model`` is any
+        object with ``param_names`` and ``set_parameters(**params)``."""
+        if file is not None:
+            assert isinstance(file, str), f"load_params file is not str: {type(file)}"
+            assert os.path.exists(file), f"load_params file does not exist:\n{file}"
+            rl = dict(pandas_to_dict(ref_loc))
+            for k, v in (index_adjust or {}).items():
+                rl[k] = config_func(**v, args=rl[k])
+            param_dict = self._read_params_for_loc(
+                file=file, model=model, ref_loc=rl, param_names=param_names, table_suffix=table_suffix
+            )
+            if len(param_dict) == 0:
+                return 1
+        elif previous is not None:
+            param_dict = previous_params or {}
+        model.set_parameters(**param_dict)
+        return 0
+
+    def _read_params_for_loc(self, file, model, ref_loc, param_names=None, table_suffix=""):
+        """One expert location's parameters from a results store, keyed by
+        coordinate match (ref: local_experts.py:608-689)."""
+        import pandas as pd
+
+        if is_pytables_store(file):
+            raise _not_ported("load_params from a pandas-HDFStore (PyTables) results file", 9)
+        names = param_names if param_names is not None else list(model.param_names)
+        out = {}
+        with TableStore(file, mode="r") as store:
+            for pname in names:
+                tbl = f"{pname}{table_suffix}"
+                pdf = store.select(tbl).reset_index() if tbl in store else None
+                if pdf is None or len(pdf) == 0:
+                    continue
+                m = np.ones(len(pdf), dtype=bool)
+                for k, v in ref_loc.items():
+                    if k in pdf.columns:
+                        m &= pdf[k].values == v
+                g = pdf[m]
+                if len(g) == 0:
+                    continue
+                dim_cols = sorted(c for c in g.columns if c.startswith("_dim_"))
+                vals = g.sort_values(dim_cols)[pname].values
+                if np.any(pd.isna(vals)):
+                    continue  # nan params are not loaded (ref: :670-681)
+                out[pname] = vals if len(vals) > 1 else vals[0]
+        return out
 
     # ---- table building ----
     @staticmethod

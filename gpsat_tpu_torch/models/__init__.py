@@ -7,6 +7,8 @@ that lane for the orchestrator. Every other name of the JAX package's
 registry raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
+from gpsat_tpu_torch.models.gpr import PARAM_NAMES
+
 _ZOO = "the model zoo, ROADMAP.md Queue 1 item 7"
 _HOST = "the host-serial lane, ROADMAP.md Queue 1 item 3"
 _UNPORTED = {
@@ -32,7 +34,11 @@ _UNPORTED = {
 class GPRModel:
     """Exact GPR through the batched engine (``make_gpr_core``). The
     per-expert host model API of the JAX package's ``GPRModel`` is not
-    ported; the orchestrator only reads this class's name."""
+    ported; the orchestrator reads this class's name, and the smoothing and
+    parameter loading its parameter names (those of a GPR without a mean
+    function)."""
+
+    param_names = tuple(PARAM_NAMES)
 
 
 def get_model(name: str):

@@ -16,11 +16,17 @@ so one lane's NaN never reaches another.
 
 Convergence: max|grad| <= tol_grad, or an accepted step with
 |f_prev - f| <= tol_f * max(|f|, 1), or the rejected-tie stall guard.
+
+The optimiser is resumable (``init_state`` / ``return_state``): the state is a
+dict of [B, ...] tensors (iterate, curvature history, step, exit flags), so
+a run stopped at its iteration budget continues in a later call with its
+history intact. The unconverged-lane compaction of ``parallel.engine``
+resumes a gathered subset of lanes this way.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -104,6 +110,10 @@ def _lane_where(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.T
     return torch.where(cond.reshape(cond.shape + (1,) * (a.ndim - 1)), a, b)
 
 
+# the carry that a resumed call takes and a returning call gives
+STATE_KEYS = ("x", "S", "Y", "rho", "count", "step", "done", "failed", "stalled")
+
+
 def minimize_lbfgs_single_eval(
     fun: Callable,
     x0: dict,
@@ -112,12 +122,23 @@ def minimize_lbfgs_single_eval(
     tol_grad: float,
     tol_f: float,
     memory_size: int = 10,
-) -> LBFGSResult:
+    init_state: Optional[dict] = None,
+    return_state: bool = False,
+):
     """Minimise ``fun(params) -> [B]`` lane by lane.
 
     x0: {name: [B, ...]} initial (unconstrained) parameters. ``fun`` must
     keep lanes independent; the gradient of ``fun(x).sum()`` is then each
     lane's own gradient.
+
+    init_state: a state returned by an earlier call (``STATE_KEYS``, each
+    [B, ...]); the run resumes from its iterate and history instead of x0,
+    whose values then give only the shapes. The resumed call evaluates
+    (f, g) at the carried iterate itself rather than trusting a carried f:
+    two programs round differently, and a carried f below this call's own
+    surface would make every trial look uphill. Its iteration count starts
+    at 0; the carried done / failed flags stay set, and stalled is kept.
+    return_state: also return the final state, ``(result, state)``.
     """
     x0_flat, unravel = ravel({k: v.detach() for k, v in x0.items()})
     B, dim = x0_flat.shape
@@ -131,23 +152,37 @@ def minimize_lbfgs_single_eval(
             (g,) = torch.autograd.grad(f.sum(), xr)
         return f.detach(), g
 
-    f0, g0 = vg(x0_flat)
     zero_i = torch.zeros(B, dtype=torch.int64, device=dev)
-    c = dict(
-        x=x0_flat,
-        f=f0,
-        g=g0,
-        S=torch.zeros(B, m, dim, dtype=dt, device=dev),
-        Y=torch.zeros(B, m, dim, dtype=dt, device=dev),
-        rho=torch.zeros(B, m, dtype=dt, device=dev),
-        count=zero_i,
-        step=torch.ones(B, dtype=dt, device=dev),
-        it=zero_i,
-        # already-converged starts must exit immediately
-        done=torch.amax(torch.abs(g0), -1) <= tol_grad,
-        failed=~torch.isfinite(f0),
-        stalled=torch.zeros(B, dtype=torch.bool, device=dev),
-    )
+    if init_state is None:
+        f0, g0 = vg(x0_flat)
+        c = dict(
+            x=x0_flat,
+            f=f0,
+            g=g0,
+            S=torch.zeros(B, m, dim, dtype=dt, device=dev),
+            Y=torch.zeros(B, m, dim, dtype=dt, device=dev),
+            rho=torch.zeros(B, m, dtype=dt, device=dev),
+            count=zero_i,
+            step=torch.ones(B, dtype=dt, device=dev),
+            it=zero_i,
+            # already-converged starts must exit immediately
+            done=torch.amax(torch.abs(g0), -1) <= tol_grad,
+            failed=~torch.isfinite(f0),
+            stalled=torch.zeros(B, dtype=torch.bool, device=dev),
+        )
+    else:
+        if init_state["S"].shape[1:] != (m, dim):
+            raise ValueError(f"carried history {tuple(init_state['S'].shape)} does not fit memory_size {m}, dim {dim}")
+        # resume: fresh budget, (f, g) re-anchored on this call's own surface
+        f0, g0 = vg(init_state["x"])
+        c = {k: init_state[k] for k in STATE_KEYS}
+        c.update(
+            f=f0,
+            g=g0,
+            it=zero_i,
+            done=init_state["done"] | (torch.amax(torch.abs(g0), -1) <= tol_grad),
+            failed=init_state["failed"] | ~torch.isfinite(f0),
+        )
     one = torch.ones((), dtype=dt, device=dev)
 
     while True:
@@ -202,7 +237,7 @@ def minimize_lbfgs_single_eval(
         new = dict(x=x, f=f_new, g=g_new, S=S, Y=Y, rho=rho, count=count, step=step, it=c["it"] + 1, done=done, failed=failed, stalled=stalled)
         c = {k: _lane_where(active, new[k], c[k]) for k in c}
 
-    return LBFGSResult(
+    res = LBFGSResult(
         params=unravel(c["x"]),
         converged=c["done"] & ~c["failed"],
         failed=c["failed"],
@@ -210,4 +245,45 @@ def minimize_lbfgs_single_eval(
         final_value=c["f"],
         final_grad_norm=torch.amax(torch.abs(c["g"]), -1),
         stalled=c["stalled"],
+    )
+    return (res, {k: c[k] for k in STATE_KEYS}) if return_state else res
+
+
+LINESEARCHES = ("zoom", "backtracking", "single_eval")
+
+
+def check_linesearch(linesearch: str) -> str:
+    """``linesearch`` if the port runs it: only "single_eval" is ported;
+    "zoom" and "backtracking" raise NotImplementedError, other names
+    ValueError."""
+    if linesearch not in LINESEARCHES:
+        raise ValueError(f"linesearch: {linesearch} not in {LINESEARCHES}")
+    if linesearch != "single_eval":
+        raise NotImplementedError(
+            f"linesearch={linesearch!r} is not ported; use 'single_eval' (see ROADMAP.md Queue 1 item 5)"
+        )
+    return linesearch
+
+
+def minimize_lbfgs(
+    fun: Callable,
+    x0: dict,
+    *,
+    max_iter: int = 500,
+    tol_grad: float = 1e-6,
+    tol_f: float = 1e-11,
+    memory_size: int = 10,
+    max_linesearch_steps: int = 32,
+    linesearch: str = "zoom",
+    init_state: Optional[dict] = None,
+    return_state: bool = False,
+):
+    """The JAX package's L-BFGS entry point (``gpsat_tpu/optim/lbfgs.py::
+    minimize_lbfgs``): dispatches on ``linesearch``. "single_eval" runs
+    ``minimize_lbfgs_single_eval``, which ignores ``max_linesearch_steps``
+    (one trial per iteration) as the JAX package's does."""
+    check_linesearch(linesearch)
+    return minimize_lbfgs_single_eval(
+        fun, x0, max_iter=max_iter, tol_grad=tol_grad, tol_f=tol_f, memory_size=memory_size,
+        init_state=init_state, return_state=return_state,
     )

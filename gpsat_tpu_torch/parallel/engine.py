@@ -6,6 +6,12 @@ step acts on the whole [B, ...] batch: batched single-eval L-BFGS on the
 masked objective, then the masked posterior predict. Dead tiles (mask
 all-zero) pad the batch to a power of two and are dropped on the host.
 
+Unconverged-lane compaction (``run_tile_batch_carry``,
+``run_tile_batch_two_stage``): the batch runs in lockstep until its slowest
+lane stops, so a head run takes a few iterations on the whole batch and a
+tail run finishes only the lanes the head left unconverged, gathered by an
+index on the device.
+
 Entry points default to the CUDA device and raise without one, unless the
 caller passes ``device="cpu"``.
 """
@@ -18,8 +24,8 @@ import numpy as np
 import torch
 
 from gpsat_tpu_torch.models.functional import ModelCore
-from gpsat_tpu_torch.optim.lbfgs import minimize_lbfgs_single_eval
-from gpsat_tpu_torch.parallel.batching import TileBatch, pad_batch_to
+from gpsat_tpu_torch.optim.lbfgs import check_linesearch, minimize_lbfgs
+from gpsat_tpu_torch.parallel.batching import TileBatch, pad_batch_to, take_batch
 
 
 def resolve_device(device=None) -> torch.device:
@@ -42,12 +48,18 @@ def resolve_linesearch(linesearch: Optional[str], dtype) -> str:
     """The line search a run uses: ``linesearch``, or by compute dtype
     "single_eval" in f32 and "zoom" in f64 (the JAX engine's defaults).
     Only "single_eval" is ported; any other raises NotImplementedError."""
-    ls = linesearch if linesearch is not None else ("single_eval" if dtype == torch.float32 else "zoom")
-    if ls != "single_eval":
-        raise NotImplementedError(
-            f"linesearch={ls!r} is not ported; use 'single_eval' (see ROADMAP.md Queue 1 item 5)"
-        )
-    return ls
+    return check_linesearch(linesearch if linesearch is not None else ("single_eval" if dtype == torch.float32 else "zoom"))
+
+
+def padded_width(B: int, pad_multiple: Optional[int] = None) -> int:
+    """The expert axis padded to a power of two, or to the next multiple of
+    ``pad_multiple``, so different-sized buckets share shapes."""
+    if pad_multiple:
+        return int(-(-B // int(pad_multiple)) * int(pad_multiple))
+    B_pad = 1
+    while B_pad < B:
+        B_pad *= 2
+    return B_pad
 
 
 def _fit_predict_batched(
@@ -62,8 +74,13 @@ def _fit_predict_batched(
     tol_grad: float,
     tol_f: float,
     memory_size: int,
+    linesearch: Optional[str],
+    init_state: Optional[dict],
+    return_state: bool,
 ):
-    """All padded tiles of a batch: optimise parameters, then predict."""
+    """All padded tiles of a batch: optimise parameters, then predict.
+    ``init_state`` resumes the L-BFGS state of an earlier run;
+    ``return_state`` adds the final state to the results as "opt_state"."""
     if optimise and core.device_init is not None:
         with torch.no_grad():
             uparams0 = core.device_init(uparams0, data)
@@ -75,10 +92,14 @@ def _fit_predict_batched(
 
     B = data["X"].shape[0]
     dev = data["X"].device
+    state = None
     if optimise and u_free0:
-        res = minimize_lbfgs_single_eval(
-            objective, u_free0, max_iter=max_iter, tol_grad=tol_grad, tol_f=tol_f, memory_size=memory_size
+        res = minimize_lbfgs(
+            objective, u_free0, max_iter=max_iter, tol_grad=tol_grad, tol_f=tol_f, memory_size=memory_size,
+            linesearch=linesearch, init_state=init_state, return_state=return_state,
         )
+        if return_state:
+            res, state = res
         u_opt = {**res.params, **u_fixed}
         converged, num_iter, final_obj = res.converged, res.num_iter, res.final_value
         stalled, failed = res.stalled, res.failed
@@ -96,7 +117,7 @@ def _fit_predict_batched(
         if optimise and core.finalize_params is not None:
             cparams = core.finalize_params(cparams, data)
         pred = core.predict(cparams, data, Xnew)
-    return {
+    out = {
         "params": cparams,
         "pred": pred,
         "objective": final_obj,
@@ -106,6 +127,9 @@ def _fit_predict_batched(
         # linesearch collapse / non-finite objective: the third exit class
         "failed": failed,
     }
+    if state is not None:
+        out["opt_state"] = state
+    return out
 
 
 def make_batched_runner(
@@ -121,6 +145,8 @@ def make_batched_runner(
     memory_size: int = 10,
     mesh=None,
     device=None,
+    return_state: bool = False,
+    take_state: bool = False,
 ) -> Callable:
     """Build the batch program: (X, y, mask, Xnew, uparams0) -> results.
 
@@ -136,20 +162,29 @@ def make_batched_runner(
     L-BFGS-B parity) but 1e-3/1e-6 in f32, whose arithmetic noise sits
     above the f64-grade thresholds. Only the single-eval line search is
     ported; linesearch=None selects it in f32 and must be given as
-    "single_eval" in f64 (the JAX default there, zoom, is not ported).
+    "single_eval" in f64 (the JAX default there, zoom, is not ported),
+    unless the runner does not optimise.
     max_linesearch_steps bounds the zoom and backtracking searches of the
     JAX engine; the single-eval search takes one step per iteration and
     ignores it, as the JAX one does.
+
+    return_state=True adds the resumable L-BFGS state to the results
+    ("opt_state", a dict of [B, ...] tensors); take_state=True makes the
+    runner take such a state as a sixth argument and resume from it: the
+    unconverged-lane compaction of ``run_tile_batch_carry``.
     """
     _no_mesh(mesh)
     dev = resolve_device(device)
 
-    def runner(X, y, mask, Xnew, uparams0):
+    def runner(X, y, mask, Xnew, uparams0, state=None):
+        if take_state and state is None:
+            raise TypeError("this runner was built with take_state=True: pass the carried state")
+        if state is not None and not take_state:
+            raise TypeError("this runner takes no state; build it with take_state=True")
         X, y, mask, Xnew = (torch.as_tensor(a, device=dev) for a in (X, y, mask, Xnew))
         f32 = X.dtype == torch.float32
         tg = tol_grad if tol_grad is not None else (1e-3 if f32 else 1e-6)
         tf = tol_f if tol_f is not None else (1e-6 if f32 else 1e-11)
-        resolve_linesearch(linesearch, X.dtype)
         return _fit_predict_batched(
             core,
             {"X": X, "y": y, "mask": mask},
@@ -161,6 +196,10 @@ def make_batched_runner(
             tol_grad=tg,
             tol_f=tf,
             memory_size=memory_size,
+            # a predict-only runner searches nothing: any line search name will do
+            linesearch=resolve_linesearch(linesearch, X.dtype) if optimise else None,
+            init_state=state,
+            return_state=return_state,
         )
 
     runner.device = dev
@@ -249,6 +288,7 @@ def run_tile_batch_async(
     mesh=None,
     pad_multiple: Optional[int] = None,
     device=None,
+    keep_state: bool = False,
 ) -> Callable[[], Dict[str, np.ndarray]]:
     """Run one shape bucket; returns finalize(), which copies the results to
     the host and strips dead-tile padding.
@@ -260,6 +300,10 @@ def run_tile_batch_async(
     init_cparams: constrained params, each either unbatched (applied to all
     experts) or with a leading [B] axis (per-expert warm starts);
     ``smart_init=True`` fills the unset ones from ``_smart_init``.
+
+    keep_state=True (a runner built with return_state=True): finalize()
+    returns ``(res, state, uparams0)``, the L-BFGS state and the
+    unconstrained initial params of the live lanes, both left on the device.
     """
     _no_mesh(mesh)
     dev = resolve_device(device)
@@ -272,15 +316,7 @@ def run_tile_batch_async(
         init_cparams = core.prepare_batch_init(batch, init_cparams)
 
     B = batch.B
-    # pad the expert axis to a power of two (or the next multiple of
-    # pad_multiple) so different-sized buckets share shapes
-    if pad_multiple:
-        B_pad = int(-(-B // int(pad_multiple)) * int(pad_multiple))
-    else:
-        B_pad = 1
-        while B_pad < B:
-            B_pad *= 2
-    batch = pad_batch_to(batch, B_pad)
+    batch = pad_batch_to(batch, padded_width(B, pad_multiple))
 
     D = batch.X.shape[-1]
     dtype = batch.X.dtype
@@ -328,7 +364,12 @@ def run_tile_batch_async(
         }
         for k in core.param_names:
             res[k] = host(out["params"][k])
-        return res
+        if not keep_state:
+            return res
+        rows = torch.as_tensor(np.flatnonzero(live), device=dev)
+        state = out.get("opt_state")
+        state = None if state is None else {k: v[rows] for k, v in state.items()}
+        return res, state, {k: v[rows] for k, v in uparams0.items()}
 
     return finalize
 
@@ -347,3 +388,138 @@ def run_tile_batch(
     return run_tile_batch_async(
         batch, init_cparams, runner, core, mesh=mesh, pad_multiple=pad_multiple, device=device
     )()
+
+
+def _live_only(batch: TileBatch, init_cparams: dict, core: ModelCore):
+    """The batch without its dead tiles (expert_index -1), and the same rows
+    of every per-expert init value, so both stay aligned. (The JAX package's
+    carry strips the batch only, and a per-expert init then no longer fits.)"""
+    live = np.flatnonzero(np.asarray(batch.expert_index) >= 0)
+    if len(live) == batch.B:
+        return batch, init_cparams
+    defaults = core.init_cparams(batch.X.shape[-1], dtype=batch.X.dtype)
+    init = dict(init_cparams)
+    for k, v in init.items():
+        if k in defaults:
+            a = np.asarray(v)
+            if a.ndim == np.ndim(defaults[k]) + 1 and a.shape[0] == batch.B:
+                init[k] = a[live]
+    return take_batch(batch, live), init
+
+
+def _splice(head: dict, rows: np.ndarray, tail: dict, core: ModelCore) -> dict:
+    """The head's results with the tail's written into ``rows``; a lane's
+    iterations are its head's plus its tail's."""
+    out = {k: np.array(v, copy=True) for k, v in head.items()}
+    for k in ("objective", "converged", "stalled", "failed", "f_mean", "f_var", "y_var", *core.param_names):
+        out[k][rows] = tail[k]
+    out["num_iter"][rows] = head["num_iter"][rows] + tail["num_iter"]
+    return out
+
+
+def run_tile_batch_carry(
+    batch: TileBatch,
+    init_cparams: Dict[str, np.ndarray],
+    runner_head: Callable,
+    runner_tail: Callable,
+    core: ModelCore,
+    *,
+    mesh=None,
+    pad_multiple: Optional[int] = None,
+    device=None,
+) -> Dict[str, np.ndarray]:
+    """State-carrying unconverged-lane compaction (single-eval L-BFGS).
+
+    The head runs the whole batch for its iteration budget and returns the
+    L-BFGS state; the lanes it left unconverged are gathered on the device
+    (batch rows, initial params and state by one index), padded as the head
+    was (power of two, or ``pad_multiple``) with dead lanes marked done so
+    they exit at once, and RESUMED by the tail: no history restart, so each
+    lane's iterations equal a single run's while the tail bills only the
+    unconverged width. Results follow the batch's live tiles, as
+    ``run_tile_batch``'s do, and add "compaction": the head's and the tail's
+    padded widths, the tail's rows and each lane's head and tail iterations.
+
+    runner_head: make_batched_runner(core, max_iter=K1, return_state=True, ...)
+    runner_tail: make_batched_runner(core, max_iter=rest, take_state=True,
+                 return_state=True, ...), with the head's memory_size
+    """
+    _no_mesh(mesh)
+    dev = resolve_device(device)
+    batch, init_cparams = _live_only(batch, init_cparams, core)
+    res, state, uparams0 = run_tile_batch_async(
+        batch, init_cparams, runner_head, core, pad_multiple=pad_multiple, device=dev, keep_state=True
+    )()
+    unconv = np.flatnonzero(~res["converged"])
+    info = {"head_width": padded_width(batch.B, pad_multiple), "tail_width": 0, "tail_rows": unconv,
+            "head_num_iter": res["num_iter"].copy(), "tail_num_iter": np.zeros(0, dtype=res["num_iter"].dtype)}
+    if len(unconv) == 0 or state is None:
+        return {**res, "compaction": info}
+
+    B_sub = len(unconv)
+    B_pad = padded_width(B_sub, pad_multiple)
+    sub = pad_batch_to(take_batch(batch, unconv), B_pad)
+    idx = torch.as_tensor(unconv, device=dev)
+
+    def gather(t, fill):
+        t = t[idx]
+        if B_pad == B_sub:
+            return t
+        return torch.cat([t, torch.full((B_pad - B_sub,) + tuple(t.shape[1:]), fill, dtype=t.dtype, device=dev)])
+
+    # dead lanes: done, so they leave the loop before its first iteration
+    sub_state = {k: gather(v, True if k == "done" else 0) for k, v in state.items()}
+    out = runner_tail(
+        torch.as_tensor(sub.X, device=dev),
+        torch.as_tensor(sub.y, device=dev),
+        torch.as_tensor(sub.mask, device=dev),
+        torch.as_tensor(sub.Xnew, device=dev),
+        {k: gather(v, 0) for k, v in uparams0.items()},
+        sub_state,
+    )
+
+    def host(t):
+        return t.detach().cpu().numpy()[:B_sub]
+
+    tail = {k: host(out[k]) for k in ("objective", "converged", "stalled", "failed", "num_iter")}
+    tail.update({k: host(out["pred"][k]) for k in ("f_mean", "f_var", "y_var")})
+    tail.update({k: host(out["params"][k]) for k in core.param_names})
+    info.update(tail_width=B_pad, tail_num_iter=tail["num_iter"])
+    return {**_splice(res, unconv, tail, core), "compaction": info}
+
+
+def run_tile_batch_two_stage(
+    batch: TileBatch,
+    init_cparams: Dict[str, np.ndarray],
+    runner_head: Callable,
+    runner_tail: Callable,
+    core: ModelCore,
+    *,
+    mesh=None,
+    pad_multiple: Optional[int] = None,
+    device=None,
+) -> Dict[str, np.ndarray]:
+    """Unconverged-lane compaction by warm restart: the whole batch runs for
+    runner_head's iteration budget, then the unconverged lanes alone restart
+    from the head's optima in a smaller batch with runner_tail (the L-BFGS
+    history rebuilds; ``run_tile_batch_carry`` keeps it). Results follow the
+    batch's live tiles and add "compaction" as the carry's do.
+
+    runner_head: make_batched_runner(core, max_iter=K1, ...)
+    runner_tail: make_batched_runner(core, max_iter=<rest>, ...)
+    """
+    _no_mesh(mesh)
+    dev = resolve_device(device)
+    batch, init_cparams = _live_only(batch, init_cparams, core)
+    res = run_tile_batch(batch, init_cparams, runner_head, core, pad_multiple=pad_multiple, device=dev)
+    unconv = np.flatnonzero(~res["converged"])
+    info = {"head_width": padded_width(batch.B, pad_multiple), "tail_width": 0, "tail_rows": unconv,
+            "head_num_iter": res["num_iter"].copy(), "tail_num_iter": np.zeros(0, dtype=res["num_iter"].dtype)}
+    if len(unconv) == 0:
+        return {**res, "compaction": info}
+    tail = run_tile_batch(
+        take_batch(batch, unconv), {k: res[k][unconv] for k in core.param_names}, runner_tail, core,
+        pad_multiple=pad_multiple, device=dev,
+    )
+    info.update(tail_width=padded_width(len(unconv), pad_multiple), tail_num_iter=tail["num_iter"])
+    return {**_splice(res, unconv, tail, core), "compaction": info}

@@ -307,3 +307,52 @@ def test_oi_sweep_with_polish_on_card_matches_cpu():
     np.testing.assert_array_equal(card["expert_index"], cpu["expert_index"])
     for k in ("f_mean", "f_var"):
         assert float(np.abs(card[k] - cpu[k]).max()) <= 1e-5, k
+
+
+@pytest.mark.cuda
+def test_gaussian_2d_weight_on_card_matches_cpu():
+    # the smoothing's weighted mean in f64 on the card against the same call
+    # on the CPU: the same sums in another order
+    dev = _cuda()
+    from gpsat_tpu_torch.postprocess import gaussian_2d_weight
+
+    rng = np.random.default_rng(8)
+    x, y = rng.uniform(-4.5e6, 4.5e6, 1664), rng.uniform(-4.5e6, 4.5e6, 1664)
+    vals = rng.lognormal(size=1664)
+    vals[rng.choice(1664, 100, replace=False)] = np.nan
+    card = gaussian_2d_weight(x, y, x, y, 2e5, 2e5, vals, device=dev)
+    cpu = gaussian_2d_weight(x, y, x, y, 2e5, 2e5, vals, device="cpu")
+    assert card.dtype == np.float64 and np.isfinite(card).all()
+    np.testing.assert_allclose(card, cpu, rtol=1e-10, atol=0)
+
+
+@pytest.mark.cuda
+def test_tile_batch_carry_on_card_at_133_lanes():
+    # unconverged-lane compaction on the card in f32 on the "block" route:
+    # every lane converges, and each lane's iterations are its head's plus,
+    # where the tail resumed it, its tail's
+    dev = _cuda()
+    B, N, P, D = 133, 128, 16, 2
+    rng = np.random.default_rng(4)
+    X = rng.uniform(-6, 6, (B, N, D)).astype(np.float32)
+    y = (np.sin(X[..., 0]) * np.cos(X[..., 1]) + 0.1 * rng.normal(size=(B, N))).astype(np.float32)
+    mask = np.ones((B, N), dtype=np.float32)
+    for i, f in enumerate(rng.integers(int(0.6 * N), N + 1, size=B)):
+        mask[i, f:] = 0.0
+    batch = TileBatch(X=X, y=y, mask=mask, Xnew=rng.uniform(-4, 4, (B, P, D)).astype(np.float32),
+                      pred_mask=np.ones((B, P), dtype=np.float32), obs_mean=np.zeros(B, dtype=np.float32),
+                      expert_index=np.arange(B), num_obs=mask.sum(1).astype(int))
+    core = make_gpr_core(jitter=1e-5)
+    kw = dict(linesearch="single_eval", return_state=True, device=dev)
+    head = TE.make_batched_runner(core, max_iter=5, **kw)
+    tail = TE.make_batched_runner(core, max_iter=100, take_state=True, **kw)
+    before = BC.factor_blocks.launches
+    res = TE.run_tile_batch_carry(batch, {"smart_init": True}, head, tail, core, device=dev)
+    assert BC.factor_blocks.launches > before
+    info = res["compaction"]
+    assert res["converged"].all() and not res["failed"].any()
+    assert info["head_width"] == 256 and len(info["tail_rows"]) > 0 and info["tail_width"] >= len(info["tail_rows"])
+    want = info["head_num_iter"].copy()
+    want[info["tail_rows"]] += info["tail_num_iter"]
+    np.testing.assert_array_equal(res["num_iter"], want)
+    assert np.isfinite(res["f_mean"]).all() and np.isfinite(res["f_var"]).all()

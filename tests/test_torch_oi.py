@@ -307,9 +307,6 @@ def test_cli_main_runs_a_config_on_the_cpu(tmp_path):
 @pytest.mark.parametrize(
     "model_extra, run_kwargs",
     [
-        ({"optim_kwargs": {"carry_iters": 5}}, {}),
-        ({"optim_kwargs": {"two_stage_iters": 5}}, {}),
-        ({"load_params": {"file": "results.h5"}}, {}),
         ({"replacement_threshold": 50}, {}),
         ({"oi_model": "GPflowSGPRModel"}, {}),
         ({"oi_model": "sklearnGPRModel"}, {}),
@@ -318,7 +315,7 @@ def test_cli_main_runs_a_config_on_the_cpu(tmp_path):
         ({}, {"profile_dir": "trace"}),
         ({"optim_kwargs": {"max_iter": 5}}, {"dtype": torch.float64}),
     ],
-    ids=["carry_iters", "two_stage_iters", "load_params", "replacement_threshold", "sgpr", "host_lane",
+    ids=["replacement_threshold", "sgpr", "host_lane",
          "custom_model", "mesh", "profile_dir", "f64_without_linesearch"],
 )
 def test_unported_options_raise(model_extra, run_kwargs, tmp_path):
