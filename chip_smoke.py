@@ -3,7 +3,7 @@
     python3 chip_smoke.py              # one card; exits non-zero on any failure
     python3 chip_smoke.py --profile    # also write torch.profiler tables of one
                                        # main-path, panel-path, profiled-path,
-                                       # oi and post run to
+                                       # oi, post and sgpr run to
                                        # chiprun_out/profile*.txt, and split
                                        # kernel 3's time by __global__
     python3 chip_smoke.py --kernels    # phases 1 and 2 only (no result line)
@@ -56,6 +56,21 @@ Phases (each prints on its own lines; any failure raises):
              predict-only re-run from the smoothed fields, 16 experts against
              the same re-run in f64 on the CPU; (d) the glue of all
              predictions, against a plain numpy weighted average
+9. sgpr      the sparse-GPR lane at bench_large_n.py's geometry, M = 500
+             inducing points (the reference's default), f32, kernel 1 in both
+             factor pairs of every evaluation (Kuu and B = A A^T + I, 500
+             identity-padded to 512), gradients through the pair: (a) B=32
+             tiles of N=4,096 unchunked and (b) B=8 tiles of N=16,384 in four
+             checkpointed chunks of 4,096, each a warm-up call and a timed
+             call; (c) accuracy: 4 tiles of (a) fitted in f64 on the card,
+             (a)'s f32 optima polished in f64 on the card against that fit,
+             and 2 tiles of N=1,024 in f64 on the card against the CPU; (d)
+             the factor pair in its new role on a Kuu of (a)'s first
+             evaluation: kernel against plain version, and the gradient
+             through the pair against f64 autograd through the library; (e)
+             the replacement lane: phase 7's geometry through the sweep with
+             SGPR (M = 64) for tiles of >= 64 observations and exact GPR for
+             the rest, each lane against a sweep of its experts alone
 
 Then one {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 Imports nothing of JAX or of gpsat_tpu.
@@ -131,6 +146,37 @@ SMOOTH_REL_BOUND = 1e-10
 GLUE_RADIUS, GLUE_R = 200_000.0, 3
 # the glue against its plain numpy version: the same f64 sums in another order
 GLUE_REL_BOUND = 1e-12
+# phase 9: bench_large_n.py's SGPR geometry and settings, M = 500 the
+# reference's default; (a) unchunked, (b) chunk_size "auto" (chunks of 4,096)
+SGPR_M, SGPR_P = 500, 32
+SGPR_FULL, SGPR_CHUNKED = (32, 4096), (8, 16384)
+SGPR_RUN_KW = dict(max_iter=300, linesearch="single_eval", tol_grad=1e-3, tol_f=1e-6)
+SGPR_F64_KW = dict(max_iter=1000, **CPU_F64_KW)
+SGPR_F64_TILES = 4
+SGPR_SMALL = (2, 1024)
+# raw f32 optima against the f64 fit on the same tiles: the raw-f32 band of
+# phase 4 (a CPU rehearsal on (a)'s first 4 tiles gave 7.8e-4; PERF.md
+# section 6)
+SGPR_RAW_BOUND = PRED_BOUND
+# (d): the kernel pair against the plain pair on a Kuu of condition ~1e7 in
+# f32, relative to the largest entry (the library pair differs from the plain
+# one by 1.3e-3 on L and 2.8e-2 on W in the CPU rehearsal), and the backward
+# errors |L L^T - K|, |L W - I| of the kernel pair
+PAIR_REL_BOUND = {"L": 1e-2, "W": 2e-1}
+PAIR_BACKWARD_BOUND = {"LLt": 1e-5, "LW": 1e-4}
+# the f32 gradient through the pair against f64 autograd, relative to the
+# largest entry: on that Kuu no f32 factor does better than ~0.3 (the
+# library's f32 autograd, CPU rehearsal), so the pair is held to 3x the
+# library's own error in the same run; on the same Kuu with 1e-2 kv added to
+# its diagonal (condition ~1.5e4; rehearsal 1.9e-4) to 2e-3
+GRAD_VS_LIBRARY = 3.0
+GRAD_CONDITIONED_BOUND = 2e-3
+GRAD_SHIFT = 1e-2
+# (e): the replacement lane at phase 7's geometry
+REPLACE_M, REPLACE_THRESHOLD = 64, 64
+REPLACE_OPTIM = {"max_iter": 100}
+# a lane against a sweep of its experts alone: the same buckets
+REPLACE_BOUND = 1e-6
 
 
 def check(cond, msg):
@@ -768,9 +814,10 @@ def by_expert(buckets, keys):
     return out
 
 
-def max_abs_pred_diff(a, b):
-    """max |a - b| over f_mean and f_var of two per-expert records."""
-    return max(float(np.abs(a[k] - b[k]).max()) for k in ("f_mean", "f_var"))
+def max_abs_pred_diff(a, b, rows=slice(None)):
+    """max |a - b| over f_mean and f_var of two per-expert records, or of
+    ``rows`` of two results."""
+    return max(float(np.abs(np.asarray(a[k])[rows] - np.asarray(b[k])[rows]).max()) for k in ("f_mean", "f_var"))
 
 
 def kernel1_launches(buckets, nmax):
@@ -1006,6 +1053,278 @@ def phase_post(f32_oi, f32_it_max, profile: bool):
     return launches_fit["block_chol"], launches_re["block_chol"]
 
 
+def make_large_tiles(B, N, P, D, dtype, seed=0):
+    """bench_large_n.py's tiles (seed 0, 90-100 % fill), as the port's
+    TileBatch."""
+    from gpsat_tpu_torch.parallel.batching import TileBatch
+
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-6, 6, size=(B, N, D)).astype(dtype)
+    y = (np.sin(X[..., 0]) * np.cos(X[..., 1]) + 0.1 * rng.normal(size=(B, N))).astype(dtype)
+    mask = np.ones((B, N), dtype=dtype)
+    fill = rng.integers(int(0.9 * N), N + 1, size=B)  # mildly ragged
+    for i, f in enumerate(fill):
+        mask[i, f:] = 0.0
+    Xnew = rng.uniform(-4, 4, size=(B, P, D)).astype(dtype)
+    return TileBatch(
+        X=X, y=y, mask=mask, Xnew=Xnew,
+        pred_mask=np.ones((B, P), dtype=dtype),
+        obs_mean=np.zeros(B, dtype=dtype),
+        expert_index=np.arange(B),
+        num_obs=fill,
+    )
+
+
+def sgpr_core():
+    """bench_large_n.py's core: Matern32, M = 500, softplus bijectors,
+    jitter 1e-6, chunk_size "auto", inducing points fixed; the "block" route."""
+    from gpsat_tpu_torch.models.sgpr import make_sgpr_core
+
+    return make_sgpr_core(kernel="Matern32", num_inducing_points=SGPR_M)
+
+
+def drive_sgpr(tag, B, n, profile_to=None):
+    """One SGPR bucket at the full width through the engine: a warm-up call,
+    then one timed call with the launch counts set to 0 just before it and
+    read just after. Returns (batch, core, results, kernel 1's launches)."""
+    import torch
+
+    from gpsat_tpu_torch.models.sgpr import _resolve_chunk
+    from gpsat_tpu_torch.parallel.engine import make_batched_runner, run_tile_batch
+    from gpsat_tpu_torch.utils.flops import sgpr_iter_flops
+
+    batch = make_large_tiles(B, n, SGPR_P, D, np.float32)
+    core = sgpr_core()
+    runner = make_batched_runner(core, fixed_params=core.default_fixed_params, **SGPR_RUN_KW)
+    init = {"smart_init": True}
+    t0 = time.perf_counter()
+    run_tile_batch(batch, init, runner, core)
+    first_s = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = run_tile_batch(batch, init, runner, core)
+    steady_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters().items()}
+
+    conv = int(res["converged"].sum())
+    it_max = int(res["num_iter"].max())
+    # one evaluation before the loop, one per iteration of the slowest lane,
+    # one in the predict; each factors Kuu and B, M identity-padded to a
+    # multiple of 64: one launch per 64-block of each
+    expected = {"block_chol": (it_max + 2) * 2 * (-(-SGPR_M // T)), "panel_chol": 0, "cholesky": 0}
+    tflops = B * it_max * sgpr_iter_flops(n, SGPR_M, D) / steady_s / 1e12
+    log(f"sgpr_{tag}", core=core.name, B=B, N=n, M=SGPR_M, chunk=_resolve_chunk(n, "auto"),
+        experts_per_s=B / steady_s, points_per_s=B * n / steady_s, steady_s=steady_s, first_call_s=first_s,
+        achieved_tflops=tflops, share_of_f32_peak=tflops * 1e12 / F32_FLOPS_PER_S, converged=conv,
+        stall_exits=int(res["stalled"].sum()), failed_exits=int(res["failed"].sum()),
+        iters_mean=float(res["num_iter"].mean()), iters_max=it_max,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches, launches_predicted=expected)
+    check(np.isfinite(res["f_mean"]).all() and np.isfinite(res["f_var"]).all(), f"sgpr {tag}: non-finite predictions")
+    check(conv >= MIN_SHARE * B, f"sgpr {tag}: only {conv}/{B} lanes converged")
+    check(launches["block_chol"] > 0 and launches == expected, f"sgpr {tag} launches {launches}, expected {expected}")
+    if profile_to:
+        trace(f"sgpr_{tag}", lambda: run_tile_batch(batch, init, runner, core), profile_to)
+    return batch, core, res, launches["block_chol"]
+
+
+def phase_sgpr_accuracy(batch, core, res):
+    """(c): (a)'s first tiles in f64 on the card (library arm), (a)'s f32
+    optima polished in f64 on the card, and 2 tiles of N=1,024 in f64 on the
+    card against the CPU."""
+    from gpsat_tpu_torch.parallel.batching import cast_batch, take_batch
+    from gpsat_tpu_torch.parallel.engine import make_batched_runner, polish_tile_batch, run_tile_batch
+
+    idx = np.arange(SGPR_F64_TILES)
+    runner64 = make_batched_runner(core, fixed_params=core.default_fixed_params, **SGPR_F64_KW)
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    # the first tiles draw the same inducing points as in the whole batch
+    f64 = run_tile_batch(cast_batch(take_batch(batch, idx), np.float64), {"smart_init": True}, runner64, core)
+    f64_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters().items()}
+    check(not any(launches.values()), f"sgpr f64 on the card launched a kernel: {launches}")
+    raw = max_abs_pred_diff({k: res[k][idx] for k in ("f_mean", "f_var")}, f64)
+    t0 = time.perf_counter()
+    pol = polish_tile_batch(batch, res, core, max_iter=150)
+    polish_s = time.perf_counter() - t0
+    agree = np.abs(pol["objective"][idx] - f64["objective"]) <= WORSE_OPTIMUM_NATS
+    d_pol = max((max_abs_pred_diff(pol, f64, [i]) for i in idx[agree]), default=float("inf"))
+    check(np.array_equal(pol["inducing_points"], res["inducing_points"]), "sgpr polish moved the fixed inducing points")
+
+    small = make_large_tiles(*SGPR_SMALL, SGPR_P, D, np.float64)
+    t0 = time.perf_counter()
+    card = run_tile_batch(small, {"smart_init": True}, runner64, core)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = run_tile_batch(small, {"smart_init": True},
+                         make_batched_runner(core, fixed_params=core.default_fixed_params, device="cpu", **SGPR_F64_KW),
+                         core, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    d_small = max_abs_pred_diff(card, cpu)
+    log("sgpr_accuracy", tiles=SGPR_F64_TILES, f64_card_s=f64_s, f64_converged=int(f64["converged"].sum()),
+        f64_iters_max=int(f64["num_iter"].max()), raw_f32_vs_f64=raw, raw_bound=SGPR_RAW_BOUND,
+        objective_f32_minus_f64=(res["objective"][idx] - f64["objective"]).tolist(),
+        polish_s=polish_s, polish_converged=int(pol["converged"].sum()), polish_lanes=len(pol["converged"]),
+        polish_iters_mean=float(pol["num_iter"].mean()), polish_iters_max=int(pol["num_iter"].max()),
+        polish_failed=int(pol["failed"].sum()), polished_vs_f64=d_pol, polished_compared=int(agree.sum()),
+        polish_bound=F64_BOUND, small_tiles=list(SGPR_SMALL), small_card_s=card_s, small_cpu_s=cpu_s,
+        small_card_vs_cpu=d_small, small_bound=F64_BOUND, small_iters=[int(card["num_iter"].max()),
+                                                                        int(cpu["num_iter"].max())])
+    check(all(np.isfinite(r["f_mean"]).all() and np.isfinite(r["f_var"]).all() for r in (f64, pol, card, cpu)),
+          "sgpr accuracy: non-finite predictions")
+    check(raw <= SGPR_RAW_BOUND, f"sgpr: raw f32 vs f64 on the card: {raw}")
+    check(agree.sum() >= MIN_COMPARED_SHARE * len(idx), f"sgpr polish: objectives agree on {int(agree.sum())}/{len(idx)}")
+    check(d_pol <= F64_BOUND, f"sgpr: polished vs the f64 fit: {d_pol}")
+    check(d_small <= F64_BOUND, f"sgpr f64, card vs CPU at N={SGPR_SMALL[1]}: {d_small}")
+
+
+def phase_sgpr_pair(batch, core):
+    """(d): the factor pair of a Kuu from (a)'s first evaluation (the
+    engine's init: smart_init, the drawn inducing points), on the kernel
+    against the same function on the plain version, and the gradient of a
+    scalar of (L, W) through the pair against f64 autograd through
+    torch.linalg.cholesky and torch.linalg.inv."""
+    import torch
+
+    from gpsat_tpu_torch.ops import block_chol as BC
+    from gpsat_tpu_torch.ops import kernels as K
+    from gpsat_tpu_torch.ops import linalg as LA
+    from gpsat_tpu_torch.parallel.engine import _smart_init, resolve_device
+
+    init = core.prepare_batch_init(batch, _smart_init(batch))
+    dev = resolve_device()
+    Z, ls, kv = (torch.as_tensor(np.asarray(init[k]), device=dev)
+                 for k in ("inducing_points", "lengthscales", "kernel_variance"))
+    Kuu = LA.add_diag(K.gram("Matern32", Z, Z, ls, kv), 1e-6)
+    M, P = Kuu.shape[-1], -(-Kuu.shape[-1] // T) * T
+    eye64 = torch.eye(M, dtype=torch.float64, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    G1, G2 = (torch.randn(Kuu.shape, generator=g, device=dev) for _ in range(2))
+
+    def plain_pair(K32):
+        Kp = torch.eye(P, device=dev).repeat(K32.shape[0], 1, 1)
+        Kp[:, :M, :M] = K32
+        L, Wd = LA._blocked_cholesky(Kp, T, BC.factor_blocks_reference)
+        return L[:, :M, :M], LA.tri_inv_from_diag(L, torch.stack(Wd, dim=1), T)[:, :M, :M]
+
+    def scalar(L, W):
+        return (torch.tril(L) * G1.to(L.dtype)).sum() + (torch.tril(W) * G2.to(L.dtype)).sum()
+
+    def grad_of(K32, fn):
+        K = K32.clone().requires_grad_(True)
+        scalar(*fn(K)).backward()
+        return K.grad
+
+    out = {}
+    for case, K32 in (("kuu", Kuu), ("kuu_plus_1e-2kv", LA.add_diag(Kuu, GRAD_SHIFT * kv))):
+        before = BC.factor_blocks.launches
+        L, W = LA.chol_winv_padded(K32)
+        torch.cuda.synchronize()
+        check(BC.factor_blocks.launches == before + P // T, f"pair {case}: the kernel did not launch {P // T} times")
+        Lr, Wr = plain_pair(K32)
+        K64 = K32.double()
+        ev = torch.linalg.eigvalsh(K64)
+        ref = grad_of(K64, lambda K: (lambda L: (L, torch.linalg.inv(L)))(torch.linalg.cholesky(K)))
+        gk = grad_of(K32, LA.chol_winv_padded)
+        glib = grad_of(K32, lambda K: (lambda L: (L, torch.linalg.inv(L)))(torch.linalg.cholesky(K)))
+        scale = float(ref.abs().max())
+        row = {
+            "cond_max": float((ev[:, -1] / ev[:, 0]).max()),
+            "rel_dL": float((L - Lr).abs().max() / Lr.abs().max()),
+            "rel_dW": float((W - Wr).abs().max() / Wr.abs().max()),
+            "LLt_minus_K": float((torch.matmul(L, L.transpose(1, 2)) - K32).abs().max()),
+            "LW_minus_I": float((torch.matmul(L.double(), W.double()) - eye64).abs().max()),
+            "grad_rel_err_pair": float((gk.double() - ref).abs().max()) / scale,
+            "grad_rel_err_library_f32": float((glib.double() - ref).abs().max()) / scale,
+            "grad_finite": bool(torch.isfinite(gk).all()),
+        }
+        out[case] = row
+        check(row["rel_dL"] <= PAIR_REL_BOUND["L"] and row["rel_dW"] <= PAIR_REL_BOUND["W"],
+              f"pair {case}, kernel vs plain: {row}")
+        check(row["LLt_minus_K"] <= PAIR_BACKWARD_BOUND["LLt"] and row["LW_minus_I"] <= PAIR_BACKWARD_BOUND["LW"],
+              f"pair {case}, backward errors: {row}")
+        check(row["grad_finite"], f"pair {case}: non-finite gradient")
+    check(out["kuu"]["grad_rel_err_pair"] <= GRAD_VS_LIBRARY * out["kuu"]["grad_rel_err_library_f32"],
+          f"pair gradient on Kuu: {out['kuu']}")
+    check(out["kuu_plus_1e-2kv"]["grad_rel_err_pair"] <= GRAD_CONDITIONED_BOUND,
+          f"pair gradient on the conditioned Kuu: {out['kuu_plus_1e-2kv']}")
+    log("sgpr_pair", shape=list(Kuu.shape), pair_bounds=PAIR_REL_BOUND, backward_bounds=PAIR_BACKWARD_BOUND,
+        grad_vs_library=GRAD_VS_LIBRARY, grad_conditioned_bound=GRAD_CONDITIONED_BOUND, **out)
+
+
+def phase_replace():
+    """(e): phase 7's geometry through the sweep with SGPR (M = 64) as the
+    main model and exact GPR as the replacement below 64 observations; each
+    lane against a sweep of its experts alone with its model. Launch counts
+    are set to 0 just before each sweep and read just after it. Returns
+    kernel 1's launches of the two-lane sweep."""
+    import torch
+
+    from gpsat_tpu_torch.data.prediction_locations import PredictionLocations
+    from gpsat_tpu_torch.experts import sweep
+
+    obs, experts, grid = pipeline_inputs()
+    kw = {**OI_KW, "init_params": {**OI_KW["init_params"], "num_inducing_points": REPLACE_M}}
+
+    def run(locs, **extra):
+        torch.cuda.synchronize()
+        for fn in counters().values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        pred_loc = PredictionLocations("from_dataframe", coords_col=["x", "y"], df=grid, max_dist=OI_MAX_DIST)
+        out = [r for r in sweep(obs, locs, pred_loc=pred_loc, optim_kwargs=REPLACE_OPTIM, **{**kw, **extra})
+               if not r.get("skipped")]
+        return out, time.perf_counter() - t0, {k: fn.launches for k, fn in counters().items()}
+
+    def expected(buckets):
+        # SGPR: two pairs of 64 per evaluation; GPR: one pair of Nmax = 128
+        return {"block_chol": sum((int(r["num_iter"].max()) + 2) * 2 for r in buckets), "panel_chol": 0,
+                "cholesky": 0}
+
+    both, wall_s, launches = run(experts, model="GPflowSGPRModel", replacement_threshold=REPLACE_THRESHOLD,
+                                 replacement_model="GPflowGPRModel", replacement_optim_kwargs=REPLACE_OPTIM)
+    lanes = {}
+    for r in both:
+        lanes.setdefault(r["lane"], []).append(r)
+    check(sorted(lanes) == ["main", "replacement"], f"replace: lanes {sorted(lanes)}")
+    rows = {}
+    for lane, model, ok in (("main", "GPflowSGPRModel", lambda n: n >= REPLACE_THRESHOLD),
+                            ("replacement", "GPflowGPRModel", lambda n: n < REPLACE_THRESHOLD)):
+        got = by_expert(lanes[lane], ("f_mean", "f_var", "num_obs", "converged"))
+        check(all(ok(int(v["num_obs"])) for v in got.values()), f"replace: an expert in the {lane} lane by mistake")
+        sub = np.asarray(sorted(got))
+        alone, alone_s, alone_launches = run({c: v[sub] for c, v in experts.items()}, model=model)
+        ref = by_expert(alone, ("f_mean", "f_var"))
+        d = max(max_abs_pred_diff(got[int(e)], ref[j]) for j, e in enumerate(sub))
+        rows[lane] = {"model": model, "experts": len(sub), "converged": int(sum(v["converged"] for v in got.values())),
+                      "iters_max": int(max(r["num_iter"].max() for r in lanes[lane])), "alone_s": alone_s,
+                      "max_abs_vs_alone": d, "launches_alone": alone_launches,
+                      "launches_alone_predicted": expected(alone)}
+        check(len(ref) == len(sub) and d <= REPLACE_BOUND, f"replace: {lane} lane vs its experts alone: {d}")
+        check(alone_launches["block_chol"] > 0 and alone_launches == expected(alone),
+              f"replace: {lane} lane alone launches {alone_launches}, expected {expected(alone)}")
+        check(rows[lane]["converged"] >= MIN_SHARE * len(sub), f"replace: {lane} lane converged {rows[lane]}")
+    log("sgpr_replace", threshold=REPLACE_THRESHOLD, M=REPLACE_M, wall_s=wall_s,
+        experts=sum(v["experts"] for v in rows.values()), lanes=rows, launches=launches,
+        launches_predicted=expected(both), bound=REPLACE_BOUND)
+    check(launches == expected(both), f"replace launches {launches}, expected {expected(both)}")
+    return launches["block_chol"]
+
+
+def phase_sgpr(profile: bool):
+    """Phase 9. Returns kernel 1's launches in (a), (b) and (e)."""
+    batch, core, res, launches_a = drive_sgpr("full", *SGPR_FULL, "profile_sgpr.txt" if profile else None)
+    _, _, _, launches_b = drive_sgpr("chunked", *SGPR_CHUNKED)
+    phase_sgpr_accuracy(batch, core, res)
+    phase_sgpr_pair(batch, core)
+    return launches_a, launches_b, phase_replace()
+
+
 def main(argv) -> int:
     import torch
 
@@ -1044,6 +1363,8 @@ def main(argv) -> int:
     entries[2]["launches"] = phase_profiled(batch, init, profile)
     entries[0]["launches_oi"], f32_oi, f32_it_max = phase_oi(profile)
     entries[0]["launches_post_fit"], entries[0]["launches_post_repredict"] = phase_post(f32_oi, f32_it_max, profile)
+    (entries[0]["launches_sgpr_full"], entries[0]["launches_sgpr_chunked"],
+     entries[0]["launches_sgpr_replace"]) = phase_sgpr(profile)
 
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

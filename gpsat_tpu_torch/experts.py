@@ -1,4 +1,4 @@
-"""LocalExpertOI — the experiment orchestrator, exact-GPR lane.
+"""LocalExpertOI — the experiment orchestrator (exact-GPR and SGPR lanes).
 
 Port of ``gpsat_tpu/experts.py`` (ref: GPSat/local_experts.py:116-1279). It
 keeps the JAX package's config surface and results schema:
@@ -26,13 +26,21 @@ The compute dtype is an argument of ``run`` (``dtype``, default
 neither is stored in the config. ``load_params`` warm-starts experts from
 a results store (exact coordinate match, or ``nearest``), from direct
 values, or leaves the init as it is (``previous``); ``sweep`` takes the
-loaded values as arrays. Options outside the exact-GPR lane raise
-``NotImplementedError`` naming their ROADMAP.md item: replacement_threshold,
-models without a GPR core, mesh and profile_dir.
+loaded values as arrays.
 
-Known divergence from the JAX package's docstring, kept as its code does:
-``load_params={"previous": True}`` leaves each batch's init unchanged; the
-JAX module docstring promises the previous batch's mean optimum.
+Models: exact GPR and SGPR, each a batched core. ``replacement_threshold``
+routes the experts with fewer observations than it to a second lane, the
+replacement model's (by default the main model with other settings), which
+is assembled, fitted, polished and stored on its own. Options outside these
+lanes raise ``NotImplementedError`` naming their ROADMAP.md item: the other
+models of the zoo, models without a batched core (the host-serial lane),
+mesh and profile_dir.
+
+Behaviours of the JAX package's code kept as they are:
+``load_params={"previous": True}`` leaves each batch's init unchanged (the
+JAX module docstring promises the previous batch's mean optimum); the f64
+polish of every lane reads the main lane's ``optim_kwargs`` (``polish``,
+``polish_max_iter``, ``fixed_params``), the replacement lane's included.
 """
 
 from __future__ import annotations
@@ -53,9 +61,11 @@ from gpsat_tpu_torch.data import dataloader as DL
 from gpsat_tpu_torch.data import select as sel
 from gpsat_tpu_torch.data.prediction_locations import PredictionLocations
 from gpsat_tpu_torch.data.store import TableStore, is_pytables_store
-from gpsat_tpu_torch.models import GPRModel, get_model
+from gpsat_tpu_torch.models import GPRModel, SGPRModel, get_model
 from gpsat_tpu_torch.models.functional import ModelCore, make_gpr_core
 from gpsat_tpu_torch.models.gpr import PARAM_NAMES
+from gpsat_tpu_torch.models.sgpr import DEFAULT_JITTER as SGPR_JITTER
+from gpsat_tpu_torch.models.sgpr import make_sgpr_core
 from gpsat_tpu_torch.ops import transforms as T
 from gpsat_tpu_torch.parallel import batching
 from gpsat_tpu_torch.parallel.engine import (
@@ -190,15 +200,17 @@ def check_prev_oi_config(prev_oi_config, oi_config, skip_valid_checks_on=None):
 
 
 # --------------------------------------------------------------------------
-# the exact-GPR lane
+# the model lanes
 # --------------------------------------------------------------------------
 
-_ZOO_MODELS = ("SGPRModel", "GPflowSGPRModel", "SVGPModel", "GPflowSVGPModel", "VFFModel", "GPflowVFFModel",
-               "ASVGPModel", "GPflowASVGPModel")
+_ZOO_MODELS = ("SVGPModel", "GPflowSVGPModel", "VFFModel", "GPflowVFFModel", "ASVGPModel", "GPflowASVGPModel")
+# per-tile parameters that a core's prepare_batch_init draws for every
+# expert whose load found nothing (NaN rows)
+_DRAWN_PARAMS = ("inducing_points",)
 
 
 def make_core_for_model(model_cls, kernel: str, bijectors, init_params) -> ModelCore:
-    """Map a model class to its functional core (exact GPR only)."""
+    """Map a model class to its functional core (exact GPR or SGPR)."""
     name = getattr(model_cls, "__name__", "")
     if model_cls is GPRModel or name in ("GPRModel", "GPflowGPRModel"):
         return make_gpr_core(
@@ -206,6 +218,17 @@ def make_core_for_model(model_cls, kernel: str, bijectors, init_params) -> Model
             bijectors=bijectors_from(bijectors),
             jitter=init_params.get("jitter", 0.0),
             mean_function=init_params.get("mean_function"),
+        )
+    if model_cls is SGPRModel or name in ("SGPRModel", "GPflowSGPRModel"):
+        # the inducing points take the identity bijector inside the core
+        return make_sgpr_core(
+            kernel=kernel,
+            bijectors=bijectors_from(bijectors),
+            jitter=init_params.get("jitter", SGPR_JITTER),
+            num_inducing_points=int(init_params.get("num_inducing_points", 500)),
+            train_inducing_points=bool(init_params.get("train_inducing_points", False)),
+            mean_function=init_params.get("mean_function"),
+            chunk_size=init_params.get("chunk_size", "auto"),
         )
     if name in _ZOO_MODELS:
         raise _not_ported(f"model {name}", 7)
@@ -314,8 +337,10 @@ def _compaction(core, optim_kwargs, runner, *, fixed, optimise, pad_multiple, de
 def _bucket_init(init_cparams: dict, loaded: Optional[dict], expert_index: np.ndarray) -> dict:
     """A bucket's initial params: the shared init, and where ``loaded`` is
     given, per-expert rows of it ([E, ...] by expert, NaN where nothing was
-    loaded) over the shared values. Loading drops ``smart_init``, as the
-    JAX package's load does."""
+    loaded) over the shared values. A drawn per-tile parameter (the
+    inducing points) keeps NaN rows where nothing was loaded, for the core
+    to draw (the JAX package leaves the shared zeros there). Loading drops
+    ``smart_init``, as the JAX package's load does."""
     if loaded is None:
         return init_cparams
     out = {k: v for k, v in init_cparams.items() if k != "smart_init"}
@@ -324,7 +349,7 @@ def _bucket_init(init_cparams: dict, loaded: Optional[dict], expert_index: np.nd
         if k not in out:
             continue
         shared = np.asarray(out[k], dtype=float)
-        per = np.broadcast_to(shared, (len(expert_index),) + shared.shape).copy()
+        per = np.broadcast_to(np.nan if k in _DRAWN_PARAMS else shared, (len(expert_index),) + shared.shape).copy()
         rows = np.asarray(vals, dtype=float)[expert_index[live]].reshape((len(live),) + shared.shape)
         ok = ~np.isnan(rows.reshape(len(live), -1)).any(axis=1)
         per[live[ok]] = rows[ok]
@@ -332,59 +357,27 @@ def _bucket_init(init_cparams: dict, loaded: Optional[dict], expert_index: np.nd
     return out
 
 
-def sweep(
-    columns,
-    expert_locs,
-    *,
-    coords_col: list,
-    obs_col,
-    local_select: Optional[list],
-    pred_loc: PredictionLocations,
-    init_params: Optional[dict] = None,
-    constraints: Optional[dict] = None,
-    optim_kwargs: Optional[dict] = None,
-    optimise: bool = True,
-    predict: bool = True,
-    min_obs: int = 3,
-    max_batch_size: Optional[int] = None,
-    pad_multiple: Optional[int] = None,
-    loaded_params: Optional[dict] = None,
-    dtype=torch.float32,
-    device=None,
-    timers: Optional[dict] = None,
-) -> Iterator[dict]:
-    """Fit and predict every expert of ``expert_locs`` on ``columns``.
+@dataclasses.dataclass
+class _Lane:
+    """One model lane of a sweep: its core, runner and compaction, and the
+    init params, constraints and stored ``loaded_params`` its experts use."""
 
-    ``columns`` and ``expert_locs`` are DataFrames or mappings of column
-    name -> array; nothing here imports pandas or h5py. The sweep runs local
-    selection, prediction locations, tile assembly, then each bucket on
-    ``device`` in ``dtype`` and, with ``optim_kwargs["polish"]`` "f64" (or
-    True), the f64 polish on the same device. ``optim_kwargs["carry_iters"]``
-    or ``["two_stage_iters"]`` run each bucket as a head and a compacted tail
-    (host-synchronous: the tail depends on the head's results), whose result
-    adds "compaction" (the engine's widths and iterations of each part).
+    name: str  # "main" or "replacement"
+    model: str  # the model class's name, as run_details names it
+    core: ModelCore
+    runner: object
+    compaction: object
+    init_params: dict
+    constraints: Optional[dict]
+    loaded: Optional[dict]
 
-    ``loaded_params`` (name -> [E, ...] aligned with the rows of
-    ``expert_locs``) warm-starts each expert from its row; a row holding a
-    NaN keeps the shared init. ``LocalExpertOI`` fills it from
-    ``load_params``.
 
-    It yields, first, the experts skipped for fewer than ``min_obs``
-    observations (or no prediction location) as ``{"skipped": True,
-    "expert_index", "num_obs"}``, then one result dict per bucket: the
-    engine's keys, ``pred_coords`` (each expert's raw [P_i, D] prediction
-    coordinates), ``batch_s`` (seconds from dispatch to result) and, after
-    the polish, ``coarse`` (the result in ``dtype`` it started from).
-    ``expert_index`` counts rows of ``expert_locs``. Buckets run one deep:
-    a bucket's result is yielded after the next bucket is dispatched.
-    Seconds per phase accumulate into ``timers``.
-    """
-    dev = resolve_device(device)
+def _make_lane(name, model, init_params, constraints, optim_kwargs, loaded, *, dtype, optimise, pad_multiple,
+               dev) -> _Lane:
+    model = get_model(model) if isinstance(model, str) else model
     ip = init_params or {}
-    optim_kwargs = dict(optim_kwargs or {})
     check_optim_kwargs(optim_kwargs, dtype, optimise)
-    timers = {} if timers is None else timers
-    core = core_for(ip, constraints)
+    core = core_for(ip, constraints, model_cls=model)
     for k in ("learning_rate", "check_every", "persistence"):
         if optim_kwargs.get(k) is not None:
             warnings.warn(f"{k} only applies to Adam-optimized cores; ignored for {core.name}")
@@ -401,6 +394,90 @@ def sweep(
     )
     compaction = _compaction(core, optim_kwargs, runner, fixed=fixed, optimise=optimise, pad_multiple=pad_multiple,
                              dev=dev)
+    return _Lane(name, getattr(model, "__name__", str(model)), core, runner, compaction, ip, constraints, loaded)
+
+
+def sweep(
+    columns,
+    expert_locs,
+    *,
+    coords_col: list,
+    obs_col,
+    local_select: Optional[list],
+    pred_loc: PredictionLocations,
+    model=GPRModel,
+    init_params: Optional[dict] = None,
+    constraints: Optional[dict] = None,
+    optim_kwargs: Optional[dict] = None,
+    replacement_threshold: Optional[int] = None,
+    replacement_model=None,
+    replacement_init_params: Optional[dict] = None,
+    replacement_constraints: Optional[dict] = None,
+    replacement_optim_kwargs: Optional[dict] = None,
+    optimise: bool = True,
+    predict: bool = True,
+    min_obs: int = 3,
+    max_batch_size: Optional[int] = None,
+    pad_multiple: Optional[int] = None,
+    loaded_params: Optional[dict] = None,
+    replacement_loaded_params: Optional[dict] = None,
+    dtype=torch.float32,
+    device=None,
+    timers: Optional[dict] = None,
+) -> Iterator[dict]:
+    """Fit and predict every expert of ``expert_locs`` on ``columns``.
+
+    ``columns`` and ``expert_locs`` are DataFrames or mappings of column
+    name -> array; nothing here imports pandas or h5py. The sweep runs local
+    selection, prediction locations, tile assembly, then each bucket on
+    ``device`` in ``dtype`` and, with ``optim_kwargs["polish"]`` "f64" (or
+    True), the f64 polish on the same device. ``optim_kwargs["carry_iters"]``
+    or ``["two_stage_iters"]`` run each bucket as a head and a compacted tail
+    (host-synchronous: the tail depends on the head's results), whose result
+    adds "compaction" (the engine's widths and iterations of each part).
+
+    ``model`` (a class of ``models.get_model`` or its name) picks the core.
+    With ``replacement_threshold``, the experts with fewer observations than
+    it run in a second lane: ``replacement_model``, ``_init_params`` and
+    ``_constraints`` default to the main lane's, ``replacement_optim_kwargs``
+    to none (the JAX package's defaults). Each lane is assembled, fitted and
+    polished on its own (the polish with the lane's core and the main
+    lane's ``optim_kwargs``); only dense exact-GPR buckets are capped by
+    ``batching.auto_batch_cap``.
+
+    ``loaded_params`` (name -> [E, ...] aligned with the rows of
+    ``expert_locs``) warm-starts each main-lane expert from its row, and
+    ``replacement_loaded_params`` each replacement-lane expert; a row
+    holding a NaN keeps the shared init (the inducing points are drawn).
+    ``LocalExpertOI`` fills them from ``load_params``.
+
+    It yields, first, the experts skipped for fewer than ``min_obs``
+    observations (or no prediction location) as ``{"skipped": True,
+    "expert_index", "num_obs"}``, then one result dict per bucket, the main
+    lane's first: the engine's keys, ``lane`` ("main" or "replacement"),
+    ``model`` (the lane's model class name), ``pred_coords`` (each expert's
+    raw [P_i, D] prediction coordinates), ``batch_s`` (seconds from
+    dispatch to result) and, after the polish, ``coarse`` (the result in
+    ``dtype`` it started from). ``expert_index`` counts rows of
+    ``expert_locs``. Buckets run one deep: a bucket's result is yielded
+    after the next bucket is dispatched. Seconds per phase accumulate into
+    ``timers``.
+    """
+    dev = resolve_device(device)
+    optim_kwargs = dict(optim_kwargs or {})
+    timers = {} if timers is None else timers
+    lane_kw = dict(dtype=dtype, optimise=optimise, pad_multiple=pad_multiple, dev=dev)
+    lanes = [_make_lane("main", model, init_params, constraints, optim_kwargs, loaded_params, **lane_kw)]
+    if replacement_threshold is not None:
+        lanes.append(_make_lane(
+            "replacement",
+            model if replacement_model is None else replacement_model,
+            init_params if replacement_init_params is None else replacement_init_params,
+            constraints if replacement_constraints is None else replacement_constraints,
+            dict(replacement_optim_kwargs or {}),
+            replacement_loaded_params,
+            **lane_kw,
+        ))
     polish = optimise and optim_kwargs.get("polish") in ("f64", True)
 
     obs_name = obs_col if isinstance(obs_col, str) else obs_col[0]
@@ -414,57 +491,73 @@ def sweep(
         yield {"skipped": True, "expert_index": skipped, "num_obs": np.asarray([len(sel_ix[e]) for e in skipped])}
     if not run:
         return
+    # data-poor experts go to the replacement lane
+    if replacement_threshold is not None:
+        thr = int(replacement_threshold)
+        lane_rows = [[e for e in run if len(sel_ix[e]) >= thr], [e for e in run if len(sel_ix[e]) < thr]]
+    else:
+        lane_rows = [run]
 
-    with _phase(timers, "host_assembly"):
-        tiles = batching.assemble_tiles(
-            sel.columns_array(columns, coords_col),
-            np.asarray(columns[obs_name], dtype=float),
-            [sel_ix[e] for e in run],
-            [pcs[e] for e in run],
-            expert_index=np.asarray(run),
-            expert_locs=sel.columns_array(expert_locs, coords_col)[run],
-            coords_scale=ip.get("coords_scale"),
-            obs_mean=ip.get("obs_mean"),
-            max_batch_size=max_batch_size,
-            # dense exact GPR keeps ~8 [B, Nmax, Nmax] buffers live
-            memory_cap=True,
-            device=dev,
-        )
-    init_cparams = initial_cparams(core, ip, constraints, len(coords_col))
+    obs_coords = sel.columns_array(columns, coords_col)
+    obs_vals = np.asarray(columns[obs_name], dtype=float)
+    loc_coords = sel.columns_array(expert_locs, coords_col)
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
 
-    def finish(fin, batch, t0):
+    def finish(fin, batch, t0, lane):
         with _phase(timers, "device_fetch"):
             res = fin()
         if polish:
             with _phase(timers, "polish"):
                 coarse = res
                 res = polish_tile_batch(
-                    batch, coarse, core,
+                    batch, coarse, lane.core,
                     max_iter=int(optim_kwargs.get("polish_max_iter", 150)),
                     fixed_params=tuple(optim_kwargs.get("fixed_params", ())),
                     device=dev,
                 )
             res["coarse"] = coarse
+        res["lane"], res["model"] = lane.name, lane.model
         res["pred_coords"] = [pcs[int(e)] for e in res["expert_index"]]
         res["batch_s"] = time.perf_counter() - t0
         return res
 
     pending = None
-    for b in tiles:
-        t0 = time.perf_counter()
-        init = _bucket_init(init_cparams, loaded_params, b.expert_index)
-        # tiles are assembled in f64; the polish re-fits from them
-        cast = batching.cast_batch(b, np_dtype)
-        if compaction is not None:
-            # runs whole when finish() asks for it, after the previous bucket
-            fin = functools.partial(compaction, cast, init)
-        else:
-            with _phase(timers, "device_dispatch"):
-                fin = run_tile_batch_async(cast, init, runner, core, pad_multiple=pad_multiple, device=dev)
-        if pending is not None:
-            yield finish(*pending)  # the host stores it while the card runs b
-        pending = (fin, b, t0)
+    for lane, rows in zip(lanes, lane_rows):
+        if not rows:
+            continue
+        ip = lane.init_params
+        with _phase(timers, "host_assembly"):
+            tiles = batching.assemble_tiles(
+                obs_coords,
+                obs_vals,
+                [sel_ix[e] for e in rows],
+                [pcs[e] for e in rows],
+                expert_index=np.asarray(rows),
+                expert_locs=loc_coords[rows],
+                coords_scale=ip.get("coords_scale"),
+                obs_mean=ip.get("obs_mean"),
+                max_batch_size=max_batch_size,
+                # dense exact GPR keeps ~8 [B, Nmax, Nmax] buffers live; a
+                # sparse core's working set is O(B M (M + C)): no cap
+                memory_cap=lane.core.name.startswith("GPR["),
+                device=dev,
+            )
+        init_cparams = initial_cparams(lane.core, ip, lane.constraints, len(coords_col))
+        for b in tiles:
+            t0 = time.perf_counter()
+            init = _bucket_init(init_cparams, lane.loaded, b.expert_index)
+            # tiles are assembled in f64; the polish re-fits from them
+            cast = batching.cast_batch(b, np_dtype)
+            if lane.compaction is not None:
+                # runs whole when finish() asks for it, after the previous bucket
+                fin = functools.partial(lane.compaction, cast, init)
+            else:
+                with _phase(timers, "device_dispatch"):
+                    fin = run_tile_batch_async(cast, init, lane.runner, lane.core, pad_multiple=pad_multiple,
+                                               device=dev)
+            if pending is not None:
+                yield finish(*pending)  # the host stores it while the card runs b
+            pending = (fin, b, t0, lane)
     yield finish(*pending)
 
 
@@ -570,8 +663,6 @@ class LocalExpertOI:
     ):
         cfg = {k: v for k, v in locals().items() if k != "self" and v is not None}
         self.config["model"] = json_serializable(cfg)
-        if replacement_threshold is not None:
-            raise _not_ported("replacement_threshold (the replacement-model lane)", 3)
         if isinstance(oi_model, dict):
             raise _not_ported("oi_model given as {path_to_model, model_name} (the host-serial lane)", 3)
 
@@ -583,6 +674,18 @@ class LocalExpertOI:
         self.optim_kwargs = optim_kwargs or {}
         self.pred_kwargs = pred_kwargs or {}
         self.params_to_store = None if params_to_store == "all" else params_to_store
+
+        # data-poor experts go to the replacement model, with the JAX
+        # package's defaults (ref: local_experts.py:339-346)
+        self.replacement_threshold = replacement_threshold
+        if replacement_threshold is not None:
+            self.replacement_model = self.model if replacement_model is None else get_model(replacement_model)
+            self.replacement_init_params = (
+                self.model_init_params if replacement_init_params is None else replacement_init_params
+            )
+            self.replacement_constraints = self.constraints if replacement_constraints is None else replacement_constraints
+            self.replacement_optim_kwargs = replacement_optim_kwargs or {}
+            self.replacement_pred_kwargs = replacement_pred_kwargs or {}
 
     def set_pred_loc(self, **kwargs):
         self.config["pred_loc"] = json_serializable({k: v for k, v in kwargs.items() if v is not None})
@@ -669,8 +772,22 @@ class LocalExpertOI:
         dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
         dev = resolve_device(device)
         check_optim_kwargs(self.optim_kwargs, dtype, optimise)
-        core = self._core_for()
-        param_names = core.param_names
+        # each lane's model, init params and constraints; the replacement
+        # lane's settings are checked here too, before the store is touched
+        lane_cfg = {"main": (self.model, self.model_init_params, self.constraints)}
+        repl_kw = {}
+        if self.replacement_threshold is not None:
+            check_optim_kwargs(self.replacement_optim_kwargs, dtype, optimise)
+            lane_cfg["replacement"] = (self.replacement_model, self.replacement_init_params,
+                                       self.replacement_constraints)
+            repl_kw = dict(
+                replacement_threshold=self.replacement_threshold,
+                replacement_model=self.replacement_model,
+                replacement_init_params=self.replacement_init_params,
+                replacement_constraints=self.replacement_constraints,
+                replacement_optim_kwargs=self.replacement_optim_kwargs,
+            )
+        lane_cores = {lane: self._core_for(*cfg) for lane, cfg in lane_cfg.items()}
         assert isinstance(self.expert_locs, pd.DataFrame), "expert_locs must be a DataFrame — call set_expert_locations"
         assert self.data is not None and self.data.data_source is not None, "'data_source' is None"
         assert self.model is not None, "'model' is None — call set_model"
@@ -714,7 +831,8 @@ class LocalExpertOI:
             groups.setdefault(key, {"where": where, "rows": []})
             groups[key]["rows"].append(i)
 
-        init_cparams = initial_cparams(core, self.model_init_params, self.constraints, len(coords_col))
+        lane_init = {lane: initial_cparams(lane_cores[lane], ip, cons, len(coords_col))
+                     for lane, (_, ip, cons) in lane_cfg.items()}
         device_name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
         model_name = f"gpsat_tpu_torch.{getattr(self.model, '__name__', str(self.model))}"
         total = len(xprt_locs)
@@ -724,10 +842,13 @@ class LocalExpertOI:
                 df = self.data.load(where=grp["where"] if grp["where"] else None, reset_index=True)
             rows = np.asarray(grp["rows"])
             with _phase(timers, "host_load_params"):
-                loaded = self._load_params_for_experts(
-                    xprt_locs.iloc[rows], coords_col, init_cparams, core, store_path
-                )
-            if loaded is False:
+                loaded = {
+                    lane: self._load_params_for_experts(
+                        xprt_locs.iloc[rows], coords_col, lane_init[lane], core, store_path
+                    )
+                    for lane, core in lane_cores.items()
+                }
+            if any(v is False for v in loaded.values()):
                 continue  # load failure policy: skip these experts
             results = sweep(
                 df,
@@ -736,15 +857,18 @@ class LocalExpertOI:
                 obs_col=self.data.obs_col,
                 local_select=self.data.local_select,
                 pred_loc=self.pred_loc,
+                model=self.model,
                 init_params=self.model_init_params,
                 constraints=self.constraints,
                 optim_kwargs=self.optim_kwargs,
+                **repl_kw,
                 optimise=optimise,
                 predict=predict,
                 min_obs=min_obs,
                 max_batch_size=max_batch_size,
                 pad_multiple=pad_multiple,
-                loaded_params=loaded,
+                loaded_params=loaded["main"],
+                replacement_loaded_params=loaded.get("replacement"),
                 dtype=dtype,
                 device=dev,
                 timers=timers,
@@ -765,9 +889,11 @@ class LocalExpertOI:
                             )
                         }
                     else:
+                        # run_details names the lane's model
                         tables = self._result_tables(
-                            {**res, "expert_index": eis}, param_names, xprt_locs, coords_col, table_suffix,
-                            optimise, model_name, device_name, config_id, predict,
+                            {**res, "expert_index": eis}, lane_cores[res["lane"]].param_names, xprt_locs,
+                            coords_col, table_suffix, optimise, f"gpsat_tpu_torch.{res['model']}", device_name,
+                            config_id, predict,
                         )
                     with TableStore(store_path) as store:
                         for name, frame in tables.items():

@@ -1,22 +1,23 @@
 """Model registry (ref: GPSat/models/__init__.py:3-28).
 
-The port runs exact GPR as a batched functional core
-(``functional.make_gpr_core``). ``get_model`` resolves the reference's names
-for it, ``"GPRModel"`` and ``"GPflowGPRModel"``, to ``GPRModel``, which marks
-that lane for the orchestrator. Every other name of the JAX package's
-registry raises ``NotImplementedError`` naming its ROADMAP.md item.
+The port runs exact GPR and sparse GPR as batched functional cores
+(``functional.make_gpr_core``, ``sgpr.make_sgpr_core``). ``get_model``
+resolves the reference's names for them, ``"GPRModel"`` and
+``"GPflowGPRModel"`` to ``GPRModel``, ``"SGPRModel"`` and
+``"GPflowSGPRModel"`` to ``SGPRModel``: classes that mark the lane for the
+orchestrator. Every other name of the JAX package's registry raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
-from gpsat_tpu_torch.models.gpr import PARAM_NAMES
+from gpsat_tpu_torch.models import gpr as _gpr
+from gpsat_tpu_torch.models import sgpr as _sgpr
 
 _ZOO = "the model zoo, ROADMAP.md Queue 1 item 7"
 _HOST = "the host-serial lane, ROADMAP.md Queue 1 item 3"
 _UNPORTED = {
-    "SGPRModel": _ZOO,
     "SVGPModel": _ZOO,
     "VFFModel": _ZOO,
     "ASVGPModel": _ZOO,
-    "GPflowSGPRModel": _ZOO,
     "GPflowSVGPModel": _ZOO,
     "GPflowVFFModel": _ZOO,
     "GPflowASVGPModel": _ZOO,
@@ -38,13 +39,24 @@ class GPRModel:
     parameter loading its parameter names (those of a GPR without a mean
     function)."""
 
-    param_names = tuple(PARAM_NAMES)
+    param_names = tuple(_gpr.PARAM_NAMES)
+
+
+class SGPRModel:
+    """Sparse GPR through the batched engine (``make_sgpr_core``), marked
+    as ``GPRModel`` is; its parameter names are those of an SGPR without a
+    mean function, the inducing points included."""
+
+    param_names = tuple(_sgpr.PARAM_NAMES)
+
+
+_PORTED = {"GPRModel": GPRModel, "GPflowGPRModel": GPRModel, "SGPRModel": SGPRModel, "GPflowSGPRModel": SGPRModel}
 
 
 def get_model(name: str):
     """Resolve a model class by name, accepting the reference's names."""
-    if name in ("GPRModel", "GPflowGPRModel"):
-        return GPRModel
+    if name in _PORTED:
+        return _PORTED[name]
     if name in _UNPORTED:
         raise NotImplementedError(f"model {name!r} is not ported yet; see {_UNPORTED[name]}")
-    raise AssertionError(f"model: {name} not in registry: {sorted(['GPRModel', 'GPflowGPRModel', *_UNPORTED])}")
+    raise AssertionError(f"model: {name} not in registry: {sorted([*_PORTED, *_UNPORTED])}")

@@ -1,0 +1,270 @@
+"""Sparse GPR (the Titsias 2009 collapsed bound), functional core batched over B.
+
+Port of the functional part of ``gpsat_tpu/models/sgpr.py``: ``elbo``,
+``neg_elbo``, ``predict`` (with ``full_cov``), ``pad_inducing_points`` and
+``make_sgpr_core``. Data is ``{"X": [B, N, D], "y": [B, N], "mask": [B, N]}``;
+params are dicts of [B, ...] tensors, the inducing points [B, M, D].
+
+Masked tiles: padded observation rows have their Kuf columns zeroed, so they
+drop out of every data-dependent term. Padded inducing slots (tiles with
+n < M) sit far outside the data, where Kuf ~ 0 and Kuu is diagonal: they add
+nothing to the bound or the posterior and keep M static per bucket.
+
+Both factor pairs, (L, W) of Kuu and (LB, WB) of B = A A^T + I, come from
+``ops/linalg.chol_winv_padded`` on the route ``factor`` names (kernel 1 on
+the "block" route, the M-sized matrices identity-padded to a multiple of 64)
+in every dtype: gradients flow through the pair's analytic pullback, and
+every triangular solve is a matmul with W. The JAX package solves with
+``cholesky`` + ``tri_solve`` in f64 instead: the same values at f64 roundoff.
+An f64 Gram on the card takes the library arm of the route.
+
+Large N: with ``chunk_size`` (``"auto"``: chunks of 4,096 once N >= 8,192)
+the [M, N] matrices Kuf and A exist one [M, C] chunk at a time, accumulated
+by a Python loop whose chunks run under ``torch.utils.checkpoint``
+(``chunk_remat=True``: the backward recomputes each chunk's forward, so the
+peak stays O(B M (M + C))); the factor pair of Kuu is computed once, outside
+the loop, and no checkpoint recomputes it. Rematerialisation is an argument,
+never an environment variable.
+
+Every matmul is true f32 (the package keeps TF32 off): the port has no
+counterpart of the JAX package's relaxed accumulation precision
+(``ops/precision.accum_precision``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from gpsat_tpu_torch.models import means as MF
+from gpsat_tpu_torch.ops import kernels as K
+from gpsat_tpu_torch.ops import linalg as LA
+from gpsat_tpu_torch.ops import transforms as T
+
+PARAM_NAMES = ["lengthscales", "kernel_variance", "likelihood_variance", "inducing_points"]
+DEFAULT_JITTER = 1e-6  # gpflow's default jitter on Kuu
+
+# N from which "auto" accumulates the [M, N] factor chunk by chunk, and the chunk
+CHUNK_THRESHOLD = 8192
+DEFAULT_CHUNK = 4096
+
+
+def _resolve_chunk(N: int, chunk_size) -> int:
+    """0/None: never chunk; "auto": chunk when N >= CHUNK_THRESHOLD; an int
+    forces that chunk size."""
+    if chunk_size in (None, 0):
+        return 0
+    if chunk_size == "auto":
+        return DEFAULT_CHUNK if N >= CHUNK_THRESHOLD else 0
+    return int(chunk_size)
+
+
+def _chunk_terms(Winv, Z, X, ym, m, ls, kv, sigma, kernel: str):
+    """One [M, C] chunk's share of A A^T [B, M, M], A ym [B, M, 1] and
+    sum(ym^2) [B], with A = W Kuf / sigma."""
+    Kuf = K.gram(kernel, Z, X, ls, kv) * m[:, None, :]
+    A = torch.matmul(Winv, Kuf) / sigma[:, None, None]
+    return torch.matmul(A, A.transpose(1, 2)), torch.matmul(A, ym[:, :, None]), torch.sum(ym * ym, dim=-1)
+
+
+def _common_terms(cparams: dict, data: dict, *, kernel: str, jitter: float, chunk_size=None, factor: str = "block",
+                  chunk_remat: bool = True) -> dict:
+    """The factors the bound and the posterior share: (L, W) of Kuu,
+    A A^T, A ym, (LB, WB) of B = A A^T + I, c = WB A ym / sigma, and the
+    data sums n = sum(mask) and ymsq = sum(ym^2)."""
+    X, y, m = data["X"], data["y"], data["mask"].to(data["X"].dtype)
+    # a trainable prior mean: the bound is taken on the centred observations
+    if MF.has_mean(cparams):
+        y = y - MF.mean_value(cparams, X)
+    Z = cparams["inducing_points"]
+    ls, kv = cparams["lengthscales"], cparams["kernel_variance"]
+    sigma2 = cparams["likelihood_variance"]
+    sigma = torch.sqrt(sigma2)
+
+    Kuu = LA.add_diag(K.gram(kernel, Z, Z, ls, kv), jitter)
+    L, Winv = LA.chol_winv_padded(Kuu, factor=factor)
+    M, N = Z.shape[1], X.shape[1]
+    ym = y * m
+    C = _resolve_chunk(N, chunk_size)
+    if C and N > C:
+        remat = chunk_remat and torch.is_grad_enabled()
+        AAT = Aerr = ymsq = 0.0
+        for s in range(0, N, C):
+            args = (Winv, Z, X[:, s : s + C], ym[:, s : s + C], m[:, s : s + C], ls, kv, sigma, kernel)
+            part = checkpoint(_chunk_terms, *args, use_reentrant=False) if remat else _chunk_terms(*args)
+            AAT, Aerr, ymsq = AAT + part[0], Aerr + part[1], ymsq + part[2]
+    else:
+        AAT, Aerr, ymsq = _chunk_terms(Winv, Z, X, ym, m, ls, kv, sigma, kernel)
+
+    Bm = AAT + torch.eye(M, dtype=X.dtype, device=X.device)
+    LB, WB = LA.chol_winv_padded(Bm, factor=factor)
+    c = torch.matmul(WB, Aerr) / sigma[:, None, None]
+    return dict(L=L, Winv=Winv, AAT=AAT, LB=LB, WB=WB, c=c, n=m.sum(-1), ymsq=ymsq, sigma2=sigma2, kv=kv)
+
+
+def elbo(cparams: dict, data: dict, *, kernel: str, jitter: float = DEFAULT_JITTER, chunk_size=None,
+         factor: str = "block", chunk_remat: bool = True) -> torch.Tensor:
+    """Titsias collapsed evidence lower bound [B] of padded tiles."""
+    t = _common_terms(cparams, data, kernel=kernel, jitter=jitter, chunk_size=chunk_size, factor=factor,
+                      chunk_remat=chunk_remat)
+    n, s2 = t["n"], t["sigma2"]
+    out = -0.5 * n * math.log(2.0 * math.pi)
+    out = out - torch.sum(torch.log(torch.diagonal(t["LB"], dim1=-2, dim2=-1)), dim=-1)
+    out = out - 0.5 * n * torch.log(s2)
+    out = out - 0.5 * t["ymsq"] / s2
+    out = out + 0.5 * torch.sum(t["c"] ** 2, dim=(1, 2))
+    # trace correction: -1/(2 s2) tr(Kff) + 1/2 tr(A A^T)
+    out = out - 0.5 * n * t["kv"] / s2
+    return out + 0.5 * torch.diagonal(t["AAT"], dim1=-2, dim2=-1).sum(-1)
+
+
+def neg_elbo(uparams: dict, data: dict, *, kernel: str, bijectors: dict, jitter: float = DEFAULT_JITTER,
+             chunk_size=None, factor: str = "block", chunk_remat: bool = True) -> torch.Tensor:
+    p = T.forward_params(uparams, bijectors)
+    return -elbo(p, data, kernel=kernel, jitter=jitter, chunk_size=chunk_size, factor=factor, chunk_remat=chunk_remat)
+
+
+def predict(cparams: dict, data: dict, Xnew: torch.Tensor, *, kernel: str, jitter: float = DEFAULT_JITTER,
+            chunk_size=None, full_cov: bool = False, factor: str = "block", chunk_remat: bool = True) -> dict:
+    """SGPR posterior mean and variance at Xnew [B, P, D] (gpflow's
+    predict_f equations): f_mean, f_var, y_var [B, P], and f_cov [B, P, P]
+    with ``full_cov``."""
+    t = _common_terms(cparams, data, kernel=kernel, jitter=jitter, chunk_size=chunk_size, factor=factor,
+                      chunk_remat=chunk_remat)
+    Z, ls, kv = cparams["inducing_points"], cparams["lengthscales"], cparams["kernel_variance"]
+    tmp1 = torch.matmul(t["Winv"], K.gram(kernel, Z, Xnew, ls, kv))
+    tmp2 = torch.matmul(t["WB"], tmp1)
+    f_mean = MF.add_mean(cparams, Xnew, torch.matmul(tmp2.transpose(1, 2), t["c"])[:, :, 0])
+    f_var = K.gram_diag(kernel, Xnew, kv) + torch.sum(tmp2 * tmp2, dim=1) - torch.sum(tmp1 * tmp1, dim=1)
+    out = {"f_mean": f_mean, "f_var": f_var, "y_var": f_var + cparams["likelihood_variance"][:, None]}
+    if full_cov:
+        Kss = K.gram(kernel, Xnew, Xnew, ls, kv)
+        out["f_cov"] = Kss + torch.matmul(tmp2.transpose(1, 2), tmp2) - torch.matmul(tmp1.transpose(1, 2), tmp1)
+    return out
+
+
+def pad_inducing_points(Z: np.ndarray, M: int, data_span: float = 1.0) -> np.ndarray:
+    """Pad an [m, D] inducing set to [M, D] with distinct far-away points.
+
+    The pads start 100 spans beyond the largest coordinate, 10 spans apart:
+    far enough that the kernel between a pad and the data (or another pad)
+    is ~0 for lengthscales up to ~20 spans, near enough that the f32
+    roundoff of |a|^2 + |b|^2 - 2ab (~|z|^2 eps) stays far below the pads'
+    squared separations, so an f32 Kuu keeps its diagonal."""
+    m, D = Z.shape
+    if m >= M:
+        return Z[:M]
+    span = max(data_span, 1.0)
+    far_base = Z.max(axis=0) if m else np.zeros(D)
+    extra = np.arange(M - m, dtype=float)[:, None] * (10.0 * span)
+    pad = far_base[None, :] + 100.0 * span + extra
+    return np.concatenate([Z, pad], axis=0)
+
+
+def draw_inducing_points(batch, M: int) -> np.ndarray:
+    """Per-tile inducing points [B, M, D] of a TileBatch: a random subset of
+    each tile's valid points (``np.random.default_rng(0)`` once per call,
+    ``rng.choice(n, M, replace=False)`` per tile with n >= M, in tile order),
+    the tiles with fewer points far-point padded (span = max|X| + 1): the
+    JAX package's draw, number for number."""
+    rng = np.random.default_rng(0)
+    B, _, D = batch.X.shape
+    span = float(np.max(np.abs(batch.X))) + 1.0
+    Z = np.zeros((B, M, D), dtype=batch.X.dtype)
+    for bi in range(B):
+        n = int(batch.mask[bi].sum())
+        pts = batch.X[bi, :n]
+        if n >= M:
+            Z[bi] = pts[rng.choice(n, M, replace=False)]
+        else:
+            Z[bi] = pad_inducing_points(pts, M, data_span=span)
+    return Z
+
+
+def make_sgpr_core(
+    kernel: str = "Matern32",
+    bijectors: Optional[dict] = None,
+    jitter: float = DEFAULT_JITTER,
+    num_inducing_points: int = 500,
+    train_inducing_points: bool = False,
+    mean_function: Optional[str] = None,
+    chunk_size="auto",
+    factor: str = "block",
+    chunk_remat: bool = True,
+):
+    """SGPR core for the batched engine (objective = the negative bound).
+
+    The inducing points ride in the params with the identity bijector and
+    are held fixed unless ``train_inducing_points``. ``prepare_batch_init``
+    draws them per tile (``draw_inducing_points``) unless the init already
+    holds per-expert [B, M, D] values; a row of those that holds a NaN (an
+    expert whose load found nothing) is drawn too.
+
+    ``factor`` names the route of both factor pairs (ops/linalg.PAIR_ROUTES);
+    ``chunk_size`` and ``chunk_remat`` the large-N accumulation (module
+    docstring)."""
+    from gpsat_tpu_torch.models.functional import ModelCore
+
+    if factor not in LA.PAIR_ROUTES:
+        raise ValueError(f"factor must be one of {LA.PAIR_ROUTES}, got {factor!r}")
+    MF.validate(mean_function)
+    if bijectors is None:
+        bijectors = {name: T.POSITIVE for name in PARAM_NAMES}
+    bijectors = dict(bijectors)
+    bijectors["inducing_points"] = T.IDENTITY
+    for p in MF.mean_param_names(mean_function):
+        bijectors.setdefault(p, T.IDENTITY)
+    M = int(num_inducing_points)
+    kw = dict(kernel=kernel, jitter=jitter, chunk_size=chunk_size, factor=factor, chunk_remat=chunk_remat)
+
+    def objective(uparams, data):
+        return neg_elbo(uparams, data, bijectors=bijectors, **kw)
+
+    def predict_fn(cparams, data, Xnew):
+        return predict(cparams, data, Xnew, **kw)
+
+    def forward(uparams):
+        return {k: bijectors[k].forward(v) for k, v in uparams.items()}
+
+    def inverse(cparams):
+        return {k: bijectors[k].inverse(torch.as_tensor(v)) for k, v in cparams.items()}
+
+    def init_cparams(D: int, dtype=np.float64, overrides: Optional[dict] = None) -> Dict[str, np.ndarray]:
+        out = {
+            "lengthscales": np.ones((D,), dtype=dtype),
+            "kernel_variance": np.asarray(1.0, dtype=dtype),
+            "likelihood_variance": np.asarray(1.0, dtype=dtype),
+            "inducing_points": np.zeros((M, D), dtype=dtype),
+        }
+        out.update(MF.mean_param_defaults(mean_function, D, dtype=dtype))
+        for k, v in (overrides or {}).items():
+            if k in out:
+                v = np.asarray(v, dtype=dtype)
+                out[k] = np.broadcast_to(v, out[k].shape).copy() if v.shape != out[k].shape else v
+        return out
+
+    def prepare_batch_init(batch, init):
+        Z = init.get("inducing_points")
+        if Z is not None and np.ndim(Z) == 3:
+            missing = np.isnan(np.asarray(Z, dtype=float)).any(axis=(1, 2))
+            if not missing.any():
+                return init
+            Z = np.where(missing[:, None, None], draw_inducing_points(batch, M), Z)
+            return {**init, "inducing_points": Z}
+        return {**init, "inducing_points": draw_inducing_points(batch, M)}
+
+    return ModelCore(
+        name=f"SGPR[{kernel},M={M}]",
+        objective=objective,
+        predict=predict_fn,
+        forward=forward,
+        inverse=inverse,
+        init_cparams=init_cparams,
+        param_names=tuple(PARAM_NAMES) + MF.mean_param_names(mean_function),
+        default_fixed_params=() if train_inducing_points else ("inducing_points",),
+        prepare_batch_init=prepare_batch_init,
+    )

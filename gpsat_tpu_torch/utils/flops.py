@@ -1,6 +1,6 @@
-"""Analytic FLOP counts for the exact-GPR main path.
+"""Analytic FLOP counts for the exact-GPR main path and the SGPR lane.
 
-Port of the two main-path counts of ``gpsat_tpu/utils/flops.py``.
+Port of the GPR and SGPR counts of ``gpsat_tpu/utils/flops.py``.
 Convention: 1 fused multiply-add = 2 FLOPs; Cholesky N^3/3, triangular
 inverse N^3/3, dense matmul [n,k]x[k,m] = 2nkm. These are MODEL flops (the
 work the math requires), so achieved FLOP/s = model flops / seconds
@@ -31,3 +31,22 @@ def gpr_predict_flops(N: int, P: int, D: int) -> float:
     """Posterior mean+var at P points given the factorisation: cross gram
     2NPD + the W Ks product (2 N^2 P)."""
     return 2.0 * N * P * D + 2.0 * N**2 * P
+
+
+def sgpr_elbo_flops(N: int, M: int, D: int) -> float:
+    """One forward evaluation of the collapsed Titsias bound (the same
+    chunked or not):
+
+      Kuu gram + factor      2 M^2 D + M^3/3
+      Kuf gram               2 N M D
+      A = L^-1 Kuf           N M^2        (triangular, N right-hand sides)
+      A A^T                  2 N M^2
+      LB factor + small      M^3/3 + O(M^2)
+    """
+    return 3.0 * N * M**2 + 2.0 * N * M * D + (2.0 / 3.0) * M**3 + 2.0 * M**2 * D
+
+
+def sgpr_iter_flops(N: int, M: int, D: int, ad_factor: float = 3.0) -> float:
+    """One single-eval L-BFGS iteration: the bound and its reverse-mode
+    gradient, ~2x the forward on top of it (ad_factor 3 counts both)."""
+    return ad_factor * sgpr_elbo_flops(N, M, D)

@@ -263,3 +263,19 @@ def test_sweep_two_stage_iters_reaches_the_plain_sweeps_optima():
     ref = np.argsort(plain["expert_index"])
     np.testing.assert_allclose(got["objective"][order], plain["objective"][ref], rtol=1e-8)
     np.testing.assert_allclose(got["f_mean"][order], plain["f_mean"][ref], atol=1e-5)
+
+
+def test_sgpr_carry_equals_the_single_run_exactly():
+    """The SGPR core's head + resumed tail = one run: its inducing points
+    (held fixed, drawn per tile) ride through the gather like any param."""
+    from gpsat_tpu_torch.models.sgpr import make_sgpr_core
+
+    core = make_sgpr_core(num_inducing_points=16)
+    kw = dict(fixed_params=core.default_fixed_params)
+    full = TE.make_batched_runner(core, max_iter=400, linesearch="single_eval", device="cpu", **TOLS, **kw)
+    gold = TE.run_tile_batch(_batch(), INIT, full, core, device="cpu")
+    assert gold["converged"].all() and (gold["num_iter"] > HEAD_ITERS).all()
+    head, tail = _runners(core, **kw)
+    got = TE.run_tile_batch_carry(_batch(), INIT, head, tail, core, device="cpu")
+    _assert_exact(got, gold)
+    np.testing.assert_array_equal(got["inducing_points"], gold["inducing_points"])

@@ -16,7 +16,7 @@ from gpsat_tpu_torch.ops import linalg as LA
 from gpsat_tpu_torch.ops import panel_chol as PC
 from gpsat_tpu_torch.ops.linalg import chol_winv_batched
 from gpsat_tpu_torch.parallel import engine as TE
-from gpsat_tpu_torch.parallel.batching import TileBatch
+from gpsat_tpu_torch.parallel.batching import TileBatch, cast_batch
 
 T = 64
 
@@ -356,3 +356,60 @@ def test_tile_batch_carry_on_card_at_133_lanes():
     want[info["tail_rows"]] += info["tail_num_iter"]
     np.testing.assert_array_equal(res["num_iter"], want)
     assert np.isfinite(res["f_mean"]).all() and np.isfinite(res["f_var"]).all()
+
+
+def _sgpr_batch(B, N, P, dtype, seed=5):
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-6, 6, (B, N, 2)).astype(dtype)
+    y = (np.sin(X[..., 0]) * np.cos(X[..., 1]) + 0.1 * rng.normal(size=(B, N))).astype(dtype)
+    mask = np.ones((B, N), dtype=dtype)
+    for i, f in enumerate(rng.integers(int(0.9 * N), N + 1, size=B)):
+        mask[i, f:] = 0.0
+    return TileBatch(X=X, y=y, mask=mask, Xnew=rng.uniform(-4, 4, (B, P, 2)).astype(dtype),
+                     pred_mask=np.ones((B, P), dtype=dtype), obs_mean=np.zeros(B, dtype=dtype),
+                     expert_index=np.arange(B), num_obs=mask.sum(1).astype(int))
+
+
+@pytest.mark.cuda
+def test_sgpr_f32_batch_on_card_matches_cpu_f64_and_launches_kernel_1():
+    # the SGPR lane in f32 on the "block" route: kernel 1 factors Kuu and
+    # B = A A^T + I (M = 100, identity-padded to 128: two launches per pair)
+    # in every evaluation; held against the same fit in f64 on the CPU at the
+    # raw-f32 band of chip_smoke.py's phase 4
+    from gpsat_tpu_torch.models.sgpr import make_sgpr_core
+
+    dev = _cuda()
+    core = make_sgpr_core(num_inducing_points=100)
+    batch = _sgpr_batch(8, 512, 16, np.float32)
+    before = BC.factor_blocks.launches
+    runner = TE.make_batched_runner(core, fixed_params=core.default_fixed_params, max_iter=300, device=dev)
+    res = TE.run_tile_batch(batch, {"smart_init": True}, runner, core, device=dev)
+    launches = BC.factor_blocks.launches - before
+    assert launches == (int(res["num_iter"].max()) + 2) * 4 and launches > 0
+    cpu_runner = TE.make_batched_runner(core, fixed_params=core.default_fixed_params, max_iter=1000,
+                                        linesearch="single_eval", device="cpu")
+    cpu = TE.run_tile_batch(cast_batch(batch, np.float64), {"smart_init": True}, cpu_runner, core, device="cpu")
+    assert res["converged"].sum() >= 7 and cpu["converged"].all()
+    for key in ("f_mean", "f_var"):
+        assert np.isfinite(res[key]).all()
+        assert float(np.abs(res[key] - cpu[key]).max()) <= 1e-2, key
+
+
+@pytest.mark.cuda
+def test_chol_winv_padded_gradient_on_the_kernel_matches_the_plain_version():
+    # the differentiable pair in the SGPR lane's role: forward on kernel 1,
+    # pullback in matmuls, on [B, 100, 100] padded to 128; the plain version
+    # runs the same function on the CPU in f64 (cond(K) <= ~5 here)
+    dev = _cuda()
+    K = torch.from_numpy(_spd(6, 100, seed=9))
+    G1, G2 = torch.randn(2, 6, 100, 100, generator=torch.Generator().manual_seed(0), dtype=torch.float64)
+    grads = {}
+    for name, Kx in (("card", K.to(dev)), ("cpu", K.double())):
+        Kx = Kx.clone().requires_grad_(True)
+        before = BC.factor_blocks.launches
+        L, W = LA.chol_winv_padded(Kx)
+        ((torch.tril(L) * G1.to(Kx)).sum() + (torch.tril(W) * G2.to(Kx)).sum()).backward()
+        grads[name] = Kx.grad.double().cpu()
+        assert (BC.factor_blocks.launches - before) == (2 if name == "card" else 0)
+    scale = float(grads["cpu"].abs().max())
+    assert float((grads["card"] - grads["cpu"]).abs().max()) <= 1e-4 * scale

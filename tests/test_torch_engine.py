@@ -202,6 +202,7 @@ def test_port_imports_neither_jax_nor_gpsat_tpu():
         "import gpsat_tpu_torch.ops._build, gpsat_tpu_torch.ops.panel_chol, gpsat_tpu_torch.ops.cholesky\n"
         "import gpsat_tpu_torch.ops.recursive_chol, gpsat_tpu_torch.ops.linalg, gpsat_tpu_torch.ops.fused_lml\n"
         "import gpsat_tpu_torch.experts, gpsat_tpu_torch.local_expert_oi, gpsat_tpu_torch.models\n"
+        "import gpsat_tpu_torch.models.sgpr\n"
         "import gpsat_tpu_torch.data.dataloader, gpsat_tpu_torch.data.store, gpsat_tpu_torch.data.select\n"
         "import gpsat_tpu_torch.data.prediction_locations, gpsat_tpu_torch.utils.misc, gpsat_tpu_torch.utils.config_func\n"
         "import gpsat_tpu_torch.postprocess, gpsat_tpu_torch.postprocessing, gpsat_tpu_torch.cli\n"

@@ -307,15 +307,20 @@ def test_cli_main_runs_a_config_on_the_cpu(tmp_path):
 @pytest.mark.parametrize(
     "model_extra, run_kwargs",
     [
-        ({"replacement_threshold": 50}, {}),
-        ({"oi_model": "GPflowSGPRModel"}, {}),
+        # the replacement lane runs, but not with a model of the zoo
+        ({"replacement_threshold": 50, "replacement_model": "GPflowSVGPModel"}, {}),
+        # the SGPR lane runs, but its f64 fit needs the zoom search by default
+        ({"oi_model": "GPflowSGPRModel", "optim_kwargs": {"max_iter": 5}}, {"dtype": torch.float64}),
+        ({"oi_model": "GPflowSVGPModel"}, {}),
+        ({"oi_model": "GPflowVFFModel"}, {}),
+        ({"oi_model": "GPflowASVGPModel"}, {}),
         ({"oi_model": "sklearnGPRModel"}, {}),
         ({"oi_model": {"path_to_model": "m", "model_name": "M"}}, {}),
         ({}, {"mesh": "all"}),
         ({}, {"profile_dir": "trace"}),
         ({"optim_kwargs": {"max_iter": 5}}, {"dtype": torch.float64}),
     ],
-    ids=["replacement_threshold", "sgpr", "host_lane",
+    ids=["replacement_threshold", "sgpr", "svgp", "vff", "asvgp", "host_lane",
          "custom_model", "mesh", "profile_dir", "f64_without_linesearch"],
 )
 def test_unported_options_raise(model_extra, run_kwargs, tmp_path):
