@@ -3,7 +3,8 @@
     python3 chip_smoke.py              # one card; exits non-zero on any failure
     python3 chip_smoke.py --profile    # also write torch.profiler tables of one
                                        # main-path, panel-path, profiled-path,
-                                       # oi, post and sgpr run to
+                                       # oi, post, sgpr, svgp collapsed and
+                                       # svgp Adam run to
                                        # chiprun_out/profile*.txt, and split
                                        # kernel 3's time by __global__
     python3 chip_smoke.py --kernels    # phases 1 and 2 only (no result line)
@@ -71,6 +72,18 @@ Phases (each prints on its own lines; any failure raises):
              the replacement lane: phase 7's geometry through the sweep with
              SGPR (M = 64) for tiles of >= 64 observations and exact GPR for
              the rest, each lane against a sweep of its experts alone
+10. svgp     the SVGP lane at bench_models.py's geometry (B=128, N=512, P=64,
+             M = 64, jitter 1e-6, smart_init, f32, kernel 1 in every factor
+             pair): (a) the collapsed bound (the Gaussian default), 4 tiles
+             against the f64 fit on the card (the default zoom search); (b)
+             Bernoulli labels by joint L-BFGS, 4 tiles against an f64 fit;
+             (c) Adam + natural gradients (gamma 0.5, lr 1e-2), each lane's
+             negative ELBO against (a)'s; each a short warm-up call and a
+             timed call with its kernel-1 launches held to a formula; (d) an
+             f64 GPR fit (B=16, N=128) with zoom and with backtracking, card
+             against CPU and against the single-eval optimum; (e) the model
+             block of configs/example_local_expert_oi_svgp.json through the
+             sweep at phase 7's geometry, 16 experts against a CPU f64 sweep
 
 Then one {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 Imports nothing of JAX or of gpsat_tpu.
@@ -177,6 +190,35 @@ REPLACE_M, REPLACE_THRESHOLD = 64, 64
 REPLACE_OPTIM = {"max_iter": 100}
 # a lane against a sweep of its experts alone: the same buckets
 REPLACE_BOUND = 1e-6
+# phase 10: bench_models.py's SVGP geometry (make_batch, seed 0, fill
+# 60-100 %), M = 64 (the SVGP config's), jitter 1e-6, smart_init, f32 with
+# the engine's f32 defaults (single-eval, tol_grad 1e-3, tol_f 1e-6)
+SVGP_B, SVGP_N, SVGP_P, SVGP_M = 128, 512, 64, 64
+SVGP_JITTER = 1e-6
+SVGP_MAX_ITER = {"collapsed": 500, "bernoulli": 1000}
+SVGP_ADAM_KW = dict(max_iter=2000, learning_rate=1e-2, check_every=10, persistence=100)
+SVGP_F64_TILES = 4
+SVGP_F64_MAX_ITER = 2000
+# (b): Bernoulli predictions of the f32 joint fit against the f64 fit of the
+# same 4 tiles, in latent units (set from the CPU rehearsal, PERF.md
+# section 6)
+SVGP_BERNOULLI_BOUND = 0.2
+# (c): each lane's final negative ELBO of Adam + natural gradients above
+# (a)'s collapsed optimum by at most this many nats, and below it by at
+# most SVGP_ELBO_BELOW (f32 roundoff of two bounds; set from the CPU
+# rehearsal, PERF.md section 6)
+SVGP_ELBO_ABOVE = 4.0
+SVGP_ELBO_BELOW = 1.0
+# (d): an f64 GPR fit with each probing search, card vs CPU (phase f64's
+# agreement, 1.2e-8, for both searches) and against the single-eval f64
+# optimum
+LS_B, LS_N = 16, 128
+LS_CARD_BOUND = 1.2e-8
+SVGP_CONFIG = ROOT / "configs" / "example_local_expert_oi_svgp.json"
+# (e): f32 and f64 objectives of one expert further apart than this are two
+# stationary points, not one optimum in two precisions (f32 roundoff moves
+# one optimum's objective by ~1e-2 nats at these tile sizes)
+SVGP_SAME_OPTIMUM_NATS = 0.1
 
 
 def check(cond, msg):
@@ -1053,16 +1095,16 @@ def phase_post(f32_oi, f32_it_max, profile: bool):
     return launches_fit["block_chol"], launches_re["block_chol"]
 
 
-def make_large_tiles(B, N, P, D, dtype, seed=0):
+def make_large_tiles(B, N, P, D, dtype, seed=0, min_fill=0.9):
     """bench_large_n.py's tiles (seed 0, 90-100 % fill), as the port's
-    TileBatch."""
+    TileBatch; with ``min_fill`` 0.6, bench_models.py's make_batch."""
     from gpsat_tpu_torch.parallel.batching import TileBatch
 
     rng = np.random.default_rng(seed)
     X = rng.uniform(-6, 6, size=(B, N, D)).astype(dtype)
     y = (np.sin(X[..., 0]) * np.cos(X[..., 1]) + 0.1 * rng.normal(size=(B, N))).astype(dtype)
     mask = np.ones((B, N), dtype=dtype)
-    fill = rng.integers(int(0.9 * N), N + 1, size=B)  # mildly ragged
+    fill = rng.integers(int(min_fill * N), N + 1, size=B)
     for i, f in enumerate(fill):
         mask[i, f:] = 0.0
     Xnew = rng.uniform(-4, 4, size=(B, P, D)).astype(dtype)
@@ -1325,6 +1367,230 @@ def phase_sgpr(profile: bool):
     return launches_a, launches_b, phase_replace()
 
 
+def svgp_runner(core, device=None, **kw):
+    """The runner the orchestrator builds for ``core``: Adam for an Adam
+    core, L-BFGS (the dtype's default search) otherwise."""
+    from gpsat_tpu_torch.parallel.engine import make_runner_for
+
+    return make_runner_for(core, fixed_params=core.default_fixed_params, device=device, **kw)
+
+
+def drive_svgp(tag, core, batch, run_kw, expected, flops_per_iter, profile_to=None, trace_max_iter=None):
+    """One SVGP path at the full width: a short warm-up call (3 iterations),
+    then one timed call with every launch count set to 0 just before it and
+    read just after. ``expected(it_max)`` is kernel 1's launch count, derived
+    from the code. With ``profile_to`` one more call is traced, cut to
+    ``trace_max_iter`` iterations if given (a 2,000-iteration trace is too
+    large to tabulate). Returns (results, launches)."""
+    import torch
+
+    from gpsat_tpu_torch.parallel.engine import run_tile_batch
+
+    init = {"smart_init": True}
+    t0 = time.perf_counter()
+    run_tile_batch(batch, init, svgp_runner(core, **{**run_kw, "max_iter": 3}), core)
+    first_s = time.perf_counter() - t0
+    runner = svgp_runner(core, **run_kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = run_tile_batch(batch, init, runner, core)
+    steady_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters().items()}
+    Bn = batch.B
+    conv, it_max = int(res["converged"].sum()), int(res["num_iter"].max())
+    want = {"block_chol": expected(it_max), "panel_chol": 0, "cholesky": 0}
+    tflops = Bn * it_max * flops_per_iter / steady_s / 1e12
+    log(f"svgp_{tag}", core=core.name, B=Bn, N=batch.X.shape[1], M=SVGP_M, experts_per_s=Bn / steady_s,
+        steady_s=steady_s, warmup_3_iter_s=first_s, converged=conv, stall_exits=int(res["stalled"].sum()),
+        failed_exits=int(res["failed"].sum()), iters_mean=float(res["num_iter"].mean()), iters_max=it_max,
+        achieved_tflops=tflops, share_of_f32_peak=tflops * 1e12 / F32_FLOPS_PER_S,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches, launches_predicted=want)
+    check(np.isfinite(res["f_mean"]).all() and np.isfinite(res["f_var"]).all(), f"svgp {tag}: non-finite predictions")
+    check(conv >= MIN_SHARE * Bn, f"svgp {tag}: only {conv}/{Bn} lanes converged")
+    check(launches["block_chol"] > 0 and launches == want, f"svgp {tag} launches {launches}, expected {want}")
+    if profile_to:
+        traced = svgp_runner(core, **{**run_kw, "max_iter": trace_max_iter}) if trace_max_iter else runner
+        trace(f"svgp_{tag}", lambda: run_tile_batch(batch, init, traced, core), profile_to)
+    return res, launches["block_chol"]
+
+
+def svgp_f64_reference(tag, core, batch, res):
+    """The first SVGP_F64_TILES tiles fitted in f64 on the card with the
+    dtype's default search (zoom; the library arm, no kernel launch);
+    returns (f64 result, max |f32 - f64| over f_mean and f_var)."""
+    from gpsat_tpu_torch.parallel.batching import cast_batch, take_batch
+    from gpsat_tpu_torch.parallel.engine import run_tile_batch
+
+    idx = np.arange(SVGP_F64_TILES)
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    # the first tiles draw the same inducing points as in the whole batch
+    f64 = run_tile_batch(cast_batch(take_batch(batch, idx), np.float64), {"smart_init": True},
+                         svgp_runner(core, max_iter=SVGP_F64_MAX_ITER), core)
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters().items()}
+    check(not any(launches.values()), f"svgp {tag} f64 on the card launched a kernel: {launches}")
+    check(np.isfinite(f64["f_mean"]).all() and np.isfinite(f64["f_var"]).all(), f"svgp {tag} f64: non-finite")
+    d = max_abs_pred_diff({k: res[k][idx] for k in ("f_mean", "f_var")}, f64)
+    log(f"svgp_{tag}_f64", tiles=len(idx), seconds=seconds, converged=int(f64["converged"].sum()),
+        iters=f64["num_iter"].tolist(), objective_f32_minus_f64=(res["objective"][idx] - f64["objective"]).tolist(),
+        f32_vs_f64=d)
+    return f64, d
+
+
+def phase_svgp_linesearch():
+    """(d): an f64 GPR fit (B=16, N=128) with zoom and with backtracking on
+    the card (library arm, no kernel) against the same fit on the CPU, and
+    against the single-eval f64 optimum of the same tiles."""
+    from gpsat_tpu_torch.models.functional import make_gpr_core
+    from gpsat_tpu_torch.parallel.engine import make_batched_runner, run_tile_batch
+
+    batch = make_large_tiles(LS_B, LS_N, SVGP_P, D, np.float64, min_fill=0.6)
+    core = make_gpr_core(jitter=1e-5)
+    init = {"smart_init": True}
+    ref = run_tile_batch(batch, init, make_batched_runner(core, max_iter=1000, **CPU_F64_KW), core)
+    rows = {}
+    for ls in ("zoom", "backtracking"):
+        for fn in counters().values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        card = run_tile_batch(batch, init, make_batched_runner(core, max_iter=1000, linesearch=ls), core)
+        card_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters().items()}
+        t0 = time.perf_counter()
+        cpu = run_tile_batch(batch, init, make_batched_runner(core, max_iter=1000, linesearch=ls, device="cpu"), core,
+                             device="cpu")
+        cpu_s = time.perf_counter() - t0
+        rows[ls] = {"card_s": card_s, "cpu_s": cpu_s, "converged": [int(card["converged"].sum()),
+                                                                   int(cpu["converged"].sum())],
+                    "iters_max": [int(card["num_iter"].max()), int(cpu["num_iter"].max())],
+                    "same_num_iter": int((card["num_iter"] == cpu["num_iter"]).sum()),
+                    "card_vs_cpu": max_abs_pred_diff(card, cpu), "card_vs_single_eval": max_abs_pred_diff(card, ref),
+                    "launches": launches}
+        check(not any(launches.values()), f"{ls} f64 on the card launched a kernel: {launches}")
+        check(card["converged"].all() and cpu["converged"].all(), f"{ls}: unconverged lanes {rows[ls]}")
+    log("svgp_linesearch", B=LS_B, N=LS_N, card_bound=LS_CARD_BOUND, optimum_bound=F64_BOUND,
+        single_eval_iters_max=int(ref["num_iter"].max()), **rows)
+    for ls, row in rows.items():
+        check(row["card_vs_cpu"] <= LS_CARD_BOUND, f"{ls}: card vs CPU {row['card_vs_cpu']}")
+        check(row["card_vs_single_eval"] <= F64_BOUND, f"{ls}: vs the single-eval optimum {row['card_vs_single_eval']}")
+
+
+def phase_svgp_config():
+    """(e): the model block of configs/example_local_expert_oi_svgp.json
+    (M = 64, Gaussian, the collapsed solver, max_iter 2000) through the
+    sweep at phase 7's geometry, f32 on the card; 16 experts against a CPU
+    f64 sweep of the same experts with the single-eval search (the f64
+    references of phases 4 and 7; (d) holds it to zoom's optimum within
+    1e-5). Returns kernel 1's launches."""
+    import torch
+
+    from gpsat_tpu_torch.data.prediction_locations import PredictionLocations
+    from gpsat_tpu_torch.experts import sweep
+
+    model = json.loads(SVGP_CONFIG.read_text())["model"]
+    obs, experts, grid = pipeline_inputs()
+    kw = {**OI_KW, "model": model["oi_model"], "init_params": model["init_params"],
+          "constraints": model["constraints"], "optim_kwargs": model["optim_kwargs"]}
+
+    def run(locs, **extra):
+        pred_loc = PredictionLocations("from_dataframe", coords_col=["x", "y"], df=grid, max_dist=OI_MAX_DIST)
+        return [r for r in sweep(obs, locs, pred_loc=pred_loc, **{**kw, **extra}) if not r.get("skipped")]
+
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = run(experts)
+    wall_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters().items()}
+    # per bucket: (it_max + 1) evaluations of the collapsed bound (two pairs
+    # each), the closed-form q (two pairs), the predict (one pair)
+    want = {"block_chol": sum(2 * int(r["num_iter"].max()) + 5 for r in out), "panel_chol": 0, "cholesky": 0}
+    got = by_expert(out, ("f_mean", "f_var", "converged", "objective", "num_iter", "inducing_points"))
+    n = len(got)
+    conv = int(sum(v["converged"] for v in got.values()))
+    pick = np.sort(np.asarray(sorted(got)))[:: max(n // CPU_TILES, 1)][:CPU_TILES]
+    # the inducing points are drawn per bucket in tile order: the reference
+    # loads each expert's own
+    Z = {"inducing_points": np.stack([got[int(e)]["inducing_points"] for e in pick]).astype(np.float64)}
+    t0 = time.perf_counter()
+    cpu = by_expert(run({c: v[pick] for c, v in experts.items()}, dtype=torch.float64, device="cpu", loaded_params=Z,
+                        optim_kwargs={**model["optim_kwargs"], "linesearch": "single_eval"}),
+                    ("f_mean", "f_var", "objective", "converged"))
+    cpu_s = time.perf_counter() - t0
+    # compare the experts whose two fits stopped on the same optimum: against
+    # a zoom reference 2 of 16 small tiles stopped on different stationary
+    # points (objectives 0.94 and 4.4 nats apart, lengthscales at their
+    # bound on one side; tools/rehearse_chip_smoke.py), against the
+    # single-eval one none did
+    same = {j: abs(cpu[j]["objective"] - got[int(e)]["objective"]) <= SVGP_SAME_OPTIMUM_NATS
+            for j, e in enumerate(pick)}
+    d = [max_abs_pred_diff(got[int(e)], cpu[j]) for j, e in enumerate(pick) if same[j]]
+    log("svgp_config", config=str(SVGP_CONFIG.relative_to(ROOT)), experts=n, buckets=len(out), wall_s=wall_s,
+        experts_per_s=n / wall_s, converged=conv, converged_share=conv / n,
+        iters_mean=float(np.mean([v["num_iter"] for v in got.values()])),
+        iters_max=int(max(v["num_iter"] for v in got.values())), launches=launches, launches_predicted=want,
+        compared=len(d), other_optimum={int(e): [float(got[int(e)]["objective"]), float(cpu[j]["objective"])]
+                                        for j, e in enumerate(pick) if not same[j]},
+        f32_vs_cpu_f64=max(d) if d else None, bound=PRED_BOUND, cpu_f64_s=cpu_s,
+        cpu_converged=int(sum(v["converged"] for v in cpu.values())))
+    check(all(np.isfinite(v["f_mean"]).all() and np.isfinite(v["f_var"]).all() for v in got.values()),
+          "svgp config: non-finite predictions")
+    check(conv >= MIN_SHARE * n, f"svgp config: only {conv}/{n} experts converged")
+    check(launches["block_chol"] > 0 and launches == want, f"svgp config launches {launches}, expected {want}")
+    check(len(d) >= MIN_COMPARED_SHARE * len(pick), f"svgp config: {len(d)}/{len(pick)} experts compared")
+    check(max(d) <= PRED_BOUND, f"svgp config: card f32 vs CPU f64 {max(d)}")
+    return launches["block_chol"]
+
+
+def phase_svgp(profile: bool):
+    """Phase 10. Returns kernel 1's launches in (a), (b), (c) and (e)."""
+    from gpsat_tpu_torch.models.svgp import make_svgp_core
+    from gpsat_tpu_torch.utils.flops import sgpr_iter_flops, svgp_iter_flops
+
+    batch = make_large_tiles(SVGP_B, SVGP_N, SVGP_P, D, np.float32, min_fill=0.6)
+    kw = dict(kernel="Matern32", jitter=SVGP_JITTER, num_inducing_points=SVGP_M)
+
+    # (a) the collapsed bound: (it_max + 1) evaluations of two pairs (Kuu and
+    # B), finalize_params' closed-form q (two pairs), the predict (one pair)
+    col = make_svgp_core(**kw)
+    res_a, la = drive_svgp("collapsed", col, batch, {"max_iter": SVGP_MAX_ITER["collapsed"]},
+                           lambda it: 2 * (it + 1) + 2 + 1, sgpr_iter_flops(SVGP_N, SVGP_M, D),
+                           "profile_svgp_collapsed.txt" if profile else None)
+    _, d_a = svgp_f64_reference("collapsed", col, batch, res_a)
+    check(d_a <= PRED_BOUND, f"svgp collapsed: f32 vs f64 {d_a}")
+
+    # (b) Bernoulli, joint L-BFGS: device_init's collapsed q (two pairs),
+    # (it_max + 1) ELBO evaluations (one pair), the predict (one pair)
+    bern = make_svgp_core(likelihood="Bernoulli", **kw)
+    labels = batch.__class__(**{**batch.__dict__, "y": (batch.y > 0).astype(np.float32)})
+    res_b, lb = drive_svgp("bernoulli", bern, labels, {"max_iter": SVGP_MAX_ITER["bernoulli"]},
+                           lambda it: 2 + (it + 1) + 1, svgp_iter_flops(SVGP_N, SVGP_M, D))
+    _, d_b = svgp_f64_reference("bernoulli", bern, labels, res_b)
+    check(d_b <= SVGP_BERNOULLI_BOUND, f"svgp bernoulli: f32 vs f64 {d_b}")
+
+    # (c) Adam + natural gradients: device_init's collapsed q (two pairs),
+    # two ELBO evaluations per iteration (the natural-gradient step and
+    # Adam's), the final objective and the predict (one pair each)
+    nat = make_svgp_core(natural_gradients=True, gamma=0.5, **kw)
+    res_c, lc = drive_svgp("adam_natgrad", nat, batch, SVGP_ADAM_KW, lambda it: 2 + 2 * it + 1 + 1,
+                           2 * svgp_iter_flops(SVGP_N, SVGP_M, D),
+                           "profile_svgp_adam.txt" if profile else None, trace_max_iter=200)
+    gap = res_c["objective"] - res_a["objective"]
+    log("svgp_adam_vs_collapsed", neg_elbo_gap_min=float(gap.min()), neg_elbo_gap_max=float(gap.max()),
+        neg_elbo_gap_mean=float(gap.mean()), above_bound=SVGP_ELBO_ABOVE, below_bound=SVGP_ELBO_BELOW)
+    check(gap.max() <= SVGP_ELBO_ABOVE and gap.min() >= -SVGP_ELBO_BELOW,
+          f"svgp adam + natgrad vs collapsed: -ELBO gap in [{gap.min()}, {gap.max()}]")
+
+    phase_svgp_linesearch()
+    return la, lb, lc, phase_svgp_config()
+
+
 def main(argv) -> int:
     import torch
 
@@ -1365,6 +1631,8 @@ def main(argv) -> int:
     entries[0]["launches_post_fit"], entries[0]["launches_post_repredict"] = phase_post(f32_oi, f32_it_max, profile)
     (entries[0]["launches_sgpr_full"], entries[0]["launches_sgpr_chunked"],
      entries[0]["launches_sgpr_replace"]) = phase_sgpr(profile)
+    (entries[0]["launches_svgp_collapsed"], entries[0]["launches_svgp_bernoulli"],
+     entries[0]["launches_svgp_adam_natgrad"], entries[0]["launches_svgp_config"]) = phase_svgp(profile)
 
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

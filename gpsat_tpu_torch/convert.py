@@ -24,7 +24,13 @@ from gpsat_tpu_torch.parallel.batching import TileBatch
 
 
 def params_from_numpy(cparams: Dict[str, np.ndarray], device, dtype) -> Dict[str, torch.Tensor]:
-    """{name: [B, ...] numpy} -> {name: [B, ...] tensor on device, dtype}."""
+    """{name: [B, ...] numpy} -> {name: [B, ...] tensor on device, dtype}.
+
+    Every parameter carries across as it is, the SVGP core's inducing_mean
+    [B, M] and inducing_chol [B, M, M] included: the factor's upper
+    triangle is kept as the JAX package stores it (a free L-BFGS or Adam
+    factor may hold values there), and each consumer applies ``tril`` where
+    it uses the factor, as the JAX package does."""
     return {k: torch.as_tensor(np.asarray(v), dtype=dtype, device=device) for k, v in cparams.items()}
 
 

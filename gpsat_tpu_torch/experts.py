@@ -1,4 +1,4 @@
-"""LocalExpertOI — the experiment orchestrator (exact-GPR and SGPR lanes).
+"""LocalExpertOI — the experiment orchestrator (exact-GPR, SGPR and SVGP lanes).
 
 Port of ``gpsat_tpu/experts.py`` (ref: GPSat/local_experts.py:116-1279). It
 keeps the JAX package's config surface and results schema:
@@ -28,7 +28,10 @@ a results store (exact coordinate match, or ``nearest``), from direct
 values, or leaves the init as it is (``previous``); ``sweep`` takes the
 loaded values as arrays.
 
-Models: exact GPR and SGPR, each a batched core. ``replacement_threshold``
+Models: exact GPR, SGPR and SVGP, each a batched core; an SVGP core whose
+solver is Adam runs the Adam runner (``learning_rate``, ``check_every``,
+``persistence``; ``carry_iters`` / ``two_stage_iters`` warn and are
+ignored), every other core L-BFGS. ``replacement_threshold``
 routes the experts with fewer observations than it to a second lane, the
 replacement model's (by default the main model with other settings), which
 is assembled, fitted, polished and stored on its own. Options outside these
@@ -61,16 +64,19 @@ from gpsat_tpu_torch.data import dataloader as DL
 from gpsat_tpu_torch.data import select as sel
 from gpsat_tpu_torch.data.prediction_locations import PredictionLocations
 from gpsat_tpu_torch.data.store import TableStore, is_pytables_store
-from gpsat_tpu_torch.models import GPRModel, SGPRModel, get_model
+from gpsat_tpu_torch.models import GPRModel, SGPRModel, SVGPModel, get_model
 from gpsat_tpu_torch.models.functional import ModelCore, make_gpr_core
 from gpsat_tpu_torch.models.gpr import PARAM_NAMES
 from gpsat_tpu_torch.models.sgpr import DEFAULT_JITTER as SGPR_JITTER
 from gpsat_tpu_torch.models.sgpr import make_sgpr_core
+from gpsat_tpu_torch.models.svgp import DEFAULT_JITTER as SVGP_JITTER
+from gpsat_tpu_torch.models.svgp import make_svgp_core
 from gpsat_tpu_torch.ops import transforms as T
 from gpsat_tpu_torch.parallel import batching
 from gpsat_tpu_torch.parallel.engine import (
     _no_mesh,
     make_batched_runner,
+    make_runner_for,
     polish_tile_batch,
     resolve_device,
     resolve_linesearch,
@@ -203,14 +209,14 @@ def check_prev_oi_config(prev_oi_config, oi_config, skip_valid_checks_on=None):
 # the model lanes
 # --------------------------------------------------------------------------
 
-_ZOO_MODELS = ("SVGPModel", "GPflowSVGPModel", "VFFModel", "GPflowVFFModel", "ASVGPModel", "GPflowASVGPModel")
+_ZOO_MODELS = ("VFFModel", "GPflowVFFModel", "ASVGPModel", "GPflowASVGPModel")
 # per-tile parameters that a core's prepare_batch_init draws for every
 # expert whose load found nothing (NaN rows)
 _DRAWN_PARAMS = ("inducing_points",)
 
 
 def make_core_for_model(model_cls, kernel: str, bijectors, init_params) -> ModelCore:
-    """Map a model class to its functional core (exact GPR or SGPR)."""
+    """Map a model class to its functional core (exact GPR, SGPR or SVGP)."""
     name = getattr(model_cls, "__name__", "")
     if model_cls is GPRModel or name in ("GPRModel", "GPflowGPRModel"):
         return make_gpr_core(
@@ -229,6 +235,24 @@ def make_core_for_model(model_cls, kernel: str, bijectors, init_params) -> Model
             train_inducing_points=bool(init_params.get("train_inducing_points", False)),
             mean_function=init_params.get("mean_function"),
             chunk_size=init_params.get("chunk_size", "auto"),
+        )
+    if model_cls is SVGPModel or name in ("SVGPModel", "GPflowSVGPModel"):
+        return make_svgp_core(
+            kernel=kernel,
+            bijectors=bijectors_from(bijectors),
+            jitter=init_params.get("jitter", SVGP_JITTER),
+            num_inducing_points=int(init_params.get("num_inducing_points", 128)),
+            likelihood=init_params.get("likelihood", "Gaussian") or "Gaussian",
+            mean_function=init_params.get("mean_function"),
+            train_inducing_points=bool(init_params.get("train_inducing_points", False)),
+            # False | True (autodiff natural gradients) | "exact" (closed-form q)
+            natural_gradients=init_params.get("natural_gradients", False),
+            gamma=float(init_params.get("gamma", 0.1)),
+            chunk_size=init_params.get("chunk_size", "auto"),
+            q_init=init_params.get("q_init", "auto"),
+            # "auto": the collapsed bound for the Gaussian likelihood, joint
+            # L-BFGS otherwise; "adam" the reference's optimiser
+            solver=init_params.get("solver", "auto"),
         )
     if name in _ZOO_MODELS:
         raise _not_ported(f"model {name}", 7)
@@ -296,10 +320,10 @@ def initial_cparams(core: ModelCore, init_params: dict, constraints, D: int) -> 
 
 
 def check_optim_kwargs(optim_kwargs: dict, dtype=torch.float32, optimise: bool = True):
-    """Raise for a line search the port does not run. A predict-only run
-    searches nothing, and ``carry_iters`` runs its head and tail with the
-    single-eval search whatever ``linesearch`` says, as the JAX package
-    does."""
+    """Raise ValueError for a line search name outside
+    ``optim.lbfgs.LINESEARCHES``. A predict-only run searches nothing, and
+    ``carry_iters`` runs its head and tail with the single-eval search
+    whatever ``linesearch`` says, as the JAX package does."""
     if optimise and not optim_kwargs.get("carry_iters"):
         resolve_linesearch(optim_kwargs.get("linesearch"), dtype)
 
@@ -376,13 +400,30 @@ def _make_lane(name, model, init_params, constraints, optim_kwargs, loaded, *, d
                dev) -> _Lane:
     model = get_model(model) if isinstance(model, str) else model
     ip = init_params or {}
-    check_optim_kwargs(optim_kwargs, dtype, optimise)
     core = core_for(ip, constraints, model_cls=model)
+    fixed = tuple(dict.fromkeys(tuple(optim_kwargs.get("fixed_params", ())) + tuple(core.default_fixed_params)))
+    if core.optimizer == "adam":
+        for k in ("two_stage_iters", "carry_iters"):
+            if optim_kwargs.get(k):
+                warnings.warn(f"{k} only applies to L-BFGS-optimized cores; ignored for {core.name}")
+        runner = make_runner_for(
+            core,
+            fixed_params=fixed,
+            max_iter=int(optim_kwargs.get("max_iter", 2000)),
+            optimise=optimise,
+            learning_rate=float(optim_kwargs.get("learning_rate", 1e-2)),
+            check_every=int(optim_kwargs.get("check_every", 10)),
+            persistence=int(optim_kwargs.get("persistence", 100)),
+            device=dev,
+        )
+        return _Lane(name, getattr(model, "__name__", str(model)), core, runner, None, ip, constraints, loaded)
+    check_optim_kwargs(optim_kwargs, dtype, optimise)
     for k in ("learning_rate", "check_every", "persistence"):
         if optim_kwargs.get(k) is not None:
-            warnings.warn(f"{k} only applies to Adam-optimized cores; ignored for {core.name}")
-    fixed = tuple(dict.fromkeys(tuple(optim_kwargs.get("fixed_params", ())) + tuple(core.default_fixed_params)))
-    runner = make_batched_runner(
+            # only SVGP cores have an Adam path to point at
+            hint = " (set init_params solver='adam' to force the Adam path)" if core.name.startswith("SVGP") else ""
+            warnings.warn(f"{k} only applies to Adam-optimized cores; ignored for {core.name}{hint}")
+    runner = make_runner_for(
         core,
         fixed_params=fixed,
         max_iter=int(optim_kwargs.get("max_iter", 10_000)),

@@ -1,24 +1,24 @@
 """Model registry (ref: GPSat/models/__init__.py:3-28).
 
-The port runs exact GPR and sparse GPR as batched functional cores
-(``functional.make_gpr_core``, ``sgpr.make_sgpr_core``). ``get_model``
-resolves the reference's names for them, ``"GPRModel"`` and
-``"GPflowGPRModel"`` to ``GPRModel``, ``"SGPRModel"`` and
-``"GPflowSGPRModel"`` to ``SGPRModel``: classes that mark the lane for the
-orchestrator. Every other name of the JAX package's registry raises
+The port runs exact GPR, sparse GPR and SVGP as batched functional cores
+(``functional.make_gpr_core``, ``sgpr.make_sgpr_core``,
+``svgp.make_svgp_core``). ``get_model`` resolves the reference's names for
+them, ``"GPRModel"`` and ``"GPflowGPRModel"`` to ``GPRModel``,
+``"SGPRModel"`` and ``"GPflowSGPRModel"`` to ``SGPRModel``, ``"SVGPModel"``
+and ``"GPflowSVGPModel"`` to ``SVGPModel``: classes that mark the lane for
+the orchestrator. Every other name of the JAX package's registry raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from gpsat_tpu_torch.models import gpr as _gpr
 from gpsat_tpu_torch.models import sgpr as _sgpr
+from gpsat_tpu_torch.models import svgp as _svgp
 
 _ZOO = "the model zoo, ROADMAP.md Queue 1 item 7"
 _HOST = "the host-serial lane, ROADMAP.md Queue 1 item 3"
 _UNPORTED = {
-    "SVGPModel": _ZOO,
     "VFFModel": _ZOO,
     "ASVGPModel": _ZOO,
-    "GPflowSVGPModel": _ZOO,
     "GPflowVFFModel": _ZOO,
     "GPflowASVGPModel": _ZOO,
     "SklearnGPRModel": _HOST,
@@ -50,7 +50,18 @@ class SGPRModel:
     param_names = tuple(_sgpr.PARAM_NAMES)
 
 
-_PORTED = {"GPRModel": GPRModel, "GPflowGPRModel": GPRModel, "SGPRModel": SGPRModel, "GPflowSGPRModel": SGPRModel}
+class SVGPModel:
+    """SVGP through the batched engine (``make_svgp_core``), marked as
+    ``GPRModel`` is; its parameter names are those of an SVGP without a mean
+    function, the inducing points and the whitened q included. The JAX
+    package's host-facing ``SVGPModel`` class is not ported (ROADMAP.md
+    Queue 1 item 7)."""
+
+    param_names = tuple(_svgp.PARAM_NAMES)
+
+
+_PORTED = {"GPRModel": GPRModel, "GPflowGPRModel": GPRModel, "SGPRModel": SGPRModel, "GPflowSGPRModel": SGPRModel,
+           "SVGPModel": SVGPModel, "GPflowSVGPModel": SVGPModel}
 
 
 def get_model(name: str):

@@ -1,8 +1,10 @@
 """Functional model cores — what the batched engine runs.
 
 Port of ``gpsat_tpu/models/functional.py`` for the exact-GPR family (joint
-and profiled-variance). A ModelCore bundles the functions the engine needs; every one acts on a whole
-expert batch (leading dimension B) instead of one tile under vmap.
+and profiled-variance); the sparse cores live in ``sgpr.py`` and
+``svgp.py``. A ModelCore bundles the functions the engine needs; every one
+acts on a whole expert batch (leading dimension B) instead of one tile
+under vmap.
 """
 
 from __future__ import annotations
@@ -48,6 +50,14 @@ class ModelCore:
     # tau in the likelihood_variance slot) sets this to the standard
     # objective. Defaults to ``objective``.
     report_objective: Optional[Callable] = None
+    # which batched runner fits this core: "lbfgs" (make_batched_runner) or
+    # "adam" (make_batched_adam_runner, the SVGP core's reference optimiser)
+    optimizer: str = "lbfgs"
+    # optional natural-gradient hook of the Adam runner: (uparams, data) ->
+    # new values of natgrad_params, called before every Adam step; those
+    # params are kept out of Adam (the reference's hybrid optimiser)
+    natgrad_update: Optional[Callable] = None
+    natgrad_params: tuple = ()
 
 
 def make_gpr_core(

@@ -33,6 +33,7 @@ counterpart of the JAX package's relaxed accumulation precision
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional
 
@@ -185,6 +186,21 @@ def draw_inducing_points(batch, M: int) -> np.ndarray:
     return Z
 
 
+def prepare_inducing_init(batch, init: dict, M: int) -> dict:
+    """``init`` with per-tile inducing points [B, M, D]: drawn by
+    ``draw_inducing_points`` unless ``init`` already holds per-expert
+    values, whose rows holding a NaN (an expert whose load found nothing)
+    are drawn too. The sparse cores' ``prepare_batch_init``."""
+    Z = init.get("inducing_points")
+    if Z is not None and np.ndim(Z) == 3:
+        missing = np.isnan(np.asarray(Z, dtype=float)).any(axis=(1, 2))
+        if not missing.any():
+            return init
+        Z = np.where(missing[:, None, None], draw_inducing_points(batch, M), Z)
+        return {**init, "inducing_points": Z}
+    return {**init, "inducing_points": draw_inducing_points(batch, M)}
+
+
 def make_sgpr_core(
     kernel: str = "Matern32",
     bijectors: Optional[dict] = None,
@@ -200,9 +216,7 @@ def make_sgpr_core(
 
     The inducing points ride in the params with the identity bijector and
     are held fixed unless ``train_inducing_points``. ``prepare_batch_init``
-    draws them per tile (``draw_inducing_points``) unless the init already
-    holds per-expert [B, M, D] values; a row of those that holds a NaN (an
-    expert whose load found nothing) is drawn too.
+    draws them per tile (``prepare_inducing_init``).
 
     ``factor`` names the route of both factor pairs (ops/linalg.PAIR_ROUTES);
     ``chunk_size`` and ``chunk_remat`` the large-N accumulation (module
@@ -247,16 +261,6 @@ def make_sgpr_core(
                 out[k] = np.broadcast_to(v, out[k].shape).copy() if v.shape != out[k].shape else v
         return out
 
-    def prepare_batch_init(batch, init):
-        Z = init.get("inducing_points")
-        if Z is not None and np.ndim(Z) == 3:
-            missing = np.isnan(np.asarray(Z, dtype=float)).any(axis=(1, 2))
-            if not missing.any():
-                return init
-            Z = np.where(missing[:, None, None], draw_inducing_points(batch, M), Z)
-            return {**init, "inducing_points": Z}
-        return {**init, "inducing_points": draw_inducing_points(batch, M)}
-
     return ModelCore(
         name=f"SGPR[{kernel},M={M}]",
         objective=objective,
@@ -266,5 +270,5 @@ def make_sgpr_core(
         init_cparams=init_cparams,
         param_names=tuple(PARAM_NAMES) + MF.mean_param_names(mean_function),
         default_fixed_params=() if train_inducing_points else ("inducing_points",),
-        prepare_batch_init=prepare_batch_init,
+        prepare_batch_init=functools.partial(prepare_inducing_init, M=M),
     )

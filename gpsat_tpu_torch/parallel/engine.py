@@ -12,6 +12,12 @@ lane stops, so a head run takes a few iterations on the whole batch and a
 tail run finishes only the lanes the head left unconverged, gathered by an
 index on the device.
 
+Cores whose ``optimizer`` is "adam" (the SVGP core's reference optimiser)
+run ``make_batched_adam_runner`` instead: a per-lane Adam loop with the
+reference's early stopping and, for cores with a natural-gradient hook,
+the natural-gradient step of the variational parameters before each Adam
+step.
+
 Entry points default to the CUDA device and raise without one, unless the
 caller passes ``device="cpu"``.
 """
@@ -24,7 +30,7 @@ import numpy as np
 import torch
 
 from gpsat_tpu_torch.models.functional import ModelCore
-from gpsat_tpu_torch.optim.lbfgs import check_linesearch, minimize_lbfgs
+from gpsat_tpu_torch.optim.lbfgs import _lane_where, check_linesearch, minimize_lbfgs
 from gpsat_tpu_torch.parallel.batching import TileBatch, pad_batch_to, take_batch
 
 
@@ -47,7 +53,7 @@ def _no_mesh(mesh):
 def resolve_linesearch(linesearch: Optional[str], dtype) -> str:
     """The line search a run uses: ``linesearch``, or by compute dtype
     "single_eval" in f32 and "zoom" in f64 (the JAX engine's defaults).
-    Only "single_eval" is ported; any other raises NotImplementedError."""
+    A name outside ``optim.lbfgs.LINESEARCHES`` raises ValueError."""
     return check_linesearch(linesearch if linesearch is not None else ("single_eval" if dtype == torch.float32 else "zoom"))
 
 
@@ -60,6 +66,16 @@ def padded_width(B: int, pad_multiple: Optional[int] = None) -> int:
     while B_pad < B:
         B_pad *= 2
     return B_pad
+
+
+def _finalize_and_predict(core: ModelCore, u_opt: dict, data: dict, Xnew: torch.Tensor, optimise: bool):
+    """(constrained params, predictions) at the optimum; ``finalize_params``
+    runs only after an optimisation, as the predict-only contract says."""
+    with torch.no_grad():
+        cparams = core.forward(u_opt)
+        if optimise and core.finalize_params is not None:
+            cparams = core.finalize_params(cparams, data)
+        return cparams, core.predict(cparams, data, Xnew)
 
 
 def _fit_predict_batched(
@@ -75,6 +91,7 @@ def _fit_predict_batched(
     tol_f: float,
     memory_size: int,
     linesearch: Optional[str],
+    max_linesearch_steps: int,
     init_state: Optional[dict],
     return_state: bool,
 ):
@@ -96,7 +113,8 @@ def _fit_predict_batched(
     if optimise and u_free0:
         res = minimize_lbfgs(
             objective, u_free0, max_iter=max_iter, tol_grad=tol_grad, tol_f=tol_f, memory_size=memory_size,
-            linesearch=linesearch, init_state=init_state, return_state=return_state,
+            linesearch=linesearch, max_linesearch_steps=max_linesearch_steps, init_state=init_state,
+            return_state=return_state,
         )
         if return_state:
             res, state = res
@@ -112,11 +130,7 @@ def _fit_predict_batched(
         stalled = torch.zeros(B, dtype=torch.bool, device=dev)
         failed = torch.zeros(B, dtype=torch.bool, device=dev)
 
-    with torch.no_grad():
-        cparams = core.forward(u_opt)
-        if optimise and core.finalize_params is not None:
-            cparams = core.finalize_params(cparams, data)
-        pred = core.predict(cparams, data, Xnew)
+    cparams, pred = _finalize_and_predict(core, u_opt, data, Xnew, optimise)
     out = {
         "params": cparams,
         "pred": pred,
@@ -160,13 +174,12 @@ def make_batched_runner(
 
     tol_grad/tol_f default by compute dtype: 1e-6/1e-11 in f64 (scipy
     L-BFGS-B parity) but 1e-3/1e-6 in f32, whose arithmetic noise sits
-    above the f64-grade thresholds. Only the single-eval line search is
-    ported; linesearch=None selects it in f32 and must be given as
-    "single_eval" in f64 (the JAX default there, zoom, is not ported),
-    unless the runner does not optimise.
-    max_linesearch_steps bounds the zoom and backtracking searches of the
-    JAX engine; the single-eval search takes one step per iteration and
-    ignores it, as the JAX one does.
+    above the f64-grade thresholds. linesearch=None selects by dtype as the
+    JAX engine does: "single_eval" in f32, the strong-Wolfe "zoom" in f64.
+    max_linesearch_steps bounds the zoom and backtracking searches; the
+    single-eval search takes one step per iteration and ignores it, as the
+    JAX one does. Only the single-eval search is resumable (return_state,
+    take_state).
 
     return_state=True adds the resumable L-BFGS state to the results
     ("opt_state", a dict of [B, ...] tensors); take_state=True makes the
@@ -198,12 +211,165 @@ def make_batched_runner(
             memory_size=memory_size,
             # a predict-only runner searches nothing: any line search name will do
             linesearch=resolve_linesearch(linesearch, X.dtype) if optimise else None,
+            max_linesearch_steps=max_linesearch_steps,
             init_state=state,
             return_state=return_state,
         )
 
     runner.device = dev
     return runner
+
+
+_ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults (eps_root 0)
+
+
+def _adam_fit_predict_batched(
+    core: ModelCore,
+    data: Dict[str, torch.Tensor],
+    Xnew: torch.Tensor,
+    uparams0: Dict[str, torch.Tensor],
+    *,
+    fixed_params: tuple,
+    max_iter: int,
+    optimise: bool,
+    learning_rate: float,
+    check_every: int,
+    persistence: int,
+):
+    """All padded tiles of a batch: Adam on the free params, then predict.
+
+    Port of ``gpsat_tpu/parallel/engine.py::_adam_fit_predict_one`` under
+    vmap: every lane runs its own loop, and a lane that is done (no
+    improvement of its loss for ``persistence`` iterations, checked every
+    ``check_every`` from iteration 0 against a best that starts at +inf, or
+    a non-finite loss) keeps its params, optimiser state and counters while
+    the others run (one host sync per iteration). Adam is ``optax.adam(lr)``:
+    b1 0.9, b2 0.999, eps 1e-8 outside the square root, bias correction from
+    step 1. A core with ``natgrad_update`` steps its ``natgrad_params`` by
+    that hook before each Adam step and keeps them out of Adam; they still
+    run when every Adam param is fixed."""
+    if optimise and core.device_init is not None:
+        with torch.no_grad():
+            uparams0 = core.device_init(uparams0, data)
+    nat_names = tuple(core.natgrad_params) if core.natgrad_update is not None else ()
+    u = {k: v.detach() for k, v in uparams0.items() if k not in fixed_params and k not in nat_names}
+    nat = {k: v.detach() for k, v in uparams0.items() if k in nat_names}
+    u_fixed = {k: v for k, v in uparams0.items() if k in fixed_params and k not in nat_names}
+    B = data["X"].shape[0]
+    dev = data["X"].device
+
+    def loss_fn(u_free, u_nat):
+        return core.objective({**u_free, **u_nat, **u_fixed}, data)
+
+    if optimise and (u or nat_names):
+        mu = {k: torch.zeros_like(v) for k, v in u.items()}
+        nu = {k: torch.zeros_like(v) for k, v in u.items()}
+        zero_i = torch.zeros(B, dtype=torch.int64, device=dev)
+        it, since_best = zero_i, zero_i
+        best = torch.full((B,), float("inf"), dtype=data["X"].dtype, device=dev)
+        done = torch.zeros(B, dtype=torch.bool, device=dev)
+        while True:
+            active = (it < max_iter) & ~done
+            if not bool(active.any()):
+                break
+            nat_new = core.natgrad_update({**u, **nat, **u_fixed}, data) if nat_names else nat
+            nat_new = {k: v.detach() for k, v in nat_new.items()}
+            ur = {k: v.detach().requires_grad_(True) for k, v in u.items()}
+            with torch.enable_grad():
+                loss = loss_fn(ur, nat_new)
+                grads = torch.autograd.grad(loss.sum(), list(ur.values())) if ur else ()
+            loss = loss.detach()
+            # Adam's step count is the lane's iteration count
+            step_no = (it + 1).to(best.dtype)
+            bc1 = 1.0 - torch.pow(torch.full_like(best, _ADAM_B1), step_no)
+            bc2 = 1.0 - torch.pow(torch.full_like(best, _ADAM_B2), step_no)
+            new_u, new_mu, new_nu = {}, {}, {}
+            for (k, v), g in zip(u.items(), grads):
+                shape = (B,) + (1,) * (v.ndim - 1)
+                new_mu[k] = (1 - _ADAM_B1) * g + _ADAM_B1 * mu[k]
+                new_nu[k] = (1 - _ADAM_B2) * g**2 + _ADAM_B2 * nu[k]
+                step = (new_mu[k] / bc1.reshape(shape)) / (torch.sqrt(new_nu[k] / bc2.reshape(shape) + 0.0) + _ADAM_EPS)
+                new_u[k] = v + (-learning_rate) * step
+            check = torch.remainder(it, check_every) == 0
+            improved = loss < best
+            new_since = torch.where(check, torch.where(improved, zero_i, since_best + check_every), since_best)
+            new_done = (new_since >= persistence) | ~torch.isfinite(loss)
+            u = {k: _lane_where(active, new_u[k], u[k]) for k in u}
+            mu = {k: _lane_where(active, new_mu[k], mu[k]) for k in mu}
+            nu = {k: _lane_where(active, new_nu[k], nu[k]) for k in nu}
+            nat = {k: _lane_where(active, nat_new[k], nat[k]) for k in nat}
+            best = torch.where(active & check & improved, loss, best)
+            since_best = torch.where(active, new_since, since_best)
+            done = torch.where(active, new_done, done)
+            it = torch.where(active, it + 1, it)
+        with torch.no_grad():
+            final_obj = loss_fn(u, nat)
+        u_opt = {**u, **nat, **u_fixed}
+        converged = torch.isfinite(final_obj)
+        num_iter = it
+    else:
+        u_opt = uparams0
+        with torch.no_grad():
+            final_obj = (core.report_objective or core.objective)(uparams0, data)
+        converged = torch.ones(B, dtype=torch.bool, device=dev)
+        num_iter = torch.zeros(B, dtype=torch.int64, device=dev)
+
+    cparams, pred = _finalize_and_predict(core, u_opt, data, Xnew, optimise)
+    return {
+        "params": cparams,
+        "pred": pred,
+        "objective": final_obj,
+        "converged": converged,
+        "num_iter": num_iter,
+        # the persistence stop is Adam's convergence test
+        "stalled": torch.zeros(B, dtype=torch.bool, device=dev),
+        "failed": ~torch.isfinite(final_obj),
+    }
+
+
+def make_batched_adam_runner(
+    core: ModelCore,
+    *,
+    fixed_params: tuple = (),
+    max_iter: int = 2000,
+    optimise: bool = True,
+    learning_rate: float = 1e-2,
+    check_every: int = 10,
+    persistence: int = 100,
+    mesh=None,
+    device=None,
+) -> Callable:
+    """Adam counterpart of ``make_batched_runner`` for cores whose
+    ``optimizer`` is "adam" (``_adam_fit_predict_batched``); the same
+    (X, y, mask, Xnew, uparams0) -> results contract and result keys."""
+    _no_mesh(mesh)
+    dev = resolve_device(device)
+
+    def runner(X, y, mask, Xnew, uparams0):
+        X, y, mask, Xnew = (torch.as_tensor(a, device=dev) for a in (X, y, mask, Xnew))
+        return _adam_fit_predict_batched(
+            core,
+            {"X": X, "y": y, "mask": mask},
+            Xnew,
+            {k: torch.as_tensor(v, device=dev) for k, v in uparams0.items()},
+            fixed_params=tuple(fixed_params),
+            max_iter=max_iter,
+            optimise=optimise,
+            learning_rate=learning_rate,
+            check_every=check_every,
+            persistence=persistence,
+        )
+
+    runner.device = dev
+    return runner
+
+
+def make_runner_for(core: ModelCore, **kw) -> Callable:
+    """The runner that ``core.optimizer`` names, built with ``kw``:
+    ``make_batched_adam_runner`` for "adam", ``make_batched_runner``
+    otherwise."""
+    make = make_batched_adam_runner if core.optimizer == "adam" else make_batched_runner
+    return make(core, **kw)
 
 
 def _smart_init(batch: TileBatch) -> Dict[str, np.ndarray]:

@@ -1,6 +1,8 @@
-"""Analytic FLOP counts for the exact-GPR main path and the SGPR lane.
+"""Analytic FLOP counts for the exact-GPR main path, the SGPR and SVGP lanes.
 
-Port of the GPR and SGPR counts of ``gpsat_tpu/utils/flops.py``.
+Port of the GPR, SGPR and SVGP counts of ``gpsat_tpu/utils/flops.py``. The
+SVGP core's collapsed solver optimises the SGPR bound and is counted with
+the SGPR counts.
 Convention: 1 fused multiply-add = 2 FLOPs; Cholesky N^3/3, triangular
 inverse N^3/3, dense matmul [n,k]x[k,m] = 2nkm. These are MODEL flops (the
 work the math requires), so achieved FLOP/s = model flops / seconds
@@ -50,3 +52,14 @@ def sgpr_iter_flops(N: int, M: int, D: int, ad_factor: float = 3.0) -> float:
     """One single-eval L-BFGS iteration: the bound and its reverse-mode
     gradient, ~2x the forward on top of it (ad_factor 3 counts both)."""
     return ad_factor * sgpr_elbo_flops(N, M, D)
+
+
+def svgp_elbo_flops(N: int, M: int, D: int) -> float:
+    """One forward SVGP ELBO on a full tile: Kuu factor M^3/3, Kus gram
+    2 N M D, A = L^-1 Kus (N M^2), SA = q_sqrt^T A (2 N M^2), reductions."""
+    return 3.0 * N * M**2 + 2.0 * N * M * D + (1.0 / 3.0) * M**3
+
+
+def svgp_iter_flops(N: int, M: int, D: int, ad_factor: float = 3.0) -> float:
+    """One optimiser iteration: the ELBO and its reverse-mode gradient."""
+    return ad_factor * svgp_elbo_flops(N, M, D)

@@ -112,12 +112,16 @@ def test_resumed_lbfgs_equals_one_call():
         TL.minimize_lbfgs_single_eval(rosen, x0, max_iter=5, init_state=state, tol_grad=1e-8, tol_f=0.0, memory_size=3)
 
 
-@pytest.mark.parametrize("linesearch, exc", [("zoom", NotImplementedError), ("backtracking", NotImplementedError),
-                                             ("wolfe", ValueError)])
-def test_minimize_lbfgs_dispatch_refuses_unported_searches(linesearch, exc):
+@pytest.mark.parametrize("linesearch, kw, match", [
+    # the probing searches run, but only the single-eval one is resumable
+    ("zoom", {"return_state": True}, "only supported for linesearch='single_eval'"),
+    ("backtracking", {"init_state": {}}, "only supported for linesearch='single_eval'"),
+    ("wolfe", {}, "not in"),
+])
+def test_minimize_lbfgs_dispatch_refuses_unported_searches(linesearch, kw, match):
     x0 = {"x": torch.zeros(2, 1, dtype=torch.float64)}
-    with pytest.raises(exc, match="Queue 1 item 5" if exc is NotImplementedError else "not in"):
-        TL.minimize_lbfgs(lambda p: (p["x"][:, 0] - 1) ** 2, x0, linesearch=linesearch)
+    with pytest.raises(ValueError, match=match):
+        TL.minimize_lbfgs(lambda p: (p["x"][:, 0] - 1) ** 2, x0, linesearch=linesearch, **kw)
 
 
 def test_no_lane_left_after_the_head_skips_the_tail(single):

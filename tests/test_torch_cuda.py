@@ -413,3 +413,55 @@ def test_chol_winv_padded_gradient_on_the_kernel_matches_the_plain_version():
         assert (BC.factor_blocks.launches - before) == (2 if name == "card" else 0)
     scale = float(grads["cpu"].abs().max())
     assert float((grads["card"] - grads["cpu"]).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["collapsed", "adam_natgrad"])
+def test_svgp_f32_batch_on_card_matches_cpu_and_launches_kernel_1(solver):
+    # the SVGP lane in f32 on the "block" route (M = 64: one launch per
+    # pair): the collapsed bound (two pairs per evaluation, two in the
+    # closed-form q, one in the predict) to convergence, and 40 Adam +
+    # natural-gradient steps (two evaluations per step); held against the
+    # same f32 run on the CPU at the raw-f32 band of chip_smoke.py's phase 4
+    from gpsat_tpu_torch.models.svgp import make_svgp_core
+
+    dev = _cuda()
+    batch = _sgpr_batch(8, 512, 16, np.float32)
+    if solver == "collapsed":
+        core = make_svgp_core(num_inducing_points=64)
+        kw = dict(max_iter=300)
+        expected = lambda it: 2 * (it + 1) + 3  # noqa: E731
+    else:
+        core = make_svgp_core(num_inducing_points=64, natural_gradients=True, gamma=0.5)
+        kw = dict(max_iter=40, learning_rate=1e-2, check_every=10, persistence=100)
+        expected = lambda it: 2 * it + 4  # noqa: E731
+    out = {}
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        before = BC.factor_blocks.launches
+        runner = TE.make_runner_for(core, fixed_params=core.default_fixed_params, device=d, **kw)
+        out[name] = TE.run_tile_batch(batch, {"smart_init": True}, runner, core, device=d)
+        launches = BC.factor_blocks.launches - before
+        want = expected(int(out[name]["num_iter"].max())) if name == "card" else 0
+        assert launches == want and (launches > 0) == (name == "card"), (name, launches)
+    assert out["card"]["converged"].sum() >= 7 and out["cpu"]["converged"].sum() >= 7
+    for key in ("f_mean", "f_var"):
+        assert np.isfinite(out["card"][key]).all()
+        assert float(np.abs(out["card"][key] - out["cpu"][key]).max()) <= 1e-2, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linesearch", ["zoom", "backtracking"])
+def test_probing_line_searches_in_f64_on_card_match_cpu(linesearch):
+    # the f64 GPR fit with each probing search on the card (the library arm,
+    # no kernel) against the same fit on the CPU, held to chip_smoke.py's
+    # phase 10 (d) bound (phase f64's 1.2e-8)
+    dev = _cuda()
+    core = make_gpr_core(jitter=1e-5)
+    batch = cast_batch(_sgpr_batch(8, 128, 16, np.float32), np.float64)
+    res = {}
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        runner = TE.make_batched_runner(core, max_iter=500, linesearch=linesearch, device=d)
+        res[name] = TE.run_tile_batch(batch, {"smart_init": True}, runner, core, device=d)
+        assert res[name]["converged"].all()
+    for key in ("f_mean", "f_var"):
+        assert float(np.abs(res["card"][key] - res["cpu"][key]).max()) <= 1.2e-8, key

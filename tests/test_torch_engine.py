@@ -182,9 +182,14 @@ def test_unported_options_raise():
         make_gpr_core(profile_variance=True, bijectors={"kernel_variance": TT.interval(0.1, 5.0)})
     with pytest.raises(ValueError):
         make_gpr_core(factor="lapack")
-    runner = TE.make_batched_runner(core, device="cpu", max_iter=1)  # f64 default line search is zoom
-    with pytest.raises(NotImplementedError):
-        TE.run_tile_batch(batch_from_numpy(_jax_batch()), {}, runner, core, device="cpu")
+    # the f64 default line search is zoom, and it runs
+    assert TE.resolve_linesearch(None, torch.float64) == "zoom"
+    assert TE.resolve_linesearch(None, torch.float32) == "single_eval"
+    with pytest.raises(ValueError, match="not in"):
+        TE.resolve_linesearch("wolfe", torch.float64)
+    runner = TE.make_batched_runner(core, device="cpu", max_iter=1)
+    res = TE.run_tile_batch(batch_from_numpy(_jax_batch()), {}, runner, core, device="cpu")
+    assert (res["num_iter"] == 1).all() and np.isfinite(res["f_mean"]).all()
 
 
 def _imported_modules(path: Path):
@@ -202,7 +207,7 @@ def test_port_imports_neither_jax_nor_gpsat_tpu():
         "import gpsat_tpu_torch.ops._build, gpsat_tpu_torch.ops.panel_chol, gpsat_tpu_torch.ops.cholesky\n"
         "import gpsat_tpu_torch.ops.recursive_chol, gpsat_tpu_torch.ops.linalg, gpsat_tpu_torch.ops.fused_lml\n"
         "import gpsat_tpu_torch.experts, gpsat_tpu_torch.local_expert_oi, gpsat_tpu_torch.models\n"
-        "import gpsat_tpu_torch.models.sgpr\n"
+        "import gpsat_tpu_torch.models.sgpr, gpsat_tpu_torch.models.svgp\n"
         "import gpsat_tpu_torch.data.dataloader, gpsat_tpu_torch.data.store, gpsat_tpu_torch.data.select\n"
         "import gpsat_tpu_torch.data.prediction_locations, gpsat_tpu_torch.utils.misc, gpsat_tpu_torch.utils.config_func\n"
         "import gpsat_tpu_torch.postprocess, gpsat_tpu_torch.postprocessing, gpsat_tpu_torch.cli\n"

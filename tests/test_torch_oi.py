@@ -228,6 +228,22 @@ def test_polish_tile_batch_meets_the_f64_gold(gold_runner):
     assert float(np.abs(res32["f_mean"] - gold["f_mean"]).max()) <= 5e-2
 
 
+def test_default_f64_fit_meets_the_zoom_gold(gold_runner):
+    # the port's f64 runner with no line search named takes the JAX
+    # engine's f64 default, zoom: within the north star's 1e-5 of the gold
+    batch, init = _northstar_batch()
+    gold = gold_runner(batch, init)
+    tbatch = TB.TileBatch(**{f: getattr(batch, f) for f in ("X", "y", "mask", "Xnew", "pred_mask", "obs_mean",
+                                                            "expert_index", "num_obs")})
+    core = make_gpr_core(jitter=0.0)
+    runner = TE.make_batched_runner(core, max_iter=200, tol_grad=1e-6, tol_f=1e-11, device="cpu")
+    res = TE.run_tile_batch(tbatch, init, runner, core, device="cpu")
+    assert res["converged"].all()
+    for k in ("f_mean", "f_var"):
+        err = float(np.abs(res[k] - gold[k]).max())
+        assert err <= 1e-5, (k, err)
+
+
 def test_polish_aligns_the_coarse_result_by_expert_index():
     # a coalesced split padded with dead tiles, and a coarse result in another
     # row order: the polish pairs each tile with its own expert's optimum
@@ -307,21 +323,18 @@ def test_cli_main_runs_a_config_on_the_cpu(tmp_path):
 @pytest.mark.parametrize(
     "model_extra, run_kwargs",
     [
-        # the replacement lane runs, but not with a model of the zoo
-        ({"replacement_threshold": 50, "replacement_model": "GPflowSVGPModel"}, {}),
-        # the SGPR lane runs, but its f64 fit needs the zoom search by default
-        ({"oi_model": "GPflowSGPRModel", "optim_kwargs": {"max_iter": 5}}, {"dtype": torch.float64}),
-        ({"oi_model": "GPflowSVGPModel"}, {}),
+        # the replacement lane runs, but not with VFF or ASVGP
+        ({"replacement_threshold": 50, "replacement_model": "GPflowVFFModel"}, {}),
+        ({"oi_model": "GPflowSGPRModel", "replacement_threshold": 50, "replacement_model": "GPflowASVGPModel"}, {}),
         ({"oi_model": "GPflowVFFModel"}, {}),
         ({"oi_model": "GPflowASVGPModel"}, {}),
         ({"oi_model": "sklearnGPRModel"}, {}),
         ({"oi_model": {"path_to_model": "m", "model_name": "M"}}, {}),
         ({}, {"mesh": "all"}),
         ({}, {"profile_dir": "trace"}),
-        ({"optim_kwargs": {"max_iter": 5}}, {"dtype": torch.float64}),
     ],
-    ids=["replacement_threshold", "sgpr", "svgp", "vff", "asvgp", "host_lane",
-         "custom_model", "mesh", "profile_dir", "f64_without_linesearch"],
+    ids=["replacement_vff", "sgpr_replacement_asvgp", "vff", "asvgp", "host_lane", "custom_model", "mesh",
+         "profile_dir"],
 )
 def test_unported_options_raise(model_extra, run_kwargs, tmp_path):
     obs_df, expert_df = _field()
@@ -329,3 +342,29 @@ def test_unported_options_raise(model_extra, run_kwargs, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         TOI(**_config(obs_df, expert_df, **model_extra)).run(store_path=str(path), device="cpu", **run_kwargs)
     assert not path.exists()
+
+
+@pytest.mark.parametrize(
+    "model_extra, run_kwargs",
+    [
+        # an SVGP replacement lane, an SGPR and an SVGP lane, and f64 fits
+        # that name no line search (the zoom default)
+        ({"replacement_threshold": 1000, "replacement_model": "GPflowSVGPModel",
+          "replacement_init_params": {"num_inducing_points": 8, "noise_variance": 0.01}}, {}),
+        ({"oi_model": "GPflowSGPRModel", "init_params": {"num_inducing_points": 8, "noise_variance": 0.01},
+          "optim_kwargs": {"max_iter": 5}}, {"dtype": torch.float64}),
+        ({"oi_model": "GPflowSVGPModel", "init_params": {"num_inducing_points": 8, "noise_variance": 0.01},
+          "optim_kwargs": {"max_iter": 5}}, {}),
+        ({"optim_kwargs": {"max_iter": 5}}, {"dtype": torch.float64}),
+    ],
+    ids=["svgp_replacement", "sgpr_f64_default", "svgp", "f64_without_linesearch"],
+)
+def test_options_that_were_not_ported_run(model_extra, run_kwargs, tmp_path):
+    obs_df, expert_df = _field()
+    path = str(tmp_path / "ran.h5")
+    TOI(**_config(obs_df, expert_df.iloc[:2], **model_extra)).run(store_path=path, device="cpu", min_obs=10,
+                                                                   **run_kwargs)
+    out, _ = port_results(path)
+    assert len(out["run_details"]) == 2 and np.isfinite(out["preds"]["f*"]).all()
+    if "replacement_threshold" in model_extra:
+        assert set(out["run_details"]["model"]) == {"gpsat_tpu_torch.SVGPModel"}

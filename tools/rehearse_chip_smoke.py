@@ -1,0 +1,108 @@
+"""Rehearse chip_smoke.py's phase 10 (svgp) on the CPU, before a run on the card.
+
+    python tools/rehearse_chip_smoke.py [--parts a b c d e] [--lanes B] [--threads T]
+                                        [--identity-natgrad]
+
+Runs the phase's own functions with every entry point's default device
+set to the CPU and the CUDA memory calls stubbed, so the iteration counts,
+objectives and accuracy numbers that fix the phase's bounds can be read
+without a card. A failed check is printed and counted instead of raised:
+the kernel-launch checks always fail here, since the CPU runs each
+kernel's plain version. ``--lanes`` cuts (a)-(c)'s batch (default: the
+phase's 128). ``--identity-natgrad`` is the mutation check of (c)'s
+bound: it runs (c) once more with the natural-gradient step replaced by
+the identity, so q stays at its starting value, and prints that run's
+negative-ELBO gap to (a). Exits non-zero if a check other than a launch
+check failed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+from gpsat_tpu_torch import experts  # noqa: E402
+from gpsat_tpu_torch.models.svgp import make_svgp_core  # noqa: E402
+from gpsat_tpu_torch.parallel import engine  # noqa: E402
+from gpsat_tpu_torch.utils.flops import sgpr_iter_flops, svgp_iter_flops  # noqa: E402
+
+
+def _on_cpu(failed: list):
+    def resolve_device(device=None):
+        return torch.device(device if device is not None else "cpu")
+
+    def check(cond, msg):
+        if not cond:
+            failed.append(msg)
+            print(f"check failed: {msg[:300]}", flush=True)
+
+    engine.resolve_device = experts.resolve_device = resolve_device
+    torch.cuda.synchronize = lambda *a, **k: None
+    torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
+    torch.cuda.max_memory_allocated = lambda *a, **k: 0
+    cs.check = check
+
+
+def _gap(tag, res, res_a):
+    gap = res["objective"] - res_a["objective"]
+    cs.log(f"rehearse_{tag}_vs_collapsed", neg_elbo_gap_min=float(gap.min()), neg_elbo_gap_max=float(gap.max()),
+           neg_elbo_gap_mean=float(gap.mean()), above_bound=cs.SVGP_ELBO_ABOVE, below_bound=cs.SVGP_ELBO_BELOW)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parts", nargs="+", default=list("abcde"), choices=list("abcde"))
+    ap.add_argument("--lanes", type=int, default=cs.SVGP_B)
+    ap.add_argument("--threads", type=int, default=4)
+    ap.add_argument("--identity-natgrad", action="store_true")
+    args = ap.parse_args(argv)
+    torch.set_num_threads(args.threads)
+    failed: list = []
+    _on_cpu(failed)
+    t0 = time.perf_counter()
+    parts = set(args.parts)
+    batch = cs.make_large_tiles(args.lanes, cs.SVGP_N, cs.SVGP_P, cs.D, np.float32, min_fill=0.6)
+    kw = dict(kernel="Matern32", jitter=cs.SVGP_JITTER, num_inducing_points=cs.SVGP_M)
+    if parts & {"a", "c"}:
+        col = make_svgp_core(**kw)
+        res_a, _ = cs.drive_svgp("collapsed", col, batch, {"max_iter": cs.SVGP_MAX_ITER["collapsed"]},
+                                 lambda it: 2 * (it + 1) + 3, sgpr_iter_flops(cs.SVGP_N, cs.SVGP_M, cs.D))
+        cs.svgp_f64_reference("collapsed", col, batch, res_a)
+    if "b" in parts:
+        bern = make_svgp_core(likelihood="Bernoulli", **kw)
+        labels = batch.__class__(**{**batch.__dict__, "y": (batch.y > 0).astype(np.float32)})
+        res_b, _ = cs.drive_svgp("bernoulli", bern, labels, {"max_iter": cs.SVGP_MAX_ITER["bernoulli"]},
+                                 lambda it: it + 4, svgp_iter_flops(cs.SVGP_N, cs.SVGP_M, cs.D))
+        cs.svgp_f64_reference("bernoulli", bern, labels, res_b)
+    if "c" in parts:
+        nat = make_svgp_core(natural_gradients=True, gamma=0.5, **kw)
+        cores = [("adam_natgrad", nat)]
+        if args.identity_natgrad:
+            keep_q = dataclasses.replace(nat, natgrad_update=lambda u, data: {k: u[k] for k in nat.natgrad_params})
+            cores.append(("adam_identity_natgrad", keep_q))
+        for tag, core in cores:
+            res_c, _ = cs.drive_svgp(tag, core, batch, cs.SVGP_ADAM_KW, lambda it: 2 * it + 4,
+                                     2 * svgp_iter_flops(cs.SVGP_N, cs.SVGP_M, cs.D))
+            _gap(tag, res_c, res_a)
+    if "d" in parts:
+        cs.phase_svgp_linesearch()
+    if "e" in parts:
+        cs.phase_svgp_config()
+    others = [m for m in failed if "launches" not in m]
+    cs.log("rehearse_done", seconds=time.perf_counter() - t0, failed_checks=others,
+           launch_checks_failed=len(failed) - len(others))
+    return 1 if others else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
