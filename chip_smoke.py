@@ -3,8 +3,9 @@
     python3 chip_smoke.py              # one card; exits non-zero on any failure
     python3 chip_smoke.py --profile    # also write torch.profiler tables of one
                                        # main-path, panel-path, profiled-path,
-                                       # oi, post, sgpr, svgp collapsed and
-                                       # svgp Adam run to
+                                       # oi, post, sgpr, svgp collapsed,
+                                       # svgp Adam, zoo vff and zoo asvgp
+                                       # run to
                                        # chiprun_out/profile*.txt, and split
                                        # kernel 3's time by __global__
     python3 chip_smoke.py --kernels    # phases 1 and 2 only (no result line)
@@ -83,7 +84,19 @@ Phases (each prints on its own lines; any failure raises):
              f64 GPR fit (B=16, N=128) with zoom and with backtracking, card
              against CPU and against the single-eval optimum; (e) the model
              block of configs/example_local_expert_oi_svgp.json through the
-             sweep at phase 7's geometry, 16 experts against a CPU f64 sweep
+             sweep at phase 7's geometry, 16 experts against a CPU f64 sweep;
+             and a diagnostic of (a)'s failed lanes: each re-run alone on
+             the card through the library route in f32 and in f64
+11. zoo      the collapsed inter-domain lanes at phase 7's geometry, f32 on
+             the card, kernel 1 in P's factor pair of every evaluation: (a)
+             the model block of configs/example_local_expert_oi_vff.json (VFF
+             Matern32, M = 10: 361 features padded to 384, 6 launches per
+             pair); (b) the same block with GPflowASVGPModel at its defaults
+             (Matern12, 20 knots: 400 features padded to 448, 7 launches per
+             pair); each with its launches held to a formula, 16 experts
+             against an f64 fit of their tiles on the CPU, and that fit's
+             bound and predictions in f64 on the card (the library arm)
+             against the CPU's
 
 Then one {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 Imports nothing of JAX or of gpsat_tpu.
@@ -219,6 +232,25 @@ SVGP_CONFIG = ROOT / "configs" / "example_local_expert_oi_svgp.json"
 # stationary points, not one optimum in two precisions (f32 roundoff moves
 # one optimum's objective by ~1e-2 nats at these tile sizes)
 SVGP_SAME_OPTIMUM_NATS = 0.1
+# phase 11 (zoo): the VFF config's model block at phase 7's geometry, and the
+# same block with GPflowASVGPModel at the JAX package's ASVGP defaults
+# (Matern12, 20 knots per dimension, margin 0.1)
+VFF_CONFIG = ROOT / "configs" / "example_local_expert_oi_vff.json"
+ZOO_ASVGP_DROP = ("kernel", "num_inducing_features", "domain_size")
+# the f32 sweeps' iteration cap, cut from the config's 10,000: one lane that
+# never meets its tolerance would hold the lockstep bucket for 10,000
+# iterations (8-13 min at 50-80 ms each); the CPU rehearsal's slowest lane
+# took 36 (VFF) and 44 (ASVGP) of them (PERF.md, section 4)
+ZOO_MAX_ITER = 500
+# the f64 fit of the compared experts on the CPU, from their f32 optima; a
+# lane that has not converged by then is reported and not compared (the CPU
+# rehearsal's converged lanes took <= 61)
+ZOO_REF_MAX_ITER = 80
+# the card's f64 bound and predictions (the library arm) at the CPU fit's
+# parameters against the CPU's, relative to each value's scale (one f64
+# function in two places; two f64 fits on a flat optimum drift further
+# apart: 1.3e-8 over ASVGP's 56 iterations, measured on one H100)
+ZOO_CARD_F64_BOUND = 1e-8
 
 
 def check(cond, msg):
@@ -1442,6 +1474,33 @@ def svgp_f64_reference(tag, core, batch, res):
     return f64, d
 
 
+def svgp_failed_lanes(batch, res, kw):
+    """(a)'s lanes that exited ``failed``: their index, iterations and last
+    objective, and each re-run alone on the card through the "cholesky"
+    route (the library: a 64-wide Kuu is outside kernel 3's domain) in f32
+    and in f64, with the collapsed bound (the SGPR core's) and the lane's
+    own inducing points. A diagnostic: it prints, and fails nothing."""
+    from gpsat_tpu_torch.models.sgpr import make_sgpr_core
+    from gpsat_tpu_torch.parallel.batching import cast_batch, take_batch
+    from gpsat_tpu_torch.parallel.engine import make_batched_runner, run_tile_batch
+
+    idx = np.flatnonzero(res["failed"])
+    lanes = {int(i): {"num_iter": int(res["num_iter"][i]), "objective": float(res["objective"][i])} for i in idx}
+    reruns = {}
+    if len(idx):
+        core = make_sgpr_core(factor="cholesky", **kw)
+        init = {"smart_init": True, "inducing_points": res["inducing_points"][idx]}
+        for name, dt in (("f32", np.float32), ("f64", np.float64)):
+            sub = cast_batch(take_batch(batch, idx), dt)
+            runner = make_batched_runner(core, fixed_params=core.default_fixed_params,
+                                         max_iter=SVGP_MAX_ITER["collapsed"])
+            r = run_tile_batch(sub, init, runner, core)
+            reruns[name] = {"num_iter": r["num_iter"].tolist(), "objective": r["objective"].tolist(),
+                            "converged": r["converged"].tolist(), "failed": r["failed"].tolist(),
+                            "stalled": r["stalled"].tolist()}
+    log("svgp_collapsed_failed_lanes", lanes=lanes, library_route=reruns)
+
+
 def phase_svgp_linesearch():
     """(d): an f64 GPR fit (B=16, N=128) with zoom and with backtracking on
     the card (library arm, no kernel) against the same fit on the CPU, and
@@ -1564,6 +1623,7 @@ def phase_svgp(profile: bool):
                            "profile_svgp_collapsed.txt" if profile else None)
     _, d_a = svgp_f64_reference("collapsed", col, batch, res_a)
     check(d_a <= PRED_BOUND, f"svgp collapsed: f32 vs f64 {d_a}")
+    svgp_failed_lanes(batch, res_a, kw)
 
     # (b) Bernoulli, joint L-BFGS: device_init's collapsed q (two pairs),
     # (it_max + 1) ELBO evaluations (one pair), the predict (one pair)
@@ -1589,6 +1649,157 @@ def phase_svgp(profile: bool):
 
     phase_svgp_linesearch()
     return la, lb, lc, phase_svgp_config()
+
+
+def zoo_model_block(tag):
+    """(model name, init_params, constraints, optim_kwargs) of phase 11's
+    lane ``tag``: the VFF config's model block, or for "asvgp" the same
+    block with GPflowASVGPModel and its own defaults."""
+    model = json.loads(VFF_CONFIG.read_text())["model"]
+    ip = dict(model["init_params"])
+    if tag == "vff":
+        return model["oi_model"], ip, model["constraints"], dict(model["optim_kwargs"])
+    ip = {k: v for k, v in ip.items() if k not in ZOO_ASVGP_DROP}
+    return "GPflowASVGPModel", ip, model["constraints"], dict(model["optim_kwargs"])
+
+
+def zoo_lane(tag, profile: bool):
+    """One inter-domain lane of phase 11 through the sweep at phase 7's
+    geometry, f32 on the card: kernel 1 in P's factor pair of every
+    evaluation and of the predict, its launches held to a formula; then 16
+    experts' tiles fitted in f64 from their f32 optima on the CPU, and the
+    bound and predictions at that fit's parameters in f64 on the card (the
+    library arm, no launch) against the CPU's within 1e-8. Returns kernel
+    1's launches."""
+    import torch
+
+    from gpsat_tpu_torch.data import select as sel
+    from gpsat_tpu_torch.data.prediction_locations import PredictionLocations
+    from gpsat_tpu_torch.experts import core_for, sweep
+    from gpsat_tpu_torch.models import get_model
+    from gpsat_tpu_torch.parallel import batching
+    from gpsat_tpu_torch.parallel.engine import make_batched_runner, run_tile_batch
+    from gpsat_tpu_torch.utils.flops import collapsed_kron_elbo_flops
+
+    name, ip, cons, optim = zoo_model_block(tag)
+    obs, experts, grid = pipeline_inputs()
+    kw = {**OI_KW, "model": name, "init_params": ip, "constraints": cons,
+          "optim_kwargs": {**optim, "max_iter": ZOO_MAX_ITER}}
+    core = core_for(ip, cons, model_cls=get_model(name))
+    mtot = core.num_features(D)
+    width = batching.round_up(mtot, T)
+
+    def run(locs):
+        pred_loc = PredictionLocations("from_dataframe", coords_col=["x", "y"], df=grid, max_dist=OI_MAX_DIST)
+        return [r for r in sweep(obs, locs, pred_loc=pred_loc, **kw) if not r.get("skipped")]
+
+    def launches_now():
+        return {k: fn.launches for k, fn in counters().items()}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = run(experts)
+    wall_s = time.perf_counter() - t0
+    launches = launches_now()
+    # per bucket: one factor pair of P per evaluation (the initial one, one
+    # per iteration of the slowest lane) and one in the predict, W/64
+    # launches each (W: the feature count identity-padded to 64)
+    want = {"block_chol": sum(int(r["num_iter"].max()) + 2 for r in out) * (width // T), "panel_chol": 0,
+            "cholesky": 0}
+    keep = ("f_mean", "f_var", "converged", "stalled", "failed", "objective", "num_iter", "num_obs",
+            *core.param_names)
+    got = by_expert(out, keep)
+    n = len(got)
+    conv = int(sum(v["converged"] for v in got.values()))
+    model_flops = sum((v["num_iter"] + 1) * 3.0 * collapsed_kron_elbo_flops(int(v["num_obs"]), mtot)
+                      for v in got.values())
+    log(f"zoo_{tag}", model=name, core=core.name, features=mtot, padded_width=width, experts=n, buckets=len(out),
+        bucket_experts=[len(r["expert_index"]) for r in out], nmax_obs=int(max(v["num_obs"] for v in got.values())),
+        wall_s=wall_s, experts_per_s=n / wall_s,
+        converged=conv, converged_share=conv / n, stall_exits=int(sum(v["stalled"] for v in got.values())),
+        failed_exits=int(sum(v["failed"] for v in got.values())),
+        iters_mean=float(np.mean([v["num_iter"] for v in got.values()])),
+        iters_max=int(max(v["num_iter"] for v in got.values())), model_tflops=model_flops / wall_s / 1e12,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches, launches_predicted=want)
+    check(all(np.isfinite(v["f_mean"]).all() and np.isfinite(v["f_var"]).all() for v in got.values()),
+          f"zoo {tag}: non-finite predictions")
+    check(conv >= MIN_SHARE * n, f"zoo {tag}: only {conv}/{n} experts converged")
+    check(launches["block_chol"] > 0 and launches == want, f"zoo {tag} launches {launches}, expected {want}")
+
+    # 16 experts spread over the run: their tiles alone, fitted in f64 on the
+    # CPU from their f32 optima with the card's per-tile domain or knots
+    # (the f32 tiles lay them over f32-rounded coordinates) through the
+    # "cholesky" route; then the card's library arm (the "block" route's
+    # f64 arm: the same cholesky + tri_inv_blocked) evaluates the bound and
+    # the predictions at the CPU fit's parameters
+    pick = np.sort(np.asarray(sorted(got)))[:: max(n // CPU_TILES, 1)][:CPU_TILES]
+    sub = {c: v[pick] for c, v in experts.items()}
+    ix = sel.local_select_indices_all(obs, sub, OI_KW["local_select"])
+    pcs = PredictionLocations("from_dataframe", coords_col=["x", "y"], df=grid, max_dist=OI_MAX_DIST).batch_call(sub)
+    tiles = batching.assemble_tiles(sel.columns_array(obs, ["x", "y"]), obs["z"], ix, pcs, expert_index=pick,
+                                    expert_locs=sel.columns_array(sub, ["x", "y"]), coords_scale=ip["coords_scale"],
+                                    obs_mean=ip["obs_mean"])
+    check(len(tiles) == 1, f"zoo {tag}: the compared experts' tiles fill {len(tiles)} buckets, not one")
+    batch = tiles[0]
+    init = {k: np.stack([np.asarray(got[int(e)][k]) for e in batch.expert_index]).astype(np.float64)
+            for k in core.param_names}
+    lib = core_for(ip, cons, model_cls=get_model(name), factor="cholesky")
+    t0 = time.perf_counter()
+    runner = make_batched_runner(lib, fixed_params=core.default_fixed_params, max_iter=ZOO_REF_MAX_ITER,
+                                 linesearch="single_eval", device="cpu")
+    cpu = run_tile_batch(batch, init, runner, lib, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    card64 = run_tile_batch(batch, {k: cpu[k] for k in core.param_names},
+                            make_batched_runner(core, optimise=False), core)
+    card64_s = time.perf_counter() - t0
+    card64_launches = launches_now()
+
+    def preds(res, j):
+        p = int(res["pred_mask"][j].sum())
+        return {k: res[k][j][:p] for k in ("f_mean", "f_var")}
+
+    def rel(a, b):
+        return float(np.max(np.abs(np.asarray(a) - b) / np.maximum(1.0, np.abs(b))))
+
+    # compare the experts whose f64 fit converged on the f32 fit's optimum
+    # (objectives within 0.1 nat)
+    rows = list(enumerate(batch.expert_index))
+    same = [j for j, e in rows
+            if cpu["converged"][j] and abs(cpu["objective"][j] - got[int(e)]["objective"]) <= SVGP_SAME_OPTIMUM_NATS]
+    d = [max_abs_pred_diff(got[int(e)], preds(cpu, j)) for j, e in rows if j in same]
+    d64 = max([rel(card64["objective"], cpu["objective"])]
+              + [rel(preds(card64, j)[k], preds(cpu, j)[k]) for j, _ in rows for k in ("f_mean", "f_var")])
+    log(f"zoo_{tag}_accuracy", experts=len(pick), compared=len(d),
+        not_compared={int(e): {"cpu_f64_converged": bool(cpu["converged"][j]),
+                               "cpu_f64_num_iter": int(cpu["num_iter"][j]),
+                               "objectives_f32_f64": [float(got[int(e)]["objective"]), float(cpu["objective"][j])]}
+                      for j, e in rows if j not in same},
+        f32_vs_cpu_f64=max(d) if d else None, bound=PRED_BOUND, cpu_f64_s=cpu_s,
+        cpu_f64_iters=cpu["num_iter"].tolist(), card_f64_vs_cpu_f64=d64, card_f64_bound=ZOO_CARD_F64_BOUND,
+        card_f64_s=card64_s, card_f64_launches=card64_launches)
+    check(len(d) >= MIN_COMPARED_SHARE * len(pick), f"zoo {tag}: {len(d)}/{len(pick)} experts compared")
+    check(max(d) <= PRED_BOUND, f"zoo {tag}: card f32 vs CPU f64 {max(d)}")
+    check(not any(card64_launches.values()), f"zoo {tag}: f64 on the card launched a kernel: {card64_launches}")
+    check(d64 <= ZOO_CARD_F64_BOUND, f"zoo {tag}: card f64 vs CPU f64 {d64}")
+    if profile:
+        trace(f"zoo_{tag}", lambda: run(experts), f"profile_zoo_{tag}.txt")
+    return launches["block_chol"]
+
+
+def phase_zoo(profile: bool):
+    """Phase 11: the VFF and ASVGP lanes. Returns kernel 1's launches in
+    each."""
+    t0 = time.perf_counter()
+    lv = zoo_lane("vff", profile)
+    la = zoo_lane("asvgp", profile)
+    log("zoo", seconds=time.perf_counter() - t0)
+    return lv, la
 
 
 def main(argv) -> int:
@@ -1633,6 +1844,7 @@ def main(argv) -> int:
      entries[0]["launches_sgpr_replace"]) = phase_sgpr(profile)
     (entries[0]["launches_svgp_collapsed"], entries[0]["launches_svgp_bernoulli"],
      entries[0]["launches_svgp_adam_natgrad"], entries[0]["launches_svgp_config"]) = phase_svgp(profile)
+    entries[0]["launches_zoo_vff"], entries[0]["launches_zoo_asvgp"] = phase_zoo(profile)
 
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -5,6 +5,11 @@ paths mirror ``gpsat_tpu`` so each function's counterpart sits at the same
 place; ``vmap`` over experts becomes an explicit leading batch dimension B.
 The package imports nothing of ``gpsat_tpu`` and never imports ``jax``.
 
+It runs five model lanes, each a batched core fitted by the same engine:
+exact GPR (``models/functional.make_gpr_core``), sparse GPR
+(``models/sgpr``), SVGP (``models/svgp``), and the collapsed inter-domain
+lanes VFF (``models/vff``) and ASVGP (``models/asvgp``).
+
 Three hand-written CUDA kernels replace the JAX package's Pallas kernels:
 the 64x64 diagonal-block Cholesky + inverse (``csrc/block_chol.cu``, bound in
 ``ops/block_chol.py``), the 128x128 one (``csrc/panel_chol.cu``,

@@ -30,7 +30,10 @@ def params_from_numpy(cparams: Dict[str, np.ndarray], device, dtype) -> Dict[str
     [B, M] and inducing_chol [B, M, M] included: the factor's upper
     triangle is kept as the JAX package stores it (a free L-BFGS or Adam
     factor may hold values there), and each consumer applies ``tril`` where
-    it uses the factor, as the JAX package does."""
+    it uses the factor, as the JAX package does. VFF's per-tile domain
+    [B, D, 2] and ASVGP's knot grids [B, D, M] carry across as they are:
+    fixed parameters with the identity bijector in both packages, so the
+    JAX package's values give the port the same features."""
     return {k: torch.as_tensor(np.asarray(v), dtype=dtype, device=device) for k, v in cparams.items()}
 
 

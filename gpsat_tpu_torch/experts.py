@@ -1,4 +1,4 @@
-"""LocalExpertOI — the experiment orchestrator (exact-GPR, SGPR and SVGP lanes).
+"""LocalExpertOI — the experiment orchestrator (exact-GPR, SGPR, SVGP, VFF and ASVGP lanes).
 
 Port of ``gpsat_tpu/experts.py`` (ref: GPSat/local_experts.py:116-1279). It
 keeps the JAX package's config surface and results schema:
@@ -28,16 +28,18 @@ a results store (exact coordinate match, or ``nearest``), from direct
 values, or leaves the init as it is (``previous``); ``sweep`` takes the
 loaded values as arrays.
 
-Models: exact GPR, SGPR and SVGP, each a batched core; an SVGP core whose
+Models: exact GPR, SGPR, SVGP, VFF and ASVGP, each a batched core (VFF's
+``domain_size`` is taken in raw coordinate units and divided by
+``coords_scale``, as the reference's VFFModel does; the JAX orchestrator
+passes it unscaled); an SVGP core whose
 solver is Adam runs the Adam runner (``learning_rate``, ``check_every``,
 ``persistence``; ``carry_iters`` / ``two_stage_iters`` warn and are
 ignored), every other core L-BFGS. ``replacement_threshold``
 routes the experts with fewer observations than it to a second lane, the
 replacement model's (by default the main model with other settings), which
 is assembled, fitted, polished and stored on its own. Options outside these
-lanes raise ``NotImplementedError`` naming their ROADMAP.md item: the other
-models of the zoo, models without a batched core (the host-serial lane),
-mesh and profile_dir.
+lanes raise ``NotImplementedError`` naming their ROADMAP.md item: models
+without a batched core (the host-serial lane), mesh and profile_dir.
 
 Behaviours of the JAX package's code kept as they are:
 ``load_params={"previous": True}`` leaves each batch's init unchanged (the
@@ -64,14 +66,17 @@ from gpsat_tpu_torch.data import dataloader as DL
 from gpsat_tpu_torch.data import select as sel
 from gpsat_tpu_torch.data.prediction_locations import PredictionLocations
 from gpsat_tpu_torch.data.store import TableStore, is_pytables_store
-from gpsat_tpu_torch.models import GPRModel, SGPRModel, SVGPModel, get_model
+from gpsat_tpu_torch.models import ASVGPModel, GPRModel, SGPRModel, SVGPModel, VFFModel, get_model
+from gpsat_tpu_torch.models.asvgp import make_asvgp_core
 from gpsat_tpu_torch.models.functional import ModelCore, make_gpr_core
 from gpsat_tpu_torch.models.gpr import PARAM_NAMES
 from gpsat_tpu_torch.models.sgpr import DEFAULT_JITTER as SGPR_JITTER
 from gpsat_tpu_torch.models.sgpr import make_sgpr_core
 from gpsat_tpu_torch.models.svgp import DEFAULT_JITTER as SVGP_JITTER
 from gpsat_tpu_torch.models.svgp import make_svgp_core
+from gpsat_tpu_torch.models.vff import make_vff_core
 from gpsat_tpu_torch.ops import transforms as T
+from gpsat_tpu_torch.ops.block_chol import T_BLOCK
 from gpsat_tpu_torch.parallel import batching
 from gpsat_tpu_torch.parallel.engine import (
     _no_mesh,
@@ -209,21 +214,38 @@ def check_prev_oi_config(prev_oi_config, oi_config, skip_valid_checks_on=None):
 # the model lanes
 # --------------------------------------------------------------------------
 
-_ZOO_MODELS = ("VFFModel", "GPflowVFFModel", "ASVGPModel", "GPflowASVGPModel")
-# per-tile parameters that a core's prepare_batch_init draws for every
-# expert whose load found nothing (NaN rows)
-_DRAWN_PARAMS = ("inducing_points",)
+# per-tile parameters that a core's prepare_batch_init draws (the inducing
+# points) or lays over the tile (VFF's domain, ASVGP's knots) for every
+# expert whose load found nothing (NaN rows); a loaded row is kept
+_DRAWN_PARAMS = ("inducing_points", "domain", "knots")
 
 
-def make_core_for_model(model_cls, kernel: str, bijectors, init_params) -> ModelCore:
-    """Map a model class to its functional core (exact GPR, SGPR or SVGP)."""
+def _scaled_domain_size(init_params: dict):
+    """VFF's ``domain_size`` (raw coordinate units, as the reference's
+    VFFModel and the config take it) in the tiles' scaled units. The JAX
+    orchestrator hands it to the core unscaled, so with a ``coords_scale``
+    its domains are ``coords_scale`` times too wide (ROADMAP.md Queue 3)."""
+    ds = init_params.get("domain_size")
+    if ds is None or init_params.get("coords_scale") is None:
+        return ds
+    return np.asarray(ds, dtype=float).reshape(-1) / np.asarray(init_params["coords_scale"], dtype=float).reshape(-1)
+
+
+def make_core_for_model(model_cls, kernel: str, bijectors, init_params, factor: str = "block") -> ModelCore:
+    """Map a model class to its functional core (exact GPR, SGPR, SVGP, VFF
+    or ASVGP). ``factor`` names the factor route of the core's pairs
+    (``ops/linalg``); the SVGP core takes the default "block" route only."""
     name = getattr(model_cls, "__name__", "")
+    route = {} if factor == "block" else {"factor": factor}
+    if route and (model_cls is SVGPModel or name in ("SVGPModel", "GPflowSVGPModel")):
+        raise ValueError(f"the SVGP core takes the 'block' factor route only, got {factor!r}")
     if model_cls is GPRModel or name in ("GPRModel", "GPflowGPRModel"):
         return make_gpr_core(
             kernel=kernel,
             bijectors=bijectors_from(bijectors),
             jitter=init_params.get("jitter", 0.0),
             mean_function=init_params.get("mean_function"),
+            **route,
         )
     if model_cls is SGPRModel or name in ("SGPRModel", "GPflowSGPRModel"):
         # the inducing points take the identity bijector inside the core
@@ -235,6 +257,7 @@ def make_core_for_model(model_cls, kernel: str, bijectors, init_params) -> Model
             train_inducing_points=bool(init_params.get("train_inducing_points", False)),
             mean_function=init_params.get("mean_function"),
             chunk_size=init_params.get("chunk_size", "auto"),
+            **route,
         )
     if model_cls is SVGPModel or name in ("SVGPModel", "GPflowSVGPModel"):
         return make_svgp_core(
@@ -254,8 +277,27 @@ def make_core_for_model(model_cls, kernel: str, bijectors, init_params) -> Model
             # L-BFGS otherwise; "adam" the reference's optimiser
             solver=init_params.get("solver", "auto"),
         )
-    if name in _ZOO_MODELS:
-        raise _not_ported(f"model {name}", 7)
+    if model_cls is VFFModel or name in ("VFFModel", "GPflowVFFModel"):
+        # the per-tile domain takes the identity bijector inside the core
+        return make_vff_core(
+            kernel=kernel,
+            bijectors=bijectors_from(bijectors),
+            num_inducing_features=int(init_params.get("num_inducing_features", 10)),
+            domain_size=_scaled_domain_size(init_params),
+            mean_function=init_params.get("mean_function"),
+            **route,
+        )
+    if model_cls is ASVGPModel or name in ("ASVGPModel", "GPflowASVGPModel"):
+        return make_asvgp_core(
+            # the reference's ASVGP defaults to Matern12, not the engine's
+            # generic Matern32
+            kernel=init_params.get("kernel", "Matern12"),
+            bijectors=bijectors_from(bijectors),
+            num_inducing_features=int(init_params.get("num_inducing_features", 20)),
+            margin=init_params.get("margin", 0.1),
+            mean_function=init_params.get("mean_function"),
+            **route,
+        )
     raise _not_ported(f"a model without a batched core ({model_cls}, the host-serial lane)", 3)
 
 
@@ -268,8 +310,9 @@ def bijectors_from(bij):
     return out
 
 
-def core_for(init_params: dict, constraints=None, model_cls=GPRModel) -> ModelCore:
-    """The functional core for a model + init params + constraints.
+def core_for(init_params: dict, constraints=None, model_cls=GPRModel, factor: str = "block") -> ModelCore:
+    """The functional core for a model + init params + constraints, its
+    pairs on the factor route ``factor``.
 
     Lengthscale constraints given in raw units are rescaled by coords_scale
     (ref: local_experts.py:1110-1117)."""
@@ -285,7 +328,8 @@ def core_for(init_params: dict, constraints=None, model_cls=GPRModel) -> ModelCo
                 low = low / coords_scale
                 high = high / coords_scale
             bijectors[pname] = T.interval(low, high)
-    return make_core_for_model(model_cls, kernel=ip.get("kernel", "Matern32"), bijectors=bijectors, init_params=ip)
+    return make_core_for_model(model_cls, kernel=ip.get("kernel", "Matern32"), bijectors=bijectors, init_params=ip,
+                               factor=factor)
 
 
 def initial_cparams(core: ModelCore, init_params: dict, constraints, D: int) -> dict:
@@ -438,6 +482,14 @@ def _make_lane(name, model, init_params, constraints, optim_kwargs, loaded, *, d
     return _Lane(name, getattr(model, "__name__", str(model)), core, runner, compaction, ip, constraints, loaded)
 
 
+def _factor_width(core: ModelCore, D: int) -> Optional[int]:
+    """The padded width of an inter-domain core's factor pairs (its feature
+    count, identity-padded to kernel 1's block), or None."""
+    if core.num_features is None:
+        return None
+    return batching.round_up(core.num_features(D), T_BLOCK)
+
+
 def sweep(
     columns,
     expert_locs,
@@ -483,13 +535,15 @@ def sweep(
     ``_constraints`` default to the main lane's, ``replacement_optim_kwargs``
     to none (the JAX package's defaults). Each lane is assembled, fitted and
     polished on its own (the polish with the lane's core and the main
-    lane's ``optim_kwargs``); only dense exact-GPR buckets are capped by
-    ``batching.auto_batch_cap``.
+    lane's ``optim_kwargs``); dense exact-GPR buckets are capped by
+    ``batching.auto_batch_cap`` at their width, VFF and ASVGP buckets at
+    their factor pairs' padded width.
 
     ``loaded_params`` (name -> [E, ...] aligned with the rows of
     ``expert_locs``) warm-starts each main-lane expert from its row, and
     ``replacement_loaded_params`` each replacement-lane expert; a row
-    holding a NaN keeps the shared init (the inducing points are drawn).
+    holding a NaN keeps the shared init (the inducing points are drawn,
+    VFF's domain and ASVGP's knots laid over the tile).
     ``LocalExpertOI`` fills them from ``load_params``.
 
     It yields, first, the experts skipped for fewer than ``min_obs``
@@ -578,9 +632,11 @@ def sweep(
                 coords_scale=ip.get("coords_scale"),
                 obs_mean=ip.get("obs_mean"),
                 max_batch_size=max_batch_size,
-                # dense exact GPR keeps ~8 [B, Nmax, Nmax] buffers live; a
-                # sparse core's working set is O(B M (M + C)): no cap
-                memory_cap=lane.core.name.startswith("GPR["),
+                # dense exact GPR keeps ~8 [B, Nmax, Nmax] buffers live, an
+                # inter-domain core as many [B, W, W] of its padded feature
+                # count W; a sparse core's working set is O(B M (M + C)): no cap
+                memory_cap=lane.core.name.startswith("GPR[") or lane.core.num_features is not None,
+                cap_width=_factor_width(lane.core, len(coords_col)),
                 device=dev,
             )
         init_cparams = initial_cparams(lane.core, ip, lane.constraints, len(coords_col))

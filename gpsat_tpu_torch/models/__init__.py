@@ -1,26 +1,26 @@
 """Model registry (ref: GPSat/models/__init__.py:3-28).
 
-The port runs exact GPR, sparse GPR and SVGP as batched functional cores
-(``functional.make_gpr_core``, ``sgpr.make_sgpr_core``,
-``svgp.make_svgp_core``). ``get_model`` resolves the reference's names for
-them, ``"GPRModel"`` and ``"GPflowGPRModel"`` to ``GPRModel``,
-``"SGPRModel"`` and ``"GPflowSGPRModel"`` to ``SGPRModel``, ``"SVGPModel"``
-and ``"GPflowSVGPModel"`` to ``SVGPModel``: classes that mark the lane for
-the orchestrator. Every other name of the JAX package's registry raises
-``NotImplementedError`` naming its ROADMAP.md item.
+The port runs five lanes as batched functional cores: exact GPR, sparse GPR,
+SVGP, VFF and ASVGP (``functional.make_gpr_core``, ``sgpr.make_sgpr_core``,
+``svgp.make_svgp_core``, ``vff.make_vff_core``, ``asvgp.make_asvgp_core``).
+``get_model`` resolves the reference's names for them, ``"GPRModel"`` and
+``"GPflowGPRModel"`` to ``GPRModel``, ``"SGPRModel"`` and
+``"GPflowSGPRModel"`` to ``SGPRModel``, ``"SVGPModel"`` and
+``"GPflowSVGPModel"`` to ``SVGPModel``, ``"VFFModel"`` and
+``"GPflowVFFModel"`` to ``VFFModel``, ``"ASVGPModel"`` and
+``"GPflowASVGPModel"`` to ``ASVGPModel``: classes that mark the lane for
+the orchestrator. The host-serial lane's names raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
+from gpsat_tpu_torch.models import asvgp as _asvgp
 from gpsat_tpu_torch.models import gpr as _gpr
 from gpsat_tpu_torch.models import sgpr as _sgpr
 from gpsat_tpu_torch.models import svgp as _svgp
+from gpsat_tpu_torch.models import vff as _vff
 
-_ZOO = "the model zoo, ROADMAP.md Queue 1 item 7"
 _HOST = "the host-serial lane, ROADMAP.md Queue 1 item 3"
 _UNPORTED = {
-    "VFFModel": _ZOO,
-    "ASVGPModel": _ZOO,
-    "GPflowVFFModel": _ZOO,
-    "GPflowASVGPModel": _ZOO,
     "SklearnGPRModel": _HOST,
     "TorchGPRModel": _HOST,
     "TorchKISSGPModel": _HOST,
@@ -60,8 +60,30 @@ class SVGPModel:
     param_names = tuple(_svgp.PARAM_NAMES)
 
 
+class VFFModel:
+    """Variational Fourier features through the batched engine
+    (``make_vff_core``), marked as ``GPRModel`` is; its parameter names are
+    those the JAX orchestrator stores for a VFF core without a mean
+    function, the per-tile domain included. The JAX package's host-facing
+    ``VFFModel`` class is not ported (ROADMAP.md Queue 1 item 7)."""
+
+    param_names = tuple(_vff.PARAM_NAMES) + ("domain",)
+
+
+class ASVGPModel:
+    """B-spline inducing features through the batched engine
+    (``make_asvgp_core``), marked as ``GPRModel`` is; its parameter names
+    are those the JAX orchestrator stores for an ASVGP core without a mean
+    function, the per-tile knot grids included. The JAX package's
+    host-facing ``ASVGPModel`` class is not ported (ROADMAP.md Queue 1 item
+    7)."""
+
+    param_names = tuple(_asvgp.PARAM_NAMES) + ("knots",)
+
+
 _PORTED = {"GPRModel": GPRModel, "GPflowGPRModel": GPRModel, "SGPRModel": SGPRModel, "GPflowSGPRModel": SGPRModel,
-           "SVGPModel": SVGPModel, "GPflowSVGPModel": SVGPModel}
+           "SVGPModel": SVGPModel, "GPflowSVGPModel": SVGPModel, "VFFModel": VFFModel, "GPflowVFFModel": VFFModel,
+           "ASVGPModel": ASVGPModel, "GPflowASVGPModel": ASVGPModel}
 
 
 def get_model(name: str):

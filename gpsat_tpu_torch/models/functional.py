@@ -2,9 +2,9 @@
 
 Port of ``gpsat_tpu/models/functional.py`` for the exact-GPR family (joint
 and profiled-variance); the sparse cores live in ``sgpr.py`` and
-``svgp.py``. A ModelCore bundles the functions the engine needs; every one
-acts on a whole expert batch (leading dimension B) instead of one tile
-under vmap.
+``svgp.py``, the inter-domain ones in ``vff.py`` and ``asvgp.py``. A
+ModelCore bundles the functions the engine needs; every one acts on a
+whole expert batch (leading dimension B) instead of one tile under vmap.
 """
 
 from __future__ import annotations
@@ -58,6 +58,9 @@ class ModelCore:
     # params are kept out of Adam (the reference's hybrid optimiser)
     natgrad_update: Optional[Callable] = None
     natgrad_params: tuple = ()
+    # inter-domain cores (VFF, ASVGP): D -> the feature count Mtot of their
+    # factor pairs, whose [B, Mtot, Mtot] buffers the sweep's memory cap sizes
+    num_features: Optional[Callable] = None
 
 
 def make_gpr_core(

@@ -100,10 +100,7 @@ def tri_inv_blocked(L: torch.Tensor, T: int = 64) -> torch.Tensor:
     if N <= T:
         return tri_solve(L, eye.expand(B, N, N))
     if N % T != 0:
-        P = N + (-N) % T
-        Lp = torch.eye(P, dtype=L.dtype, device=L.device).repeat(B, 1, 1)
-        Lp[:, :N, :N] = L
-        return tri_inv_blocked(Lp, T=T)[:, :N, :N]
+        return tri_inv_blocked(identity_pad(L, T), T=T)[:, :N, :N]
     return tri_inv_from_diag(L, tri_solve(_diag_blocks(L, T), eye.expand(B, N // T, T, T)), T)
 
 
@@ -114,13 +111,12 @@ def chol_inv(K: torch.Tensor, T: int = 64):
 
 
 def _blocked_cholesky(K: torch.Tensor, T: int, factor_diag):
-    """Right-looking blocked Cholesky of [B, N, N] driven by a diagonal-block
-    factor pair ``factor_diag([B, T, T]) -> (L, L^-1)``; the panel scaling
-    and trailing updates are batched matmuls. Returns (L [B, N, N], the
-    diagonal blocks' inverses as a list of N/T [B, T, T])."""
+    """Right-looking blocked Cholesky of [B, N, N], N a multiple of T,
+    driven by a diagonal-block factor pair ``factor_diag([B, T, T]) -> (L,
+    L^-1)``; the panel scaling and trailing updates are batched matmuls.
+    Returns (L [B, N, N], the diagonal blocks' inverses as a list of N/T
+    [B, T, T])."""
     B, N, _ = K.shape
-    if N % T != 0:
-        raise ValueError(f"N={N} is not a multiple of the {T}-row block")
     Nb = N // T
     L = K.new_zeros(B, N, N)
     Wdiags = []
@@ -142,41 +138,61 @@ def _library_route(K: torch.Tensor) -> bool:
     return K.device.type == "cuda" and K.dtype != torch.float32
 
 
+def identity_pad(K: torch.Tensor, T: int) -> torch.Tensor:
+    """[B, N, N] identity-padded to the next multiple of T (K itself when N
+    is one): chol([[K, 0], [0, I]]) = [[L, 0], [0, I]], and likewise for the
+    inverse, so the top-left [N, N] slices of either are exact."""
+    B, N, _ = K.shape
+    pad = (-N) % T
+    if pad == 0:
+        return K
+    Kp = torch.eye(N + pad, dtype=K.dtype, device=K.device).repeat(B, 1, 1)
+    Kp[:, :N, :N] = K
+    return Kp
+
+
 def chol_panels_batched(K: torch.Tensor):
     """Blocked Cholesky of [B, N, N] on the 128-block kernel
     (``panel_chol.factor_panels``). Port of ``_chol_panels_batched``.
-    Returns (L [B, N, N], Wdiag [B, N/128, 128, 128]) with
-    Wdiag[:, p] = inv(L[:, pT:(p+1)T, pT:(p+1)T]). A non-f32 CUDA Gram
-    takes ``cholesky`` and one triangular solve of the stacked diagonal
-    blocks instead."""
+    Returns (L [B, N, N], Wdiag [B, ceil(N/128), 128, 128]) with Wdiag[:, p]
+    = inv(L[:, pT:(p+1)T, pT:(p+1)T]); an N that is not a multiple of 128 is
+    identity-padded (``identity_pad``), so the last block's inverse carries
+    the pad's identity. A non-f32 CUDA Gram takes ``cholesky`` and one
+    triangular solve of the stacked diagonal blocks instead."""
+    N = K.shape[-1]
+    Kp = identity_pad(K, T_PANEL)
     if _library_route(K):
-        if K.shape[-1] % T_PANEL != 0:
-            raise ValueError(f"N={K.shape[-1]} is not a multiple of the {T_PANEL}-row block")
-        L = cholesky(K)
+        L = cholesky(Kp)
         eye = torch.eye(T_PANEL, dtype=K.dtype, device=K.device)
-        return L, tri_solve(_diag_blocks(L, T_PANEL), eye.expand(K.shape[0], K.shape[-1] // T_PANEL, -1, -1))
-    L, Wdiags = _blocked_cholesky(K, T_PANEL, factor_panels)
-    return L, torch.stack(Wdiags, dim=1)
+        Wdiag = tri_solve(_diag_blocks(L, T_PANEL), eye.expand(K.shape[0], Kp.shape[-1] // T_PANEL, -1, -1))
+    else:
+        L, Wdiags = _blocked_cholesky(Kp, T_PANEL, factor_panels)
+        Wdiag = torch.stack(Wdiags, dim=1)
+    return L[:, :N, :N], Wdiag
 
 
 def tri_inv_from_diag(L: torch.Tensor, Wdiag: torch.Tensor, T: int = T_PANEL) -> torch.Tensor:
-    """W = L^-1 given the diagonal blocks' inverses Wdiag [B, N/T, T, T]."""
-    W = torch.zeros_like(L)
-    for i in range(L.shape[-1] // T):
+    """W = L^-1 given the diagonal blocks' inverses Wdiag [B, ceil(N/T), T,
+    T] (an identity-padded last block for N not a multiple of T)."""
+    N = L.shape[-1]
+    Lp = identity_pad(L, T)
+    W = torch.zeros_like(Lp)
+    for i in range(Lp.shape[-1] // T):
         W[:, i * T : (i + 1) * T, i * T : (i + 1) * T] = Wdiag[:, i]
-    return _assemble_winv(L, W, T)
+    return _assemble_winv(Lp, W, T)[:, :N, :N]
 
 
 def tri_solve_from_diag(L: torch.Tensor, Wdiag: torch.Tensor, b: torch.Tensor, T: int = T_PANEL) -> torch.Tensor:
     """Solve L v = b (lower, b [B, N, k]) by block forward substitution with
-    the diagonal blocks' inverses: N/T steps of matmuls."""
+    the diagonal blocks' inverses: ceil(N/T) steps of matmuls."""
+    N = L.shape[-1]
     vs = []
-    for p in range(L.shape[-1] // T):
-        s, e = p * T, (p + 1) * T
+    for p in range(-(-N // T)):
+        s, e = p * T, min((p + 1) * T, N)
         rhs = b[:, s:e]
         if p:
             rhs = rhs - torch.matmul(L[:, s:e, :s], torch.cat(vs, dim=1))
-        vs.append(torch.matmul(Wdiag[:, p], rhs))
+        vs.append(torch.matmul(Wdiag[:, p, : e - s, : e - s], rhs))
     return torch.cat(vs, dim=1)
 
 
@@ -186,15 +202,17 @@ def chol_winv_batched(K: torch.Tensor):
     Port of ``_chol_winv_batched``. The 64x64 diagonal blocks (and their
     inverses) come from ``block_chol.factor_blocks``; the panel scaling,
     trailing updates and the block-column W assembly are batched matmuls.
-    Returns (L, W = L^-1), both [B, N, N]. A non-f32 CUDA Gram takes
+    An N that is not a multiple of 64 is identity-padded (``identity_pad``)
+    and sliced back, so the kernel factors every f32 Gram, whatever its
+    width. Returns (L, W = L^-1), both [B, N, N]. A non-f32 CUDA Gram takes
     ``chol_inv`` instead.
     """
     if _library_route(K):
-        if K.shape[-1] % T_BLOCK != 0:
-            raise ValueError(f"N={K.shape[-1]} is not a multiple of the {T_BLOCK}-row block")
         return chol_inv(K, T_BLOCK)
-    L, Wdiags = _blocked_cholesky(K, T_BLOCK, factor_blocks)
-    return L, tri_inv_from_diag(L, torch.stack(Wdiags, dim=1), T_BLOCK)
+    N = K.shape[-1]
+    L, Wdiags = _blocked_cholesky(identity_pad(K, T_BLOCK), T_BLOCK, factor_blocks)
+    W = tri_inv_from_diag(L, torch.stack(Wdiags, dim=1), T_BLOCK)
+    return L[:, :N, :N], W[:, :N, :N]
 
 
 def chol_winv_pair(K: torch.Tensor, factor: str = "block"):
@@ -239,18 +257,13 @@ def chol_winv(K: torch.Tensor, factor: str = "block"):
 
 
 def chol_winv_padded(K: torch.Tensor, T: int = T_BLOCK, factor: str = "block"):
-    """``chol_winv`` with identity padding to the next multiple of T:
-    chol([[K, 0], [0, I]]) = [[L, 0], [0, I]] and likewise for the inverse,
-    so the top-left slices are exact. The recursive route takes any N and
+    """``chol_winv`` of K identity-padded to the next multiple of T
+    (``identity_pad``), sliced back. The recursive route takes any N and
     skips the pad. Differentiable."""
-    B, N, _ = K.shape
-    pad = (-N) % T
-    if factor == "recursive" or pad == 0:
+    N = K.shape[-1]
+    if factor == "recursive" or N % T == 0:
         return chol_winv(K, factor)
-    P = N + pad
-    Kp = torch.eye(P, dtype=K.dtype, device=K.device).repeat(B, 1, 1)
-    Kp[:, :N, :N] = K
-    L, W = chol_winv(Kp, factor)
+    L, W = chol_winv(identity_pad(K, T), factor)
     return L[:, :N, :N], W[:, :N, :N]
 
 

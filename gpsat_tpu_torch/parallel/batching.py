@@ -96,6 +96,7 @@ def assemble_tiles(
     obs_mean: Optional[str] = None,
     max_batch_size: Optional[int] = None,
     memory_cap: bool = False,
+    cap_width: Optional[int] = None,
     device=None,
     coalesce: bool = False,
     dtype=np.float64,
@@ -118,6 +119,8 @@ def assemble_tiles(
         for cores with [B, Nmax, Nmax]-sized live buffers (dense exact GPR),
         sized for f32 compute. The cap is None on the CPU, so there it
         changes nothing.
+    cap_width: the width W of the [B, W, W] live buffers the cap sizes for
+        instead of nmax (an inter-domain core's padded feature count).
     expert_locs: optional [E, D] raw expert locations; scaled like coords
         and carried per tile.
     coalesce: pad every tile to one global (nmax, pmax), so the whole expert
@@ -148,7 +151,7 @@ def assemble_tiles(
         forced_pmax = bucket_size(int(max(max(len(pc), 1) for pc in pred_coords)), multiple=8)
 
     def batch_cap(nmax):
-        cap = auto_batch_cap(nmax, device) if memory_cap else None
+        cap = auto_batch_cap(cap_width or nmax, device) if memory_cap else None
         if max_batch_size:
             cap = max_batch_size if cap is None else min(cap, max_batch_size)
         return cap

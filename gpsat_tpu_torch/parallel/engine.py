@@ -277,7 +277,11 @@ def _adam_fit_predict_batched(
             ur = {k: v.detach().requires_grad_(True) for k, v in u.items()}
             with torch.enable_grad():
                 loss = loss_fn(ur, nat_new)
-                grads = torch.autograd.grad(loss.sum(), list(ur.values())) if ur else ()
+                # a free param the loss never reads (the Bernoulli and Poisson
+                # likelihoods' likelihood_variance) gets a zero gradient, as
+                # JAX's value_and_grad gives it, and Adam leaves it in place
+                grads = torch.autograd.grad(loss.sum(), list(ur.values()), allow_unused=True) if ur else ()
+                grads = [torch.zeros_like(v) if g is None else g for g, v in zip(grads, ur.values())]
             loss = loss.detach()
             # Adam's step count is the lane's iteration count
             step_no = (it + 1).to(best.dtype)

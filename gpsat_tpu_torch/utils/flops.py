@@ -1,8 +1,9 @@
-"""Analytic FLOP counts for the exact-GPR main path, the SGPR and SVGP lanes.
+"""Analytic FLOP counts for the exact-GPR main path and the SGPR, SVGP, VFF and ASVGP lanes.
 
 Port of the GPR, SGPR and SVGP counts of ``gpsat_tpu/utils/flops.py``. The
 SVGP core's collapsed solver optimises the SGPR bound and is counted with
-the SGPR counts.
+the SGPR counts. The VFF and ASVGP counts (which the JAX package does not
+have) are derived from ``models/vff.collapsed_terms``.
 Convention: 1 fused multiply-add = 2 FLOPs; Cholesky N^3/3, triangular
 inverse N^3/3, dense matmul [n,k]x[k,m] = 2nkm. These are MODEL flops (the
 work the math requires), so achieved FLOP/s = model flops / seconds
@@ -63,3 +64,44 @@ def svgp_elbo_flops(N: int, M: int, D: int) -> float:
 def svgp_iter_flops(N: int, M: int, D: int, ad_factor: float = 3.0) -> float:
     """One optimiser iteration: the ELBO and its reverse-mode gradient."""
     return ad_factor * svgp_elbo_flops(N, M, D)
+
+
+def collapsed_kron_elbo_flops(N: int, Mtot: int) -> float:
+    """One forward evaluation of the collapsed bound on a Kronecker feature
+    space of Mtot features (``models/vff.collapsed_terms``), model flops
+    (Mtot, not its padded width):
+
+      Kuf Kfu                 2 N Mtot^2
+      Kuf y                   2 N Mtot
+      factor pair of P        Mtot^3 / 3 + Mtot^3 / 3
+      c = W (Kuf y)           Mtot^2       (triangular)
+      Kuu^-1 o Kuf Kfu        Mtot^2
+
+    The per-dimension features, Grams and inverses are O(D (N m + m^3))
+    with m = Mtot^(1/D), and left out."""
+    return 2.0 * N * Mtot**2 + 2.0 * N * Mtot + (2.0 / 3.0) * Mtot**3 + 2.0 * Mtot**2
+
+
+def vff_elbo_flops(N: int, M: int, D: int) -> float:
+    """One VFF bound: (2M - 1)^D Fourier features."""
+    return collapsed_kron_elbo_flops(N, (2 * M - 1) ** D)
+
+
+def vff_iter_flops(N: int, M: int, D: int, ad_factor: float = 3.0) -> float:
+    """One single-eval L-BFGS iteration of the VFF bound: the bound and its
+    reverse-mode gradient (ad_factor 3 counts both)."""
+    return ad_factor * vff_elbo_flops(N, M, D)
+
+
+# B-spline features per knot grid of M knots, beyond M (models/asvgp.py)
+_ASVGP_EXTRA = {"Matern12": 0, "Matern32": 1, "Matern52": 2}
+
+
+def asvgp_elbo_flops(N: int, M: int, D: int, kernel: str = "Matern12") -> float:
+    """One ASVGP bound: (M + 0, 1 or 2)^D spline features (B1, B2, B3)."""
+    return collapsed_kron_elbo_flops(N, (M + _ASVGP_EXTRA[kernel]) ** D)
+
+
+def asvgp_iter_flops(N: int, M: int, D: int, kernel: str = "Matern12", ad_factor: float = 3.0) -> float:
+    """One single-eval L-BFGS iteration of the ASVGP bound and its gradient."""
+    return ad_factor * asvgp_elbo_flops(N, M, D, kernel)

@@ -24,6 +24,17 @@ from gpsat_tpu_torch.ops import linalg as LA
 from gpsat_tpu_torch.ops.recursive_chol import chol_winv_recursive
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run puts six pytest workers on the
+    machine's cores, and torch's default of one thread per core then
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _spd(B, N, seed, dtype=np.float64, rank=16):
     rng = np.random.default_rng(seed)
     A = rng.normal(size=(B, N, rank)).astype(dtype)

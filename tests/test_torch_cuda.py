@@ -465,3 +465,37 @@ def test_probing_line_searches_in_f64_on_card_match_cpu(linesearch):
         assert res[name]["converged"].all()
     for key in ("f_mean", "f_var"):
         assert float(np.abs(res["card"][key] - res["cpu"][key]).max()) <= 1.2e-8, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["vff", "asvgp"])
+def test_inter_domain_f32_batch_on_card_matches_the_library_route(model):
+    # the VFF (Matern32, M = 4: 49 features) and ASVGP (Matern12, 8 knots:
+    # 64 features) lanes in f32 on the card: on the "block" route kernel 1
+    # factors P (padded to 64: one launch per pair) in every evaluation and
+    # in the predict; on the "cholesky" route the same fit takes the library
+    # (a 64-wide Gram is outside kernel 3's domain), and the two agree at the
+    # raw-f32 band of chip_smoke.py's phase 4
+    from gpsat_tpu_torch.models.asvgp import make_asvgp_core
+    from gpsat_tpu_torch.models.vff import make_vff_core
+
+    dev = _cuda()
+    batch = _sgpr_batch(8, 256, 16, np.float32)
+    out = {}
+    for factor in ("block", "cholesky"):
+        if model == "vff":
+            core = make_vff_core(kernel="Matern32", num_inducing_features=4, factor=factor)
+        else:
+            core = make_asvgp_core(kernel="Matern12", num_inducing_features=8, factor=factor)
+        before = {k: fn.launches for k, fn in (("block", BC.factor_blocks), ("cholesky", CH.cholesky))}
+        runner = TE.make_batched_runner(core, fixed_params=core.default_fixed_params, max_iter=300, device=dev)
+        out[factor] = TE.run_tile_batch(batch, {"smart_init": True}, runner, core, device=dev)
+        launches = {"block": BC.factor_blocks.launches - before["block"],
+                    "cholesky": CH.cholesky.launches - before["cholesky"]}
+        it = int(out[factor]["num_iter"].max())
+        want = {"block": it + 2, "cholesky": 0} if factor == "block" else {"block": 0, "cholesky": 0}
+        assert launches == want, (factor, launches, want)
+        assert out[factor]["converged"].sum() >= 7
+    for key in ("f_mean", "f_var"):
+        assert np.isfinite(out["block"][key]).all()
+        assert float(np.abs(out["block"][key] - out["cholesky"][key]).max()) <= 1e-2, key

@@ -3,6 +3,7 @@ factor pair) against the JAX engine, on one small f64 workload, plus the
 port's device rule and import isolation."""
 
 import ast
+import functools
 import os
 import subprocess
 import sys
@@ -24,6 +25,17 @@ from gpsat_tpu_torch.parallel import engine as TE
 REPO = Path(__file__).resolve().parent.parent
 B, N, P, D = 4, 128, 8, 2
 TOLS = dict(tol_grad=1e-6, tol_f=1e-11)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run puts six pytest workers on the
+    machine's cores, and torch's default of one thread per core then
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _jax_batch():
@@ -157,6 +169,76 @@ def test_prepare_batch_init_runs_before_padding_and_only_when_set(runs):
     np.testing.assert_array_equal(res["lengthscales"], hooked["lengthscales"])
 
 
+@functools.lru_cache(maxsize=None)
+def _odd_width_runs(n):
+    """One tile bucket of width n (not a multiple of 64) through the JAX
+    engine in f64: GPR with a Constant mean and the RationalQuadratic
+    kernel, the single-eval search. One JAX compile per width."""
+    rng = np.random.default_rng(n)
+    Bn, Pn = 3, 6
+    X = rng.uniform(-3, 3, (Bn, n, D))
+    y = np.sin(X[..., 0]) * np.cos(X[..., 1]) + 0.5 + 0.1 * rng.normal(size=(Bn, n))
+    mask = np.ones((Bn, n))
+    mask[1, n - n // 4 :] = 0.0
+    batch = JB.TileBatch(X=X, y=y, mask=mask, Xnew=rng.uniform(-2, 2, (Bn, Pn, D)), pred_mask=np.ones((Bn, Pn)),
+                         obs_mean=np.zeros(Bn), expert_index=np.arange(Bn), num_obs=mask.sum(1).astype(int))
+    kw = dict(kernel="RationalQuadratic", mean_function="Constant", jitter=1e-6)
+    core = jax_make_gpr_core(**kw)
+    ref = JE.run_tile_batch(batch, {"smart_init": True}, JE.make_batched_runner(core, linesearch="single_eval", **TOLS),
+                            core)
+    return batch, kw, ref
+
+
+@pytest.mark.parametrize("n", [96, 40])
+@pytest.mark.parametrize("factor", ["block", "panel"])
+def test_gpr_tile_widths_off_the_block_match_jax(n, factor):
+    """Tile widths that are no multiple of the route's block (96, and 40 <
+    64) run on the "block" and "panel" routes, identity-padded to the block,
+    and meet the JAX engine's f64 fit (which factors them with plain
+    cholesky) within 1e-9 on the predictions."""
+    batch, kw, ref = _odd_width_runs(n)
+    core = make_gpr_core(factor=factor, **kw)
+    runner = TE.make_batched_runner(core, linesearch="single_eval", device="cpu", **TOLS)
+    got = TE.run_tile_batch(batch_from_numpy(batch), {"smart_init": True}, runner, core, device="cpu")
+    assert got["converged"].all() and np.asarray(ref["converged"]).all()
+    for k in ("f_mean", "f_var"):
+        d = float(np.abs(got[k] - np.asarray(ref[k])).max())
+        assert d <= 1e-9, (n, factor, k, d)
+
+
+@pytest.mark.parametrize("n", [96, 40, 200])
+def test_factor_routes_take_any_width(n):
+    """The block and panel routes' factor pairs, and the fused LML on each,
+    at widths off their blocks: the identity pad is sliced away exactly."""
+    from gpsat_tpu_torch.ops import fused_lml as FL
+    from gpsat_tpu_torch.ops import linalg as TLA
+
+    rng = np.random.default_rng(n)
+    A = torch.tensor(rng.normal(size=(2, n, n)))
+    K = A @ A.transpose(1, 2) / n + torch.eye(n)
+    L_ref = torch.linalg.cholesky(K)
+    L, W = TLA.chol_winv_batched(K)
+    Lp, Wdiag = TLA.chol_panels_batched(K)
+    assert Wdiag.shape[1] == -(-n // 128)
+    eye = torch.eye(n, dtype=K.dtype)
+    for got in (L, Lp):
+        torch.testing.assert_close(got, L_ref, rtol=0, atol=1e-12)
+    torch.testing.assert_close(W @ L_ref, eye.expand_as(K), rtol=0, atol=1e-10)
+    torch.testing.assert_close(TLA.tri_inv_from_diag(Lp, Wdiag) @ L_ref, eye.expand_as(K), rtol=0, atol=1e-10)
+    b = torch.tensor(rng.normal(size=(2, n, 3)))
+    want = torch.linalg.solve_triangular(L_ref, b, upper=False)
+    torch.testing.assert_close(TLA.tri_solve_from_diag(Lp, Wdiag, b), want, rtol=0, atol=1e-10)
+    X = torch.tensor(rng.uniform(-3, 3, (2, n, D)))
+    y = torch.tensor(rng.normal(size=(2, n)))
+    mask = torch.ones(2, n, dtype=X.dtype)
+    mask[1, n // 2 :] = 0.0
+    args = [torch.tensor([[1.1, 0.7], [0.9, 1.3]]), torch.tensor([1.2, 0.8]), torch.tensor([0.1, 0.2])]
+    want = TLA.masked_gpr_lml(X, y, mask, *args, kernel="Matern32")
+    for factor in ("block", "panel"):
+        got = FL.masked_gpr_lml_fused("Matern32", X, y, mask, *args, 0.0, factor)
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=0)
+
+
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the no-card rule cannot be observed")
@@ -208,6 +290,7 @@ def test_port_imports_neither_jax_nor_gpsat_tpu():
         "import gpsat_tpu_torch.ops.recursive_chol, gpsat_tpu_torch.ops.linalg, gpsat_tpu_torch.ops.fused_lml\n"
         "import gpsat_tpu_torch.experts, gpsat_tpu_torch.local_expert_oi, gpsat_tpu_torch.models\n"
         "import gpsat_tpu_torch.models.sgpr, gpsat_tpu_torch.models.svgp\n"
+        "import gpsat_tpu_torch.models.vff, gpsat_tpu_torch.models.asvgp\n"
         "import gpsat_tpu_torch.data.dataloader, gpsat_tpu_torch.data.store, gpsat_tpu_torch.data.select\n"
         "import gpsat_tpu_torch.data.prediction_locations, gpsat_tpu_torch.utils.misc, gpsat_tpu_torch.utils.config_func\n"
         "import gpsat_tpu_torch.postprocess, gpsat_tpu_torch.postprocessing, gpsat_tpu_torch.cli\n"

@@ -25,6 +25,17 @@ AUTODIFF_KERNELS = ("RationalQuadratic", "Cosine", "White")
 NAMES = ("lengthscales", "kernel_variance", "likelihood_variance")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run puts six pytest workers on the
+    machine's cores, and torch's default of one thread per core then
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tiles(seed=5):
     rng = np.random.default_rng(seed)
     X = rng.uniform(-3, 3, (B, NT, D))

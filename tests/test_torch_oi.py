@@ -23,6 +23,7 @@ from gpsat_tpu.parallel import engine as JE
 from gpsat_tpu_torch import local_expert_oi
 from gpsat_tpu_torch.experts import LocalExpertOI as TOI
 from gpsat_tpu_torch.experts import get_results_from_h5file as port_results
+from gpsat_tpu_torch.models import get_model
 from gpsat_tpu_torch.models.functional import make_gpr_core
 from gpsat_tpu_torch.parallel import batching as TB
 from gpsat_tpu_torch.parallel import engine as TE
@@ -323,18 +324,12 @@ def test_cli_main_runs_a_config_on_the_cpu(tmp_path):
 @pytest.mark.parametrize(
     "model_extra, run_kwargs",
     [
-        # the replacement lane runs, but not with VFF or ASVGP
-        ({"replacement_threshold": 50, "replacement_model": "GPflowVFFModel"}, {}),
-        ({"oi_model": "GPflowSGPRModel", "replacement_threshold": 50, "replacement_model": "GPflowASVGPModel"}, {}),
-        ({"oi_model": "GPflowVFFModel"}, {}),
-        ({"oi_model": "GPflowASVGPModel"}, {}),
         ({"oi_model": "sklearnGPRModel"}, {}),
         ({"oi_model": {"path_to_model": "m", "model_name": "M"}}, {}),
         ({}, {"mesh": "all"}),
         ({}, {"profile_dir": "trace"}),
     ],
-    ids=["replacement_vff", "sgpr_replacement_asvgp", "vff", "asvgp", "host_lane", "custom_model", "mesh",
-         "profile_dir"],
+    ids=["host_lane", "custom_model", "mesh", "profile_dir"],
 )
 def test_unported_options_raise(model_extra, run_kwargs, tmp_path):
     obs_df, expert_df = _field()
@@ -356,8 +351,22 @@ def test_unported_options_raise(model_extra, run_kwargs, tmp_path):
         ({"oi_model": "GPflowSVGPModel", "init_params": {"num_inducing_points": 8, "noise_variance": 0.01},
           "optim_kwargs": {"max_iter": 5}}, {}),
         ({"optim_kwargs": {"max_iter": 5}}, {"dtype": torch.float64}),
+        # the inter-domain lanes, on their own and as replacement lanes (3-d
+        # coordinates: 27 features each)
+        ({"replacement_threshold": 1000, "replacement_model": "GPflowVFFModel",
+          "replacement_init_params": {"num_inducing_features": 2, "noise_variance": 0.01},
+          "replacement_optim_kwargs": {"max_iter": 5}}, {}),
+        ({"oi_model": "GPflowSGPRModel", "init_params": {"num_inducing_points": 8, "noise_variance": 0.01},
+          "replacement_threshold": 1000, "replacement_model": "GPflowASVGPModel",
+          "replacement_init_params": {"num_inducing_features": 3, "noise_variance": 0.01},
+          "replacement_optim_kwargs": {"max_iter": 5}}, {}),
+        ({"oi_model": "GPflowVFFModel", "init_params": {"num_inducing_features": 2, "noise_variance": 0.01},
+          "optim_kwargs": {"max_iter": 5}}, {}),
+        ({"oi_model": "GPflowASVGPModel", "init_params": {"num_inducing_features": 3, "noise_variance": 0.01},
+          "optim_kwargs": {"max_iter": 5}}, {}),
     ],
-    ids=["svgp_replacement", "sgpr_f64_default", "svgp", "f64_without_linesearch"],
+    ids=["svgp_replacement", "sgpr_f64_default", "svgp", "f64_without_linesearch", "replacement_vff",
+         "sgpr_replacement_asvgp", "vff", "asvgp"],
 )
 def test_options_that_were_not_ported_run(model_extra, run_kwargs, tmp_path):
     obs_df, expert_df = _field()
@@ -366,5 +375,7 @@ def test_options_that_were_not_ported_run(model_extra, run_kwargs, tmp_path):
                                                                    **run_kwargs)
     out, _ = port_results(path)
     assert len(out["run_details"]) == 2 and np.isfinite(out["preds"]["f*"]).all()
-    if "replacement_threshold" in model_extra:
-        assert set(out["run_details"]["model"]) == {"gpsat_tpu_torch.SVGPModel"}
+    # every expert ran in the lane the config sends it to
+    lane = model_extra.get("replacement_model") if "replacement_threshold" in model_extra else None
+    lane = get_model(lane or model_extra.get("oi_model", "GPflowGPRModel"))
+    assert set(out["run_details"]["model"]) == {f"gpsat_tpu_torch.{lane.__name__}"}

@@ -23,6 +23,17 @@ from gpsat_tpu_torch.ops import panel_chol as PC
 T = 128
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run puts six pytest workers on the
+    machine's cores, and torch's default of one thread per core then
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _spd_blocks(B, seed, dtype=np.float32):
     rng = np.random.default_rng(seed)
     A = rng.standard_normal((B, T, T)).astype(dtype)
@@ -94,8 +105,11 @@ def test_blocked_factor_and_diag_helpers_match_jax():
     np.testing.assert_allclose(Wdiag.numpy(), np.asarray(Wdj), rtol=0, atol=1e-10)
     np.testing.assert_allclose(W.numpy(), np.asarray(Wj), rtol=0, atol=1e-10)
     np.testing.assert_allclose(v.numpy(), np.asarray(vj), rtol=0, atol=1e-10)
-    with pytest.raises(ValueError):
-        LA.chol_panels_batched(torch.eye(192, dtype=torch.float64)[None])
+    # a width off the 128-block is identity-padded, and the pad sliced away
+    L1, Wd1 = LA.chol_panels_batched(torch.eye(192, dtype=torch.float64)[None])
+    assert L1.shape == (1, 192, 192) and Wd1.shape == (1, 2, 128, 128)
+    assert torch.equal(L1[0], torch.eye(192, dtype=torch.float64))
+    assert torch.equal(Wd1[0], torch.eye(128, dtype=torch.float64).expand(2, 128, 128))
 
 
 # The CUDA kernel runs a blocked order (32-column panels, the inverse by

@@ -1,19 +1,22 @@
-"""Rehearse chip_smoke.py's phase 10 (svgp) on the CPU, before a run on the card.
+"""Rehearse chip_smoke.py's phases 10 (svgp) and 11 (zoo) on the CPU, before a run on the card.
 
-    python tools/rehearse_chip_smoke.py [--parts a b c d e] [--lanes B] [--threads T]
-                                        [--identity-natgrad]
+    python tools/rehearse_chip_smoke.py [--parts a b c d e vff asvgp] [--lanes B] [--threads T]
+                                        [--identity-natgrad] [--expert-stride S]
 
-Runs the phase's own functions with every entry point's default device
+Runs the phases' own functions with every entry point's default device
 set to the CPU and the CUDA memory calls stubbed, so the iteration counts,
-objectives and accuracy numbers that fix the phase's bounds can be read
+objectives and accuracy numbers that fix the phases' bounds can be read
 without a card. A failed check is printed and counted instead of raised:
 the kernel-launch checks always fail here, since the CPU runs each
-kernel's plain version. ``--lanes`` cuts (a)-(c)'s batch (default: the
-phase's 128). ``--identity-natgrad`` is the mutation check of (c)'s
-bound: it runs (c) once more with the natural-gradient step replaced by
-the identity, so q stays at its starting value, and prints that run's
-negative-ELBO gap to (a). Exits non-zero if a check other than a launch
-check failed.
+kernel's plain version. Parts a-e are phase 10's, "vff" and "asvgp" phase
+11's lanes (default: phase 10's). ``--lanes`` cuts (a)-(c)'s batch
+(default: the phase's 128). ``--identity-natgrad`` is the mutation check
+of (c)'s bound: it runs (c) once more with the natural-gradient step
+replaced by the identity, so q stays at its starting value, and prints
+that run's negative-ELBO gap to (a). ``--expert-stride S`` keeps every
+S-th expert of phase 7's geometry in phase 11 (its full 1,664 experts
+hold ~20 GB of [B, 448, 448] buffers: too much for a shared CPU). Exits
+non-zero if a check other than a launch check failed.
 """
 
 from __future__ import annotations
@@ -61,7 +64,8 @@ def _gap(tag, res, res_a):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parts", nargs="+", default=list("abcde"), choices=list("abcde"))
+    ap.add_argument("--parts", nargs="+", default=list("abcde"), choices=[*"abcde", "vff", "asvgp"])
+    ap.add_argument("--expert-stride", type=int, default=1)
     ap.add_argument("--lanes", type=int, default=cs.SVGP_B)
     ap.add_argument("--threads", type=int, default=4)
     ap.add_argument("--identity-natgrad", action="store_true")
@@ -71,6 +75,17 @@ def main(argv=None) -> int:
     _on_cpu(failed)
     t0 = time.perf_counter()
     parts = set(args.parts)
+    if args.expert_stride > 1:
+        full = cs.pipeline_inputs
+
+        def strided():
+            obs, experts, grid = full()
+            return obs, {c: v[:: args.expert_stride] for c, v in experts.items()}, grid
+
+        cs.pipeline_inputs = strided
+    for tag in ("vff", "asvgp"):
+        if tag in parts:
+            cs.zoo_lane(tag, profile=False)
     batch = cs.make_large_tiles(args.lanes, cs.SVGP_N, cs.SVGP_P, cs.D, np.float32, min_fill=0.6)
     kw = dict(kernel="Matern32", jitter=cs.SVGP_JITTER, num_inducing_points=cs.SVGP_M)
     if parts & {"a", "c"}:
