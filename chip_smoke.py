@@ -97,6 +97,24 @@ Phases (each prints on its own lines; any failure raises):
              against an f64 fit of their tiles on the CPU, and that fit's
              bound and predictions in f64 on the card (the library arm)
              against the CPU's
+12. host     the host-facing classes and the host-serial lane, on the card:
+             (a) GPRModel on the verify recipe's 400 points (448 wide),
+             SGPRModel on one tile of bench_large_n.py's N = 4,096 at M = 500
+             (pairs of 512), SVGPModel's collapsed solver and VFFModel on the
+             fullest expert of phase 7's data with the SVGP and VFF configs'
+             model blocks (M = 64; 361 features padded to 384), ASVGPModel on
+             the recipe's points at the lane's defaults (Matern12, 20 knots:
+             400 features padded to 448): each fitted and predicted in f32
+             (kernel 1, its launches held to a formula), held to its own f64
+             fit on the CPU from the f32 optimum, and evaluated in f64 on the
+             card at the CPU fit's parameters (no launch) against the CPU;
+             (b) the sweep's host-serial lane over phase 7's first 64 experts
+             with TorchGPRModel in f64 on the card against the same lane on
+             the CPU, and with PureNumpyGPR (in a child process whose numpy
+             BLAS keeps one thread, run beside (a)); (c) a torch.profiler
+             trace of a host-lane sweep written under a profile_dir (the
+             trace LocalExpertOI.run(profile_dir=...) writes; the card's
+             machine has no h5py for run's store)
 
 Then one {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 Imports nothing of JAX or of gpsat_tpu.
@@ -251,6 +269,36 @@ ZOO_REF_MAX_ITER = 80
 # function in two places; two f64 fits on a flat optimum drift further
 # apart: 1.3e-8 over ASVGP's 56 iterations, measured on one H100)
 ZOO_CARD_F64_BOUND = 1e-8
+
+
+# phase 12 (host): the verify recipe's drive (.claude/skills/verify/SKILL.md)
+# and the configs' model blocks, one expert per class; the f32 fits take the
+# classes' f32 defaults (single-eval search, tol_grad 1e-3, tol_f 1e-6)
+HOST_N, HOST_P = 400, 64
+HOST_MAX_ITER = 300
+# the f64 reference fit of each class on the CPU, from the card's f32 optimum:
+# 10 iterations of the f64 single-eval search (SVGP's collapsed solver, which
+# takes no search settings: of its zoom default); 20 took 5.49 s for SGPR's
+# tile of 3,779 points on an H100 machine's host CPU (PERF.md, section 6)
+HOST_REF_MAX_ITER = 10
+# the card's f64 objective and predictions at the CPU fit's parameters
+# against the CPU's, relative to each value's scale: one f64 function in two
+# places, as phase 11's check
+HOST_CARD_F64_BOUND = 1e-8
+# (b): the host-serial lane over the first experts of phase 7's geometry;
+# TorchGPRModel's f64 card run against its f64 CPU run, the same 30 Adam
+# steps per expert in another summation order
+HOST_LANE_EXPERTS = 64
+HOST_LANE_BOUND = 1e-6
+# PureNumpyGPR's lane runs in a child process whose numpy BLAS (OpenBLAS)
+# keeps one thread: at its default thread count the tiny solves of ~100-point
+# tiles took 38.72 s for the 64 experts on an H100 machine's host CPU, 80x a
+# one-thread run in a CPU rehearsal; the child's start-up took 7.8 s of its
+# 9.68 s there (PERF.md, section 6), so it runs beside (a)
+PURE_NUMPY_ENV = {"OPENBLAS_NUM_THREADS": "1"}
+# (c): a short traced sweep (the trace of every op of 8 experts' 30 Adam
+# steps took 20.8 MB in a CPU rehearsal)
+HOST_TRACE_EXPERTS, HOST_TRACE_STEPS = 8, 5
 
 
 def check(cond, msg):
@@ -1474,18 +1522,49 @@ def svgp_f64_reference(tag, core, batch, res):
     return f64, d
 
 
+def svgp_bound_at(batch, res, i, kw):
+    """The negative collapsed bound of (a)'s lane ``i`` at the parameters it
+    ended with (its last iterate), on the card through the "block" route
+    (kernel 1 in f32; its library arm in f64) and the "cholesky" route (the
+    library), in f32 and in f64; each f32 value's error against the f64
+    library value."""
+    import torch
+
+    from gpsat_tpu_torch.models.sgpr import elbo
+    from gpsat_tpu_torch.parallel.engine import resolve_device
+
+    dev = resolve_device(None)
+    names = ("lengthscales", "kernel_variance", "likelihood_variance", "inducing_points")
+    out = {}
+    for tag, dt in (("f32", torch.float32), ("f64", torch.float64)):
+        data = {k: torch.as_tensor(np.asarray(getattr(batch, k)[[i]]), dtype=dt, device=dev)
+                for k in ("X", "y", "mask")}
+        cp = {k: torch.as_tensor(np.asarray(res[k][[i]]), dtype=dt, device=dev) for k in names}
+        for route in ("block", "cholesky"):
+            with torch.no_grad():
+                out[f"{tag}_{route}"] = -float(elbo(cp, data, kernel=kw["kernel"], jitter=kw["jitter"],
+                                                    factor=route)[0])
+    ref = out["f64_cholesky"]
+    out.update({f"{k}_minus_f64_library": v - ref for k, v in list(out.items()) if k.startswith("f32")})
+    out["reported_objective_minus_f64_library"] = float(res["objective"][i]) - ref
+    return out
+
+
 def svgp_failed_lanes(batch, res, kw):
     """(a)'s lanes that exited ``failed``: their index, iterations and last
-    objective, and each re-run alone on the card through the "cholesky"
-    route (the library: a 64-wide Kuu is outside kernel 3's domain) in f32
-    and in f64, with the collapsed bound (the SGPR core's) and the lane's
-    own inducing points. A diagnostic: it prints, and fails nothing."""
+    objective, the bound at their last iterate on both routes in f32 and f64
+    (``svgp_bound_at``), and each re-run alone on the card through the
+    "cholesky" route (the library: a 64-wide Kuu is outside kernel 3's
+    domain) in f32 and in f64, with the collapsed bound (the SGPR core's)
+    and the lane's own inducing points. A diagnostic: it prints, and fails
+    nothing."""
     from gpsat_tpu_torch.models.sgpr import make_sgpr_core
     from gpsat_tpu_torch.parallel.batching import cast_batch, take_batch
     from gpsat_tpu_torch.parallel.engine import make_batched_runner, run_tile_batch
 
     idx = np.flatnonzero(res["failed"])
-    lanes = {int(i): {"num_iter": int(res["num_iter"][i]), "objective": float(res["objective"][i])} for i in idx}
+    lanes = {int(i): {"num_iter": int(res["num_iter"][i]), "objective": float(res["objective"][i]),
+                      "bound_at_last_iterate": svgp_bound_at(batch, res, i, kw)} for i in idx}
     reruns = {}
     if len(idx):
         core = make_sgpr_core(factor="cholesky", **kw)
@@ -1802,6 +1881,227 @@ def phase_zoo(profile: bool):
     return lv, la
 
 
+def host_data():
+    """Phase 12's inputs: the verify recipe's 400 points (raw units), one
+    tile of bench_large_n.py's N = 4,096, and the fullest expert of phase
+    7's data within its 300 km selection with its prediction locations."""
+    from gpsat_tpu_torch.data import select as sel
+
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-3e5, 3e5, size=(HOST_N, 2))
+    y = np.sin(x[:, 0] / 8e4) * np.cos(x[:, 1] / 1e5) + 0.05 * rng.normal(size=HOST_N)
+    recipe = (x, y, rng.uniform(-2e5, 2e5, size=(HOST_P, 2)))
+    t = make_large_tiles(1, SGPR_FULL[1], SGPR_P, D, np.float64)
+    n = int(t.num_obs[0])
+    tile = (t.X[0, :n], t.y[0, :n], t.Xnew[0])
+    obs, experts, grid = pipeline_inputs()
+    ix = sel.local_select_indices_all(obs, experts, OI_KW["local_select"])
+    e = int(np.argmax([len(i) for i in ix]))
+    loc = np.array([experts["x"][e], experts["y"][e]])
+    pxy = np.stack([grid["x"], grid["y"]], axis=1)
+    near = pxy[np.hypot(*(pxy - loc).T) <= OI_MAX_DIST]
+    expert = (np.stack([obs["x"][ix[e]], obs["y"][ix[e]]], axis=1), obs["z"][ix[e]], near, loc)
+    return recipe, tile, expert
+
+
+def host_class(tag, make, opt, formula, Xnew, ref_opt=CPU_F64_KW):
+    """One class of phase 12 (a). ``make(device, dtype)`` builds the model;
+    the f32 fit and predict on the card run with every launch count set to 0
+    just before and read just after (``formula(num_iter)`` is kernel 1's
+    count); the CPU f64 fit starts from the f32 optimum; the card's f64
+    objective and predictions are taken at the CPU fit's parameters. Returns
+    kernel 1's launches."""
+    import torch
+
+    def launches_now():
+        return {k: fn.launches for k, fn in counters().items()}
+
+    m32 = make(None, torch.float32)
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    ok32 = m32.optimise_parameters(**opt)
+    p32 = m32.predict(Xnew)
+    torch.cuda.synchronize()
+    s32 = time.perf_counter() - t0
+    launches = launches_now()
+    it = int(m32._last_opt_result.num_iter)
+    want = {"block_chol": formula(it), "panel_chol": 0, "cholesky": 0}
+
+    t0 = time.perf_counter()
+    cpu = make("cpu", torch.float64)
+    cpu.set_parameters(**m32.get_parameters())
+    ok64 = cpu.optimise_parameters(**{**opt, **ref_opt, "max_iter": HOST_REF_MAX_ITER})
+    pc = cpu.predict(Xnew)
+    cpu_s = time.perf_counter() - t0
+    d32 = max(float(np.max(np.abs(p32[k] - pc[k]))) for k in ("f*", "f*_var"))
+
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    c64 = make(None, torch.float64)
+    c64.set_parameters(**cpu.get_parameters())
+    obj_card, obj_cpu = c64.get_objective_function_value(), cpu.get_objective_function_value()
+    pg = c64.predict(Xnew)
+    torch.cuda.synchronize()
+    card64_s = time.perf_counter() - t0
+    launches64 = launches_now()
+
+    def rel(a, b):
+        return float(np.max(np.abs(np.asarray(a) - b) / np.maximum(1.0, np.abs(b))))
+
+    d64 = max([rel(obj_card, obj_cpu)] + [rel(pg[k], pc[k]) for k in ("f*", "f*_var", "y_var")])
+    log(f"host_{tag}", model=type(m32).__name__, n=len(m32.coords), converged_f32=bool(ok32), num_iter_f32=it,
+        f32_s=s32, launches=launches, launches_predicted=want, cpu_f64_converged=bool(ok64),
+        cpu_f64_num_iter=int(cpu._last_opt_result.num_iter), cpu_f64_s=cpu_s, f32_vs_cpu_f64=d32,
+        bound=PRED_BOUND, objective_card_f64=obj_card, objective_cpu_f64=obj_cpu, card_f64_vs_cpu_f64=d64,
+        card_f64_bound=HOST_CARD_F64_BOUND, card_f64_s=card64_s, card_f64_launches=launches64)
+    check(np.isfinite(p32["f*"]).all() and np.isfinite(p32["f*_var"]).all(), f"host {tag}: non-finite f32 predictions")
+    check(not m32._last_opt_result.failed, f"host {tag}: the f32 fit failed after {it} iterations")
+    check(launches["block_chol"] > 0 and launches == want, f"host {tag} launches {launches}, expected {want}")
+    check(d32 <= PRED_BOUND, f"host {tag}: card f32 vs CPU f64 {d32}")
+    check(not any(launches64.values()), f"host {tag}: f64 on the card launched a kernel: {launches64}")
+    check(d64 <= HOST_CARD_F64_BOUND, f"host {tag}: card f64 vs CPU f64 {d64}")
+    return launches["block_chol"]
+
+
+def host_lane_sweep(model, experts_n, device, dtype, profile_dir=None, optim_kwargs=None):
+    """The sweep's host-serial lane over the first ``experts_n`` of phase
+    7's experts (those with at least min_obs observations) with phase 7's
+    model settings and the model's own optimiser settings unless
+    ``optim_kwargs``; (results by expert, seconds)."""
+    from gpsat_tpu_torch.data import select as sel
+    from gpsat_tpu_torch.data.prediction_locations import PredictionLocations
+    from gpsat_tpu_torch.decorators import profile_trace
+    from gpsat_tpu_torch.experts import sweep
+
+    obs, experts, grid = pipeline_inputs()
+    ix = sel.local_select_indices_all(obs, experts, OI_KW["local_select"])
+    keep = np.flatnonzero([len(i) >= OI_KW["min_obs"] for i in ix])[:experts_n]
+    locs = {c: v[keep] for c, v in experts.items()}
+    pred_loc = PredictionLocations("from_dataframe", coords_col=["x", "y"], df=grid, max_dist=OI_MAX_DIST)
+    kw = {**OI_KW, "model": model, "optim_kwargs": optim_kwargs or {}, "device": device, "dtype": dtype}
+    t0 = time.perf_counter()
+    if profile_dir is None:
+        out = [r for r in sweep(obs, locs, pred_loc=pred_loc, **kw) if not r.get("skipped")]
+    else:
+        with profile_trace(profile_dir):
+            out = [r for r in sweep(obs, locs, pred_loc=pred_loc, **kw) if not r.get("skipped")]
+    return by_expert(out, ("f_mean", "f_var", "converged", "num_iter", "num_obs")), time.perf_counter() - t0
+
+
+def pure_numpy_lane():
+    """Start PureNumpyGPR (numpy and scipy, no device) through the
+    host-serial lane over (b)'s experts, in a child process with
+    ``PURE_NUMPY_ENV`` that runs on the host's CPU while the parent drives
+    the card; (the child, its start time) for ``pure_numpy_result``."""
+    import os
+
+    code = ("import json, sys, torch; sys.path.insert(0, sys.argv[1]); import chip_smoke as cs; "
+            "r, s = cs.host_lane_sweep('PurePythonGPR', cs.HOST_LANE_EXPERTS, 'cpu', torch.float64); "
+            "print(json.dumps({'experts': len(r), 'sweep_s': s, "
+            "'converged': int(sum(v['converged'] for v in r.values())), "
+            "'finite': bool(all(cs.np.isfinite(v['f_mean']).all() and cs.np.isfinite(v['f_var']).all() "
+            "for v in r.values())), 'num_iter_mean': float(cs.np.mean([v['num_iter'] for v in r.values()]))}))")
+    proc = subprocess.Popen([sys.executable, "-c", code, str(ROOT)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env={**os.environ, **PURE_NUMPY_ENV})
+    return proc, time.perf_counter()
+
+
+def pure_numpy_result(proc, t0) -> dict:
+    """Wait for ``pure_numpy_lane``'s child: its summary, with its wall
+    seconds."""
+    out, err = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"host lane: the PureNumpyGPR child failed: {err[-2000:]}")
+    return {**json.loads(out.strip().splitlines()[-1]), "child_s": time.perf_counter() - t0}
+
+
+def phase_host():
+    """Phase 12: (a) the five host-facing classes, (b) the host-serial
+    lane, (c) a profile_dir trace. Returns kernel 1's launches per class."""
+    t_phase = time.perf_counter()
+    child = pure_numpy_lane()  # (b)'s CPU-only lane, beside (a)
+    try:
+        return host_phases(t_phase, child)
+    finally:
+        child[0].kill()  # a no-op once it has ended
+
+
+def host_phases(t_phase, child):
+    """Phase 12's parts, with (b)'s PureNumpyGPR child already started."""
+    import torch
+
+    from gpsat_tpu_torch.models import get_model
+
+    (rx, ry, rnew), (tx, ty, tnew), (ex, ey, enew, eloc) = host_data()
+    recipe = dict(coords=rx, obs=ry, coords_scale=[5e4, 5e4], obs_mean="local")
+    expert = dict(coords=ex, obs=ey, coords_scale=[5e4, 5e4], obs_mean="local", noise_variance=0.0025)
+    svgp_cfg = json.loads(SVGP_CONFIG.read_text())["model"]
+    vff_cfg = json.loads(VFF_CONFIG.read_text())["model"]
+    cons_raw = vff_cfg["constraints"]  # the two configs share it (raw units)
+
+    def built(cls, kw, constraints, scale=False):
+        def make(device, dtype):
+            np.random.seed(0)  # the inducing points' draw
+            m = get_model(cls)(**kw, device=device, dtype=dtype)
+            m.set_parameter_constraints(constraints, scale=scale)
+            return m
+        return make
+
+    recipe_cons = {"lengthscales": {"low": 0.1, "high": 20.0}}
+    out = {}
+    # one pair per evaluation ((it + 1) of them) and one in the predict,
+    # W / 64 launches each; SGPR two pairs (Kuu and B) per evaluation and in
+    # the predict; SVGP's collapsed solver two per evaluation, two in its
+    # closed-form q and one (Kuu) in the predict
+    out["gpr"] = host_class("gpr", built("GPflowGPRModel", recipe, recipe_cons), {"max_iter": HOST_MAX_ITER},
+                            lambda it: (it + 2) * 7, rnew)
+    out["sgpr"] = host_class("sgpr", built("GPflowSGPRModel", dict(coords=tx, obs=ty, num_inducing_points=SGPR_M),
+                                           {}), {"max_iter": HOST_MAX_ITER},
+                             lambda it: 2 * (it + 2) * 8, tnew)
+    svgp_ip = {k: v for k, v in svgp_cfg["init_params"].items() if k in ("num_inducing_points", "likelihood")}
+    out["svgp"] = host_class("svgp", built("GPflowSVGPModel", {**expert, **svgp_ip}, svgp_cfg["constraints"], True),
+                             {"solver": "collapsed", "max_iter": HOST_MAX_ITER},
+                             lambda it: 2 * (it + 1) + 3, enew, ref_opt={})
+    vff_ip = {k: vff_cfg["init_params"][k] for k in ("kernel", "num_inducing_features", "domain_size")}
+    out["vff"] = host_class("vff", built("GPflowVFFModel", {**expert, **vff_ip, "expert_loc": eloc}, cons_raw, True),
+                            {"max_iter": HOST_MAX_ITER}, lambda it: (it + 2) * 6, enew)
+    out["asvgp"] = host_class("asvgp", built("GPflowASVGPModel", {**recipe, "num_inducing_features": 20},
+                                             recipe_cons), {"max_iter": HOST_MAX_ITER}, lambda it: (it + 2) * 7, rnew)
+    a_s = time.perf_counter() - t_phase
+
+    # (b) the host-serial lane: TorchGPRModel f64, card against CPU; PureNumpyGPR
+    for fn in counters().values():
+        fn.launches = 0
+    card, card_s = host_lane_sweep("GPyTorchGPRModel", HOST_LANE_EXPERTS, None, torch.float64)
+    lane_launches = {k: fn.launches for k, fn in counters().items()}
+    cpu, cpu_s = host_lane_sweep("GPyTorchGPRModel", HOST_LANE_EXPERTS, "cpu", torch.float64)
+    common = sorted(set(card) & set(cpu))
+    d = max(max_abs_pred_diff(card[e], cpu[e]) for e in common)
+    pnp = pure_numpy_result(*child)
+    log("host_lane", experts=len(card), torch_card_f64_s=card_s, torch_cpu_f64_s=cpu_s,
+        torch_card_experts_per_s=len(card) / card_s, card_vs_cpu_f64=d, bound=HOST_LANE_BOUND,
+        launches=lane_launches, pure_numpy=pnp, pure_numpy_env=PURE_NUMPY_ENV)
+    check(len(card) == len(cpu) == len(common) == pnp["experts"] > 0, "host lane: experts differ between the runs")
+    check(d <= HOST_LANE_BOUND, f"host lane: TorchGPRModel card f64 vs CPU f64 {d}")
+    check(pnp["finite"], "host lane: non-finite PureNumpyGPR predictions")
+    check(pnp["converged"] >= MIN_SHARE * pnp["experts"],
+          f"host lane: PureNumpyGPR converged {pnp['converged']}/{pnp['experts']}")
+
+    # (c) profile_dir: the trace LocalExpertOI.run(profile_dir=...) writes
+    trace_dir = ROOT / "chiprun_out" / "host_profile_dir"
+    before = set(trace_dir.glob("*.pt.trace.json")) if trace_dir.exists() else set()
+    host_lane_sweep("GPyTorchGPRModel", HOST_TRACE_EXPERTS, None, torch.float32, profile_dir=str(trace_dir),
+                    optim_kwargs={"n_iter": HOST_TRACE_STEPS})
+    traces = sorted(set(trace_dir.glob("*.pt.trace.json")) - before)
+    log("host_profile_dir", traces=[str(t.relative_to(ROOT)) for t in traces],
+        bytes=[t.stat().st_size for t in traces])
+    check(len(traces) == 1 and traces[0].stat().st_size > 0, f"host profile_dir: traces written {traces}")
+    log("host", seconds=time.perf_counter() - t_phase, classes_s=a_s)
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -1845,6 +2145,8 @@ def main(argv) -> int:
     (entries[0]["launches_svgp_collapsed"], entries[0]["launches_svgp_bernoulli"],
      entries[0]["launches_svgp_adam_natgrad"], entries[0]["launches_svgp_config"]) = phase_svgp(profile)
     entries[0]["launches_zoo_vff"], entries[0]["launches_zoo_asvgp"] = phase_zoo(profile)
+    for tag, n in phase_host().items():
+        entries[0][f"launches_host_{tag}"] = n
 
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

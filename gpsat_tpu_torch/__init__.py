@@ -8,7 +8,11 @@ The package imports nothing of ``gpsat_tpu`` and never imports ``jax``.
 It runs five model lanes, each a batched core fitted by the same engine:
 exact GPR (``models/functional.make_gpr_core``), sparse GPR
 (``models/sgpr``), SVGP (``models/svgp``), and the collapsed inter-domain
-lanes VFF (``models/vff``) and ASVGP (``models/asvgp``).
+lanes VFF (``models/vff``) and ASVGP (``models/asvgp``). The same five are
+host-facing classes too (``models.get_model("GPflowGPRModel")(data=df,
+...)``: one expert, fitted and predicted at B = 1), and any other model
+class (numpy, sklearn, torch, or a user's) runs on the host-serial lane,
+one model object per expert.
 
 Three hand-written CUDA kernels replace the JAX package's Pallas kernels:
 the 64x64 diagonal-block Cholesky + inverse (``csrc/block_chol.cu``, bound in

@@ -1,4 +1,4 @@
-"""LocalExpertOI — the experiment orchestrator (exact-GPR, SGPR, SVGP, VFF and ASVGP lanes).
+"""LocalExpertOI — the experiment orchestrator (five batched lanes and the host-serial lane).
 
 Port of ``gpsat_tpu/experts.py`` (ref: GPSat/local_experts.py:116-1279). It
 keeps the JAX package's config surface and results schema:
@@ -37,9 +37,15 @@ solver is Adam runs the Adam runner (``learning_rate``, ``check_every``,
 ignored), every other core L-BFGS. ``replacement_threshold``
 routes the experts with fewer observations than it to a second lane, the
 replacement model's (by default the main model with other settings), which
-is assembled, fitted, polished and stored on its own. Options outside these
-lanes raise ``NotImplementedError`` naming their ROADMAP.md item: models
-without a batched core (the host-serial lane), mesh and profile_dir.
+is assembled, fitted, polished and stored on its own. A model class without
+a batched core (the host models ``PureNumpyGPR``, ``SklearnGPRModel``,
+``TorchGPRModel``, ``TorchKISSGPModel``, or a user's class given as
+``{"path_to_model", "model_name"}``) runs on the host-serial lane: one model
+object per expert (``run_host_batch``), with the batched lanes' result
+tables. The route is the class's (``batched_lane``): a batched core that
+fails to build raises and never falls through to the host lane.
+``profile_dir`` writes a ``torch.profiler`` trace of the run there. ``mesh``
+raises ``NotImplementedError`` naming its ROADMAP.md item.
 
 Behaviours of the JAX package's code kept as they are:
 ``load_params={"previous": True}`` leaves each batch's init unchanged (the
@@ -66,7 +72,17 @@ from gpsat_tpu_torch.data import dataloader as DL
 from gpsat_tpu_torch.data import select as sel
 from gpsat_tpu_torch.data.prediction_locations import PredictionLocations
 from gpsat_tpu_torch.data.store import TableStore, is_pytables_store
-from gpsat_tpu_torch.models import ASVGPModel, GPRModel, SGPRModel, SVGPModel, VFFModel, get_model
+from gpsat_tpu_torch.models import (
+    ASVGPModel,
+    GPRModel,
+    SGPRModel,
+    SVGPModel,
+    VFFModel,
+    filter_kwargs,
+    get_model,
+    placement_kwargs,
+    probe_model,
+)
 from gpsat_tpu_torch.models.asvgp import make_asvgp_core
 from gpsat_tpu_torch.models.functional import ModelCore, make_gpr_core
 from gpsat_tpu_torch.models.gpr import PARAM_NAMES
@@ -231,15 +247,32 @@ def _scaled_domain_size(init_params: dict):
     return np.asarray(ds, dtype=float).reshape(-1) / np.asarray(init_params["coords_scale"], dtype=float).reshape(-1)
 
 
+_BATCHED_LANES = {"GPRModel": GPRModel, "SGPRModel": SGPRModel, "SVGPModel": SVGPModel, "VFFModel": VFFModel,
+                  "ASVGPModel": ASVGPModel}
+
+
+def batched_lane(model_cls) -> Optional[str]:
+    """The batched lane of a model class ("GPRModel", "SGPRModel",
+    "SVGPModel", "VFFModel" or "ASVGPModel": one of the five classes, or a
+    class of one of their names or reference names), or None: a class
+    without a batched core runs on the host-serial lane. The route is the
+    class's; a failure to build its core raises and never reroutes it."""
+    name = getattr(model_cls, "__name__", "")
+    for lane, cls in _BATCHED_LANES.items():
+        if model_cls is cls or name in (lane, f"GPflow{lane}"):
+            return lane
+    return None
+
+
 def make_core_for_model(model_cls, kernel: str, bijectors, init_params, factor: str = "block") -> ModelCore:
     """Map a model class to its functional core (exact GPR, SGPR, SVGP, VFF
     or ASVGP). ``factor`` names the factor route of the core's pairs
     (``ops/linalg``); the SVGP core takes the default "block" route only."""
-    name = getattr(model_cls, "__name__", "")
+    lane = batched_lane(model_cls)
     route = {} if factor == "block" else {"factor": factor}
-    if route and (model_cls is SVGPModel or name in ("SVGPModel", "GPflowSVGPModel")):
+    if route and lane == "SVGPModel":
         raise ValueError(f"the SVGP core takes the 'block' factor route only, got {factor!r}")
-    if model_cls is GPRModel or name in ("GPRModel", "GPflowGPRModel"):
+    if lane == "GPRModel":
         return make_gpr_core(
             kernel=kernel,
             bijectors=bijectors_from(bijectors),
@@ -247,7 +280,7 @@ def make_core_for_model(model_cls, kernel: str, bijectors, init_params, factor: 
             mean_function=init_params.get("mean_function"),
             **route,
         )
-    if model_cls is SGPRModel or name in ("SGPRModel", "GPflowSGPRModel"):
+    if lane == "SGPRModel":
         # the inducing points take the identity bijector inside the core
         return make_sgpr_core(
             kernel=kernel,
@@ -259,7 +292,7 @@ def make_core_for_model(model_cls, kernel: str, bijectors, init_params, factor: 
             chunk_size=init_params.get("chunk_size", "auto"),
             **route,
         )
-    if model_cls is SVGPModel or name in ("SVGPModel", "GPflowSVGPModel"):
+    if lane == "SVGPModel":
         return make_svgp_core(
             kernel=kernel,
             bijectors=bijectors_from(bijectors),
@@ -277,7 +310,7 @@ def make_core_for_model(model_cls, kernel: str, bijectors, init_params, factor: 
             # L-BFGS otherwise; "adam" the reference's optimiser
             solver=init_params.get("solver", "auto"),
         )
-    if model_cls is VFFModel or name in ("VFFModel", "GPflowVFFModel"):
+    if lane == "VFFModel":
         # the per-tile domain takes the identity bijector inside the core
         return make_vff_core(
             kernel=kernel,
@@ -287,7 +320,7 @@ def make_core_for_model(model_cls, kernel: str, bijectors, init_params, factor: 
             mean_function=init_params.get("mean_function"),
             **route,
         )
-    if model_cls is ASVGPModel or name in ("ASVGPModel", "GPflowASVGPModel"):
+    if lane == "ASVGPModel":
         return make_asvgp_core(
             # the reference's ASVGP defaults to Matern12, not the engine's
             # generic Matern32
@@ -298,7 +331,7 @@ def make_core_for_model(model_cls, kernel: str, bijectors, init_params, factor: 
             mean_function=init_params.get("mean_function"),
             **route,
         )
-    raise _not_ported(f"a model without a batched core ({model_cls}, the host-serial lane)", 3)
+    raise ValueError(f"no batched core for model {model_cls}: it runs on the host-serial lane (lane_core)")
 
 
 def bijectors_from(bij):
@@ -360,6 +393,205 @@ def initial_cparams(core: ModelCore, init_params: dict, constraints, D: int) -> 
                 low = low / coords_scale
                 high = high / coords_scale
             out[pname] = np.reshape(T.move_within_tol(out[pname], low, high, tol=1e-2), np.shape(out[pname]))
+    return out
+
+
+# --------------------------------------------------------------------------
+# the host-serial lane: one model object per expert, for the classes without
+# a batched core (gpsat_tpu/experts.py:1136-1225, 1424-1508)
+# --------------------------------------------------------------------------
+
+# init_params keys the OI layer consumes itself: scaling and de-meaning are
+# applied in tile assembly, so the model must not apply them again
+_HOST_RESERVED_INIT_KEYS = ("coords_scale", "obs_mean", "obs_scale", "smart_init", "jitter")
+
+
+def _host_model_kwargs(init_params: dict) -> dict:
+    return {k: v for k, v in init_params.items() if k not in _HOST_RESERVED_INIT_KEYS}
+
+
+class _HostCore:
+    """The two pieces of a ModelCore that the OI bookkeeping needs for a
+    host-serial lane, ``param_names`` and ``init_cparams``, read off a
+    throwaway model built on dummy data (``models.probe_model``) on
+    ``device`` in ``dtype``; a class that cannot be built so falls back to
+    the GPR trio."""
+
+    num_features = None  # no factor pair for the sweep's memory cap to size
+
+    def __init__(self, model_cls, n_dims: int, init_params: dict, optim_kwargs: dict, device=None, dtype=None):
+        self.model_cls = model_cls
+        self.init_params = dict(init_params or {})
+        self.optim_kwargs = dict(optim_kwargs or {})
+        self.device, self.dtype = device, dtype
+        self._defaults = {}
+        try:
+            probe = probe_model(model_cls, n_dims, _host_model_kwargs(self.init_params), device=device, dtype=dtype)
+            self.param_names = list(probe.param_names)
+            for p in self.param_names:
+                try:
+                    self._defaults[p] = np.asarray(getattr(probe, f"get_{p}")(), dtype=float)
+                except Exception:
+                    pass
+        except Exception:
+            self.param_names = list(PARAM_NAMES)
+
+    def init_cparams(self, D: int, dtype=np.float64, overrides=None) -> dict:
+        out = {}
+        for p in self.param_names:
+            if p in self._defaults:
+                out[p] = self._defaults[p].copy()
+            else:
+                out[p] = np.ones(D) if p == "lengthscales" else np.asarray(1.0)
+        for k, v in (overrides or {}).items():
+            if k in out:
+                out[k] = np.reshape(np.asarray(v, dtype=float), np.shape(out[k]))
+        return out
+
+
+def lane_core(model_cls, init_params: dict, constraints, optim_kwargs: dict, n_dims: int, device=None,
+              dtype=None, factor: str = "block"):
+    """A lane's core, by class: the batched core of a class that has one
+    (``core_for``), else a ``_HostCore`` for the host-serial lane."""
+    if batched_lane(model_cls) is not None:
+        return core_for(init_params, constraints, model_cls=model_cls, factor=factor)
+    return _HostCore(model_cls, n_dims, init_params, optim_kwargs, device=device, dtype=dtype)
+
+
+def _stack_param_lanes(vals: list) -> np.ndarray:
+    """One parameter's per-expert values as [B, ...]; an expert whose getter
+    failed (a 0-d NaN) is filled to the others' shape."""
+    shapes = [np.shape(v) for v in vals if np.ndim(v)]
+    tgt = shapes[0] if shapes else ()
+    fixed = []
+    for v in vals:
+        try:
+            fixed.append(np.broadcast_to(np.asarray(v, dtype=float), tgt).copy())
+        except ValueError:
+            fixed.append(np.full(tgt, np.nan))
+    return np.stack(fixed)
+
+
+def run_host_batch(batch, host_core: _HostCore, per_expert_init: dict, constraints, *, optimise: bool = True,
+                   predict: bool = True) -> dict:
+    """The host-serial lane's run of one tile bucket: one model per expert,
+    built on its scaled, de-meaned tile (the reference's own loop, ref:
+    local_experts.py:930-1260), with the init values that differ from the
+    lane's defaults pushed through its setters, the constraints (bounds
+    divided by coords_scale for the lengthscales) applied, then
+    ``optimise_parameters`` and ``predict``. Returns the result dict of a
+    batched bucket (``engine.run_tile_batch``), so that storage, restart
+    and ``load_params`` treat the lanes alike. ``num_iter`` is the model's
+    own count where it keeps one (``_last_opt_result.num_iter``, else
+    ``_last_num_iter``), NaN where its optimiser hides it."""
+    model_cls = host_core.model_cls
+    ip = host_core.init_params
+    model_kwargs = _host_model_kwargs(ip)
+    place = placement_kwargs(model_cls, host_core.device, host_core.dtype)
+    optim_kwargs = {k: v for k, v in host_core.optim_kwargs.items() if k != "fixed_params"}
+    coords_scale = np.asarray(ip.get("coords_scale", 1.0), dtype=float).reshape(-1)
+    D = batch.X.shape[-1]
+
+    base = host_core.init_cparams(D)
+    perx = {}
+    for p, v in per_expert_init.items():
+        if p == "smart_init":
+            continue
+        tgt = np.shape(base.get(p, np.asarray(0.0)))
+        v = np.asarray(v, dtype=float)
+        perx[p] = v if v.shape == (batch.B,) + tgt else np.broadcast_to(v, (batch.B,) + tgt).copy()
+    scaled_constraints = {}
+    for pname, c in (constraints or {}).items():
+        low, high = np.asarray(c["low"], dtype=float), np.asarray(c["high"], dtype=float)
+        if pname == "lengthscales" and ip.get("coords_scale") is not None:
+            low, high = low / coords_scale, high / coords_scale
+        scaled_constraints[pname] = {"low": low, "high": high}
+
+    keys = ("expert_index", "num_obs", "objective", "converged", "num_iter", "stalled", "failed", "f_mean", "f_var",
+            "y_var", "pred_mask", "obs_mean")
+    res = {k: [] for k in keys}
+    pvals = {p: [] for p in host_core.param_names}
+    for j in range(batch.B):
+        ei = int(batch.expert_index[j])
+        if ei < 0:
+            continue
+        n = int(batch.num_obs[j])
+        expert_loc = None if batch.expert_loc is None else np.asarray(batch.expert_loc[j], dtype=float)
+        model = model_cls(
+            coords=np.asarray(batch.X[j, :n]),
+            obs=np.asarray(batch.y[j, :n]),
+            **filter_kwargs(model_cls, {"verbose": False, "expert_loc": expert_loc, **model_kwargs}),
+            **place,
+        )
+        # only values that differ from the lane's defaults (explicit inits,
+        # constraint nudges, loaded warm starts) are set: the reference
+        # passes init_params through the constructor and never sets a
+        # default (ref: local_experts.py:1046-1101), which matters for
+        # models with untrainable params (sklearn's fixed-alpha noise)
+        for p, v in perx.items():
+            if p not in host_core.param_names:
+                continue
+            if p in base and np.array_equal(v[j], np.asarray(base[p], dtype=float)):
+                continue
+            try:
+                getattr(model, f"set_{p}")(v[j])
+            except Exception as e:
+                warnings.warn(f"host lane: set_{p} failed ({e}); using model default")
+        if scaled_constraints:
+            try:
+                fn = model.set_parameter_constraints
+                fn(scaled_constraints, **filter_kwargs(fn, {"move_within_tol": True, "tol": 1e-2}))
+            except Exception as e:
+                warnings.warn(f"host lane: constraints not applied ({e})")
+        ok, ni = True, 0.0
+        if optimise:
+            try:
+                ok = bool(model.optimise_parameters(**filter_kwargs(model.optimise_parameters, optim_kwargs)))
+            except Exception as e:
+                warnings.warn(f"host lane: optimise_parameters failed: {e}")
+                ok = False
+            r = getattr(model, "_last_opt_result", None)
+            if r is not None and getattr(r, "num_iter", None) is not None:
+                ni = float(np.asarray(r.num_iter))
+            elif getattr(model, "_last_num_iter", None) is not None:
+                ni = float(model._last_num_iter)
+            else:
+                ni = np.nan
+        try:
+            obj = float(model.get_objective_function_value())
+        except Exception:
+            obj = np.nan
+
+        p_count = int(batch.pred_mask[j].sum())
+        fm, fv, yv = (np.zeros(batch.Pmax) for _ in range(3))
+        if predict and p_count:
+            pred = model.predict(coords=np.asarray(batch.Xnew[j, :p_count]),
+                                 **filter_kwargs(model.predict, {"apply_scale": False}))
+            fm[:p_count] = np.asarray(pred["f*"], dtype=float).reshape(-1)
+            fv[:p_count] = np.asarray(pred["f*_var"], dtype=float).reshape(-1)
+            if "y_var" in pred:
+                yv[:p_count] = np.asarray(pred["y_var"], dtype=float).reshape(-1)
+            else:
+                # no noisy-prediction variance (sklearn): add the likelihood
+                # variance where the model exposes it
+                try:
+                    nv = float(np.ravel(model.get_likelihood_variance())[0])
+                except Exception:
+                    nv = 0.0
+                yv[:p_count] = fv[:p_count] + nv
+        r = getattr(model, "_last_opt_result", None)
+        stalled = getattr(r, "stalled", None)
+        for k, v in zip(keys, (ei, n, obj, ok, ni, bool(np.asarray(stalled)) if stalled is not None else False,
+                               not np.isfinite(obj), fm, fv, yv, np.asarray(batch.pred_mask[j], dtype=float),
+                               float(batch.obs_mean[j]))):
+            res[k].append(v)
+        for p in host_core.param_names:
+            try:
+                pvals[p].append(np.asarray(getattr(model, f"get_{p}")(), dtype=float))
+            except Exception:
+                pvals[p].append(np.asarray(np.nan))
+    out = {k: np.asarray(v) for k, v in res.items()}
+    out.update({p: _stack_param_lanes(v) for p, v in pvals.items() if v})
     return out
 
 
@@ -440,11 +672,14 @@ class _Lane:
     loaded: Optional[dict]
 
 
-def _make_lane(name, model, init_params, constraints, optim_kwargs, loaded, *, dtype, optimise, pad_multiple,
-               dev) -> _Lane:
+def _make_lane(name, model, init_params, constraints, optim_kwargs, loaded, *, n_dims, dtype, optimise,
+               pad_multiple, dev) -> _Lane:
     model = get_model(model) if isinstance(model, str) else model
     ip = init_params or {}
-    core = core_for(ip, constraints, model_cls=model)
+    core = lane_core(model, ip, constraints, optim_kwargs, n_dims, device=dev, dtype=dtype)
+    if isinstance(core, _HostCore):
+        # one model per expert: no runner, no compaction
+        return _Lane(name, getattr(model, "__name__", str(model)), core, None, None, ip, constraints, loaded)
     fixed = tuple(dict.fromkeys(tuple(optim_kwargs.get("fixed_params", ())) + tuple(core.default_fixed_params)))
     if core.optimizer == "adam":
         for k in ("two_stage_iters", "carry_iters"):
@@ -529,7 +764,11 @@ def sweep(
     (host-synchronous: the tail depends on the head's results), whose result
     adds "compaction" (the engine's widths and iterations of each part).
 
-    ``model`` (a class of ``models.get_model`` or its name) picks the core.
+    ``model`` (a class of ``models.get_model``, its name, or any class with
+    the BaseGPRModel contract) picks the lane: the batched core of one of
+    the five classes that have one, else the host-serial lane, which builds
+    one model per expert on the f64 tiles (``run_host_batch``; no polish,
+    device and dtype passed to a constructor that names them).
     With ``replacement_threshold``, the experts with fewer observations than
     it run in a second lane: ``replacement_model``, ``_init_params`` and
     ``_constraints`` default to the main lane's, ``replacement_optim_kwargs``
@@ -561,7 +800,7 @@ def sweep(
     dev = resolve_device(device)
     optim_kwargs = dict(optim_kwargs or {})
     timers = {} if timers is None else timers
-    lane_kw = dict(dtype=dtype, optimise=optimise, pad_multiple=pad_multiple, dev=dev)
+    lane_kw = dict(n_dims=len(coords_col), dtype=dtype, optimise=optimise, pad_multiple=pad_multiple, dev=dev)
     lanes = [_make_lane("main", model, init_params, constraints, optim_kwargs, loaded_params, **lane_kw)]
     if replacement_threshold is not None:
         lanes.append(_make_lane(
@@ -601,7 +840,7 @@ def sweep(
     def finish(fin, batch, t0, lane):
         with _phase(timers, "device_fetch"):
             res = fin()
-        if polish:
+        if polish and lane.runner is not None:
             with _phase(timers, "polish"):
                 coarse = res
                 res = polish_tile_batch(
@@ -635,7 +874,8 @@ def sweep(
                 # dense exact GPR keeps ~8 [B, Nmax, Nmax] buffers live, an
                 # inter-domain core as many [B, W, W] of its padded feature
                 # count W; a sparse core's working set is O(B M (M + C)): no cap
-                memory_cap=lane.core.name.startswith("GPR[") or lane.core.num_features is not None,
+                memory_cap=lane.runner is not None and (lane.core.name.startswith("GPR[")
+                                                        or lane.core.num_features is not None),
                 cap_width=_factor_width(lane.core, len(coords_col)),
                 device=dev,
             )
@@ -645,7 +885,14 @@ def sweep(
             init = _bucket_init(init_cparams, lane.loaded, b.expert_index)
             # tiles are assembled in f64; the polish re-fits from them
             cast = batching.cast_batch(b, np_dtype)
-            if lane.compaction is not None:
+            if lane.runner is None:
+                # the host-serial lane runs the bucket's models one by one on
+                # the f64 tiles, each on the sweep's device in its dtype
+                with _phase(timers, "host_model"):
+                    host_res = run_host_batch(b, lane.core, init, lane.constraints, optimise=optimise,
+                                              predict=predict)
+                fin = functools.partial(dict, host_res)
+            elif lane.compaction is not None:
                 # runs whole when finish() asks for it, after the previous bucket
                 fin = functools.partial(lane.compaction, cast, init)
             else:
@@ -760,11 +1007,21 @@ class LocalExpertOI:
     ):
         cfg = {k: v for k, v in locals().items() if k != "self" and v is not None}
         self.config["model"] = json_serializable(cfg)
-        if isinstance(oi_model, dict):
-            raise _not_ported("oi_model given as {path_to_model, model_name} (the host-serial lane)", 3)
 
         self.oi_model_name = oi_model if isinstance(oi_model, str) else getattr(oi_model, "__name__", str(oi_model))
-        self.model = get_model(oi_model) if isinstance(oi_model, str) else oi_model
+        if isinstance(oi_model, str):
+            self.model = get_model(oi_model)
+        elif isinstance(oi_model, dict):
+            # a user's class: {"path_to_model": module, "model_name": class},
+            # the module found on sys.path with path_to_model appended to it
+            import importlib
+            import sys
+
+            sys.path.append(oi_model["path_to_model"])
+            module = importlib.import_module(oi_model["path_to_model"])
+            self.model = getattr(module, oi_model["model_name"])
+        else:
+            self.model = oi_model
         self.model_init_params = init_params or {}
         self.constraints = constraints
         self.model_load_params = load_params
@@ -808,13 +1065,6 @@ class LocalExpertOI:
         cprint(f"for table: {table} keeping {keep.sum()} / {len(keep)} expert locations", c="OKCYAN")
         return xprt_locs.loc[keep].copy()
 
-    def _core_for(self, model_cls=None, init_params=None, constraints=None) -> ModelCore:
-        """The functional core for a model + init params."""
-        return core_for(
-            self.model_init_params if init_params is None else init_params,
-            self.constraints if constraints is None else constraints,
-            model_cls=self.model if model_cls is None else model_cls,
-        )
 
     # ---- the sweep ----
     def run(self, *args, **kwargs):
@@ -865,18 +1115,29 @@ class LocalExpertOI:
         # every refusal comes before the store is touched
         _no_mesh(mesh)
         if profile_dir is not None:
-            raise _not_ported("profile_dir (tracing a run)", 3)
+            # a torch.profiler trace of the whole run under profile_dir
+            # (the JAX package writes a jax.profiler trace there)
+            from gpsat_tpu_torch.decorators import profile_trace
+
+            with profile_trace(profile_dir):
+                return self._run(
+                    store_path=store_path, store_every=store_every, check_config_compatible=check_config_compatible,
+                    skip_valid_checks_on=skip_valid_checks_on, optimise=optimise, predict=predict, min_obs=min_obs,
+                    table_suffix=table_suffix, max_batch_size=max_batch_size, pad_multiple=pad_multiple,
+                    device=device, dtype=dtype,
+                )
         dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
         dev = resolve_device(device)
         check_optim_kwargs(self.optim_kwargs, dtype, optimise)
-        # each lane's model, init params and constraints; the replacement
-        # lane's settings are checked here too, before the store is touched
-        lane_cfg = {"main": (self.model, self.model_init_params, self.constraints)}
+        # each lane's model, init params, constraints and optim_kwargs; the
+        # replacement lane's settings are checked here too, before the store
+        # is touched
+        lane_cfg = {"main": (self.model, self.model_init_params, self.constraints, self.optim_kwargs)}
         repl_kw = {}
         if self.replacement_threshold is not None:
             check_optim_kwargs(self.replacement_optim_kwargs, dtype, optimise)
             lane_cfg["replacement"] = (self.replacement_model, self.replacement_init_params,
-                                       self.replacement_constraints)
+                                       self.replacement_constraints, self.replacement_optim_kwargs)
             repl_kw = dict(
                 replacement_threshold=self.replacement_threshold,
                 replacement_model=self.replacement_model,
@@ -884,7 +1145,8 @@ class LocalExpertOI:
                 replacement_constraints=self.replacement_constraints,
                 replacement_optim_kwargs=self.replacement_optim_kwargs,
             )
-        lane_cores = {lane: self._core_for(*cfg) for lane, cfg in lane_cfg.items()}
+        n_dims = len(self.data.coords_col) if self.data is not None and self.data.coords_col else 0
+        lane_cores = {lane: lane_core(*cfg, n_dims, device=dev, dtype=dtype) for lane, cfg in lane_cfg.items()}
         assert isinstance(self.expert_locs, pd.DataFrame), "expert_locs must be a DataFrame — call set_expert_locations"
         assert self.data is not None and self.data.data_source is not None, "'data_source' is None"
         assert self.model is not None, "'model' is None — call set_model"
@@ -929,7 +1191,7 @@ class LocalExpertOI:
             groups[key]["rows"].append(i)
 
         lane_init = {lane: initial_cparams(lane_cores[lane], ip, cons, len(coords_col))
-                     for lane, (_, ip, cons) in lane_cfg.items()}
+                     for lane, (_, ip, cons, _) in lane_cfg.items()}
         device_name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
         model_name = f"gpsat_tpu_torch.{getattr(self.model, '__name__', str(self.model))}"
         total = len(xprt_locs)

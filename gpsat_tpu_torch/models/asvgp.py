@@ -1,9 +1,10 @@
-"""ASVGP: actually sparse variational GP with B-spline inducing features, batched over B.
+"""ASVGP: actually sparse variational GP with B-spline inducing features,
+batched over B, and the host-facing single-expert model.
 
-Port of the functional part of ``gpsat_tpu/models/asvgp.py``: the bases
-``hat_basis_eval``, ``b2_basis`` and ``b3_basis``, the banded RKHS Grams
-``matern{12,32,52}_spline_kuu``, ``elbo``, ``predict`` (with ``full_cov``)
-and ``make_asvgp_core``. Data is ``{"X": [B, N, D], "y": [B, N], "mask":
+Port of ``gpsat_tpu/models/asvgp.py``: the bases ``hat_basis_eval``,
+``b2_basis`` and ``b3_basis``, the banded RKHS Grams
+``matern{12,32,52}_spline_kuu``, ``elbo``, ``predict`` (with ``full_cov``),
+``make_asvgp_core`` and ``ASVGPModel`` (the bound at B = 1). Data is ``{"X": [B, N, D], "y": [B, N], "mask":
 [B, N]}``; params are dicts of [B, ...] tensors, the per-tile uniform knot
 grids [B, D, M] among them.
 
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from gpsat_tpu_torch.models import means as MF
+from gpsat_tpu_torch.models.base import TorchCoreModel, lane_param_names
 from gpsat_tpu_torch.models.vff import (
     masked_range,
     collapsed_elbo,
@@ -324,3 +326,86 @@ def make_asvgp_core(
         prepare_batch_init=prepare_batch_init,
         num_features=lambda D: (M + EXTRA_FEATURES[kernel]) ** D,
     )
+
+
+class ASVGPModel(TorchCoreModel):
+    """ASVGP on one expert (gpsat_tpu/models/asvgp.py::ASVGPModel): Matern12
+    with the hat basis by default (Matern32 / B2 and Matern52 / B3 too), a
+    uniform grid of ``num_inducing_features`` knots per dimension over the
+    data's range +- ``margin`` (scaled units, per dimension or shared). The
+    objective is the collapsed bound; P's factor pair goes through kernel 1
+    in f32 on the card."""
+
+    PARAM_NAMES = tuple(PARAM_NAMES)
+    param_names = lane_param_names((*PARAM_NAMES, "knots"))
+
+    def __init__(
+        self,
+        data=None,
+        coords_col=None,
+        obs_col=None,
+        coords=None,
+        obs=None,
+        coords_scale=None,
+        obs_scale=None,
+        obs_mean=None,
+        verbose: bool = False,
+        *,
+        kernel: str = "Matern12",
+        num_inducing_features: Optional[int] = None,
+        domain_size=None,
+        expert_loc=None,
+        noise_variance: Optional[float] = None,
+        margin=0.1,
+        device=None,
+        dtype=torch.float64,
+        **kwargs,
+    ):
+        self._init_device(device, dtype)
+        mean_function = MF.validate(kwargs.pop("mean_function", None))
+        super().__init__(
+            data=data,
+            coords_col=coords_col,
+            obs_col=obs_col,
+            coords=coords,
+            obs=obs,
+            coords_scale=coords_scale,
+            obs_scale=obs_scale,
+            obs_mean=obs_mean,
+            verbose=verbose,
+        )
+        assert kernel in SPLINE_PAIRS, (
+            f"ASVGP implements the Matern12/B1, Matern32/B2 and Matern52/B3 spline pairs; got kernel={kernel!r} "
+            "— use VFF or SGPR for other kernels"
+        )
+        assert num_inducing_features is not None, "num_inducing_features must be specified"
+        self.kernel = kernel
+        D = self.coords.shape[1]
+        M = int(num_inducing_features)
+        margin = np.broadcast_to(np.asarray(margin, dtype=float).reshape(-1), (D,))
+        lo, hi = self.coords.min(axis=0) - margin, self.coords.max(axis=0) + margin
+        self.knots_list = [np.linspace(lo[i], hi[i], M) for i in range(D)]
+        self._init_gpr_params(np.ones(D), 1.0, noise_variance, mean_function)
+
+    def _knots(self) -> torch.Tensor:
+        return self._tensor(np.stack(self.knots_list))[None]
+
+    def get_objective_function_value(self) -> float:
+        """The collapsed bound."""
+        with torch.no_grad():
+            return float(elbo(self._cparams(), self._data_dict(), self._knots(), self.kernel)[0])
+
+    def optimise_parameters(self, max_iter: int = 10_000, fixed_params=None, **opt_kwargs) -> bool:
+        data, knots = self._data_dict(), self._knots()
+        return self._minimize(lambda c: -elbo(c, data, knots, self.kernel), list(fixed_params or []), max_iter,
+                              **opt_kwargs)
+
+    def predict(self, coords, full_cov: bool = False, apply_scale: bool = True) -> Dict[str, np.ndarray]:
+        with torch.no_grad():
+            pred = predict(self._cparams(), self._data_dict(), self._prediction_tensor(coords, apply_scale),
+                           self._knots(), self.kernel, full_cov=full_cov)
+        return self._prediction_out(pred, full_cov)
+
+    def set_lengthscales(self, v):
+        ls = np.atleast_1d(np.asarray(v, dtype=float))
+        self._params["lengthscales"] = np.full(self.coords.shape[1], ls[0]) if len(ls) == 1 else ls

@@ -1,10 +1,12 @@
-"""Exact Gaussian-process regression — functional core, batched over B.
+"""Exact Gaussian-process regression — functional core batched over B, and
+the host-facing single-expert model.
 
-Port of the functional part of ``gpsat_tpu/models/gpr.py``: ``neg_lml``
-(the fused analytic-gradient LML), ``neg_lml_profiled`` and
-``profiled_sigma2_hat`` (the kernel variance solved in closed form),
-``posterior_factors`` and ``predict``. Data is ``{"X": [B, N, D],
-"y": [B, N], "mask": [B, N]}``; params are dicts of [B, ...] tensors.
+Port of ``gpsat_tpu/models/gpr.py``: ``neg_lml`` (the fused
+analytic-gradient LML), ``neg_lml_profiled`` and ``profiled_sigma2_hat``
+(the kernel variance solved in closed form), ``posterior_factors``,
+``predict`` and ``GPRModel``, which evaluates them at B = 1. Data is
+``{"X": [B, N, D], "y": [B, N], "mask": [B, N]}``; params are dicts of
+[B, ...] tensors.
 ``factor`` names the factor route (ops/linalg.FACTOR_ROUTES).
 
 Both objectives use the fused analytic-gradient form in every dtype for the
@@ -17,9 +19,13 @@ objective takes the fused kernels only.
 
 from __future__ import annotations
 
+from typing import Dict, Optional
+
+import numpy as np
 import torch
 
 from gpsat_tpu_torch.models import means as MF
+from gpsat_tpu_torch.models.base import BaseGPRModel, TorchCoreModel, lane_param_names
 from gpsat_tpu_torch.ops import kernels as K
 from gpsat_tpu_torch.ops import linalg as LA
 from gpsat_tpu_torch.ops import transforms as T
@@ -131,3 +137,115 @@ def predict(
         Kss = K.gram(kernel, Xnew, Xnew, cparams["lengthscales"], cparams["kernel_variance"])
         out["f_cov"] = Kss - torch.matmul(v.transpose(1, 2), v)
     return out
+
+
+# --------------------------------------------------------------------------
+# host-facing single-expert model
+# --------------------------------------------------------------------------
+
+
+class GPRModel(TorchCoreModel):
+    """Exact GPR on one expert (the reference's GPflowGPRModel contract;
+    gpsat_tpu/models/gpr.py::GPRModel): param names ``lengthscales,
+    kernel_variance, likelihood_variance`` (+ mean_c, mean_A with a mean
+    function); predict returns ``{"f*", "f*_var", "y_var", "f_bar"}`` (+
+    ``f*_cov``, ``y_cov`` with ``full_cov``); constraints are sigmoid
+    reparameterisations; the fit is L-BFGS (zoom by default).
+
+    It evaluates the batched functions ``neg_lml`` and ``predict`` at B = 1
+    on ``device`` (default: the card) in ``dtype`` (default f64; f32 also
+    takes the f32 tolerances and the single-eval search). In f32 on the
+    card every factor pair runs through kernel 1 on the "block" route.
+    Read on the class, ``param_names`` is the batched lane's."""
+
+    PARAM_NAMES = tuple(PARAM_NAMES)
+    param_names = lane_param_names(PARAM_NAMES)
+
+    def __init__(
+        self,
+        data=None,
+        coords_col=None,
+        obs_col=None,
+        coords=None,
+        obs=None,
+        coords_scale=None,
+        obs_scale=None,
+        obs_mean=None,
+        verbose: bool = False,
+        *,
+        kernel: str = "Matern32",
+        kernel_kwargs: Optional[dict] = None,
+        noise_variance: Optional[float] = None,
+        jitter: float = 0.0,
+        device=None,
+        dtype=torch.float64,
+        **kwargs,
+    ):
+        self._init_device(device, dtype)
+        super().__init__(
+            data=data,
+            coords_col=coords_col,
+            obs_col=obs_col,
+            coords=coords,
+            obs=obs,
+            coords_scale=coords_scale,
+            obs_scale=obs_scale,
+            obs_mean=obs_mean,
+            verbose=verbose,
+        )
+        # trainable Constant / Linear prior means (ref: gpflow_models.py:143-157)
+        self.mean_function = MF.validate(kwargs.pop("mean_function", None))
+        mean_func_kwargs = dict(kwargs.pop("mean_func_kwargs", None) or {})
+        assert kernel in K.KERNEL_NAMES, f"kernel: {kernel} not in {K.KERNEL_NAMES}"
+        self.kernel = kernel
+        self.kernel_kwargs = dict(kernel_kwargs or {})
+        self.jitter = jitter
+        D = self.coords.shape[1]
+        self._init_gpr_params(
+            self.kernel_kwargs.pop("lengthscales", np.ones(D)),
+            self.kernel_kwargs.pop("variance", 1.0),
+            noise_variance,
+            self.mean_function,
+            MF.resolve_mean_kwargs(mean_func_kwargs, self.mean_function),
+        )
+
+    def update_obs_data(self, data=None, coords_col=None, obs_col=None, coords=None, obs=None, coords_scale=None,
+                        obs_scale=None, obs_mean=None):
+        """Swap the observation data in place, keeping the hyperparameters
+        (ref: gpflow_models.py:331-349: the base data ingestion again, its
+        arguments passed through, so omitted scales reset to their
+        defaults as in the reference)."""
+        BaseGPRModel.__init__(
+            self,
+            data=data,
+            coords_col=coords_col,
+            obs_col=obs_col,
+            coords=coords,
+            obs=obs,
+            coords_scale=coords_scale,
+            obs_scale=obs_scale,
+            obs_mean=obs_mean,
+        )
+        assert self.coords.shape[1] == len(self._params["lengthscales"]), (
+            "update_obs_data changed the coordinate dimension; rebuild the model instead"
+        )
+
+    def _neg_lml(self, cparams: dict, data: dict) -> torch.Tensor:
+        identity = {k: T.IDENTITY for k in cparams}
+        return neg_lml(cparams, data, kernel=self.kernel, bijectors=identity, jitter=self.jitter)
+
+    def optimise_parameters(self, max_iter: int = 10_000, fixed_params=None, **opt_kwargs) -> bool:
+        data = self._data_dict()
+        return self._minimize(lambda c: self._neg_lml(c, data), list(fixed_params or []), max_iter, **opt_kwargs)
+
+    def get_objective_function_value(self) -> float:
+        """The negative log marginal likelihood (the reference reports the
+        negative LML for GPR, gpflow_models.py:334-337)."""
+        with torch.no_grad():
+            return float(self._neg_lml(self._cparams(), self._data_dict())[0])
+
+    def predict(self, coords, full_cov: bool = False, apply_scale: bool = True) -> Dict[str, np.ndarray]:
+        with torch.no_grad():
+            pred = predict(self._cparams(), self._data_dict(), self._prediction_tensor(coords, apply_scale),
+                           kernel=self.kernel, jitter=self.jitter, full_cov=full_cov)
+        return self._prediction_out(pred, full_cov)

@@ -5,6 +5,7 @@ Port of ``gpsat_tpu/models/means.py`` for batched tensors:
   Constant:  m(x) = c                      params: mean_c [B]
   Linear:    m(x) = A^T x + c              params: mean_A [B, D], mean_c [B]
 
+``resolve_mean_kwargs`` reads a host model's ``mean_func_kwargs``.
 A deterministic prior mean enters the objective through the centred
 observations y - m(X), and predictions add m(Xnew) back. Mean params use
 identity bijectors (they are unconstrained reals).
@@ -31,6 +32,27 @@ def mean_param_names(mean_function) -> tuple:
     if mean_function == "Linear":
         return ("mean_c", "mean_A")
     return ()
+
+
+def resolve_mean_kwargs(mean_func_kwargs: dict, mean_function) -> dict:
+    """mean_func_kwargs -> {param name: value}, accepting both gpflow
+    spellings of the intercept, Constant(c=...) and Linear(A, b) (ref: gpflow
+    mean_functions.py). Unknown keys raise instead of being dropped."""
+    kw = dict(mean_func_kwargs or {})
+    out = {}
+    for alias in ("c", "b"):
+        if alias in kw:
+            assert "mean_c" not in out, "pass only one of 'c'/'b' for the intercept"
+            out["mean_c"] = kw.pop(alias)
+    if "A" in kw:
+        out["mean_A"] = kw.pop("A")
+    assert not kw, (
+        f"unknown mean_func_kwargs keys: {sorted(kw)} "
+        "(accepted: 'c' or 'b' for the intercept, 'A' for the Linear slope)"
+    )
+    bad = [p for p in out if p not in mean_param_names(mean_function)]
+    assert not bad, f"mean_func_kwargs {sorted(bad)} not applicable to mean_function={mean_function!r}"
+    return out
 
 
 def mean_param_defaults(mean_function, D: int, dtype=np.float64) -> dict:

@@ -1,8 +1,9 @@
-"""Sparse GPR (the Titsias 2009 collapsed bound), functional core batched over B.
+"""Sparse GPR (the Titsias 2009 collapsed bound), functional core batched
+over B, and the host-facing single-expert model.
 
-Port of the functional part of ``gpsat_tpu/models/sgpr.py``: ``elbo``,
-``neg_elbo``, ``predict`` (with ``full_cov``), ``pad_inducing_points`` and
-``make_sgpr_core``. Data is ``{"X": [B, N, D], "y": [B, N], "mask": [B, N]}``;
+Port of ``gpsat_tpu/models/sgpr.py``: ``elbo``, ``neg_elbo``, ``predict``
+(with ``full_cov``), ``pad_inducing_points``, ``make_sgpr_core`` and
+``SGPRModel``, which evaluates the bound at B = 1. Data is ``{"X": [B, N, D], "y": [B, N], "mask": [B, N]}``;
 params are dicts of [B, ...] tensors, the inducing points [B, M, D].
 
 Masked tiles: padded observation rows have their Kuf columns zeroed, so they
@@ -42,6 +43,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from gpsat_tpu_torch.models import means as MF
+from gpsat_tpu_torch.models.base import lane_param_names
+from gpsat_tpu_torch.models.gpr import GPRModel
 from gpsat_tpu_torch.ops import kernels as K
 from gpsat_tpu_torch.ops import linalg as LA
 from gpsat_tpu_torch.ops import transforms as T
@@ -272,3 +275,95 @@ def make_sgpr_core(
         default_fixed_params=() if train_inducing_points else ("inducing_points",),
         prepare_batch_init=functools.partial(prepare_inducing_init, M=M),
     )
+
+
+class SGPRModel(GPRModel):
+    """Sparse GPR on one expert (the reference's GPflowSGPRModel contract;
+    gpsat_tpu/models/sgpr.py::SGPRModel): ``num_inducing_points`` (default
+    500) inducing points, a random subset of the data drawn with
+    ``np.random.shuffle`` as the JAX class draws them (all the data when it
+    has fewer points, ref: gpflow_models.py:804-819); the objective the
+    collapsed bound, fixed inducing points unless ``train_inducing_points``.
+    ``get_objective_function_value`` is the bound itself, not negated (ref:
+    :860-862). Both factor pairs (Kuu and B) go through kernel 1 in f32 on
+    the card."""
+
+    PARAM_NAMES = tuple(PARAM_NAMES)
+    param_names = lane_param_names(PARAM_NAMES)
+
+    def __init__(
+        self,
+        data=None,
+        coords_col=None,
+        obs_col=None,
+        coords=None,
+        obs=None,
+        coords_scale=None,
+        obs_scale=None,
+        obs_mean=None,
+        verbose: bool = False,
+        *,
+        kernel: str = "Matern32",
+        num_inducing_points: int = 500,
+        kernel_kwargs: Optional[dict] = None,
+        noise_variance: Optional[float] = None,
+        jitter: float = DEFAULT_JITTER,
+        chunk_size="auto",
+        device=None,
+        dtype=torch.float64,
+        **kwargs,
+    ):
+        self.chunk_size = chunk_size
+        super().__init__(
+            data=data,
+            coords_col=coords_col,
+            obs_col=obs_col,
+            coords=coords,
+            obs=obs,
+            coords_scale=coords_scale,
+            obs_scale=obs_scale,
+            obs_mean=obs_mean,
+            verbose=verbose,
+            kernel=kernel,
+            kernel_kwargs=kernel_kwargs,
+            noise_variance=noise_variance,
+            jitter=jitter,
+            device=device,
+            dtype=dtype,
+            **kwargs,
+        )
+        assert num_inducing_points is not None, "num_inducing_points must be specified for SGPR"
+        Z = np.array(self.coords, copy=True)
+        if len(Z) >= num_inducing_points:
+            np.random.shuffle(Z)
+            Z = Z[:num_inducing_points]
+        self._params["inducing_points"] = Z
+        self._bijectors["inducing_points"] = T.IDENTITY
+
+    def _bound(self, cparams: dict, data: dict) -> torch.Tensor:
+        return elbo(cparams, data, kernel=self.kernel, jitter=self.jitter, chunk_size=self.chunk_size)
+
+    def optimise_parameters(self, train_inducing_points: bool = False, max_iter: int = 10_000, fixed_params=None,
+                            **opt_kwargs) -> bool:
+        fixed_params = list(fixed_params or [])
+        if not train_inducing_points and "inducing_points" not in fixed_params:
+            fixed_params.append("inducing_points")
+        data = self._data_dict()
+        return self._minimize(lambda c: -self._bound(c, data), fixed_params, max_iter, **opt_kwargs)
+
+    def get_objective_function_value(self) -> float:
+        """The collapsed bound (not negated, as the reference's SGPR)."""
+        with torch.no_grad():
+            return float(self._bound(self._cparams(), self._data_dict())[0])
+
+    def predict(self, coords, full_cov: bool = False, apply_scale: bool = True) -> Dict[str, np.ndarray]:
+        with torch.no_grad():
+            pred = predict(self._cparams(), self._data_dict(), self._prediction_tensor(coords, apply_scale),
+                           kernel=self.kernel, jitter=self.jitter, chunk_size=self.chunk_size, full_cov=full_cov)
+        return self._prediction_out(pred, full_cov)
+
+    def get_inducing_points(self) -> np.ndarray:
+        return np.asarray(self._params["inducing_points"])
+
+    def set_inducing_points(self, inducing_points):
+        self._params["inducing_points"] = np.asarray(inducing_points, dtype=float)

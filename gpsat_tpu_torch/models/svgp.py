@@ -1,6 +1,7 @@
-"""SVGP (Hensman et al. 2013), whitened, functional core batched over B.
+"""SVGP (Hensman et al. 2013), whitened, functional core batched over B, and
+the host-facing single-expert model.
 
-Port of the functional part of ``gpsat_tpu/models/svgp.py``:
+Port of ``gpsat_tpu/models/svgp.py``: ``SVGPModel`` (at B = 1) and
 ``variational_expectations`` (Gaussian, StudentT, Bernoulli, Poisson), the
 q(f) marginals, ``kl_whitened``, ``elbo`` (minibatch, mean function,
 checkpointed chunks), ``predict`` (with ``full_cov``), ``collapsed_q``,
@@ -38,6 +39,8 @@ from torch.utils.checkpoint import checkpoint
 
 from gpsat_tpu_torch.models import means as MF
 from gpsat_tpu_torch.models import sgpr as SG
+from gpsat_tpu_torch.models.base import lane_param_names
+from gpsat_tpu_torch.models.gpr import GPRModel
 from gpsat_tpu_torch.ops import kernels as K
 from gpsat_tpu_torch.ops import linalg as LA
 from gpsat_tpu_torch.ops import transforms as T
@@ -456,3 +459,276 @@ def make_svgp_core(
         natgrad_update=nat_update,
         natgrad_params=("inducing_mean", "inducing_chol") if nat_update is not None else (),
     )
+
+
+class SVGPModel(GPRModel):
+    """SVGP on one expert (the reference's GPflowSVGPModel contract;
+    gpsat_tpu/models/svgp.py::SVGPModel): inducing points a random subset
+    of the data (``np.random.shuffle``; all the data when
+    ``num_inducing_points`` is None or larger, ref: :1058-1066), whitened q
+    starting at zero mean and an identity factor, ``minibatch_size``
+    points per Adam step (default: all). Three solvers:
+
+    - "adam" (default), the reference's loop: per step one
+      ``np.random.default_rng(seed).choice(N, minibatch, replace=False)``
+      minibatch, with ``natural_gradients`` one natural-gradient step of
+      size ``gamma`` on q before each Adam step (q then kept out of Adam),
+      the ELBO checked every ``check_every`` steps and the loop stopped
+      after ``persistence`` steps without improvement (or a NaN ELBO);
+    - "collapsed" (Gaussian): L-BFGS on the collapsed bound over the
+      hyperparameters, then q set to its closed form (``collapsed_q``);
+    - "lbfgs" (any likelihood): joint full-batch L-BFGS over the
+      hyperparameters and q, q first warm-started at ``collapsed_q`` when
+      ``q_init`` says so ("auto": unless q was set; "collapsed": always).
+
+    Every Kuu pair (and B's in the collapsed bound) goes through kernel 1 in
+    f32 on the card."""
+
+    PARAM_NAMES = tuple(PARAM_NAMES)
+    param_names = lane_param_names(PARAM_NAMES)
+
+    def __init__(
+        self,
+        data=None,
+        coords_col=None,
+        obs_col=None,
+        coords=None,
+        obs=None,
+        coords_scale=None,
+        obs_scale=None,
+        obs_mean=None,
+        verbose: bool = False,
+        *,
+        kernel: str = "Matern32",
+        num_inducing_points: Optional[int] = None,
+        minibatch_size: Optional[int] = None,
+        kernel_kwargs: Optional[dict] = None,
+        noise_variance: Optional[float] = None,
+        likelihood: Optional[str] = None,
+        likelihood_kwargs: Optional[dict] = None,
+        jitter: float = DEFAULT_JITTER,
+        chunk_size="auto",
+        device=None,
+        dtype=torch.float64,
+        **kwargs,
+    ):
+        self.chunk_size = chunk_size
+        super().__init__(
+            data=data,
+            coords_col=coords_col,
+            obs_col=obs_col,
+            coords=coords,
+            obs=obs,
+            coords_scale=coords_scale,
+            obs_scale=obs_scale,
+            obs_mean=obs_mean,
+            verbose=verbose,
+            kernel=kernel,
+            kernel_kwargs=kernel_kwargs,
+            noise_variance=noise_variance,
+            jitter=jitter,
+            device=device,
+            dtype=dtype,
+            **kwargs,
+        )
+        self.likelihood = likelihood if likelihood is not None else "Gaussian"
+        self.likelihood_kwargs = likelihood_kwargs or {}
+        Z = np.array(self.coords, copy=True)
+        if num_inducing_points is not None and len(Z) >= num_inducing_points:
+            np.random.shuffle(Z)
+            Z = Z[:num_inducing_points]
+        M = len(Z)
+        self._params.update(inducing_points=Z, inducing_mean=np.zeros(M), inducing_chol=np.eye(M))
+        for p in ("inducing_points", "inducing_mean", "inducing_chol"):
+            self._bijectors[p] = T.IDENTITY
+        self.minibatch_size = minibatch_size if minibatch_size is not None else self.coords.shape[0]
+        self._last_num_iter = None
+
+    def _elbo(self, cparams: dict, data: dict, batch_idx=None) -> torch.Tensor:
+        return elbo(cparams, data, kernel=self.kernel, likelihood=self.likelihood, jitter=self.jitter,
+                    batch_idx=batch_idx, chunk_size=self.chunk_size)
+
+    def get_objective_function_value(self) -> float:
+        """The ELBO, averaged over at most 100 minibatches (ref: :1101-1107)."""
+        data = self._data_dict()
+        N = self.coords.shape[0]
+        B = min(self.minibatch_size, N)
+        rng = np.random.default_rng(0)
+        vals = []
+        with torch.no_grad():
+            for _ in range(min(100, max(N // B, 1))):
+                idx = rng.choice(N, size=B, replace=False)
+                idx = None if B == N else torch.as_tensor(idx, device=self.device)
+                vals.append(float(self._elbo(self._cparams(), data, idx)[0]))
+        return float(np.mean(vals))
+
+    def optimise_parameters(
+        self,
+        train_inducing_points: bool = False,
+        natural_gradients: bool = False,
+        fixed_params=None,
+        gamma: float = 0.1,
+        learning_rate: float = 1e-2,
+        max_iter: int = 10_000,
+        persistence: int = 100,
+        check_every: int = 10,
+        early_stop: bool = True,
+        verbose: bool = False,
+        seed: int = 42,
+        solver: str = "adam",
+        q_init: Optional[str] = "auto",
+    ):
+        """solver "adam" (the reference's loop), "collapsed" or "lbfgs" (class
+        docstring). Returns the L-BFGS solvers' convergence flag; Adam returns
+        True when early stopping ended it, False on a NaN ELBO and NaN when it
+        ran to ``max_iter``, as the JAX class does."""
+        if solver not in ("adam", "collapsed", "lbfgs"):
+            raise ValueError(f"solver must be 'adam', 'collapsed' or 'lbfgs', got {solver!r}")
+        fixed_params = list(fixed_params or [])
+        if not train_inducing_points and "inducing_points" not in fixed_params:
+            fixed_params.append("inducing_points")
+        if solver == "collapsed":
+            return self._optimise_collapsed(fixed_params, max_iter)
+        if solver == "lbfgs":
+            assert not natural_gradients, (
+                "natural_gradients only applies to solver='adam' (the joint L-BFGS solver optimizes q directly)"
+            )
+            return self._optimise_lbfgs(fixed_params, max_iter, q_init)
+        return self._optimise_adam(fixed_params, natural_gradients, gamma, learning_rate, max_iter, persistence,
+                                   check_every, early_stop, verbose, seed)
+
+    def _optimise_adam(self, fixed_params, natural_gradients, gamma, learning_rate, max_iter, persistence,
+                       check_every, early_stop, verbose, seed):
+        from gpsat_tpu_torch.parallel.engine import adam_update
+
+        q_names = ("inducing_mean", "inducing_chol")
+        if natural_gradients:
+            fixed_params = fixed_params + [p for p in q_names if p not in fixed_params]
+        data = self._data_dict()
+        bij = self._bijectors
+        N = self.coords.shape[0]
+        B = min(self.minibatch_size, N)
+        u_all = {k: bij[k].inverse(v) for k, v in self._cparams().items()}
+        u = {k: v for k, v in u_all.items() if k not in fixed_params}
+        u_fixed = {k: v for k, v in u_all.items() if k in fixed_params}
+        # the natural-gradient-updated q, kept out of Adam
+        q = {k: self._tensor(self._params[k])[None] for k in q_names}
+
+        def loss_fn(u_free, q_, idx):
+            c = {k: bij[k].forward(v) for k, v in {**u_free, **u_fixed}.items()}
+            if natural_gradients:
+                c.update(q_)
+            return -self._elbo(c, data, idx)
+
+        def nat_step(idx):
+            def loss_m_S(m, S):
+                eye = torch.eye(S.shape[-1], dtype=S.dtype, device=S.device)
+                return loss_fn(u, {"inducing_mean": m, "inducing_chol": _cholesky(S + 1e-12 * eye)}, idx)
+
+            m_new, qs_new = natgrad_step(loss_m_S, q["inducing_mean"], q["inducing_chol"], gamma)
+            return {"inducing_mean": m_new.detach(), "inducing_chol": qs_new.detach()}
+
+        mu = {k: torch.zeros_like(v) for k, v in u.items()}
+        nu = {k: torch.zeros_like(v) for k, v in u.items()}
+        rng = np.random.default_rng(seed)
+        max_elbo, max_count, opt_success = -np.inf, 0, np.nan
+        step = -1
+        for step in range(max_iter):
+            idx = rng.choice(N, size=B, replace=False)
+            idx = None if B == N else torch.as_tensor(idx, device=self.device)
+            if natural_gradients:
+                q = nat_step(idx)
+            ur = {k: v.detach().requires_grad_(True) for k, v in u.items()}
+            with torch.enable_grad():
+                loss = loss_fn(ur, q, idx)
+                # a free param the loss never reads gets a zero gradient
+                grads = torch.autograd.grad(loss.sum(), list(ur.values()), allow_unused=True) if ur else ()
+            grads = {k: torch.zeros_like(v) if g is None else g for (k, v), g in zip(ur.items(), grads)}
+            step_no = torch.full((1,), step + 1.0, dtype=self.dtype, device=self.device)
+            u, mu, nu = adam_update(u, grads, mu, nu, step_no, learning_rate)
+            if step % check_every == 0:
+                cur = -float(loss.detach()[0])
+                if np.isnan(cur):
+                    print("Optimisation failed...")
+                    opt_success = False
+                    break
+                if verbose:
+                    print(f"step: {step},  elbo: {cur:.2f}")
+                if cur > max_elbo and early_stop:
+                    max_elbo, max_count = cur, 0
+                else:
+                    max_count += check_every
+                    if max_count >= persistence and early_stop:
+                        print("objective did not improve stopping")
+                        opt_success = True
+                        break
+
+        self._last_num_iter = step + 1 if max_iter > 0 else 0
+        with torch.no_grad():
+            self._params = {k: self._numpy(bij[k].forward(v))[0] for k, v in {**u, **u_fixed}.items()}
+        if natural_gradients:
+            self._params.update({k: self._numpy(v)[0] for k, v in q.items()})
+        self._params["inducing_chol"] = np.tril(self._params["inducing_chol"])
+        return opt_success
+
+    def _set_collapsed_q(self):
+        with torch.no_grad():
+            q_mu, q_sqrt = collapsed_q(self._cparams(), self._data_dict(), kernel=self.kernel, jitter=self.jitter,
+                                       chunk_size=self.chunk_size)
+        self._params["inducing_mean"] = self._numpy(q_mu)[0]
+        self._params["inducing_chol"] = self._numpy(q_sqrt)[0]
+
+    def _optimise_collapsed(self, fixed_params, max_iter):
+        assert self.likelihood == "Gaussian", "solver='collapsed' requires the Gaussian likelihood"
+        data = self._data_dict()
+        kw = dict(kernel=self.kernel, jitter=self.jitter, chunk_size=self.chunk_size)
+        ok = self._run_host_lbfgs(lambda c: -SG.elbo(c, data, **kw), fixed_params + ["inducing_mean", "inducing_chol"],
+                                  max_iter)
+        self._set_collapsed_q()
+        return ok
+
+    def _optimise_lbfgs(self, fixed_params, max_iter, q_init="auto"):
+        M = np.shape(self._params["inducing_mean"])[0]
+        q_is_default = not np.any(self._params["inducing_mean"]) and np.array_equal(
+            self._params["inducing_chol"], np.eye(M))
+        if q_init == "collapsed" or (q_init == "auto" and q_is_default):
+            self._set_collapsed_q()
+        data = self._data_dict()
+        ok = self._run_host_lbfgs(lambda c: -self._elbo(c, data), fixed_params, max_iter)
+        self._params["inducing_chol"] = np.tril(self._params["inducing_chol"])
+        return ok
+
+    def _run_host_lbfgs(self, neg_objective, fixed_params, max_iter):
+        """The two L-BFGS solvers' shared scaffold (``_minimize``), with the
+        iteration count kept as ``_last_num_iter`` too."""
+        ok = self._minimize(neg_objective, fixed_params, max_iter)
+        self._last_num_iter = self._last_opt_result.num_iter
+        return ok
+
+    def predict(self, coords, full_cov: bool = False, apply_scale: bool = True) -> Dict[str, np.ndarray]:
+        with torch.no_grad():
+            pred = predict(self._cparams(), self._data_dict(), self._prediction_tensor(coords, apply_scale),
+                           kernel=self.kernel, jitter=self.jitter, full_cov=full_cov)
+        return self._prediction_out(pred, full_cov)
+
+    # --- the variational params (ref: :1259-1310) ---
+    def get_inducing_points(self) -> np.ndarray:
+        return np.asarray(self._params["inducing_points"])
+
+    def set_inducing_points(self, inducing_points):
+        self._params["inducing_points"] = np.asarray(inducing_points, dtype=float)
+
+    def get_inducing_mean(self) -> np.ndarray:
+        return np.asarray(self._params["inducing_mean"]).reshape(-1, 1)
+
+    def set_inducing_mean(self, q_mu):
+        self._params["inducing_mean"] = np.asarray(q_mu, dtype=float).reshape(-1)
+
+    def get_inducing_chol(self) -> np.ndarray:
+        return np.asarray(self._params["inducing_chol"])[None, ...]
+
+    def set_inducing_chol(self, q_sqrt):
+        q = np.asarray(q_sqrt, dtype=float)
+        if q.ndim == 3:
+            q = q[0]
+        self._params["inducing_chol"] = np.tril(q)

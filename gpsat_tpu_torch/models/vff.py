@@ -1,8 +1,10 @@
-"""Variational Fourier Features (Hensman, Durrande & Solin 2017), batched over B.
+"""Variational Fourier Features (Hensman, Durrande & Solin 2017), batched
+over B, and the host-facing single-expert model.
 
-Port of the functional part of ``gpsat_tpu/models/vff.py``: ``make_kuu_dense``,
-``make_kuf``, ``make_kvs``, ``kron``, ``vff_common``, ``elbo``, ``predict``
-(with ``full_cov``), ``product_prior_gram`` and ``make_vff_core``. Data is
+Port of ``gpsat_tpu/models/vff.py``: ``make_kuu_dense``, ``make_kuf``,
+``make_kvs``, ``kron``, ``vff_common``, ``elbo``, ``predict`` (with
+``full_cov``), ``product_prior_gram``, ``make_vff_core`` and ``VFFModel``
+(the bound at B = 1). Data is
 ``{"X": [B, N, D], "y": [B, N], "mask": [B, N]}``; params are dicts of
 [B, ...] tensors, the per-tile cuboidal domain [B, D, 2] among them.
 
@@ -42,6 +44,7 @@ import numpy as np
 import torch
 
 from gpsat_tpu_torch.models import means as MF
+from gpsat_tpu_torch.models.base import TorchCoreModel, lane_param_names
 from gpsat_tpu_torch.ops import kernels as K
 from gpsat_tpu_torch.ops import linalg as LA
 from gpsat_tpu_torch.ops import transforms as T
@@ -369,3 +372,108 @@ def make_vff_core(
         prepare_batch_init=prepare_batch_init,
         num_features=lambda D: (2 * M - 1) ** D,
     )
+
+
+class VFFModel(TorchCoreModel):
+    """VFF on one expert (the reference's GPflowVFFModel contract;
+    gpsat_tpu/models/vff.py::VFFModel): ``num_inducing_features`` M per
+    dimension on a cuboidal domain [a, b]^D. Without ``domain_size`` the
+    domain is the data's range (+- 1e-8); with it, ``expert_loc`` (raw
+    units; default the data's mean) +- ``domain_size`` (raw units), divided
+    by ``coords_scale`` and grown to contain the data (ref:
+    vff_model.py:178-211). The objective is the collapsed bound; P's factor
+    pair goes through kernel 1 in f32 on the card."""
+
+    PARAM_NAMES = tuple(PARAM_NAMES)
+    param_names = lane_param_names((*PARAM_NAMES, "domain"))
+
+    def __init__(
+        self,
+        data=None,
+        coords_col=None,
+        obs_col=None,
+        coords=None,
+        obs=None,
+        coords_scale=None,
+        obs_scale=None,
+        obs_mean=None,
+        verbose: bool = False,
+        *,
+        kernel: str = "Matern32",
+        num_inducing_features=None,
+        kernel_kwargs: Optional[dict] = None,
+        domain_size=None,
+        expert_loc=None,
+        noise_variance: Optional[float] = None,
+        device=None,
+        dtype=torch.float64,
+        **kwargs,
+    ):
+        self._init_device(device, dtype)
+        mean_function = MF.validate(kwargs.pop("mean_function", None))
+        super().__init__(
+            data=data,
+            coords_col=coords_col,
+            obs_col=obs_col,
+            coords=coords,
+            obs=obs,
+            coords_scale=coords_scale,
+            obs_scale=obs_scale,
+            obs_mean=obs_mean,
+            verbose=verbose,
+        )
+        assert kernel in SUPPORTED_KERNELS, f"VFF kernel must be one of {SUPPORTED_KERNELS}"
+        assert num_inducing_features is not None, "num_inducing_features must be specified"
+        self.kernel = kernel
+        D = self.coords.shape[1]
+        if isinstance(num_inducing_features, list):
+            assert len(set(num_inducing_features)) == 1, "this build uses a shared per-dimension feature count"
+            num_inducing_features = num_inducing_features[0]
+        self.M = int(num_inducing_features)
+
+        lo, hi = self.coords.min(axis=0), self.coords.max(axis=0)
+        if domain_size is None:
+            a, b = lo - 1e-8, hi + 1e-8
+        else:
+            ds = np.asarray(domain_size, dtype=float).reshape(-1)
+            assert len(ds) in (1, D), "domain_size length must match coordinate dimensions"
+            ds = np.broadcast_to(ds, (D,))
+            cscale = np.broadcast_to(self.coords_scale, (1, D))[0]
+            loc = np.mean(self.coords, axis=0) * cscale if expert_loc is None else expert_loc
+            loc = np.asarray(loc, dtype=float).reshape(-1)
+            a, b = (loc - ds) / cscale, (loc + ds) / cscale
+            a, b = np.where(a < lo, a, lo - 1e-8), np.where(b > hi, b, hi + 1e-8)
+        self.a, self.b = np.asarray(a, dtype=float), np.asarray(b, dtype=float)
+
+        kk = dict(kernel_kwargs or {})
+        self._init_gpr_params(kk.get("lengthscales", np.ones(D)), kk.get("variance", 1.0), noise_variance,
+                              mean_function)
+
+    def _domain(self):
+        return self._tensor(self.a)[None], self._tensor(self.b)[None]
+
+    def _bound(self, cparams: dict, data: dict) -> torch.Tensor:
+        a, b = self._domain()
+        return elbo(cparams, data, kernel=self.kernel, a=a, b=b, M=self.M)
+
+    def get_objective_function_value(self) -> float:
+        """The collapsed bound (the reference's VFF reports the ELBO)."""
+        with torch.no_grad():
+            return float(self._bound(self._cparams(), self._data_dict())[0])
+
+    def optimise_parameters(self, max_iter: int = 10_000, fixed_params=None, **opt_kwargs) -> bool:
+        data = self._data_dict()
+        return self._minimize(lambda c: -self._bound(c, data), list(fixed_params or []), max_iter, **opt_kwargs)
+
+    def predict(self, coords, full_cov: bool = False, apply_scale: bool = True) -> Dict[str, np.ndarray]:
+        Xnew = self._prediction_coords(coords, apply_scale)
+        if self.kernel == "Matern52" and (np.any(Xnew < self.a) or np.any(Xnew > self.b)):
+            # Matern52's Kuf has no outside-domain edge corrections (nor has
+            # the reference, vff.py:499-517): refuse the periodic extension
+            raise ValueError("VFF Matern52 prediction locations must lie inside the domain "
+                             f"[a, b] = [{self.a}, {self.b}]; grow domain_size to cover them")
+        a, b = self._domain()
+        with torch.no_grad():
+            pred = predict(self._cparams(), self._data_dict(), self._tensor(Xnew)[None], kernel=self.kernel, a=a, b=b,
+                           M=self.M, full_cov=full_cov)
+        return self._prediction_out(pred, full_cov)

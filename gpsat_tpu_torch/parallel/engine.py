@@ -223,6 +223,22 @@ def make_batched_runner(
 _ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults (eps_root 0)
 
 
+def adam_update(u: dict, grads: dict, mu: dict, nu: dict, step_no: torch.Tensor, learning_rate: float):
+    """One ``optax.adam(learning_rate)`` step of params {name: [B, ...]}
+    with their gradients and moments; ``step_no`` [B] counts from 1 per
+    lane (bias correction). Returns (params, mu, nu)."""
+    bc1 = 1.0 - torch.pow(torch.full_like(step_no, _ADAM_B1), step_no)
+    bc2 = 1.0 - torch.pow(torch.full_like(step_no, _ADAM_B2), step_no)
+    new_u, new_mu, new_nu = {}, {}, {}
+    for k, v in u.items():
+        shape = (v.shape[0],) + (1,) * (v.ndim - 1)
+        new_mu[k] = (1 - _ADAM_B1) * grads[k] + _ADAM_B1 * mu[k]
+        new_nu[k] = (1 - _ADAM_B2) * grads[k] ** 2 + _ADAM_B2 * nu[k]
+        step = (new_mu[k] / bc1.reshape(shape)) / (torch.sqrt(new_nu[k] / bc2.reshape(shape) + 0.0) + _ADAM_EPS)
+        new_u[k] = v + (-learning_rate) * step
+    return new_u, new_mu, new_nu
+
+
 def _adam_fit_predict_batched(
     core: ModelCore,
     data: Dict[str, torch.Tensor],
@@ -284,16 +300,8 @@ def _adam_fit_predict_batched(
                 grads = [torch.zeros_like(v) if g is None else g for g, v in zip(grads, ur.values())]
             loss = loss.detach()
             # Adam's step count is the lane's iteration count
-            step_no = (it + 1).to(best.dtype)
-            bc1 = 1.0 - torch.pow(torch.full_like(best, _ADAM_B1), step_no)
-            bc2 = 1.0 - torch.pow(torch.full_like(best, _ADAM_B2), step_no)
-            new_u, new_mu, new_nu = {}, {}, {}
-            for (k, v), g in zip(u.items(), grads):
-                shape = (B,) + (1,) * (v.ndim - 1)
-                new_mu[k] = (1 - _ADAM_B1) * g + _ADAM_B1 * mu[k]
-                new_nu[k] = (1 - _ADAM_B2) * g**2 + _ADAM_B2 * nu[k]
-                step = (new_mu[k] / bc1.reshape(shape)) / (torch.sqrt(new_nu[k] / bc2.reshape(shape) + 0.0) + _ADAM_EPS)
-                new_u[k] = v + (-learning_rate) * step
+            new_u, new_mu, new_nu = adam_update(u, dict(zip(u, grads)), mu, nu, (it + 1).to(best.dtype),
+                                                learning_rate)
             check = torch.remainder(it, check_every) == 0
             improved = loss < best
             new_since = torch.where(check, torch.where(improved, zero_i, since_best + check_every), since_best)

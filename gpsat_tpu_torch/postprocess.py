@@ -28,7 +28,7 @@ import torch
 
 from gpsat_tpu_torch.data.store import TableStore
 from gpsat_tpu_torch.experts import get_results_from_h5file
-from gpsat_tpu_torch.models import get_model
+from gpsat_tpu_torch.models import get_model, stored_param_names
 from gpsat_tpu_torch.parallel.engine import resolve_device
 from gpsat_tpu_torch.utils.misc import cprint, json_serializable
 
@@ -136,7 +136,7 @@ def smooth_hyperparameters(
         model_name = str(unique_models[-1]).split(".")[-1]
         print(f"found model_name: {model_name}")
 
-    all_params = list(get_model(model_name).param_names)
+    all_params = stored_param_names(get_model(model_name))
     assert all(p in all_params for p in params_to_smooth), (
         f"some params_to_smooth {params_to_smooth} not in model.param_names {all_params}"
     )

@@ -499,3 +499,40 @@ def test_inter_domain_f32_batch_on_card_matches_the_library_route(model):
     for key in ("f_mean", "f_var"):
         assert np.isfinite(out["block"][key]).all()
         assert float(np.abs(out["block"][key] - out["cholesky"][key]).max()) <= 1e-2, key
+
+
+@pytest.mark.cuda
+def test_host_gpr_model_f32_launches_kernel_1_and_f64_launches_nothing():
+    # the verify recipe's drive on the card: 400 points, identity-padded to
+    # 448 (7 launches per pair), one pair per evaluation of the single-eval
+    # search ((it + 1) of them) and one in the predict
+    import pandas as pd
+
+    from gpsat_tpu_torch.models import get_model
+
+    _cuda()
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-3e5, 3e5, size=(400, 2))
+    y = np.sin(x[:, 0] / 8e4) * np.cos(x[:, 1] / 1e5) + 0.05 * rng.normal(size=400)
+    df = pd.DataFrame({"x": x[:, 0], "y": x[:, 1], "obs": y})
+    kw = dict(data=df, coords_col=["x", "y"], obs_col="obs", coords_scale=[5e4, 5e4], obs_mean="local")
+    cons = {"lengthscales": {"low": 0.1, "high": 20.0}}
+    m32 = get_model("GPflowGPRModel")(**kw, dtype=torch.float32)
+    m32.set_parameter_constraints(cons)
+    before = BC.factor_blocks.launches
+    assert m32.optimise_parameters()
+    p32 = m32.predict(coords=np.zeros((1, 2)))
+    torch.cuda.synchronize()
+    assert BC.factor_blocks.launches - before == (m32._last_opt_result.num_iter + 2) * 7
+    # f64 on the card takes the library arm: no launch, the CPU's numbers
+    m64, cpu = (get_model("GPflowGPRModel")(**kw, device=dev) for dev in (None, "cpu"))
+    for m in (m64, cpu):
+        m.set_parameter_constraints(cons)
+        m.set_parameters(**m32.get_parameters())
+    before = BC.factor_blocks.launches
+    p64, pc = m64.predict(coords=np.zeros((1, 2))), cpu.predict(coords=np.zeros((1, 2)))
+    assert m64.get_objective_function_value() == pytest.approx(cpu.get_objective_function_value(), rel=1e-10)
+    assert BC.factor_blocks.launches == before
+    for k in ("f*", "f*_var", "y_var"):
+        np.testing.assert_allclose(p64[k], pc[k], rtol=1e-10)
+        np.testing.assert_allclose(p32[k], pc[k], atol=1e-2)

@@ -290,7 +290,13 @@ def test_port_imports_neither_jax_nor_gpsat_tpu():
         "import gpsat_tpu_torch.ops.recursive_chol, gpsat_tpu_torch.ops.linalg, gpsat_tpu_torch.ops.fused_lml\n"
         "import gpsat_tpu_torch.experts, gpsat_tpu_torch.local_expert_oi, gpsat_tpu_torch.models\n"
         "import gpsat_tpu_torch.models.sgpr, gpsat_tpu_torch.models.svgp\n"
-        "import gpsat_tpu_torch.models.vff, gpsat_tpu_torch.models.asvgp\n"
+        "import gpsat_tpu_torch.models.vff, gpsat_tpu_torch.models.asvgp, gpsat_tpu_torch.models.base\n"
+        "import gpsat_tpu_torch.models.pure_numpy_gpr, gpsat_tpu_torch.models.sklearn_model\n"
+        "import gpsat_tpu_torch.models.torch_gpr, gpsat_tpu_torch.models.base_model, gpsat_tpu_torch.decorators\n"
+        "import gpsat_tpu_torch.models.gpflow_models, gpsat_tpu_torch.models.sklearn_models\n"
+        "import gpsat_tpu_torch.models.pure_python_gpr, gpsat_tpu_torch.models.gpytorch_models\n"
+        "import gpsat_tpu_torch.models.vff_model, gpsat_tpu_torch.models.asvgp_model, gpsat_tpu_torch.local_experts\n"
+        "assert 'sklearn' not in sys.modules, 'sklearn is imported when a model is built'\n"
         "import gpsat_tpu_torch.data.dataloader, gpsat_tpu_torch.data.store, gpsat_tpu_torch.data.select\n"
         "import gpsat_tpu_torch.data.prediction_locations, gpsat_tpu_torch.utils.misc, gpsat_tpu_torch.utils.config_func\n"
         "import gpsat_tpu_torch.postprocess, gpsat_tpu_torch.postprocessing, gpsat_tpu_torch.cli\n"

@@ -324,12 +324,9 @@ def test_cli_main_runs_a_config_on_the_cpu(tmp_path):
 @pytest.mark.parametrize(
     "model_extra, run_kwargs",
     [
-        ({"oi_model": "sklearnGPRModel"}, {}),
-        ({"oi_model": {"path_to_model": "m", "model_name": "M"}}, {}),
         ({}, {"mesh": "all"}),
-        ({}, {"profile_dir": "trace"}),
     ],
-    ids=["host_lane", "custom_model", "mesh", "profile_dir"],
+    ids=["mesh"],
 )
 def test_unported_options_raise(model_extra, run_kwargs, tmp_path):
     obs_df, expert_df = _field()
@@ -364,13 +361,18 @@ def test_unported_options_raise(model_extra, run_kwargs, tmp_path):
           "optim_kwargs": {"max_iter": 5}}, {}),
         ({"oi_model": "GPflowASVGPModel", "init_params": {"num_inducing_features": 3, "noise_variance": 0.01},
           "optim_kwargs": {"max_iter": 5}}, {}),
+        # the host-serial lane, and a run traced under profile_dir
+        ({"oi_model": "sklearnGPRModel", "init_params": {"noise_variance": 0.01}}, {}),
+        ({"optim_kwargs": {"max_iter": 5}}, {"profile_dir": "trace"}),
     ],
     ids=["svgp_replacement", "sgpr_f64_default", "svgp", "f64_without_linesearch", "replacement_vff",
-         "sgpr_replacement_asvgp", "vff", "asvgp"],
+         "sgpr_replacement_asvgp", "vff", "asvgp", "host_lane", "profile_dir"],
 )
 def test_options_that_were_not_ported_run(model_extra, run_kwargs, tmp_path):
     obs_df, expert_df = _field()
     path = str(tmp_path / "ran.h5")
+    if "profile_dir" in run_kwargs:
+        run_kwargs = {"profile_dir": str(tmp_path / run_kwargs["profile_dir"])}
     TOI(**_config(obs_df, expert_df.iloc[:2], **model_extra)).run(store_path=path, device="cpu", min_obs=10,
                                                                    **run_kwargs)
     out, _ = port_results(path)
@@ -379,3 +381,5 @@ def test_options_that_were_not_ported_run(model_extra, run_kwargs, tmp_path):
     lane = model_extra.get("replacement_model") if "replacement_threshold" in model_extra else None
     lane = get_model(lane or model_extra.get("oi_model", "GPflowGPRModel"))
     assert set(out["run_details"]["model"]) == {f"gpsat_tpu_torch.{lane.__name__}"}
+    if "profile_dir" in run_kwargs:
+        assert list((tmp_path / "trace").glob("*.pt.trace.json"))

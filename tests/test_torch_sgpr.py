@@ -245,14 +245,13 @@ def test_batched_fit_matches_jax(batched_fits, key):
 def test_registry_and_core_options():
     assert get_model("GPflowSGPRModel") is SGPRModel and get_model("SGPRModel") is SGPRModel
     assert "inducing_points" in SGPRModel.param_names
-    # SVGP, VFF and ASVGP resolve since they were ported; the host-serial
-    # lane's models still name their item
+    # SVGP, VFF and ASVGP resolve since they were ported, and the host-serial
+    # lane's models since it was
     assert get_model("GPflowSVGPModel").__name__ == "SVGPModel"
     assert get_model("GPflowVFFModel").__name__ == "VFFModel"
     assert get_model("GPflowASVGPModel").__name__ == "ASVGPModel"
-    for name in ("sklearnGPRModel", "GPyTorchGPRModel"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3"):
-            get_model(name)
+    assert get_model("sklearnGPRModel").__name__ == "SklearnGPRModel"
+    assert get_model("GPyTorchGPRModel").__name__ == "TorchGPRModel"
     with pytest.raises(ValueError):
         TS.make_sgpr_core(factor="panel")
     core = TS.make_sgpr_core(num_inducing_points=8, train_inducing_points=True, mean_function="Constant")

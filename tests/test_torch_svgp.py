@@ -280,9 +280,9 @@ def test_batched_fit_matches_jax(kind):
 def test_registry_and_solver_rules():
     assert get_model("GPflowSVGPModel") is SVGPModel and get_model("SVGPModel") is SVGPModel
     assert SVGPModel.param_names == tuple(JS.PARAM_NAMES)
-    for name in ("sklearnGPRModel", "PurePythonGPR"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            get_model(name)
+    # the host-serial lane's models resolve since it was ported
+    assert get_model("sklearnGPRModel").__name__ == "SklearnGPRModel"
+    assert get_model("PurePythonGPR").__name__ == "PureNumpyGPR"
     cases = [dict(), dict(likelihood="StudentT"), dict(natural_gradients=True), dict(natural_gradients="exact"),
              dict(solver="adam", q_init=None), dict(likelihood="Poisson", solver="adam"),
              dict(solver="lbfgs", q_init="collapsed"), dict(train_inducing_points=True, mean_function="Linear")]

@@ -1,6 +1,6 @@
-"""Rehearse chip_smoke.py's phases 10 (svgp) and 11 (zoo) on the CPU, before a run on the card.
+"""Rehearse chip_smoke.py's phases 10 (svgp), 11 (zoo) and 12 (host) on the CPU, before a run on the card.
 
-    python tools/rehearse_chip_smoke.py [--parts a b c d e vff asvgp] [--lanes B] [--threads T]
+    python tools/rehearse_chip_smoke.py [--parts a b c d e vff asvgp host] [--lanes B] [--threads T]
                                         [--identity-natgrad] [--expert-stride S]
 
 Runs the phases' own functions with every entry point's default device
@@ -9,7 +9,7 @@ objectives and accuracy numbers that fix the phases' bounds can be read
 without a card. A failed check is printed and counted instead of raised:
 the kernel-launch checks always fail here, since the CPU runs each
 kernel's plain version. Parts a-e are phase 10's, "vff" and "asvgp" phase
-11's lanes (default: phase 10's). ``--lanes`` cuts (a)-(c)'s batch
+11's lanes, "host" phase 12 (default: phase 10's). ``--lanes`` cuts (a)-(c)'s batch
 (default: the phase's 128). ``--identity-natgrad`` is the mutation check
 of (c)'s bound: it runs (c) once more with the natural-gradient step
 replaced by the identity, so q stays at its starting value, and prints
@@ -64,7 +64,7 @@ def _gap(tag, res, res_a):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parts", nargs="+", default=list("abcde"), choices=[*"abcde", "vff", "asvgp"])
+    ap.add_argument("--parts", nargs="+", default=list("abcde"), choices=[*"abcde", "vff", "asvgp", "host"])
     ap.add_argument("--expert-stride", type=int, default=1)
     ap.add_argument("--lanes", type=int, default=cs.SVGP_B)
     ap.add_argument("--threads", type=int, default=4)
@@ -86,6 +86,8 @@ def main(argv=None) -> int:
     for tag in ("vff", "asvgp"):
         if tag in parts:
             cs.zoo_lane(tag, profile=False)
+    if "host" in parts:
+        cs.phase_host()
     batch = cs.make_large_tiles(args.lanes, cs.SVGP_N, cs.SVGP_P, cs.D, np.float32, min_fill=0.6)
     kw = dict(kernel="Matern32", jitter=cs.SVGP_JITTER, num_inducing_points=cs.SVGP_M)
     if parts & {"a", "c"}:
