@@ -115,6 +115,23 @@ Phases (each prints on its own lines; any failure raises):
              trace of a host-lane sweep written under a profile_dir (the
              trace LocalExpertOI.run(profile_dir=...) writes; the card's
              machine has no h5py for run's store)
+13. prep     (a) phase 6's workload through the profiled core with
+             RationalQuadratic, a kernel outside the fused set: its autodiff
+             objective factors A with kernel 3 (gradients through the
+             Cholesky's backward), finalize_params once more, the predict's
+             pair on kernel 1; launches held to a formula, 8 tiles against
+             the same core in f64 on the CPU; (b) MultioutputGPRModel and
+             MultioutputSVGPModel on the verify recipe's 400 points, P = 2
+             outputs of L = 2 latents (S of 800 padded to 832: 13 launches
+             per pair; the two Kuu pairs of M = 64 in one launch), as
+             phase 12's classes: f32 on the card with a launch formula,
+             against an f64 CPU fit from the f32 optimum, and f64 on the
+             card at that fit's parameters; (c) the data-preparation path
+             in memory: a synthetic along-track day as CSV files read by
+             ingest.read_flat_files (@to_datetime), projected with
+             @WGS84toEASE2, binned on phase 7's 50 km grid by
+             BinData.bin_wrapper (against a plain numpy group-by mean) and
+             swept with phase 7's experts and GPR settings (kernel 1)
 
 Then one {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 Imports nothing of JAX or of gpsat_tpu.
@@ -299,6 +316,27 @@ PURE_NUMPY_ENV = {"OPENBLAS_NUM_THREADS": "1"}
 # (c): a short traced sweep (the trace of every op of 8 experts' 30 Adam
 # steps took 20.8 MB in a CPU rehearsal)
 HOST_TRACE_EXPERTS, HOST_TRACE_STEPS = 8, 5
+# phase 13 (prep): (a) the profiled core with a kernel outside the fused set
+PREP_PROFILED_KERNEL = "RationalQuadratic"
+# (b) the multi-output models on the verify recipe's 400 points (coordinates
+# in units of its 50 km coords_scale): P = 2 outputs of L = 2 latents mixed
+# by tests/test_multioutput.py's H, S of 800 padded to 832 (13 launches per
+# pair); SVGP at M = 64, its Adam run cut to MO_ADAM_STEPS of the class's
+# 1,000 at its learning rate (PERF.md, section 4)
+MO_H = np.array([[1.0, 0.5], [0.2, 1.0]])
+MO_SCALE = 5e4
+MO_M = 64
+MO_GPR_MAX_ITER = 300
+MO_ADAM_STEPS, MO_ADAM_LR = 500, 0.02
+# the f64 references on the CPU from the card's f32 optimum: 10 zoom
+# iterations for GPR, 10 Adam steps at a 1e-4 learning rate for SVGP (each
+# unconstrained param moves by at most 1e-3)
+MO_REF_ITERS, MO_REF_LR = 10, 1e-4
+# (c) the data-preparation path in memory: a synthetic along-track day of
+# PREP_TRACKS tracks of PREP_TRACK_POINTS points in lon/lat, binned on phase
+# 7's 50 km grid; the binned means against a plain numpy group-by mean
+PREP_TRACKS, PREP_TRACK_POINTS = 28, 3000
+PREP_BIN_BOUND = 1e-12
 
 
 def check(cond, msg):
@@ -730,17 +768,23 @@ def phase_panel(batch, init, main_res, profile: bool):
     return launches["panel_chol"]
 
 
-def phase_profiled(batch, init, profile: bool):
+def phase_profiled(batch, init, profile: bool, kernel="Matern32", tag="profiled"):
+    """The profiled core on phase 3's workload: Matern32 through the fused
+    objective (phase 6), RationalQuadratic through the autodiff one (phase
+    13 (a)); kernel 3 factors A in both. Returns kernel 3's launches, with
+    kernel 1's as a second value."""
     from gpsat_tpu_torch.models.functional import make_gpr_core
     from gpsat_tpu_torch.parallel.batching import cast_batch, take_batch
     from gpsat_tpu_torch.parallel.engine import make_batched_runner, run_tile_batch
 
-    core = make_gpr_core(jitter=1e-5, profile_variance=True)
-    res, launches, it_max = drive("profiled", core, batch, init, "profile_profiled.txt" if profile else None)
+    core = make_gpr_core(kernel=kernel, jitter=1e-5, profile_variance=True)
+    res, launches, it_max = drive(tag, core, batch, init, f"profile_{tag}.txt" if profile else None)
     # one full Cholesky per value+grad and one in finalize_params; the predict
     # takes the "block" pair: 8 launches of kernel 1
     expected = {"block_chol": N // T, "panel_chol": 0, "cholesky": it_max + 2}
-    check(launches == expected, f"profiled path launches {launches}, expected {expected}")
+    log(f"{tag}_launches", launches=launches, launches_predicted=expected,
+        formula="cholesky: iters_max + 2, block_chol: N / 64")
+    check(launches == expected, f"{tag} path launches {launches}, expected {expected}")
 
     idx = np.arange(PROFILED_CPU_TILES)
     sub = take_batch(batch, idx)
@@ -758,11 +802,11 @@ def phase_profiled(batch, init, profile: bool):
     check(keep.sum() >= MIN_COMPARED_SHARE * len(idx), f"only {int(keep.sum())}/{len(idx)} tiles collapsed on neither side")
     dmean = float(np.abs(res["f_mean"][idx] - cpu["f_mean"])[keep].max())
     dvar = float(np.abs(res["f_var"][idx] - cpu["f_var"])[keep].max())
-    log("profiled_accuracy", tiles=len(idx), compared=int(keep.sum()), collapsed_lanes_of_B=collapsed_all,
+    log(f"{tag}_accuracy", tiles=len(idx), compared=int(keep.sum()), collapsed_lanes_of_B=collapsed_all,
         max_abs_dmean=dmean, max_abs_dvar=dvar, bound=PRED_BOUND, converged_cpu_f64=int(cpu["converged"].sum()),
         cpu_f64_s=cpu_s)
-    check(dmean <= PRED_BOUND and dvar <= PRED_BOUND, f"profiled, card vs CPU f64: dmean {dmean}, dvar {dvar}")
-    return launches["cholesky"]
+    check(dmean <= PRED_BOUND and dvar <= PRED_BOUND, f"{tag}, card vs CPU f64: dmean {dmean}, dvar {dvar}")
+    return launches["cholesky"], launches["block_chol"]
 
 
 def cell_centers(res):
@@ -2102,6 +2146,217 @@ def host_phases(t_phase, child):
     return out
 
 
+def mo_data():
+    """Phase 13 (b)'s inputs: the verify recipe's 400 points in units of its
+    coords_scale, its field and a second one as the two latents, seen
+    through MO_H with the recipe's noise; 64 prediction points."""
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-3e5, 3e5, size=(HOST_N, 2))
+    F = np.stack([np.sin(x[:, 0] / 8e4) * np.cos(x[:, 1] / 1e5), np.cos(x[:, 0] / 1.2e5) * np.sin(x[:, 1] / 9e4)],
+                 axis=1)
+    Y = F @ MO_H.T + 0.05 * rng.normal(size=(HOST_N, 2))
+    return x / MO_SCALE, Y, rng.uniform(-2e5, 2e5, size=(HOST_P, 2)) / MO_SCALE
+
+
+def mo_class(tag, make, fit32, fit_ref, formula, Xnew):
+    """One multi-output class of phase 13 (b), as phase 12's classes: the
+    f32 fit and predict on the card with every launch count set to 0 just
+    before and read just after (``formula(m32)`` is kernel 1's count), an f64
+    fit on the CPU from the f32 optimum, and the card's f64 objective and
+    predictions at that fit's parameters. Returns kernel 1's launches."""
+    import torch
+
+    m32 = make(None, torch.float32)
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    ok32 = fit32(m32)
+    p32 = m32.predict(Xnew)
+    torch.cuda.synchronize()
+    s32 = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters().items()}
+    want = {"block_chol": formula(m32), "panel_chol": 0, "cholesky": 0}
+
+    t0 = time.perf_counter()
+    cpu = make("cpu", torch.float64)
+    cpu._params = {k: np.asarray(v, dtype=np.float64) for k, v in m32._params.items()}
+    ok64 = fit_ref(cpu)
+    pc = cpu.predict(Xnew)
+    cpu_s = time.perf_counter() - t0
+    d32 = max(float(np.max(np.abs(p32[k] - pc[k]))) for k in ("f*", "f*_var"))
+
+    for fn in counters().values():
+        fn.launches = 0
+    c64 = make(None, torch.float64)
+    c64._params = dict(cpu._params)
+    obj_card, obj_cpu = c64.get_objective_function_value(), cpu.get_objective_function_value()
+    pg = c64.predict(Xnew)
+    torch.cuda.synchronize()
+    launches64 = {k: fn.launches for k, fn in counters().items()}
+
+    def rel(a, b):
+        return float(np.max(np.abs(np.asarray(a) - b) / np.maximum(1.0, np.abs(b))))
+
+    d64 = max([rel(obj_card, obj_cpu)] + [rel(pg[k], pc[k]) for k in ("f*", "f*_var")])
+    log(f"prep_mo_{tag}", model=type(m32).__name__, n=len(m32.coords), outputs=m32.H.shape[0],
+        latents=m32.H.shape[1], ok_f32=bool(ok32), f32_s=s32, launches=launches, launches_predicted=want,
+        cpu_f64_ok=bool(ok64), cpu_f64_s=cpu_s, f32_vs_cpu_f64=d32, bound=PRED_BOUND, objective_card_f64=obj_card,
+        objective_cpu_f64=obj_cpu, card_f64_vs_cpu_f64=d64, card_f64_bound=HOST_CARD_F64_BOUND,
+        card_f64_launches=launches64)
+    check(np.isfinite(p32["f*"]).all() and np.isfinite(p32["f*_var"]).all(), f"prep mo {tag}: non-finite f32 predictions")
+    check(ok32, f"prep mo {tag}: the f32 fit did not succeed")
+    check(launches["block_chol"] > 0 and launches == want, f"prep mo {tag} launches {launches}, expected {want}")
+    check(d32 <= PRED_BOUND, f"prep mo {tag}: card f32 vs CPU f64 {d32}")
+    check(not any(launches64.values()), f"prep mo {tag}: f64 on the card launched a kernel: {launches64}")
+    check(d64 <= HOST_CARD_F64_BOUND, f"prep mo {tag}: card f64 vs CPU f64 {d64}")
+    return launches["block_chol"]
+
+
+def phase_prep_multioutput():
+    """Phase 13 (b): MultioutputGPRModel (S's pair through kernel 1, (it + 2)
+    pairs of 832 / 64 = 13 launches: one per evaluation and one in the
+    predict) and MultioutputSVGPModel (the L = 2 Kuu pairs of M = 64 in one
+    launch per ELBO: one per Adam step and one in the predict)."""
+    from gpsat_tpu_torch.models.multioutput import MultioutputGPRModel, MultioutputSVGPModel
+
+    X, Y, Xnew = mo_data()
+    width = -(-X.shape[0] * MO_H.shape[0] // T) * T
+
+    def gpr(device, dtype):
+        return MultioutputGPRModel(coords=X, obs=Y, H=MO_H, likelihood_variance=0.05**2, device=device, dtype=dtype)
+
+    def svgp(device, dtype):
+        return MultioutputSVGPModel(coords=X, obs=Y, H=MO_H, num_inducing_points=MO_M, likelihood_variance=0.05**2,
+                                    device=device, dtype=dtype)
+
+    out = {}
+    out["gpr"] = mo_class(
+        "gpr", gpr, lambda m: m.optimise_parameters(max_iter=MO_GPR_MAX_ITER),
+        lambda m: m.optimise_parameters(max_iter=MO_REF_ITERS),
+        lambda m: (int(m._last_opt_result.num_iter[0]) + 2) * width // T, Xnew)
+    out["svgp"] = mo_class(
+        "svgp", svgp, lambda m: m.optimise_parameters(max_iter=MO_ADAM_STEPS, learning_rate=MO_ADAM_LR),
+        lambda m: m.optimise_parameters(max_iter=MO_REF_ITERS, learning_rate=MO_REF_LR),
+        lambda m: MO_ADAM_STEPS + 1, Xnew)
+    return out
+
+
+def along_track_day(root):
+    """A synthetic along-track day in lon/lat under ``root``: PREP_TRACKS
+    ground tracks of a polar orbit (each a great-circle-like arc from 62 N
+    over the pole region and back), one CSV per track with lon, lat, an
+    observation z of phase 7's field plus noise, a datetime string and the
+    day's date. Seed 0."""
+    import pandas as pd
+
+    from gpsat_tpu_torch.utils.projections import EASE2toWGS84
+
+    rng = np.random.default_rng(0)
+    n = PREP_TRACK_POINTS
+    for t in range(PREP_TRACKS):
+        # a straight line in EASE2 through a random point near the pole, as
+        # long as the domain allows, back to lon/lat
+        theta = rng.uniform(0, np.pi)
+        off = rng.uniform(-1.5e6, 1.5e6)
+        s_ = np.linspace(-3.2e6, 3.2e6, n)
+        x = s_ * np.cos(theta) - off * np.sin(theta)
+        y = s_ * np.sin(theta) + off * np.cos(theta)
+        lon, lat = EASE2toWGS84(x, y)
+        z = (0.3 * np.sin(x / 8e5) * np.cos(y / 6e5) + 0.2 * np.sin((x + y) / 1.5e6)
+             + 0.05 * rng.standard_normal(n))
+        times = pd.Timestamp("2020-03-01") + pd.to_timedelta(3000 * t + np.arange(n), unit="s")
+        pd.DataFrame({"lon": lon, "lat": lat, "z": z, "datetime": times.strftime("%Y-%m-%d %H:%M:%S"),
+                      "date": 20200301}).to_csv(f"{root}/track_{t:02d}.csv", index=False)
+
+
+def phase_prep_data():
+    """Phase 13 (c): CSV tracks -> ingest.read_flat_files (its @to_datetime
+    col func) -> @WGS84toEASE2 -> BinData.bin_wrapper on phase 7's 50 km
+    grid -> experts.sweep (GPR Matern32, f32, kernel 1) on the binned cells
+    with phase 7's experts and model settings. Returns kernel 1's launches."""
+    import tempfile
+
+    import torch
+
+    from gpsat_tpu_torch.data import dataloader as DL
+    from gpsat_tpu_torch.data.binning import BinData
+    from gpsat_tpu_torch.data.ingest import read_flat_files
+    from gpsat_tpu_torch.data.prediction_locations import PredictionLocations
+    from gpsat_tpu_torch.experts import sweep
+    from gpsat_tpu_torch.parallel import batching
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        along_track_day(root)
+        df = read_flat_files(root, r"track_\d+\.csv",
+                             col_funcs={"datetime": {"func": "@to_datetime", "col_args": "datetime"}})
+    check(np.issubdtype(df["datetime"].dtype, np.datetime64), "prep: @to_datetime left no datetime column")
+    DL.add_cols(df, {("x", "y"): {"func": "@WGS84toEASE2", "col_args": ["lon", "lat"]}})
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rng_ = [-OI_EXTENT, OI_EXTENT]
+    binned, _ = BinData.bin_wrapper(df.copy(), print_stats=False, by_cols="date", val_col="z", x_col="x", y_col="y",
+                                    grid_res=OI_BIN, x_range=rng_, y_range=rng_)
+    binned = binned.dropna().reset_index()
+    bin_s = time.perf_counter() - t0
+
+    # the same means by a plain group-by over the cells' integer indices
+    edges = np.linspace(-OI_EXTENT, OI_EXTENT, int(2 * OI_EXTENT / OI_BIN) + 1)
+    inside = (np.abs(df["x"]) <= OI_EXTENT) & (np.abs(df["y"]) <= OI_EXTENT)
+    ix = np.clip(np.searchsorted(edges, df["x"][inside], side="right") - 1, 0, len(edges) - 2)
+    iy = np.clip(np.searchsorted(edges, df["y"][inside], side="right") - 1, 0, len(edges) - 2)
+    plain = df[inside].assign(ix=ix, iy=iy).groupby(["iy", "ix"])["z"].mean().sort_index()
+    centres = (edges[:-1] + edges[1:]) / 2
+    got = binned.set_index([np.searchsorted(centres, binned["y"]), np.searchsorted(centres, binned["x"])])["z"]
+    got = got.sort_index()
+    same_cells = bool(np.array_equal(np.asarray(got.index.tolist()), np.asarray(plain.index.tolist())))
+    d_bin = float(np.abs(got.to_numpy() - plain.to_numpy()).max()) if same_cells else float("inf")
+
+    obs = {c: binned[c].to_numpy() for c in ("x", "y", "z")}
+    _, experts, grid = pipeline_inputs()
+    pred_loc = PredictionLocations("from_dataframe", coords_col=["x", "y"], df=grid, max_dist=OI_MAX_DIST)
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = list(sweep(obs, experts, pred_loc=pred_loc, optim_kwargs={"max_iter": OI_OPTIM["max_iter"]}, **OI_KW))
+    sweep_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters().items()}
+    buckets = [r for r in out if not r.get("skipped")]
+    n = sum(len(r["expert_index"]) for r in buckets)
+    conv = sum(int(r["converged"].sum()) for r in buckets)
+    nmax = batching.bucket_size(int(max(r["num_obs"].max() for r in buckets)))
+    want = {"block_chol": kernel1_launches(buckets, nmax), "panel_chol": 0, "cholesky": 0}
+    finite = all(np.isfinite(r["f_mean"]).all() and np.isfinite(r["f_var"]).all() for r in buckets)
+    log("prep_data", tracks=PREP_TRACKS, raw_points=len(df), read_s=read_s, binned_cells=len(binned), bin_s=bin_s,
+        binned_vs_numpy=d_bin, bin_bound=PREP_BIN_BOUND, same_cells=same_cells, experts_run=n,
+        buckets=len(buckets), nmax_obs=int(max(r["num_obs"].max() for r in buckets)), sweep_s=sweep_s,
+        experts_per_s=n / sweep_s, converged=conv, iters_max=int(max(r["num_iter"].max() for r in buckets)),
+        launches=launches, launches_predicted=want)
+    check(same_cells and d_bin <= PREP_BIN_BOUND, f"prep: binned means vs numpy group-by {d_bin} (cells equal: "
+                                                  f"{same_cells})")
+    check(n > 0 and finite, f"prep: {n} experts run, finite predictions {finite}")
+    check(conv >= MIN_SHARE * n, f"prep: only {conv}/{n} experts converged")
+    check(launches == want, f"prep sweep launches {launches}, expected {want}")
+    return launches["block_chol"]
+
+
+def phase_prep(batch, init, profile: bool):
+    """Phase 13: (a) the profiled core with RationalQuadratic, (b) the
+    multi-output models, (c) the data-preparation path. Returns kernel 3's
+    and kernel 1's launches by part."""
+    t0 = time.perf_counter()
+    chol_a, block_a = phase_profiled(batch, init, profile, kernel=PREP_PROFILED_KERNEL, tag="prep_profiled_rq")
+    a_s = time.perf_counter() - t0
+    mo = phase_prep_multioutput()
+    b_s = time.perf_counter() - t0 - a_s
+    block_c = phase_prep_data()
+    log("prep", seconds=time.perf_counter() - t0, a_s=a_s, b_s=b_s, c_s=time.perf_counter() - t0 - a_s - b_s)
+    return chol_a, {"prep_profiled_rq": block_a, "prep_mo_gpr": mo["gpr"], "prep_mo_svgp": mo["svgp"],
+                    "prep_data": block_c}
+
+
 def main(argv) -> int:
     import torch
 
@@ -2137,7 +2392,7 @@ def main(argv) -> int:
     main_res, entries[0]["launches"] = phase_main(batch, init, profile)
     phase_f64(*phase_accuracy(batch, init))
     entries[1]["launches"] = phase_panel(batch, init, main_res, profile)
-    entries[2]["launches"] = phase_profiled(batch, init, profile)
+    entries[2]["launches"], _ = phase_profiled(batch, init, profile)
     entries[0]["launches_oi"], f32_oi, f32_it_max = phase_oi(profile)
     entries[0]["launches_post_fit"], entries[0]["launches_post_repredict"] = phase_post(f32_oi, f32_it_max, profile)
     (entries[0]["launches_sgpr_full"], entries[0]["launches_sgpr_chunked"],
@@ -2147,6 +2402,9 @@ def main(argv) -> int:
     entries[0]["launches_zoo_vff"], entries[0]["launches_zoo_asvgp"] = phase_zoo(profile)
     for tag, n in phase_host().items():
         entries[0][f"launches_host_{tag}"] = n
+    entries[2]["launches_prep_profiled_rq"], prep_block = phase_prep(batch, init, profile)
+    for tag, n in prep_block.items():
+        entries[0][f"launches_{tag}"] = n
 
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -2,8 +2,10 @@
 
 One entry point over the per-module CLIs, which stay invocable as
 ``python -m gpsat_tpu_torch.<command>`` (ref CLI scripts:
-GPSat/local_expert_oi.py, GPSat/postprocessing.py). The JAX package's
-commands that the port does not have yet print so and return 1.
+GPSat/read_and_store.py, GPSat/bin_data.py, GPSat/local_expert_oi.py,
+GPSat/postprocessing.py). The JAX package's commands that the port does not
+have yet print so and return 1; a command run without its config prints
+its usage and returns 2.
 """
 
 from __future__ import annotations
@@ -11,12 +13,12 @@ from __future__ import annotations
 import sys
 
 COMMANDS = {
+    "read_and_store": ("gpsat_tpu_torch.read_and_store", "raw flat files -> observations table"),
+    "bin_data": ("gpsat_tpu_torch.bin_data", "bin observations onto a regular grid"),
     "local_expert_oi": ("gpsat_tpu_torch.local_expert_oi", "run local-expert optimal interpolation"),
     "postprocessing": ("gpsat_tpu_torch.postprocessing", "smooth hyperparameters / re-predict"),
 }
 NOT_PORTED = {
-    "read_and_store": "raw flat/nc files -> observations table",
-    "bin_data": "bin observations onto a regular grid",
     "xval": "cross-validation expansion + evaluation",
     "prime_cache": "AOT-compile canonical bucket shapes into the cache",
 }

@@ -6,9 +6,10 @@ inference, where pushdown, col_funcs (derived columns via config_func,
 including tuple-key multi-output), row_select, col_select.
 
 Sources this slice reads: a DataFrame (or a dict of columns), a CSV/TSV
-file, and an HDF5 table through the port's ``TableStore``. Parquet, netCDF,
-zarr and reference-produced PyTables stores raise ``NotImplementedError``
-(ROADMAP.md Queue 1 item 9). pandas is imported when ``load`` runs.
+file, and an HDF5 table through the port's ``TableStore`` or, for a
+reference-produced pandas-HDFStore (PyTables) file, ``data/pytables_compat``.
+Parquet, netCDF and zarr raise ``NotImplementedError`` (ROADMAP.md Queue 1
+item 9). pandas is imported when ``load`` runs.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import re
 from typing import List, Optional, Union
 
 from gpsat_tpu_torch.data import select as sel
-from gpsat_tpu_torch.data.store import TableStore, is_pytables_store
+from gpsat_tpu_torch.data import pytables_compat as PT
+from gpsat_tpu_torch.data.store import TableStore
 from gpsat_tpu_torch.utils.config_func import config_func
 
 FILE_SUFFIX_ENGINE_MAP = {
@@ -108,10 +110,13 @@ def load(
             df = sel.data_select(df, where=where)
         elif eng == "tablestore":
             assert table is not None, "table must be provided when loading from an h5 store"
-            if is_pytables_store(source):
-                raise _not_ported("reading a pandas-HDFStore (PyTables) file")
-            with TableStore(source, mode="r") as ts:
-                df = ts.select(table, where=where).reset_index()
+            if PT.is_pytables_store(source):
+                df = PT.read_table(source, table, where=where)
+                drop = all(n is None for n in df.index.names)
+                df = df.reset_index(drop=drop)
+            else:
+                with TableStore(source, mode="r") as ts:
+                    df = ts.select(table, where=where).reset_index()
         elif eng in _UNPORTED_ENGINES:
             raise _not_ported(f"the {eng} reader")
         else:

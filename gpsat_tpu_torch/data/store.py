@@ -8,6 +8,7 @@ attributes of the group. DataFrames round-trip with their (multi-)index.
 
 h5py and pandas are imported when a store is opened, not when this module
 is imported, so the orchestrator's device-facing sweep runs without them.
+A pandas-HDFStore (PyTables) file reads through ``data/pytables_compat``.
 """
 
 from __future__ import annotations
@@ -19,25 +20,6 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 
 _ATTR_PREFIX = "gpsat_attr_"
-
-
-def is_pytables_store(path: str) -> bool:
-    """True when the file holds pandas-HDFStore (PyTables) tables, which the
-    port does not read yet (ROADMAP.md Queue 1 item 9)."""
-    import h5py
-
-    try:
-        with h5py.File(path, "r") as f:
-            found = []
-
-            def visit(name, obj):
-                if isinstance(obj, h5py.Group) and "pandas_type" in obj.attrs:
-                    found.append(name)
-
-            f.visititems(visit)
-            return bool(found)
-    except OSError:
-        return False
 
 
 def _where_mask(cols: Dict[str, np.ndarray], wd) -> np.ndarray:

@@ -45,7 +45,9 @@ object per expert (``run_host_batch``), with the batched lanes' result
 tables. The route is the class's (``batched_lane``): a batched core that
 fails to build raises and never falls through to the host lane.
 ``profile_dir`` writes a ``torch.profiler`` trace of the run there. ``mesh``
-raises ``NotImplementedError`` naming its ROADMAP.md item.
+raises ``NotImplementedError`` naming its ROADMAP.md item. ``load_params``
+and ``get_results_from_h5file`` also read reference-produced pandas-HDFStore
+(PyTables) files (``data/pytables_compat``).
 
 Behaviours of the JAX package's code kept as they are:
 ``load_params={"previous": True}`` leaves each batch's init unchanged (the
@@ -71,7 +73,8 @@ import torch
 from gpsat_tpu_torch.data import dataloader as DL
 from gpsat_tpu_torch.data import select as sel
 from gpsat_tpu_torch.data.prediction_locations import PredictionLocations
-from gpsat_tpu_torch.data.store import TableStore, is_pytables_store
+from gpsat_tpu_torch.data import pytables_compat as PT
+from gpsat_tpu_torch.data.store import TableStore
 from gpsat_tpu_torch.models import (
     ASVGPModel,
     GPRModel,
@@ -107,10 +110,6 @@ from gpsat_tpu_torch.parallel.engine import (
 )
 from gpsat_tpu_torch.utils.config_func import config_func
 from gpsat_tpu_torch.utils.misc import cprint, json_serializable, pandas_to_dict
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet; see ROADMAP.md Queue 1 item {item}")
 
 
 @dataclasses.dataclass
@@ -1307,11 +1306,10 @@ class LocalExpertOI:
         if not os.path.exists(file):
             warnings.warn(f"load_params file does not exist: {file}")
             return False
-        if is_pytables_store(file):
-            raise _not_ported("load_params from a pandas-HDFStore (PyTables) results file", 9)
         locs = np.stack([xprt_locs[c].to_numpy() for c in coords_col], axis=1)
         out = {}
-        with TableStore(file, mode="r") as store:
+        # the port's TableStore, or a reference-produced PyTables store
+        with PT.open_store(file) as store:
             for pname in core.param_names:
                 tbl = f"{pname}{suffix}"
                 if tbl not in store:
@@ -1380,11 +1378,9 @@ class LocalExpertOI:
         coordinate match (ref: local_experts.py:608-689)."""
         import pandas as pd
 
-        if is_pytables_store(file):
-            raise _not_ported("load_params from a pandas-HDFStore (PyTables) results file", 9)
         names = param_names if param_names is not None else list(model.param_names)
         out = {}
-        with TableStore(file, mode="r") as store:
+        with PT.open_store(file) as store:
             for pname in names:
                 tbl = f"{pname}{table_suffix}"
                 pdf = store.select(tbl).reset_index() if tbl in store else None
@@ -1519,11 +1515,16 @@ def get_results_from_h5file(
 ):
     """Read all (or selected) result tables plus the stored configs.
 
-    Returns (dict of DataFrames, list of configs). Reference-produced
-    PyTables stores are not read yet (ROADMAP.md Queue 1 item 9).
+    Accepts the port's TableStore files and reference-produced
+    pandas-HDFStore (PyTables) results files (``data/pytables_compat``).
+
+    Returns (dict of DataFrames, list of configs).
     """
-    if is_pytables_store(results_file):
-        raise _not_ported("reading a pandas-HDFStore (PyTables) results file", 9)
+    if PT.is_pytables_store(results_file):
+        return _get_results_from_pytables(
+            results_file, global_col_funcs, merge_on_expert_locations, select_tables, table_suffix,
+            add_suffix_to_table,
+        )
     out = {}
     configs = []
     with TableStore(results_file, mode="r") as store:
@@ -1557,4 +1558,41 @@ def get_results_from_h5file(
                     extra = [c for c in el.columns if c not in join_cols]
                     if extra:
                         out[k] = out[k].merge(el, on=join_cols, how="left")
+    return out, configs
+
+
+def _get_results_from_pytables(
+    results_file, global_col_funcs, merge_on_expert_locations, select_tables, table_suffix, add_suffix_to_table
+):
+    """``get_results_from_h5file`` over a reference-produced PyTables store
+    (``gpsat_tpu/experts.py::_get_results_from_pytables``)."""
+    keys = PT.list_tables(results_file)
+    if select_tables is not None:
+        want = [f"{t}{table_suffix}" if add_suffix_to_table else t for t in select_tables]
+        keys = [k for k in keys if k in want or k.startswith("oi_config")]
+    elif table_suffix:
+        keys = [k for k in keys if k.endswith(table_suffix) or k.startswith("oi_config")]
+
+    out, configs = {}, []
+    for k in keys:
+        df = PT.read_table(results_file, k)
+        if k.startswith("oi_config"):
+            configs.extend(json.loads(c) for c in df["config"])
+            continue
+        drop = all(n is None for n in df.index.names)
+        out[k] = df.reset_index(drop=drop)
+
+    if global_col_funcs is not None:
+        for k in out:
+            DL.add_cols(out[k], global_col_funcs)
+
+    el_key = f"expert_locs{table_suffix}"
+    if merge_on_expert_locations and el_key in PT.list_tables(results_file):
+        el = PT.read_table(results_file, el_key).reset_index()
+        for k in list(out.keys()):
+            if k.startswith("expert_locs"):
+                continue
+            join_cols = [c for c in el.columns if c in out[k].columns]
+            if join_cols and [c for c in el.columns if c not in join_cols]:
+                out[k] = out[k].merge(el, on=join_cols, how="left")
     return out, configs

@@ -12,9 +12,10 @@ analytic-gradient LML), ``neg_lml_profiled`` and ``profiled_sigma2_hat``
 Both objectives use the fused analytic-gradient form in every dtype for the
 kernels that have it (``fused_lml.FUSED_KERNELS``; the JAX package keeps an
 autodiff form for f64, which gives the same value and gradients).
-``neg_lml`` fits RationalQuadratic, Cosine and White through the autodiff
-LML, ``ops/linalg.masked_gpr_lml``, as the reference does; the profiled
-objective takes the fused kernels only.
+RationalQuadratic, Cosine and White take the autodiff forms, as in the JAX
+package: ``ops/linalg.masked_gpr_lml`` for ``neg_lml`` and
+``ops/linalg.masked_gpr_lml_profiled`` for ``neg_lml_profiled``, both with
+gradients through ``ops/cholesky``'s backward.
 """
 
 from __future__ import annotations
@@ -76,12 +77,15 @@ def neg_lml_profiled(uparams: dict, data: dict, *, kernel: str, bijectors: dict,
     The 'likelihood_variance' slot of uparams holds tau = lv / kv; the
     'kernel_variance' slot is ignored (held fixed by the core). Same optimum
     as ``neg_lml`` over (ls, kv, lv); ``profiled_sigma2_hat`` maps back.
+    A kernel outside ``FUSED_KERNELS`` takes the autodiff form, whose factor
+    is ``linalg.cholesky`` (kernel 3 in its domain on the card).
     """
     p = T.forward_params(uparams, bijectors)
     data = MF.center_y(p, data)
-    return -masked_gpr_lml_profiled(
-        kernel, data["X"], data["y"], data["mask"], p["lengthscales"], p["likelihood_variance"], jitter
-    )
+    args = (data["X"], data["y"], data["mask"], p["lengthscales"], p["likelihood_variance"])
+    if kernel not in FUSED_KERNELS:
+        return -LA.masked_gpr_lml_profiled(*args, kernel=kernel, jitter=jitter)
+    return -masked_gpr_lml_profiled(kernel, *args, jitter)
 
 
 def profiled_sigma2_hat(cparams: dict, data: dict, *, kernel: str, jitter: float = 0.0):

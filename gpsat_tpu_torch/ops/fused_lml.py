@@ -175,11 +175,12 @@ def _profiled_gram(kernel, X, mask, lengthscales, tau, jitter):
 
 
 def profiled_sigma2(kernel, X, y, mask, lengthscales, tau, jitter=0.0):
-    """Closed-form sigma2_hat = y^T A^-1 y / n [B] at (lengthscales, tau).
+    """Closed-form sigma2_hat = y^T A^-1 y / n [B] at (lengthscales, tau),
+    for every kernel name (A from ``linalg.profiled_gram``).
 
     All-masked (zero-observation) tiles, the engine's batch-padding lanes,
     return 1.0 instead of 0/0."""
-    Am, m, n, _ = _profiled_gram(kernel, X, mask, lengthscales, tau, float(jitter))
+    Am, m, n = LA.profiled_gram(X, mask, lengthscales, tau, kernel=kernel, jitter=float(jitter))
     v = LA.tri_solve(LA.cholesky(Am), (y * m)[:, :, None])
     return torch.where(n > 0, torch.sum(v * v, dim=(1, 2)) / torch.clamp_min(n, 1.0), torch.ones_like(n))
 

@@ -306,3 +306,36 @@ def masked_gpr_lml(
     else:
         quad = torch.sum(ym * cho_solve(L, ym), dim=(1, 2))
     return -0.5 * quad - 0.5 * logdet_from_chol(L) - 0.5 * n * math.log(2.0 * math.pi)
+
+
+def profiled_gram(X, mask, lengthscales, tau, *, kernel: str, jitter: float = 0.0):
+    """Masked A = k_unit(ls) + (tau + jitter) I [B, N, N] of the profiled
+    objective, with m [B, N] and n [B]."""
+    m = mask.to(X.dtype)
+    k = KK.gram(kernel, X, X, lengthscales, torch.ones_like(tau))
+    return mask_gram(add_diag(k, tau + jitter), m), m, m.sum(-1)
+
+
+def masked_gpr_lml_profiled(
+    X: torch.Tensor,
+    y: torch.Tensor,
+    mask: torch.Tensor,
+    lengthscales: torch.Tensor,
+    tau: torch.Tensor,
+    *,
+    kernel: str = "Matern32",
+    jitter: float = 0.0,
+) -> torch.Tensor:
+    """Profiled (kernel variance solved in closed form) LML [B], with
+    gradients by autograd through ``cholesky``: the JAX package's form for
+    the kernels without a closed-form dK/dtheta (``gpsat_tpu/models/gpr.py::
+    neg_lml_profiled``). sigma2_hat = |L^-1 y|^2 / n; an all-masked lane
+    gives a finite 0."""
+    A, m, n = profiled_gram(X, mask, lengthscales, tau, kernel=kernel, jitter=jitter)
+    L = cholesky(A)
+    v = tri_solve(L, (y * m)[:, :, None])
+    empty = n == 0
+    one = torch.ones_like(n)
+    sig2 = torch.where(empty, one, torch.sum(v * v, dim=(1, 2)) / torch.clamp_min(n, 1.0))
+    lml = -0.5 * n * (1.0 + torch.log(sig2)) - 0.5 * logdet_from_chol(L) - 0.5 * n * math.log(2.0 * math.pi)
+    return torch.where(empty, torch.zeros_like(lml), lml)

@@ -8,9 +8,11 @@ col_args, col_kwargs} applied to values and/or columns. The selection DSL
 ``df`` is a DataFrame or any mapping of column name -> array. Like the
 reference, string funcs are evaluated: ``lambda ...`` strings via eval,
 operator shorthands via a generated lambda, and names imported from
-``source``; "@name" looks up REGISTERED_FUNCS without eval. The projection
-helpers of the JAX package's registry (``@WGS84toEASE2``, ``@EASE2toWGS84``)
-are not ported yet (ROADMAP.md Queue 1 item 9).
+``source``; "@name" looks up REGISTERED_FUNCS without eval. The registry
+holds what the JAX package's does: the projections (``@WGS84toEASE2``,
+``@EASE2toWGS84``), the datetime helpers below and, from the first "@name"
+lookup on, the satellite datetime funcs of ``gpsat_tpu_torch/
+datetime_utils.py`` (which imports pandas).
 """
 
 from __future__ import annotations
@@ -21,8 +23,7 @@ from typing import Optional
 import numpy as np
 
 from gpsat_tpu_torch.utils.misc import loaded_pandas
-
-_UNPORTED_FUNCS = ("WGS84toEASE2", "EASE2toWGS84")
+from gpsat_tpu_torch.utils.projections import EASE2toWGS84, WGS84toEASE2
 
 
 def _to_datetime(x):
@@ -39,7 +40,22 @@ def _days_since_epoch(x):
 
 # preferred non-eval path: "@name" keys resolve here; the datetime helpers
 # are the named spelling of lambdas common in OI configs
-REGISTERED_FUNCS = {"to_datetime": _to_datetime, "days_since_epoch": _days_since_epoch}
+REGISTERED_FUNCS = {
+    "WGS84toEASE2": WGS84toEASE2,
+    "EASE2toWGS84": EASE2toWGS84,
+    "to_datetime": _to_datetime,
+    "days_since_epoch": _days_since_epoch,
+}
+
+
+def register_func(name: str):
+    """Decorator: register ``f`` as ``"@name"``."""
+
+    def deco(f):
+        REGISTERED_FUNCS[name] = f
+        return f
+
+    return deco
 
 
 def eval_namespace() -> dict:
@@ -108,8 +124,8 @@ def config_func(
     if isinstance(func, str):
         if func.startswith("@"):
             name = func[1:]
-            if name in _UNPORTED_FUNCS:
-                raise NotImplementedError(f"'@{name}' is not ported yet; see ROADMAP.md Queue 1 item 9")
+            from gpsat_tpu_torch import datetime_utils  # noqa: F401  (registers its funcs)
+
             assert name in REGISTERED_FUNCS, f"'@{name}' not in registered funcs: {sorted(REGISTERED_FUNCS)}"
             fun = REGISTERED_FUNCS[name]
         elif re.search("^lambda", func):

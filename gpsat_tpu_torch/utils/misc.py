@@ -2,9 +2,10 @@
 
 The port's own copy of the parts of ``gpsat_tpu/utils/misc.py`` this slice
 needs: ``cprint``, ``json_serializable``, ``pandas_to_dict``, ``to_array``,
-``nested_dict_literal_eval`` and ``get_config_from_sysargv``.
+``nested_dict_literal_eval``, ``get_config_from_sysargv`` and
+``stats_on_vals`` (binning's data-quality report).
 
-None of them imports pandas. An object can only be a DataFrame or a Series
+None of them but ``stats_on_vals`` imports pandas. An object can only be a DataFrame or a Series
 once its caller has imported pandas, so they look for it in ``sys.modules``;
 the device-facing sweep then runs where pandas is not installed.
 """
@@ -138,3 +139,31 @@ def get_config_from_sysargv(argv_num: int = 1):
     except IndexError as e:
         print(f"IndexError: {e} — no config file provided on command line")
     return config
+
+
+def stats_on_vals(vals, measure=None, name=None, qs=None):
+    """Summary statistics DataFrame on an array (data-quality reporting)."""
+    import pandas as pd
+
+    out = {}
+    vals = np.asarray(vals)
+    out["measure"] = measure
+    out["size"] = vals.size
+    out["num_not_nan"] = int((~np.isnan(vals)).sum())
+    out["num_inf"] = int(np.isinf(vals).sum())
+    finite = vals[np.isfinite(vals)]
+    out["min"] = finite.min() if finite.size else np.nan
+    out["mean"] = finite.mean() if finite.size else np.nan
+    out["max"] = finite.max() if finite.size else np.nan
+    out["std"] = finite.std() if finite.size else np.nan
+    out["skew"] = (
+        float(((finite - finite.mean()) ** 3).mean() / (finite.std() ** 3)) if finite.size else np.nan
+    )
+    out["kurtosis"] = (
+        float(((finite - finite.mean()) ** 4).mean() / (finite.std() ** 4) - 3.0) if finite.size else np.nan
+    )
+    if qs is None:
+        qs = [0.05] + list(np.arange(0.1, 1.0, 0.1).round(1)) + [0.95]
+    quantiles = {f"q{q:.2f}": np.quantile(finite, q) if finite.size else np.nan for q in qs}
+    out = {**out, **quantiles}
+    return pd.DataFrame.from_dict(out, orient="index", columns=[name if name else "vals"])

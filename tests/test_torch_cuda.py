@@ -536,3 +536,77 @@ def test_host_gpr_model_f32_launches_kernel_1_and_f64_launches_nothing():
     for k in ("f*", "f*_var", "y_var"):
         np.testing.assert_allclose(p64[k], pc[k], rtol=1e-10)
         np.testing.assert_allclose(p32[k], pc[k], atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_autodiff_profiled_objective_factors_through_kernel_3():
+    # RationalQuadratic's profiled objective in f32 on the card: one kernel-3
+    # launch per value+grad (N = 256, in the kernel's domain) and none
+    # in the backward (plain triangular solves); value and gradient against
+    # the same function in f64 on the CPU, 1e-4 and 1e-2 relative (f32)
+    from gpsat_tpu_torch.models import gpr as G
+    from gpsat_tpu_torch.ops import transforms as TT
+
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    B, N = 4, 256
+    X = rng.uniform(-3, 3, (B, N, 2))
+    y = np.sin(X[..., 0]) + 0.1 * rng.normal(size=(B, N))
+    m = np.ones((B, N))
+    m[:, 200:] = 0.0
+    ls, tau = rng.uniform(0.6, 1.9, (B, 2)), rng.uniform(0.02, 0.2, B)
+    bij = {k: TT.IDENTITY for k in ("lengthscales", "kernel_variance", "likelihood_variance")}
+
+    def value_and_grad(device, dtype):
+        t = {k: torch.as_tensor(v, dtype=dtype, device=device) for k, v in
+             dict(X=X, y=y, mask=m, ls=ls, tau=tau).items()}
+        u = {"lengthscales": t["ls"].requires_grad_(True), "kernel_variance": torch.ones_like(t["tau"]),
+             "likelihood_variance": t["tau"].requires_grad_(True)}
+        v = G.neg_lml_profiled(u, {"X": t["X"], "y": t["y"], "mask": t["mask"]}, kernel="RationalQuadratic",
+                               bijectors=bij, jitter=1e-5)
+        g = torch.autograd.grad(v.sum(), [u["lengthscales"], u["likelihood_variance"]])
+        return v.detach().double().cpu().numpy(), [x.double().cpu().numpy() for x in g]
+
+    before = CH.cholesky.launches
+    v32, g32 = value_and_grad(dev, torch.float32)
+    torch.cuda.synchronize()
+    assert CH.cholesky.launches - before == 1
+    v64, g64 = value_and_grad("cpu", torch.float64)
+    np.testing.assert_allclose(v32, v64, rtol=1e-4)
+    for a, b in zip(g32, g64):
+        np.testing.assert_allclose(a, b, rtol=1e-2, atol=1e-2 * np.abs(b).max())
+
+
+@pytest.mark.cuda
+def test_multioutput_models_launch_kernel_1_by_their_formulas():
+    # MultioutputGPRModel on 100 points of P = 2 outputs: S of 200 padded
+    # to 256, 4 launches per pair, (it + 2) pairs; MultioutputSVGPModel at
+    # M = 32 (padded to 64): the L = 2 Kuu pairs in one launch per ELBO, one
+    # per Adam step and one in the predict. f32 predictions within 1e-2 of
+    # the f64 CPU model at the same parameters
+    from gpsat_tpu_torch.models.multioutput import MultioutputGPRModel, MultioutputSVGPModel
+
+    _cuda()
+    rng = np.random.default_rng(1)
+    X = rng.uniform(-4, 4, (100, 2))
+    H = np.array([[1.0, 0.5], [0.2, 1.0]])
+    Y = np.stack([np.sin(X[:, 0]), np.cos(X[:, 1] / 2)], axis=1) @ H.T + 0.05 * rng.normal(size=(100, 2))
+    Xs = rng.uniform(-3, 3, (16, 2))
+    cases = (
+        (lambda dev, dt: MultioutputGPRModel(coords=X, obs=Y, H=H, likelihood_variance=0.01, device=dev, dtype=dt),
+         lambda m: m.optimise_parameters(max_iter=50), lambda m: (int(m._last_opt_result.num_iter[0]) + 2) * 4),
+        (lambda dev, dt: MultioutputSVGPModel(coords=X, obs=Y, H=H, num_inducing_points=32, device=dev, dtype=dt),
+         lambda m: m.optimise_parameters(max_iter=20), lambda m: 20 + 1),
+    )
+    for make, fit, formula in cases:
+        m32 = make(None, torch.float32)
+        before = BC.factor_blocks.launches
+        assert fit(m32)
+        p32 = m32.predict(Xs)
+        torch.cuda.synchronize()
+        assert BC.factor_blocks.launches - before == formula(m32), type(m32).__name__
+        cpu = make("cpu", torch.float64)
+        cpu._params = dict(m32._params)
+        pc = cpu.predict(Xs)
+        for k in ("f*", "f*_var"):
+            np.testing.assert_allclose(p32[k], pc[k], atol=1e-2, err_msg=f"{type(m32).__name__} {k}")

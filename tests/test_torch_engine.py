@@ -300,6 +300,11 @@ def test_port_imports_neither_jax_nor_gpsat_tpu():
         "import gpsat_tpu_torch.data.dataloader, gpsat_tpu_torch.data.store, gpsat_tpu_torch.data.select\n"
         "import gpsat_tpu_torch.data.prediction_locations, gpsat_tpu_torch.utils.misc, gpsat_tpu_torch.utils.config_func\n"
         "import gpsat_tpu_torch.postprocess, gpsat_tpu_torch.postprocessing, gpsat_tpu_torch.cli\n"
+        "import gpsat_tpu_torch.models.multioutput, gpsat_tpu_torch.models.multioutput.gpr\n"
+        "import gpsat_tpu_torch.models.multioutput.likelihoods, gpsat_tpu_torch.models.multioutput.utils\n"
+        "import gpsat_tpu_torch.data.pytables_compat, gpsat_tpu_torch.data.ingest, gpsat_tpu_torch.data.binning\n"
+        "import gpsat_tpu_torch.read_and_store, gpsat_tpu_torch.bin_data, gpsat_tpu_torch.datetime_utils\n"
+        "import gpsat_tpu_torch.utils.projections\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'gpsat_tpu' or m.startswith('gpsat_tpu.')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

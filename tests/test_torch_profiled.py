@@ -10,15 +10,19 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from gpsat_tpu.models import gpr as JG
 from gpsat_tpu.models.functional import make_gpr_core as jax_make_gpr_core
+from gpsat_tpu.ops import transforms as JT
 from gpsat_tpu.ops import fused_lml as JF
 from gpsat_tpu.ops import linalg as JLA
 from gpsat_tpu.parallel import batching as JB
 from gpsat_tpu.parallel import engine as JE
 from gpsat_tpu_torch.convert import batch_from_numpy, params_from_numpy
+from gpsat_tpu_torch.models import gpr as TG
 from gpsat_tpu_torch.models.functional import make_gpr_core
 from gpsat_tpu_torch.ops import fused_lml as TF
 from gpsat_tpu_torch.ops import linalg as LA
+from gpsat_tpu_torch.ops import transforms as TT
 from gpsat_tpu_torch.parallel import engine as TE
 
 JITTER = 1e-5
@@ -52,8 +56,9 @@ def _torch_value_and_grads(fn, args, diff=(1, 3, 4, 5)):
     ts = [torch.from_numpy(a) for a in args]
     leaves = [ts[i].requires_grad_(True) for i in diff]
     val = fn(*ts)
-    grads = torch.autograd.grad(val.sum(), leaves)
-    return val.detach().numpy(), [g.numpy() for g in grads]
+    # White's Gram never reads the lengthscales: their gradient is zero
+    grads = torch.autograd.grad(val.sum(), leaves, allow_unused=True)
+    return val.detach().numpy(), [np.zeros(x.shape) if g is None else g.numpy() for x, g in zip(leaves, grads)]
 
 
 def _assert_close(val, grads, val_ref, grads_ref, names, tol=1e-9, msg=""):
@@ -129,6 +134,111 @@ def test_profiled_lml_matches_jax_f64():
         "Matern32", *(torch.from_numpy(a) for a in (X, y, m, ls, sig, tau * sig)), JITTER * float(sig[0]), "cholesky"
     )
     np.testing.assert_allclose(val[0], joint.numpy()[0], rtol=1e-9)
+
+
+AUTODIFF_KERNELS = ("RationalQuadratic", "Cosine", "White")
+
+
+def _jax_profiled_value_and_grads(kernel, X, y, m, ls, tau):
+    """JAX's neg_lml_profiled tile by tile, run eagerly (no compile of a
+    whole program): value and gradients w.r.t. (y, lengthscales, tau)."""
+    bij = {k: JT.IDENTITY for k in ("lengthscales", "kernel_variance", "likelihood_variance")}
+
+    def f(y_b, ls_b, tau_b, X_b, m_b):
+        u = {"lengthscales": ls_b, "kernel_variance": jnp.ones_like(tau_b), "likelihood_variance": tau_b}
+        return JG.neg_lml_profiled(u, {"X": X_b, "y": y_b, "mask": m_b}, kernel=kernel, bijectors=bij, jitter=JITTER)
+
+    out = [jax.value_and_grad(f, argnums=(0, 1, 2))(*(jnp.asarray(a[b]) for a in (y, ls, tau, X, m)))
+           for b in range(len(X))]
+    return np.array([float(v) for v, _ in out]), [np.stack([np.asarray(g[i]) for _, g in out]) for i in range(3)]
+
+
+def _torch_profiled(kernel, X, y, m, ls, tau):
+    bij = {k: TT.IDENTITY for k in ("lengthscales", "kernel_variance", "likelihood_variance")}
+
+    def f(X, y, m, ls, tau):
+        u = {"lengthscales": ls, "kernel_variance": torch.ones_like(tau), "likelihood_variance": tau}
+        return TG.neg_lml_profiled(u, {"X": X, "y": y, "mask": m}, kernel=kernel, bijectors=bij, jitter=JITTER)
+
+    return _torch_value_and_grads(f, (X, y, m, ls, tau), diff=(1, 3, 4))
+
+
+@pytest.mark.parametrize("kernel", AUTODIFF_KERNELS)
+def test_autodiff_profiled_objective_matches_jax_f64(kernel):
+    # the kernels outside FUSED_KERNELS take the autodiff form through
+    # ops/cholesky's backward (kernel 3 on the card in f32). f64, value and
+    # gradients (y, lengthscales, tau) within 1e-10 of the JAX function, N =
+    # 96 (off the 128-block, so the CPU takes the library factor there as on
+    # the card), with one all-masked lane: value 0 and zero gradients
+    # gradients to 1e-10 of the objective's size: White's objective does not
+    # depend on tau (A = (tau + jitter) I cancels against sigma2_hat), so its
+    # tau gradient is roundoff on both sides
+    X, y, m, ls, _, tau = _inputs(B=3, N=96, nvalid=80, seed=5)
+    m[2] = 0.0
+    val_j, grads_j = _jax_profiled_value_and_grads(kernel, X, y, m, ls, tau)
+    val, grads = _torch_profiled(kernel, X, y, m, ls, tau)
+    np.testing.assert_allclose(val, val_j, rtol=1e-10, err_msg=kernel)
+    for g, gr, name in zip(grads, grads_j, ("y", "ls", "tau")):
+        np.testing.assert_allclose(g, gr, rtol=1e-10, atol=1e-10 * np.abs(val_j).max(), err_msg=f"{kernel} d/d{name}")
+    assert val[2] == 0.0 and all(np.all(g[2] == 0.0) for g in grads)
+    assert np.all(np.isfinite(val))
+
+
+@pytest.mark.parametrize("kernel", AUTODIFF_KERNELS)
+def test_autodiff_profiled_sigma2_identity(kernel):
+    # lml_profiled(ls, tau) == lml_joint(ls, sigma2_hat, tau * sigma2_hat),
+    # the joint side JAX's neg_lml with the jitter scaled as in A (K = sigma2
+    # A): 1e-10 relative. The JAX package's own sigma2_hat (its finalize)
+    # takes the fused kernels only, so the identity is the oracle here
+    X, y, m, ls, _, tau = _inputs(B=2, N=64, nvalid=56, seed=6)
+    t = [torch.from_numpy(a) for a in (X, y, m, ls, tau)]
+    sig = TF.profiled_sigma2(kernel, *t, JITTER).numpy()
+    val, _ = _torch_profiled(kernel, X, y, m, ls, tau)
+    bij = {k: JT.IDENTITY for k in ("lengthscales", "kernel_variance", "likelihood_variance")}
+    for b in range(2):
+        u = {"lengthscales": jnp.asarray(ls[b]), "kernel_variance": jnp.asarray(sig[b]),
+             "likelihood_variance": jnp.asarray(tau[b] * sig[b])}
+        joint = JG.neg_lml(u, {"X": jnp.asarray(X[b]), "y": jnp.asarray(y[b]), "mask": jnp.asarray(m[b])},
+                           kernel=kernel, bijectors=bij, jitter=JITTER * float(sig[b]))
+        np.testing.assert_allclose(val[b], float(joint), rtol=1e-10, err_msg=kernel)
+    empty = np.zeros_like(m)
+    assert np.all(TF.profiled_sigma2(kernel, *t[:2], torch.from_numpy(empty), *t[3:], JITTER).numpy() == 1.0)
+
+
+@pytest.mark.parametrize("kernel", AUTODIFF_KERNELS)
+def test_profiled_core_fits_and_predicts_autodiff_kernels(kernel):
+    # make_gpr_core(kernel, profile_variance=True) end to end on the port's
+    # engine (f64, CPU): finalize maps tau back through sigma2_hat, so the
+    # joint objective at the reported (kv, lv) equals the profiled objective
+    # at the optimum (1e-9 relative; the JAX package's finalize raises for
+    # these kernels), and the predictions are finite. jitter 0, so that
+    # sigma2_hat's A and the joint K = sigma2_hat A carry the same diagonal
+    rng = np.random.default_rng(7)
+    Bt, Nt, Pt = 3, 64, 4
+    X = rng.uniform(-3, 3, (Bt, Nt, 2))
+    y = np.sin(X[..., 0]) + 0.1 * rng.normal(size=(Bt, Nt))
+    mask = np.ones((Bt, Nt))
+    mask[1, 50:] = 0.0
+    batch = JB.TileBatch(X=X, y=y, mask=mask, Xnew=rng.uniform(-2, 2, (Bt, Pt, 2)), pred_mask=np.ones((Bt, Pt)),
+                         obs_mean=np.zeros(Bt), expert_index=np.arange(Bt), num_obs=mask.sum(1).astype(int))
+    init = {"lengthscales": np.ones((Bt, 2)), "kernel_variance": np.ones(Bt), "likelihood_variance": 0.1 * np.ones(Bt)}
+    core = make_gpr_core(kernel=kernel, profile_variance=True)
+    runner = TE.make_batched_runner(core, fixed_params=core.default_fixed_params, linesearch="single_eval",
+                                    max_iter=100, device="cpu", **TOLS)
+    res = TE.run_tile_batch(batch_from_numpy(batch), init, runner, core, device="cpu")
+    assert not res["failed"].any(), kernel
+    for k in ("f_mean", "f_var", "y_var"):
+        assert np.isfinite(res[k]).all(), (kernel, k)
+    assert (res["f_var"] >= -1e-9).all()
+    cp = {k: torch.from_numpy(np.asarray(res[k], dtype=np.float64)) for k in core.param_names}
+    data = {k: torch.from_numpy(getattr(batch, k)) for k in ("X", "y", "mask")}
+    bij = {k: TT.IDENTITY for k in core.param_names}
+    sig = cp["kernel_variance"]
+    with torch.no_grad():
+        joint = TG.neg_lml(cp, data, kernel=kernel, bijectors=bij, jitter=0.0)
+        prof = TG.neg_lml_profiled({**cp, "likelihood_variance": cp["likelihood_variance"] / sig}, data,
+                                   kernel=kernel, bijectors=bij, jitter=0.0)
+    np.testing.assert_allclose(joint.numpy(), prof.numpy(), rtol=1e-9, err_msg=kernel)
 
 
 # --------------------------------------------------------------------------

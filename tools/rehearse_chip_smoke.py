@@ -1,7 +1,7 @@
-"""Rehearse chip_smoke.py's phases 10 (svgp), 11 (zoo) and 12 (host) on the CPU, before a run on the card.
+"""Rehearse chip_smoke.py's phases 10 (svgp), 11 (zoo), 12 (host) and 13 (prep) on the CPU, before a run on the card.
 
-    python tools/rehearse_chip_smoke.py [--parts a b c d e vff asvgp host] [--lanes B] [--threads T]
-                                        [--identity-natgrad] [--expert-stride S]
+    python tools/rehearse_chip_smoke.py [--parts a b c d e vff asvgp host prep_a prep_b prep_c] [--lanes B]
+                                        [--threads T] [--identity-natgrad] [--expert-stride S]
 
 Runs the phases' own functions with every entry point's default device
 set to the CPU and the CUDA memory calls stubbed, so the iteration counts,
@@ -9,8 +9,9 @@ objectives and accuracy numbers that fix the phases' bounds can be read
 without a card. A failed check is printed and counted instead of raised:
 the kernel-launch checks always fail here, since the CPU runs each
 kernel's plain version. Parts a-e are phase 10's, "vff" and "asvgp" phase
-11's lanes, "host" phase 12 (default: phase 10's). ``--lanes`` cuts (a)-(c)'s batch
-(default: the phase's 128). ``--identity-natgrad`` is the mutation check
+11's lanes, "host" phase 12, "prep_a" to "prep_c" phase 13's parts
+(default: phase 10's). ``--lanes`` cuts (a)-(c)'s batch (default: the
+phase's 128) and phase 13 (a)'s (the phase's 512). ``--identity-natgrad`` is the mutation check
 of (c)'s bound: it runs (c) once more with the natural-gradient step
 replaced by the identity, so q stays at its starting value, and prints
 that run's negative-ELBO gap to (a). ``--expert-stride S`` keeps every
@@ -64,7 +65,7 @@ def _gap(tag, res, res_a):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parts", nargs="+", default=list("abcde"), choices=[*"abcde", "vff", "asvgp", "host"])
+    ap.add_argument("--parts", nargs="+", default=list("abcde"), choices=[*"abcde", "vff", "asvgp", "host", "prep_a", "prep_b", "prep_c"])
     ap.add_argument("--expert-stride", type=int, default=1)
     ap.add_argument("--lanes", type=int, default=cs.SVGP_B)
     ap.add_argument("--threads", type=int, default=4)
@@ -88,6 +89,15 @@ def main(argv=None) -> int:
             cs.zoo_lane(tag, profile=False)
     if "host" in parts:
         cs.phase_host()
+    if "prep_a" in parts:
+        cs.B = args.lanes
+        cs.phase_profiled(*cs.bench_workload(), False, kernel=cs.PREP_PROFILED_KERNEL, tag="prep_profiled_rq")
+    if "prep_b" in parts:
+        cs.phase_prep_multioutput()
+    if "prep_c" in parts:
+        cs.phase_prep_data()
+    if not parts & set("abcde"):
+        return _done(failed, t0)
     batch = cs.make_large_tiles(args.lanes, cs.SVGP_N, cs.SVGP_P, cs.D, np.float32, min_fill=0.6)
     kw = dict(kernel="Matern32", jitter=cs.SVGP_JITTER, num_inducing_points=cs.SVGP_M)
     if parts & {"a", "c"}:
@@ -115,6 +125,10 @@ def main(argv=None) -> int:
         cs.phase_svgp_linesearch()
     if "e" in parts:
         cs.phase_svgp_config()
+    return _done(failed, t0)
+
+
+def _done(failed, t0) -> int:
     others = [m for m in failed if "launches" not in m]
     cs.log("rehearse_done", seconds=time.perf_counter() - t0, failed_checks=others,
            launch_checks_failed=len(failed) - len(others))
