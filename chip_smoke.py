@@ -132,6 +132,35 @@ Phases (each prints on its own lines; any failure raises):
              @WGS84toEASE2, binned on phase 7's 50 km grid by
              BinData.bin_wrapper (against a plain numpy group-by mean) and
              swept with phase 7's experts and GPR settings (kernel 1)
+14. mesh     the experts sharded over devices (parallel.engine's mesh: one
+             host thread and one stream per shard), at phase 7's geometry in
+             f32 without the polish: (a) experts.sweep(mesh=default_mesh())
+             on the one card, against phase 7's unmeshed f32 fit (the same
+             arithmetic: <= 1e-6), kernel 1 launched (it_max + 2) * 2 times;
+             (b) a mesh of two shards (every card when there are several,
+             else the card twice: two threads, shards of 832), >= 90 %
+             converged, kernel 1 launched sum over shards of
+             (it_max_s + 2) * 2 times (the atomic launch counter), within
+             1e-2 of (a) where both converged and the objectives agree
+             within 1 nat; phase 7's first 64 experts in f64 on the card
+             over the mesh against each shard's experts alone with no mesh
+             at the shard's width (<= 1e-9), and against the whole bucket
+             with no mesh lane by lane (the card's f64 triangular solve
+             rounds by batch width: the same fit in another summation
+             order, <= 1e-5, with at most 2 lanes stopping an iteration
+             apart); the walls of (a) and (b)
+             side by side (one card gains nothing from a second thread
+             unless the host-bound loop hides behind the other's device
+             work: a finding, not a claim); (c) two child processes joined
+             over gloo on a localhost coordinator (gpsat_tpu_torch.
+             distributed), started with the phase so that their imports and
+             contexts overlap (a) and (b), each sweeping its
+             partition_expert_locs share on its local mesh once the parent
+             lets it and handing back its frames; the h5py-free merge
+             (merge_frames) has (a)'s rows in (a)'s order, within 1e-2 of (a)
+             where both converged, and the children's run tokens are equal.
+             A mesh naming a missing card or mixing the CPU and CUDA raises,
+             and so does a failed shard; a failed child fails the phase
 
 Then one {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 Imports nothing of JAX or of gpsat_tpu.
@@ -337,6 +366,26 @@ MO_REF_ITERS, MO_REF_LR = 10, 1e-4
 # 7's 50 km grid; the binned means against a plain numpy group-by mean
 PREP_TRACKS, PREP_TRACK_POINTS = 28, 3000
 PREP_BIN_BOUND = 1e-12
+# phase 14: the meshed sweep against phase 7's (the same arithmetic on one
+# shard), f32 shards against (a) within the raw-f32 band, and meshed f64
+# against unmeshed f64: against the shards' experts alone (the same widths,
+# the same bits: MESH_F64_BOUND) and, lane by lane, against the whole
+# bucket. The card's f64 triangular solve rounds by batch width, and the
+# L-BFGS runs near flat optima carry that to 4.1e-8 where num_iter is equal
+# and to 1.58e-7 on a lane that stops an iteration apart: the same fit in
+# another summation order, held to F64_BOUND, with at most
+# MESH_F64_ITER_LANES lanes at another num_iter (one in each of three runs)
+MESH_SAME_BOUND = 1e-6
+MESH_F64_EXPERTS = 64
+MESH_F64_BOUND = 1e-9
+MESH_F64_ITER_LANES = 2
+MESH_CHILDREN = 2
+MESH_BUDGET_S = 30.0
+MESH_OPTIM = {"max_iter": OI_OPTIM["max_iter"]}
+# a phase 14 (c) child: argv is the repo root, its process id, the process
+# count, the coordinator's port and the directory for its frames
+MESH_CHILD_CODE = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke as cs; "
+                   "cs.mesh_child(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])")
 
 
 def check(cond, msg):
@@ -2357,6 +2406,319 @@ def phase_prep(batch, init, profile: bool):
                     "prep_data": block_c}
 
 
+def mesh_sweep(mesh, locs=None, dtype=None, optim_kwargs=None, pad_multiple=OI_KW["pad_multiple"]):
+    """Phase 7's sweep without the polish over ``mesh`` (None: no mesh) on
+    the card, of ``locs`` (default all of phase 7's experts): (buckets,
+    seconds, kernel launches), the counts set to 0 just before it and read
+    just after."""
+    import torch
+
+    from gpsat_tpu_torch.data.prediction_locations import PredictionLocations
+    from gpsat_tpu_torch.experts import sweep
+
+    obs, experts, grid = pipeline_inputs()
+    pred_loc = PredictionLocations("from_dataframe", coords_col=["x", "y"], df=grid, max_dist=OI_MAX_DIST)
+    kw = {**OI_KW, "dtype": dtype or torch.float32, "optim_kwargs": optim_kwargs or MESH_OPTIM,
+          "pad_multiple": pad_multiple}
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = [r for r in sweep(obs, experts if locs is None else locs, pred_loc=pred_loc, mesh=mesh, **kw)
+           if not r.get("skipped")]
+    seconds = time.perf_counter() - t0
+    return out, seconds, {k: fn.launches for k, fn in counters().items()}
+
+
+def shard_launches(buckets, n_shards):
+    """Kernel 1's launches for a meshed sweep, derived from the code: each
+    shard of each bucket (padded as the engine pads it, split in row order)
+    runs one factor pair of Nmax/64 launches per value+grad (the initial one,
+    one per iteration of the shard's slowest lane) and one in its predict."""
+    from gpsat_tpu_torch.parallel import batching
+    from gpsat_tpu_torch.parallel.engine import padded_width
+
+    total, per_shard = 0, []
+    for r in buckets:
+        it = r["num_iter"]
+        per = padded_width(len(it), OI_KW["pad_multiple"], n_shards) // n_shards
+        nmax = batching.bucket_size(int(r["num_obs"].max()))
+        for s in range(n_shards):
+            rows = it[s * per:(s + 1) * per]
+            check(len(rows) > 0, f"mesh: shard {s} of a bucket of {len(it)} holds no live expert")
+            per_shard.append(int(rows.max()))
+            total += (int(rows.max()) + 2) * (nmax // T)
+    return total, per_shard
+
+
+def mesh_frames(buckets, locs) -> dict:
+    """The preds and run_details tables of a sweep's buckets (pandas, index
+    columns as columns), rows of ``locs`` named by their coordinates."""
+    import pandas as pd
+
+    cat = {k: np.concatenate([r[k] for r in buckets]) for k in ("expert_index", "num_obs", "objective", "converged",
+                                                                 "num_iter")}
+    e = cat.pop("expert_index")
+    return {"preds": preds_frame(buckets, locs),
+            "run_details": pd.DataFrame({"x": locs["x"][e], "y": locs["y"][e], **cat})}
+
+
+def mesh_config() -> dict:
+    """Phase 7's settings as an experiment config, for run_token."""
+    return {"model": {"oi_model": "GPflowGPRModel", "init_params": OI_KW["init_params"],
+                      "constraints": OI_KW["constraints"], "optim_kwargs": MESH_OPTIM},
+            "data": {"coords_col": OI_KW["coords_col"], "obs_col": OI_KW["obs_col"],
+                     "local_select": OI_KW["local_select"]},
+            "pred_loc": {"method": "from_dataframe", "max_dist": OI_MAX_DIST}}
+
+
+def f64_width_probe(seed=0) -> dict:
+    """Whether the card's f64 library calls of the GPR path give a matrix
+    the same bits in a batch of 32 as in a batch of 128: max |a - b| over
+    the first 32 of 128 SPD matrices of 128 rows, per call."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    A = torch.randn(128, 128, 128, dtype=torch.float64, generator=g).cuda()
+    K = A @ A.transpose(1, 2) / 128 + torch.eye(128, dtype=torch.float64, device="cuda")
+    v = torch.randn(128, 128, 1, dtype=torch.float64, generator=g).cuda()
+    calls = {
+        "cholesky_ex": lambda K, v: torch.linalg.cholesky_ex(K)[0],
+        "solve_triangular": lambda K, v: torch.linalg.solve_triangular(torch.linalg.cholesky_ex(K)[0], v,
+                                                                       upper=False),
+        "bmm": lambda K, v: K @ K,
+        "sum": lambda K, v: K.sum(-1),
+    }
+    return {k: float((f(K, v)[:32] - f(K[:32].contiguous(), v[:32].contiguous())).abs().max())
+            for k, f in calls.items()}
+
+
+def mesh_child(process_id: int, num_processes: int, port: int, out_dir: str) -> None:
+    """Phase 14 (c), one child process: join the gloo group, make ready
+    (imports, the card's context, this process's partition_expert_locs share
+    of phase 7's experts), wait for the parent's go file, sweep the share on
+    the local mesh, check its kernel-1 launches, write its frames and print
+    a summary line."""
+    import pickle
+
+    import pandas as pd
+    import torch
+    import torch.distributed as dist
+
+    from gpsat_tpu_torch import distributed as TD
+
+    t0 = time.perf_counter()
+    pid, nproc = TD.init_distributed(f"localhost:{port}", num_processes, process_id)
+    try:
+        _, experts, _ = pipeline_inputs()
+        table = pd.DataFrame(experts)
+        token = TD.run_token(mesh_config(), table)
+        share = TD.partition_expert_locs(table, nproc, pid)
+        locs = {c: share[c].to_numpy() for c in share.columns}
+        mesh = TD.local_mesh()
+        torch.zeros(1, device=mesh[0])
+        ready_s = time.perf_counter() - t0
+        go = Path(out_dir) / "go"
+        while not go.exists():
+            check(time.perf_counter() - t0 < 300, f"mesh child {pid}: no go file after 300 s")
+            time.sleep(0.01)
+        waited_s = time.perf_counter() - t0 - ready_s
+        buckets, seconds, launches = mesh_sweep(mesh, locs)
+        expected, _ = shard_launches(buckets, len(mesh))
+        check(launches["block_chol"] == expected, f"mesh child {pid}: launches {launches}, expected {expected}")
+        with open(Path(out_dir) / f"h{pid}.pkl", "wb") as f:
+            pickle.dump(mesh_frames(buckets, locs), f)
+        dist.barrier()  # every child has written its frames
+        print(json.dumps({"process": pid, "processes": nproc, "token": token, "experts": len(share),
+                          "run": int(sum(len(r["num_iter"]) for r in buckets)), "ready_s": ready_s,
+                          "waited_s": waited_s, "sweep_s": seconds,
+                          "launches": launches, "expected_block_chol": expected,
+                          "mesh": [str(d) for d in mesh]}), flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def start_mesh_children(out_dir: str) -> list:
+    """Phase 14 (c): start the children on a free localhost port. They make
+    ready while the parent runs (a) and (b), and sweep when the parent
+    writes ``out_dir``/go."""
+    import os
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    return [subprocess.Popen([sys.executable, "-c", MESH_CHILD_CODE, str(ROOT), str(h), str(MESH_CHILDREN), str(port),
+                              out_dir], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                             env={**os.environ, "OMP_NUM_THREADS": "1"})
+            for h in range(MESH_CHILDREN)]
+
+
+def finish_mesh_children(procs: list, out_dir: str) -> list:
+    """Let the children sweep and wait for them: their summaries, in process
+    order. A child that fails fails the phase."""
+    (Path(out_dir) / "go").touch()
+    outs = [p.communicate(timeout=300) for p in procs]
+    for h, (p, (out, err)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"mesh: child {h} failed ({p.returncode}): {err[-3000:]}")
+    return [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+
+
+def phase_mesh(f32_oi):
+    """Phase 14: (a) the sweep over the default mesh of the one card, (b)
+    over two shards, and its f64 check, (c) two child processes over gloo.
+    Returns kernel 1's launches in (a), (b) and the children."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        procs = start_mesh_children(out_dir)  # (c)'s children make ready meanwhile
+        try:
+            return mesh_parts(f32_oi, t_phase, procs, out_dir)
+        finally:
+            for p in procs:
+                p.kill()  # a no-op once it has ended
+
+
+def mesh_parts(f32_oi, t_phase, procs, out_dir):
+    """Phase 14's parts, with (c)'s children started."""
+    import pickle
+
+    import torch
+
+    from gpsat_tpu_torch import distributed as TD
+    from gpsat_tpu_torch.data import select as sel
+    from gpsat_tpu_torch.parallel.engine import default_mesh, padded_width, resolve_mesh, run_on_mesh
+
+    # no fallback: a missing card, a mixed mesh and a failed shard raise
+    refused = {}
+    for tag, bad, err in (("missing_card", [f"cuda:{torch.cuda.device_count()}"], RuntimeError),
+                          ("mixed", ["cpu", "cuda:0"], ValueError)):
+        try:
+            resolve_mesh(bad)
+        except err as e:
+            refused[tag] = str(e)
+    try:
+        run_on_mesh(default_mesh([0, 0]), lambda d, x: 1 / 0 if x[0] > 0 else {"x": x}, (torch.arange(2),))
+    except ZeroDivisionError as e:
+        refused["failed_shard"] = f"{e} ({'; '.join(getattr(e, '__notes__', []))})"
+    check(len(refused) == 3, f"mesh: refusals {refused}")
+
+    # (a) the default mesh: the one card, one shard
+    mesh_a = default_mesh()
+    a, a_s, launches_a = mesh_sweep(mesh_a)
+    by_a = by_expert(a, ("f_mean", "f_var", "objective", "converged", "num_iter"))
+    d_phase7 = max(float(np.abs(by_a[e]["f_mean"] - f32_oi[e]["f_mean"]).max()) for e in f32_oi)
+    expected_a, _ = shard_launches(a, len(mesh_a))
+    log("mesh_default", mesh=[str(d) for d in mesh_a], experts=len(by_a), seconds=a_s,
+        converged=int(sum(v["converged"] for v in by_a.values())), launches=launches_a,
+        expected_block_chol=expected_a, max_abs_f_mean_vs_phase7=d_phase7, bound=MESH_SAME_BOUND)
+    check(set(by_a) == set(f32_oi), f"mesh (a): {len(by_a)} experts, phase 7 ran {len(f32_oi)}")
+    check(d_phase7 <= MESH_SAME_BOUND, f"mesh (a) vs phase 7's f32 fit: {d_phase7}")
+    check(launches_a == {"block_chol": expected_a, "panel_chol": 0, "cholesky": 0}, f"mesh (a) launches {launches_a}")
+
+    # (b) two shards: every card, or the card twice (two host threads)
+    mesh_b = default_mesh() if torch.cuda.device_count() > 1 else default_mesh([0, 0])
+    b, b_s, launches_b = mesh_sweep(mesh_b)
+    by_b = by_expert(b, ("f_mean", "f_var", "objective", "converged", "num_iter"))
+    expected_b, it_shards = shard_launches(b, len(mesh_b))
+    n = len(by_b)
+    conv = int(sum(v["converged"] for v in by_b.values()))
+    both = [e for e in by_b if by_b[e]["converged"] and by_a[e]["converged"]
+            and abs(by_b[e]["objective"] - by_a[e]["objective"]) <= WORSE_OPTIMUM_NATS]
+    d_b = max(max_abs_pred_diff(by_b[e], by_a[e]) for e in both)
+    same_iter = sum(by_b[e]["num_iter"] == by_a[e]["num_iter"] for e in by_b)
+
+    # phase 7's first 64 experts with >= min_obs observations, f64 on the
+    # card, one bucket of 64 (no pad_multiple): over the mesh (two shards of
+    # 32), against each shard's experts alone with no mesh (a bucket of 32,
+    # the shard's width), and against the whole bucket with no mesh. The
+    # card's f64 library kernels round by batch width (a triangular solve
+    # of 128 matrices differs from one of 32 in the last bit), and a lane
+    # near a flat optimum may then stop an iteration apart (F64_BOUND,
+    # MESH_F64_ITER_LANES)
+    obs, experts, _ = pipeline_inputs()
+    ix = sel.local_select_indices_all(obs, experts, OI_KW["local_select"])
+    keep = np.flatnonzero([len(i) >= OI_KW["min_obs"] for i in ix])[:MESH_F64_EXPERTS]
+    locs64 = {c: v[keep] for c, v in experts.items()}
+    f64_kw = dict(dtype=torch.float64, optim_kwargs={**MESH_OPTIM, "linesearch": "single_eval"}, pad_multiple=None)
+    f64_mesh, f64_mesh_s, launches_f64 = mesh_sweep(mesh_b, locs64, **f64_kw)
+    check(len(f64_mesh) == 1, f"mesh (b) f64: {len(f64_mesh)} buckets")
+    rows = f64_mesh[0]["expert_index"]
+    per = padded_width(len(rows), None, len(mesh_b)) // len(mesh_b)
+    alone, f64_alone_s = {}, 0.0
+    for sh in range(len(mesh_b)):
+        part = rows[sh * per:(sh + 1) * per]
+        out, sec, _ = mesh_sweep(None, {c: v[part] for c, v in locs64.items()}, **f64_kw)
+        f64_alone_s += sec
+        for e, v in by_expert(out, ("f_mean", "f_var", "num_iter")).items():
+            alone[int(part[e])] = v
+    f64_whole, f64_whole_s, _ = mesh_sweep(None, locs64, **f64_kw)
+    m64 = by_expert(f64_mesh, ("f_mean", "f_var", "num_iter"))
+    w64 = by_expert(f64_whole, ("f_mean", "f_var", "num_iter"))
+    d_f64 = max(max_abs_pred_diff(m64[e], alone[e]) for e in alone)
+    other_iter = [e for e in w64 if m64[e]["num_iter"] != w64[e]["num_iter"]]
+    d_whole = max((max_abs_pred_diff(m64[e], w64[e]) for e in w64 if e not in other_iter), default=0.0)
+    d_whole_other = max((max_abs_pred_diff(m64[e], w64[e]) for e in other_iter), default=0.0)
+    width_probe = f64_width_probe()
+    log("mesh_two_shards", mesh=[str(d) for d in mesh_b], experts=n, seconds=b_s, seconds_default_mesh=a_s,
+        converged=conv, iters_max_by_shard=it_shards, launches=launches_b, expected_block_chol=expected_b,
+        same_num_iter_as_default=same_iter, compared=len(both), max_abs_pred_diff_vs_default=d_b,
+        bound=PRED_BOUND, f64_experts=len(m64), f64_shard_width=per, f64_seconds_mesh=f64_mesh_s,
+        f64_seconds_shards_alone=f64_alone_s, f64_max_abs_mesh_vs_shards_alone=d_f64, f64_bound=MESH_F64_BOUND,
+        f64_same_num_iter_as_shards_alone=int(sum(m64[e]["num_iter"] == alone[e]["num_iter"] for e in alone)),
+        f64_seconds_whole_bucket=f64_whole_s, f64_max_abs_mesh_vs_whole_bucket_same_num_iter=d_whole,
+        f64_lanes_other_num_iter_than_whole_bucket=other_iter, f64_max_abs_mesh_vs_whole_bucket_other_num_iter=(
+            d_whole_other), f64_whole_bucket_bound=F64_BOUND, f64_other_num_iter_lanes=MESH_F64_ITER_LANES,
+        f64_launches=launches_f64, f64_width_probe=width_probe)
+    check(set(by_b) == set(by_a), f"mesh (b): {n} experts, (a) ran {len(by_a)}")
+    check(conv >= MIN_SHARE * n, f"mesh (b): only {conv}/{n} converged")
+    check(launches_b == {"block_chol": expected_b, "panel_chol": 0, "cholesky": 0}, f"mesh (b) launches {launches_b}")
+    check(len(both) >= MIN_SHARE * n, f"mesh (b): both converged on one optimum on {len(both)}/{n}")
+    check(d_b <= PRED_BOUND, f"mesh (b) vs (a): {d_b}")
+    check(len(m64) == len(alone) == len(w64) == MESH_F64_EXPERTS, f"mesh (b) f64: {len(m64)}, {len(alone)} experts")
+    check(d_f64 <= MESH_F64_BOUND, f"mesh (b) f64 with the mesh vs its shards alone without it: {d_f64}")
+    check(max(d_whole, d_whole_other) <= F64_BOUND and len(other_iter) <= MESH_F64_ITER_LANES,
+          f"mesh (b) f64 with the mesh vs the whole bucket: max |diff| {d_whole} where num_iter is equal, "
+          f"{d_whole_other} on lanes {other_iter} that stopped at another iteration")
+    check(not any(launches_f64.values()), f"mesh (b) f64 launched kernels: {launches_f64}")
+
+    # (c) child processes over gloo, each on its partition of the experts
+    t0 = time.perf_counter()
+    children = finish_mesh_children(procs, out_dir)
+    hosts = []
+    for h in range(MESH_CHILDREN):
+        with open(Path(out_dir) / f"h{h}.pkl", "rb") as f:
+            hosts.append(pickle.load(f))
+    c_s = time.perf_counter() - t0
+    index_cols = {"preds": ["x", "y"], "run_details": ["x", "y"]}
+    merged = TD.merge_frames(hosts, index_cols)
+    single = TD.merge_frames([mesh_frames(a, experts)], index_cols)
+    keys = ["x", "y", "pred_loc_x", "pred_loc_y"]
+    same_rows = (len(merged["preds"]) == len(single["preds"])
+                 and all(np.array_equal(merged["preds"][k].to_numpy(), single["preds"][k].to_numpy()) for k in keys)
+                 and np.array_equal(merged["run_details"][["x", "y"]].to_numpy(),
+                                    single["run_details"][["x", "y"]].to_numpy()))
+    conv_c = dict(zip(zip(merged["run_details"]["x"], merged["run_details"]["y"]), merged["run_details"]["converged"]))
+    conv_a = dict(zip(zip(single["run_details"]["x"], single["run_details"]["y"]), single["run_details"]["converged"]))
+    rows = np.asarray([bool(conv_c[k] and conv_a[k]) for k in zip(merged["preds"]["x"], merged["preds"]["y"])])
+    d_c = max(float(np.abs(merged["preds"][k].to_numpy()[rows] - single["preds"][k].to_numpy()[rows]).max())
+              for k in ("f*", "f*_var")) if same_rows and rows.any() else float("inf")
+    tokens = {c["token"] for c in children}
+    launches_c = [c["launches"]["block_chol"] for c in children]
+    log("mesh_processes", processes=MESH_CHILDREN, seconds=c_s, children=children, merged_rows=len(merged["preds"]),
+        rows_of_a=len(single["preds"]), same_rows_same_order=bool(same_rows), compared_rows=int(rows.sum()),
+        max_abs_pred_diff_vs_default=d_c, bound=PRED_BOUND, tokens_equal=len(tokens) == 1,
+        kernel1_launches=launches_c)
+    check(same_rows, "mesh (c): the merged frames do not hold (a)'s rows in (a)'s order")
+    check(rows.sum() >= MIN_SHARE * len(rows), f"mesh (c): both converged on {int(rows.sum())}/{len(rows)} rows")
+    check(d_c <= PRED_BOUND, f"mesh (c) vs (a): {d_c}")
+    check(len(tokens) == 1, f"mesh (c): the children's run tokens differ: {tokens}")
+    phase_s = time.perf_counter() - t_phase
+    log("mesh", seconds=phase_s, budget_s=MESH_BUDGET_S, a_s=a_s, b_s=b_s, c_s=c_s, refused=refused)
+    return launches_a["block_chol"], launches_b["block_chol"], sum(launches_c)
+
+
 def main(argv) -> int:
     import torch
 
@@ -2405,6 +2767,8 @@ def main(argv) -> int:
     entries[2]["launches_prep_profiled_rq"], prep_block = phase_prep(batch, init, profile)
     for tag, n in prep_block.items():
         entries[0][f"launches_{tag}"] = n
+    (entries[0]["launches_mesh_default"], entries[0]["launches_mesh_two_shards"],
+     entries[0]["launches_mesh_processes"]) = phase_mesh(f32_oi)
 
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -45,7 +45,9 @@ object per expert (``run_host_batch``), with the batched lanes' result
 tables. The route is the class's (``batched_lane``): a batched core that
 fails to build raises and never falls through to the host lane.
 ``profile_dir`` writes a ``torch.profiler`` trace of the run there. ``mesh``
-raises ``NotImplementedError`` naming its ROADMAP.md item. ``load_params``
+(``parallel.engine.resolve_mesh``'s forms) shards every batched lane's
+buckets over devices, one host thread per shard; ``run`` spreads over every
+visible card unless it is given a ``device`` or a ``mesh``. ``load_params``
 and ``get_results_from_h5file`` also read reference-produced pandas-HDFStore
 (PyTables) files (``data/pytables_compat``).
 
@@ -98,12 +100,12 @@ from gpsat_tpu_torch.ops import transforms as T
 from gpsat_tpu_torch.ops.block_chol import T_BLOCK
 from gpsat_tpu_torch.parallel import batching
 from gpsat_tpu_torch.parallel.engine import (
-    _no_mesh,
     make_batched_runner,
     make_runner_for,
     polish_tile_batch,
     resolve_device,
     resolve_linesearch,
+    resolve_mesh,
     run_tile_batch_async,
     run_tile_batch_carry,
     run_tile_batch_two_stage,
@@ -603,7 +605,7 @@ def check_optim_kwargs(optim_kwargs: dict, dtype=torch.float32, optimise: bool =
         resolve_linesearch(optim_kwargs.get("linesearch"), dtype)
 
 
-def _compaction(core, optim_kwargs, runner, *, fixed, optimise, pad_multiple, dev):
+def _compaction(core, optim_kwargs, runner, *, fixed, optimise, pad_multiple, dev, mesh):
     """``(batch, init) -> results`` for a bucket run as a head on the whole
     batch and a compacted tail of its unconverged lanes, or None.
 
@@ -616,20 +618,20 @@ def _compaction(core, optim_kwargs, runner, *, fixed, optimise, pad_multiple, de
     carry_k, two_k = optim_kwargs.get("carry_iters"), optim_kwargs.get("two_stage_iters")
     if carry_k:
         kw = dict(fixed_params=fixed, optimise=optimise, linesearch="single_eval", memory_size=memory_size,
-                  return_state=True, device=dev)
+                  return_state=True, mesh=mesh, device=dev)
         head = make_batched_runner(core, max_iter=int(carry_k), **kw)
         tail = make_batched_runner(core, max_iter=int(optim_kwargs.get("max_iter", 10_000)), take_state=True, **kw)
         return functools.partial(run_tile_batch_carry, runner_head=head, runner_tail=tail, core=core,
-                                 pad_multiple=pad_multiple, device=dev)
+                                 mesh=mesh, pad_multiple=pad_multiple, device=dev)
     if two_k:
         head = make_batched_runner(
             core, fixed_params=fixed, max_iter=int(two_k), optimise=optimise,
             linesearch=optim_kwargs.get("linesearch"),
             max_linesearch_steps=int(optim_kwargs.get("max_linesearch_steps", 32)),
-            memory_size=memory_size, device=dev,
+            memory_size=memory_size, mesh=mesh, device=dev,
         )
         return functools.partial(run_tile_batch_two_stage, runner_head=head, runner_tail=runner, core=core,
-                                 pad_multiple=pad_multiple, device=dev)
+                                 mesh=mesh, pad_multiple=pad_multiple, device=dev)
     return None
 
 
@@ -672,7 +674,7 @@ class _Lane:
 
 
 def _make_lane(name, model, init_params, constraints, optim_kwargs, loaded, *, n_dims, dtype, optimise,
-               pad_multiple, dev) -> _Lane:
+               pad_multiple, dev, mesh) -> _Lane:
     model = get_model(model) if isinstance(model, str) else model
     ip = init_params or {}
     core = lane_core(model, ip, constraints, optim_kwargs, n_dims, device=dev, dtype=dtype)
@@ -692,6 +694,7 @@ def _make_lane(name, model, init_params, constraints, optim_kwargs, loaded, *, n
             learning_rate=float(optim_kwargs.get("learning_rate", 1e-2)),
             check_every=int(optim_kwargs.get("check_every", 10)),
             persistence=int(optim_kwargs.get("persistence", 100)),
+            mesh=mesh,
             device=dev,
         )
         return _Lane(name, getattr(model, "__name__", str(model)), core, runner, None, ip, constraints, loaded)
@@ -709,10 +712,11 @@ def _make_lane(name, model, init_params, constraints, optim_kwargs, loaded, *, n
         linesearch=optim_kwargs.get("linesearch"),
         max_linesearch_steps=int(optim_kwargs.get("max_linesearch_steps", 32)),
         memory_size=int(optim_kwargs.get("memory_size", 10)),
+        mesh=mesh,
         device=dev,
     )
     compaction = _compaction(core, optim_kwargs, runner, fixed=fixed, optimise=optimise, pad_multiple=pad_multiple,
-                             dev=dev)
+                             dev=dev, mesh=mesh)
     return _Lane(name, getattr(model, "__name__", str(model)), core, runner, compaction, ip, constraints, loaded)
 
 
@@ -750,6 +754,7 @@ def sweep(
     replacement_loaded_params: Optional[dict] = None,
     dtype=torch.float32,
     device=None,
+    mesh=None,
     timers: Optional[dict] = None,
 ) -> Iterator[dict]:
     """Fit and predict every expert of ``expert_locs`` on ``columns``.
@@ -784,6 +789,12 @@ def sweep(
     VFF's domain and ASVGP's knots laid over the tile).
     ``LocalExpertOI`` fills them from ``load_params``.
 
+    ``mesh`` (``parallel.engine.resolve_mesh``'s forms; None: ``device`` alone)
+    shards every batched lane's buckets, their compaction and their polish
+    over its devices; the host-serial lane stays on ``device`` (default: the
+    mesh's first device). Tiles are capped by the free memory of the mesh's
+    first device.
+
     It yields, first, the experts skipped for fewer than ``min_obs``
     observations (or no prediction location) as ``{"skipped": True,
     "expert_index", "num_obs"}``, then one result dict per bucket, the main
@@ -796,10 +807,12 @@ def sweep(
     after the next bucket is dispatched. Seconds per phase accumulate into
     ``timers``.
     """
-    dev = resolve_device(device)
+    mesh = resolve_mesh(mesh, device)
+    dev = mesh[0] if device is None else resolve_device(device)
     optim_kwargs = dict(optim_kwargs or {})
     timers = {} if timers is None else timers
-    lane_kw = dict(n_dims=len(coords_col), dtype=dtype, optimise=optimise, pad_multiple=pad_multiple, dev=dev)
+    lane_kw = dict(n_dims=len(coords_col), dtype=dtype, optimise=optimise, pad_multiple=pad_multiple, dev=dev,
+                   mesh=mesh)
     lanes = [_make_lane("main", model, init_params, constraints, optim_kwargs, loaded_params, **lane_kw)]
     if replacement_threshold is not None:
         lanes.append(_make_lane(
@@ -846,6 +859,7 @@ def sweep(
                     batch, coarse, lane.core,
                     max_iter=int(optim_kwargs.get("polish_max_iter", 150)),
                     fixed_params=tuple(optim_kwargs.get("fixed_params", ())),
+                    mesh=mesh,
                     device=dev,
                 )
             res["coarse"] = coarse
@@ -876,7 +890,7 @@ def sweep(
                 memory_cap=lane.runner is not None and (lane.core.name.startswith("GPR[")
                                                         or lane.core.num_features is not None),
                 cap_width=_factor_width(lane.core, len(coords_col)),
-                device=dev,
+                device=mesh[0],
             )
         init_cparams = initial_cparams(lane.core, ip, lane.constraints, len(coords_col))
         for b in tiles:
@@ -896,8 +910,8 @@ def sweep(
                 fin = functools.partial(lane.compaction, cast, init)
             else:
                 with _phase(timers, "device_dispatch"):
-                    fin = run_tile_batch_async(cast, init, lane.runner, lane.core, pad_multiple=pad_multiple,
-                                               device=dev)
+                    fin = run_tile_batch_async(cast, init, lane.runner, lane.core, mesh=mesh,
+                                               pad_multiple=pad_multiple, device=dev)
             if pending is not None:
                 yield finish(*pending)  # the host stores it while the card runs b
             pending = (fin, b, t0, lane)
@@ -910,7 +924,7 @@ def sweep(
 
 
 class LocalExpertOI:
-    """Config-driven local-expert OI experiment (batched, on one card)."""
+    """Config-driven local-expert OI experiment (batched, on one card or a mesh of devices)."""
 
     def __init__(
         self,
@@ -1089,11 +1103,15 @@ class LocalExpertOI:
         device=None,
         dtype=torch.float32,
     ):
-        """``device`` (default: the CUDA device, which must exist) and
-        ``dtype`` (``torch.float32`` or ``torch.float64``, or their names)
-        choose where and in what precision buckets run; they stand where
-        the JAX package's ``mesh`` and ``jax_enable_x64`` do, and are not
-        stored in the config."""
+        """``mesh`` (``parallel.engine.resolve_mesh``'s JSON forms: "all",
+        True, an int, a list of devices) shards every batched lane over
+        devices; with neither ``mesh`` nor ``device`` the run spreads over
+        every visible card, as the JAX package's default mesh does, and an
+        explicit ``device`` (default: the CUDA device, which must exist)
+        keeps one device. ``dtype`` (``torch.float32`` or
+        ``torch.float64``, or their names) stands where the JAX package's
+        ``jax_enable_x64`` does. None of the three is stored in the config;
+        the results' ``device`` column names the mesh's first device."""
         import pandas as pd
 
         self.config["run_kwargs"] = json_serializable(
@@ -1112,7 +1130,7 @@ class LocalExpertOI:
         timers = self.phase_timers
 
         # every refusal comes before the store is touched
-        _no_mesh(mesh)
+        mesh = resolve_mesh("all" if mesh is None and device is None else mesh, device)
         if profile_dir is not None:
             # a torch.profiler trace of the whole run under profile_dir
             # (the JAX package writes a jax.profiler trace there)
@@ -1122,11 +1140,11 @@ class LocalExpertOI:
                 return self._run(
                     store_path=store_path, store_every=store_every, check_config_compatible=check_config_compatible,
                     skip_valid_checks_on=skip_valid_checks_on, optimise=optimise, predict=predict, min_obs=min_obs,
-                    table_suffix=table_suffix, max_batch_size=max_batch_size, pad_multiple=pad_multiple,
+                    table_suffix=table_suffix, mesh=mesh, max_batch_size=max_batch_size, pad_multiple=pad_multiple,
                     device=device, dtype=dtype,
                 )
         dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
-        dev = resolve_device(device)
+        dev = mesh[0] if device is None else resolve_device(device)
         check_optim_kwargs(self.optim_kwargs, dtype, optimise)
         # each lane's model, init params, constraints and optim_kwargs; the
         # replacement lane's settings are checked here too, before the store
@@ -1191,7 +1209,7 @@ class LocalExpertOI:
 
         lane_init = {lane: initial_cparams(lane_cores[lane], ip, cons, len(coords_col))
                      for lane, (_, ip, cons, _) in lane_cfg.items()}
-        device_name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+        device_name = torch.cuda.get_device_name(mesh[0]) if mesh[0].type == "cuda" else "cpu"
         model_name = f"gpsat_tpu_torch.{getattr(self.model, '__name__', str(self.model))}"
         total = len(xprt_locs)
         done = 0
@@ -1229,6 +1247,7 @@ class LocalExpertOI:
                 replacement_loaded_params=loaded.get("replacement"),
                 dtype=dtype,
                 device=dev,
+                mesh=mesh,
                 timers=timers,
             )
             for res in results:

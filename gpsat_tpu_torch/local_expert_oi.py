@@ -5,9 +5,9 @@ Usage: python -m gpsat_tpu_torch.local_expert_oi <config.json>
 
 The JSON may be a single experiment config or a list of them; each has the
 reference's keys: data, model, locations, pred_loc, run_kwargs (+ optional
-comment, misc). run_kwargs may carry ``device`` ("cpu", or a CUDA device;
-the default is the card) and ``dtype`` ("float32", the default, or
-"float64"), where the JAX package's configs may carry ``mesh``.
+comment, misc). run_kwargs may carry ``mesh`` ("all", an int or a list of
+devices; the default is every visible card), ``device`` ("cpu", or one
+CUDA device) and ``dtype`` ("float32", the default, or "float64").
 """
 
 import json

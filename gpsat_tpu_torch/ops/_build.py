@@ -9,6 +9,12 @@ an unchanged one is not. ``nvcc``'s resource report (``-Xptxas -v``) is kept
 beside the library as ``<library>.log``.
 
 A failed build raises; nothing here gives way to a kernel's plain version.
+
+The wrappers may run from several host threads at once (one per shard of a
+mesh, ``parallel/engine.run_on_mesh``): each library is built and loaded
+under a lock of its own, so two threads that reach a kernel's first call
+together build it once, and ``count_launch`` adds to a launch counter under
+a lock.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -29,6 +36,22 @@ BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xptxas", "-v"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_locks: Dict[str, threading.RLock] = {}
+_locks_lock = threading.Lock()
+_count_lock = threading.Lock()
+
+
+def _lock_of(name: str) -> threading.RLock:
+    """The lock that one library's build and load hold."""
+    with _locks_lock:
+        return _locks.setdefault(name, threading.RLock())
+
+
+def count_launch(fn) -> None:
+    """Add one to ``fn.launches`` atomically (``+= 1`` reads, adds and
+    writes, and two threads can lose an increment between them)."""
+    with _count_lock:
+        fn.launches += 1
 
 
 def _find_nvcc() -> str:
@@ -40,7 +63,13 @@ def _find_nvcc() -> str:
 
 def build_library(name: str) -> Path:
     """Compile csrc/<name>.cu (once per content of the source, the shared
-    ``*.cuh`` headers and the flags) and return the library path."""
+    ``*.cuh`` headers and the flags) and return the library path. Builds
+    of different sources run in parallel; of one source, one at a time."""
+    with _lock_of(name):
+        return _build_library(name)
+
+
+def _build_library(name: str) -> Path:
     source = CSRC / f"{name}.cu"
     h = hashlib.sha256(source.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
@@ -65,13 +94,17 @@ def load_library(name: str, symbols: Dict[str, Sequence]) -> ctypes.CDLL:
     maps each exported function to its ctypes argument types; all return the
     ``cudaError_t`` of their launch as an int."""
     lib = _libs.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build_library(name)))
-        for symbol, argtypes in symbols.items():
-            fn = getattr(lib, symbol)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        _libs[name] = lib
+    if lib is not None:
+        return lib
+    with _lock_of(name):
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_library(name)))
+            for symbol, argtypes in symbols.items():
+                fn = getattr(lib, symbol)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _libs[name] = lib
     return lib
 
 

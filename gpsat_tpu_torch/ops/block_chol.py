@@ -99,7 +99,7 @@ def factor_blocks(Kd: torch.Tensor):
         return L, W
     lib = _build.load_library("block_chol", _SYMBOLS)
     _build.launch("block_chol", lib.gpsat_cholinv64_f32, Kd, Kd.data_ptr(), L.data_ptr(), W.data_ptr(), B)
-    factor_blocks.launches += 1
+    _build.count_launch(factor_blocks)
     return L, W
 
 

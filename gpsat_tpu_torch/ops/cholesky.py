@@ -154,7 +154,7 @@ def _kernel(K: torch.Tensor) -> torch.Tensor:
         return L
     lib = _build.load_library("cholesky", _SYMBOLS)
     _build.launch("cholesky", lib.gpsat_cholesky_f32, K, K.data_ptr(), L.data_ptr(), B, N)
-    cholesky.launches += 1
+    _build.count_launch(cholesky)
     return L
 
 

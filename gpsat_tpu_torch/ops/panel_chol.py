@@ -164,7 +164,7 @@ def factor_panels(Kd: torch.Tensor):
         return L, Linv
     lib = _build.load_library("panel_chol", _SYMBOLS)
     _build.launch("panel_chol", lib.gpsat_panel128_f32, Kd, Kd.data_ptr(), L.data_ptr(), Linv.data_ptr(), B)
-    factor_panels.launches += 1
+    _build.count_launch(factor_panels)
     return L, Linv
 
 

@@ -1,10 +1,20 @@
-"""Batched expert execution on one device.
+"""Batched expert execution on one device or over a mesh of devices.
 
-Port of ``gpsat_tpu/parallel/engine.py`` without the device mesh. The JAX
-engine vmaps one tile's fit-and-predict over the expert axis; here every
-step acts on the whole [B, ...] batch: batched single-eval L-BFGS on the
-masked objective, then the masked posterior predict. Dead tiles (mask
-all-zero) pad the batch to a power of two and are dropped on the host.
+Port of ``gpsat_tpu/parallel/engine.py``. The JAX engine vmaps one tile's
+fit-and-predict over the expert axis; here every step acts on the whole
+[B, ...] batch: batched single-eval L-BFGS on the masked objective, then the
+masked posterior predict. Dead tiles (mask all-zero) pad the batch to a
+power of two (and a multiple of the mesh) and are dropped on the host.
+
+The mesh (``default_mesh``, ``resolve_mesh``) is a tuple of devices, one
+shard each; one device may stand in for several, and a run given only a
+device runs on the mesh of that device, one shard, inline. Where the JAX engine
+``shard_map``s the expert axis, a meshed runner splits the padded bucket
+into equal contiguous shards in row order, drives each from a host thread
+of its own on its device (on a stream of its own on a card), each to its
+own trip count, and puts the results back together in row order on the
+mesh's first device. Experts are independent: nothing passes between the
+shards. An exception in any shard is raised in the caller.
 
 Unconverged-lane compaction (``run_tile_batch_carry``,
 ``run_tile_batch_two_stage``): the batch runs in lockstep until its slowest
@@ -24,7 +34,9 @@ caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import math
+import threading
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,12 +54,150 @@ def resolve_device(device=None) -> torch.device:
             raise RuntimeError("no CUDA device available; pass device='cpu' to run on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
+        if dev.index >= torch.cuda.device_count():
+            raise RuntimeError(f"{dev} is not a visible CUDA device ({torch.cuda.device_count()} visible)")
     return dev
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError("mesh= (sharding experts across GPUs) is not ported yet; see ROADMAP.md Queue 1 item 8")
+Mesh = Tuple[torch.device, ...]
+
+
+def check_mesh(devices) -> Mesh:
+    """``devices`` as a mesh: a non-empty tuple of resolved devices of one
+    type. A mesh that mixes the CPU and CUDA, or names a missing card,
+    raises."""
+    devices = [torch.device("cuda", d) if isinstance(d, int) else torch.device(d) for d in devices]
+    if not devices:
+        raise ValueError("a mesh needs at least one device")
+    kinds = sorted({d.type for d in devices})
+    if len(kinds) > 1:
+        raise ValueError(f"a mesh mixes device types {kinds}: {devices}")
+    return tuple(resolve_device(d) for d in devices)
+
+
+def default_mesh(devices=None) -> Mesh:
+    """The 1-D expert mesh: every visible CUDA device, or ``devices``, as a
+    tuple of ``torch.device``. A list may name one device more than once,
+    so that one card (or the CPU) stands in for several."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device available for the default mesh; name the devices (e.g. ['cpu'] * 2)")
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return check_mesh(devices)
+
+
+def resolve_mesh(mesh, device=None) -> Mesh:
+    """The mesh a run uses, from the JSON forms of the JAX package's
+    ``run(mesh=...)``: None (``device`` alone: the batch runs whole on it),
+    "all" or True (every visible card; the CPU once when ``device`` is the
+    CPU), an int n (the first n cards; the CPU n times when ``device`` is
+    the CPU) or a sequence of devices. ``device`` is read only for None,
+    "all" and an int."""
+    if mesh is None:
+        return (resolve_device(device),)
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    if mesh is True or mesh == "all":
+        return (torch.device("cpu"),) if on_cpu else default_mesh()
+    if isinstance(mesh, (bool, str)):
+        raise ValueError(f"mesh must be None, 'all', True, an int or a sequence of devices, got {mesh!r}")
+    if isinstance(mesh, int):
+        if mesh < 1:
+            raise ValueError(f"a mesh of {mesh} devices")
+        if on_cpu:
+            return (torch.device("cpu"),) * mesh
+        visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if mesh > visible:
+            raise RuntimeError(f"mesh={mesh} names more cards than the {visible} visible")
+        return default_mesh(range(mesh))
+    if isinstance(mesh, (list, tuple)):
+        return check_mesh(mesh)
+    raise TypeError(f"mesh must be None, 'all', True, an int or a sequence of devices, got {type(mesh).__name__}")
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return None if tree is None else fn(tree)
+
+
+def _tree_cat(trees: list, dev: torch.device):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _tree_cat([t[k] for t in trees], dev) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(_tree_cat(list(parts), dev) for parts in zip(*trees))
+    return None if first is None else torch.cat([t.to(dev) for t in trees])
+
+
+def run_on_mesh(mesh: Mesh, fn: Callable, args: tuple):
+    """``fn(device, *shard_args)`` on each shard of ``args`` (a tree of
+    [B, ...] arrays, B a multiple of the mesh size), the results' trees
+    concatenated in row order on ``mesh[0]``.
+
+    Shard i takes rows [i B/n, (i+1) B/n) and runs on ``mesh[i]`` from a
+    host thread of its own, with the caller's grad mode; on a card, with
+    that card as the thread's current device and a stream of its own that
+    first waits for the caller's stream. Each thread synchronises its
+    stream before it ends, and the caller its own after the concatenation,
+    so no tensor of a shard is freed while a stream still reads it. A
+    mesh of one device runs inline. The first exception of a shard is
+    raised here, with the shard named in a note."""
+    mesh = check_mesh(mesh)
+    args = _tree_map(torch.as_tensor, args)
+    n = len(mesh)
+    widths = set()
+    _tree_map(lambda t: widths.add(t.shape[0]), args)
+    if len(widths) != 1 or next(iter(widths)) % n:
+        raise ValueError(f"the leading axes {sorted(widths)} do not split into {n} equal shards")
+    per = next(iter(widths)) // n
+    grad = torch.is_grad_enabled()
+    cuda = sorted({d for d in mesh if d.type == "cuda"}, key=str)
+    callers = {d: torch.cuda.current_stream(d) for d in cuda}
+
+    def shard(i):
+        d = mesh[i]
+        part = _tree_map(lambda t: t[i * per:(i + 1) * per], args)
+        if d.type != "cuda":
+            with torch.set_grad_enabled(grad):
+                return fn(d, *_tree_map(lambda t: t.to(d), part))
+        with torch.cuda.device(d):
+            if n == 1:
+                return fn(d, *_tree_map(lambda t: t.to(d), part))
+            stream = torch.cuda.Stream(d)
+            stream.wait_stream(callers[d])
+            try:
+                with torch.cuda.stream(stream), torch.set_grad_enabled(grad):
+                    return fn(d, *_tree_map(lambda t: t.to(d), part))
+            finally:
+                # a failed shard drains its stream too, before the caller
+                # frees the inputs it reads
+                stream.synchronize()
+
+    if n == 1:
+        return shard(0)
+    outs, errors = [None] * n, [None] * n
+
+    def target(i):
+        try:
+            outs[i] = shard(i)
+        except BaseException as e:  # raised in the caller below
+            errors[i] = e
+
+    threads = [threading.Thread(target=target, args=(i,), name=f"mesh-shard-{i}") for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for i, e in enumerate(errors):
+        if e is not None:
+            e.add_note(f"in mesh shard {i} of {n}, on {mesh[i]}")
+            raise e
+    out = _tree_cat(outs, mesh[0])
+    for d in cuda:
+        callers[d].synchronize()
+    return out
 
 
 def resolve_linesearch(linesearch: Optional[str], dtype) -> str:
@@ -57,15 +207,27 @@ def resolve_linesearch(linesearch: Optional[str], dtype) -> str:
     return check_linesearch(linesearch if linesearch is not None else ("single_eval" if dtype == torch.float32 else "zoom"))
 
 
-def padded_width(B: int, pad_multiple: Optional[int] = None) -> int:
-    """The expert axis padded to a power of two, or to the next multiple of
-    ``pad_multiple``, so different-sized buckets share shapes."""
+def padded_width(B: int, pad_multiple: Optional[int] = None, n_dev: int = 1) -> int:
+    """The expert axis padded as the JAX engine pads it
+    (``gpsat_tpu/parallel/engine.py:441-451``), so that different-sized
+    buckets share shapes and a bucket divides the mesh: with
+    ``pad_multiple``, to the next multiple of lcm(pad_multiple, n_dev);
+    without it, doubling from n_dev until it reaches B, then up to a
+    multiple of n_dev."""
+    n = max(int(n_dev), 1)
     if pad_multiple:
-        return int(-(-B // int(pad_multiple)) * int(pad_multiple))
-    B_pad = 1
+        step = math.lcm(int(pad_multiple), n)
+        return int(-(-B // step) * step)
+    B_pad = n
     while B_pad < B:
         B_pad *= 2
-    return B_pad
+    return int(-(-B_pad // n) * n)
+
+
+def _check_runner(runner, mesh: Mesh):
+    """A runner takes only the batches of the mesh it was built for."""
+    if runner.mesh != mesh:
+        raise ValueError(f"runner was built for mesh {runner.mesh}, batch runs on mesh {mesh}")
 
 
 def _finalize_and_predict(core: ModelCore, u_opt: dict, data: dict, Xnew: torch.Tensor, optimise: bool):
@@ -185,16 +347,15 @@ def make_batched_runner(
     ("opt_state", a dict of [B, ...] tensors); take_state=True makes the
     runner take such a state as a sixth argument and resume from it: the
     unconverged-lane compaction of ``run_tile_batch_carry``.
-    """
-    _no_mesh(mesh)
-    dev = resolve_device(device)
 
-    def runner(X, y, mask, Xnew, uparams0, state=None):
-        if take_state and state is None:
-            raise TypeError("this runner was built with take_state=True: pass the carried state")
-        if state is not None and not take_state:
-            raise TypeError("this runner takes no state; build it with take_state=True")
-        X, y, mask, Xnew = (torch.as_tensor(a, device=dev) for a in (X, y, mask, Xnew))
+    mesh (``resolve_mesh``'s forms, with ``device``) splits each batch over
+    its devices (``run_on_mesh``; a mesh of one device runs it whole);
+    results land on the mesh's first device, and the runner takes only
+    batches run over the same mesh (``runner.mesh``).
+    """
+    mesh = resolve_mesh(mesh, device)
+
+    def run_shard(d, X, y, mask, Xnew, uparams0, state):
         f32 = X.dtype == torch.float32
         tg = tol_grad if tol_grad is not None else (1e-3 if f32 else 1e-6)
         tf = tol_f if tol_f is not None else (1e-6 if f32 else 1e-11)
@@ -202,7 +363,7 @@ def make_batched_runner(
             core,
             {"X": X, "y": y, "mask": mask},
             Xnew,
-            {k: torch.as_tensor(v, device=dev) for k, v in uparams0.items()},
+            uparams0,
             fixed_params=tuple(fixed_params),
             max_iter=max_iter,
             optimise=optimise,
@@ -216,7 +377,14 @@ def make_batched_runner(
             return_state=return_state,
         )
 
-    runner.device = dev
+    def runner(X, y, mask, Xnew, uparams0, state=None):
+        if take_state and state is None:
+            raise TypeError("this runner was built with take_state=True: pass the carried state")
+        if state is not None and not take_state:
+            raise TypeError("this runner takes no state; build it with take_state=True")
+        return run_on_mesh(mesh, run_shard, (X, y, mask, Xnew, dict(uparams0), state))
+
+    runner.mesh = mesh
     return runner
 
 
@@ -353,17 +521,16 @@ def make_batched_adam_runner(
 ) -> Callable:
     """Adam counterpart of ``make_batched_runner`` for cores whose
     ``optimizer`` is "adam" (``_adam_fit_predict_batched``); the same
-    (X, y, mask, Xnew, uparams0) -> results contract and result keys."""
-    _no_mesh(mesh)
-    dev = resolve_device(device)
+    (X, y, mask, Xnew, uparams0) -> results contract, result keys and
+    ``mesh``."""
+    mesh = resolve_mesh(mesh, device)
 
-    def runner(X, y, mask, Xnew, uparams0):
-        X, y, mask, Xnew = (torch.as_tensor(a, device=dev) for a in (X, y, mask, Xnew))
+    def run_shard(d, X, y, mask, Xnew, uparams0):
         return _adam_fit_predict_batched(
             core,
             {"X": X, "y": y, "mask": mask},
             Xnew,
-            {k: torch.as_tensor(v, device=dev) for k, v in uparams0.items()},
+            uparams0,
             fixed_params=tuple(fixed_params),
             max_iter=max_iter,
             optimise=optimise,
@@ -372,7 +539,10 @@ def make_batched_adam_runner(
             persistence=persistence,
         )
 
-    runner.device = dev
+    def runner(X, y, mask, Xnew, uparams0):
+        return run_on_mesh(mesh, run_shard, (X, y, mask, Xnew, dict(uparams0)))
+
+    runner.mesh = mesh
     return runner
 
 
@@ -431,7 +601,8 @@ def polish_tile_batch(
     The coarse result is aligned to the batch by ``expert_index``, not by
     row: the batch may hold dead tiles (expert_index -1, as the last split
     of a coalesced bucket does) that the coarse result has dropped. The
-    result's rows follow the batch's live tiles.
+    result's rows follow the batch's live tiles. ``mesh`` shards the polish
+    as it shards a run.
     """
     from gpsat_tpu_torch.models.functional import make_gpr_core
     from gpsat_tpu_torch.parallel.batching import cast_batch, take_batch
@@ -454,7 +625,7 @@ def polish_tile_batch(
         mesh=mesh,
         device=device,
     )
-    return run_tile_batch(batch64, init, runner, core, device=device)
+    return run_tile_batch(batch64, init, runner, core, mesh=mesh, device=device)
 
 
 def run_tile_batch_async(
@@ -482,11 +653,15 @@ def run_tile_batch_async(
     keep_state=True (a runner built with return_state=True): finalize()
     returns ``(res, state, uparams0)``, the L-BFGS state and the
     unconstrained initial params of the live lanes, both left on the device.
+
+    mesh: the runner's mesh (``resolve_mesh``'s forms). The bucket is padded
+    to divide it (``padded_width``), the init params are prepared on the
+    whole bucket before the split, and the results, in row order, land on
+    the mesh's first device.
     """
-    _no_mesh(mesh)
-    dev = resolve_device(device)
-    if runner.device != dev:
-        raise ValueError(f"runner was built for {runner.device}, batch runs on {dev}")
+    mesh = resolve_mesh(mesh, device)
+    _check_runner(runner, mesh)
+    dev = mesh[0]
     init_cparams = dict(init_cparams)
     if init_cparams.pop("smart_init", False):
         init_cparams = {**_smart_init(batch), **init_cparams}
@@ -494,7 +669,7 @@ def run_tile_batch_async(
         init_cparams = core.prepare_batch_init(batch, init_cparams)
 
     B = batch.B
-    batch = pad_batch_to(batch, padded_width(B, pad_multiple))
+    batch = pad_batch_to(batch, padded_width(B, pad_multiple, len(mesh)))
 
     D = batch.X.shape[-1]
     dtype = batch.X.dtype
@@ -512,13 +687,8 @@ def run_tile_batch_async(
         cparams0[k] = torch.as_tensor(v, device=dev)
     uparams0 = core.inverse(cparams0)
 
-    out = runner(
-        torch.as_tensor(batch.X, device=dev),
-        torch.as_tensor(batch.y, device=dev),
-        torch.as_tensor(batch.mask, device=dev),
-        torch.as_tensor(batch.Xnew, device=dev),
-        uparams0,
-    )
+    # the runner moves each shard's rows from the host to its device
+    out = runner(batch.X, batch.y, batch.mask, batch.Xnew, uparams0)
 
     def finalize():
         live = batch.expert_index >= 0
@@ -621,21 +791,26 @@ def run_tile_batch_carry(
     runner_head: make_batched_runner(core, max_iter=K1, return_state=True, ...)
     runner_tail: make_batched_runner(core, max_iter=rest, take_state=True,
                  return_state=True, ...), with the head's memory_size
+
+    Under a mesh (both runners built with it) the head runs sharded; the
+    tail collects the unconverged lanes of every shard on the mesh's first
+    device, pads them to divide the mesh and splits them again.
     """
-    _no_mesh(mesh)
-    dev = resolve_device(device)
+    mesh = resolve_mesh(mesh, device)
+    _check_runner(runner_tail, mesh)
+    dev, n_dev = mesh[0], len(mesh)
     batch, init_cparams = _live_only(batch, init_cparams, core)
     res, state, uparams0 = run_tile_batch_async(
-        batch, init_cparams, runner_head, core, pad_multiple=pad_multiple, device=dev, keep_state=True
+        batch, init_cparams, runner_head, core, mesh=mesh, pad_multiple=pad_multiple, keep_state=True
     )()
     unconv = np.flatnonzero(~res["converged"])
-    info = {"head_width": padded_width(batch.B, pad_multiple), "tail_width": 0, "tail_rows": unconv,
+    info = {"head_width": padded_width(batch.B, pad_multiple, n_dev), "tail_width": 0, "tail_rows": unconv,
             "head_num_iter": res["num_iter"].copy(), "tail_num_iter": np.zeros(0, dtype=res["num_iter"].dtype)}
     if len(unconv) == 0 or state is None:
         return {**res, "compaction": info}
 
     B_sub = len(unconv)
-    B_pad = padded_width(B_sub, pad_multiple)
+    B_pad = padded_width(B_sub, pad_multiple, n_dev)
     sub = pad_batch_to(take_batch(batch, unconv), B_pad)
     idx = torch.as_tensor(unconv, device=dev)
 
@@ -647,14 +822,7 @@ def run_tile_batch_carry(
 
     # dead lanes: done, so they leave the loop before its first iteration
     sub_state = {k: gather(v, True if k == "done" else 0) for k, v in state.items()}
-    out = runner_tail(
-        torch.as_tensor(sub.X, device=dev),
-        torch.as_tensor(sub.y, device=dev),
-        torch.as_tensor(sub.mask, device=dev),
-        torch.as_tensor(sub.Xnew, device=dev),
-        {k: gather(v, 0) for k, v in uparams0.items()},
-        sub_state,
-    )
+    out = runner_tail(sub.X, sub.y, sub.mask, sub.Xnew, {k: gather(v, 0) for k, v in uparams0.items()}, sub_state)
 
     def host(t):
         return t.detach().cpu().numpy()[:B_sub]
@@ -685,19 +853,21 @@ def run_tile_batch_two_stage(
 
     runner_head: make_batched_runner(core, max_iter=K1, ...)
     runner_tail: make_batched_runner(core, max_iter=<rest>, ...)
+
+    Under a mesh both parts run sharded, each padded to divide it.
     """
-    _no_mesh(mesh)
-    dev = resolve_device(device)
+    mesh = resolve_mesh(mesh, device)
+    n_dev = len(mesh)
     batch, init_cparams = _live_only(batch, init_cparams, core)
-    res = run_tile_batch(batch, init_cparams, runner_head, core, pad_multiple=pad_multiple, device=dev)
+    res = run_tile_batch(batch, init_cparams, runner_head, core, mesh=mesh, pad_multiple=pad_multiple)
     unconv = np.flatnonzero(~res["converged"])
-    info = {"head_width": padded_width(batch.B, pad_multiple), "tail_width": 0, "tail_rows": unconv,
+    info = {"head_width": padded_width(batch.B, pad_multiple, n_dev), "tail_width": 0, "tail_rows": unconv,
             "head_num_iter": res["num_iter"].copy(), "tail_num_iter": np.zeros(0, dtype=res["num_iter"].dtype)}
     if len(unconv) == 0:
         return {**res, "compaction": info}
     tail = run_tile_batch(
         take_batch(batch, unconv), {k: res[k][unconv] for k in core.param_names}, runner_tail, core,
-        pad_multiple=pad_multiple, device=dev,
+        mesh=mesh, pad_multiple=pad_multiple,
     )
-    info.update(tail_width=padded_width(len(unconv), pad_multiple), tail_num_iter=tail["num_iter"])
+    info.update(tail_width=padded_width(len(unconv), pad_multiple, n_dev), tail_num_iter=tail["num_iter"])
     return {**_splice(res, unconv, tail, core), "compaction": info}

@@ -131,7 +131,7 @@ def test_no_lane_left_after_the_head_skips_the_tail(single):
     def tail(*args):
         raise AssertionError("the tail ran with every lane converged")
 
-    tail.device = head.device
+    tail.mesh = head.mesh
     got = TE.run_tile_batch_carry(_batch(), INIT, head, tail, core, device="cpu")
     _assert_exact(got, single)
     assert got["compaction"]["tail_width"] == 0 and len(got["compaction"]["tail_rows"]) == 0
@@ -150,7 +150,7 @@ def test_dead_lanes_of_the_tail_exit_at_once(single):
         seen["num_iter"] = out["num_iter"].clone()
         return out
 
-    spy.device = tail.device
+    spy.mesh = tail.mesh
     got = TE.run_tile_batch_carry(_batch(), INIT, head, spy, core, pad_multiple=8, device="cpu")
     _assert_exact(got, single)
     n = len(got["compaction"]["tail_rows"])

@@ -610,3 +610,85 @@ def test_multioutput_models_launch_kernel_1_by_their_formulas():
         pc = cpu.predict(Xs)
         for k in ("f*", "f*_var"):
             np.testing.assert_allclose(p32[k], pc[k], atol=1e-2, err_msg=f"{type(m32).__name__} {k}")
+
+
+@pytest.mark.cuda
+def test_mesh_naming_the_card_twice_matches_no_mesh_in_f64():
+    # two shards on one card, each from its own host thread and stream: the
+    # same f64 fit and predict as the whole batch with no mesh, to 1e-9
+    _cuda()
+    Bt, Nt, Pt, Dt = 9, 128, 8, 2
+    rng = np.random.default_rng(5)
+    X = rng.uniform(-6, 6, (Bt, Nt, Dt))
+    y = np.sin(X[..., 0]) * np.cos(X[..., 1]) + 0.1 * rng.normal(size=(Bt, Nt))
+    mask = np.ones((Bt, Nt))
+    fill = rng.integers(int(0.6 * Nt), Nt + 1, size=Bt)
+    for i, f in enumerate(fill):
+        mask[i, f:] = 0.0
+    batch = TileBatch(X=X, y=y, mask=mask, Xnew=rng.uniform(-4, 4, (Bt, Pt, Dt)), pred_mask=np.ones((Bt, Pt)),
+                      obs_mean=np.zeros(Bt), expert_index=np.arange(Bt), num_obs=fill)
+    core = make_gpr_core(jitter=1e-5)
+    kw = dict(linesearch="single_eval", tol_grad=1e-6, tol_f=1e-11)
+    res = {}
+    for mesh in (None, ["cuda:0", "cuda:0"]):
+        runner = TE.make_batched_runner(core, mesh=mesh, **kw)
+        res[mesh is None] = TE.run_tile_batch(batch, {"smart_init": True}, runner, core, mesh=mesh)
+    for key in ("f_mean", "f_var", "objective"):
+        assert float(np.abs(res[False][key] - res[True][key]).max()) <= 1e-9, key
+    np.testing.assert_array_equal(res[False]["converged"], res[True]["converged"])
+    assert res[True]["converged"].all()
+
+
+@pytest.mark.cuda
+def test_launch_counter_adds_every_launch_from_two_threads():
+    import threading
+
+    dev = _cuda()
+    K = torch.from_numpy(_spd(4, T, seed=2)).to(dev)
+    torch.cuda.synchronize()  # K is ready before the side streams read it
+    calls, threads = 500, []
+    before = BC.factor_blocks.launches
+
+    def launch():
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            for _ in range(calls):
+                BC.factor_blocks(K)
+            torch.cuda.current_stream(dev).synchronize()
+
+    for _ in range(2):
+        threads.append(threading.Thread(target=launch))
+        threads[-1].start()
+    for t in threads:
+        t.join()
+    assert BC.factor_blocks.launches - before == 2 * calls
+
+
+@pytest.mark.cuda
+def test_load_library_from_two_threads_builds_once(tmp_path, monkeypatch):
+    import subprocess
+    import threading
+
+    from gpsat_tpu_torch.ops import _build
+
+    _cuda()
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)  # nothing built there yet
+    monkeypatch.setattr(_build, "_libs", {})
+    runs, real_run = [], subprocess.run
+
+    def counted(cmd, *a, **k):
+        runs.append(cmd[0])
+        return real_run(cmd, *a, **k)
+
+    monkeypatch.setattr(_build.subprocess, "run", counted)
+    got = [None, None]
+
+    def load(i):
+        got[i] = _build.load_library("block_chol", BC._SYMBOLS)
+
+    threads = [threading.Thread(target=load, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(runs) == 1 and got[0] is got[1] is not None
+    assert len(list(tmp_path.glob("libblock_chol_*.so"))) == 1

@@ -255,7 +255,8 @@ def test_entry_points_default_to_cuda():
 
 def test_unported_options_raise():
     core = make_gpr_core()
-    with pytest.raises(NotImplementedError):
+    # the mesh is ported: an unreadable mesh spec is refused
+    with pytest.raises(TypeError, match="mesh must be"):
         TE.make_batched_runner(core, mesh=object(), device="cpu")
     # the profiled core is ported, but only over plain positive variances
     from gpsat_tpu_torch.ops import transforms as TT
@@ -304,7 +305,7 @@ def test_port_imports_neither_jax_nor_gpsat_tpu():
         "import gpsat_tpu_torch.models.multioutput.likelihoods, gpsat_tpu_torch.models.multioutput.utils\n"
         "import gpsat_tpu_torch.data.pytables_compat, gpsat_tpu_torch.data.ingest, gpsat_tpu_torch.data.binning\n"
         "import gpsat_tpu_torch.read_and_store, gpsat_tpu_torch.bin_data, gpsat_tpu_torch.datetime_utils\n"
-        "import gpsat_tpu_torch.utils.projections\n"
+        "import gpsat_tpu_torch.utils.projections, gpsat_tpu_torch.distributed\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'gpsat_tpu' or m.startswith('gpsat_tpu.')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

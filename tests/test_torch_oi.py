@@ -324,14 +324,15 @@ def test_cli_main_runs_a_config_on_the_cpu(tmp_path):
 @pytest.mark.parametrize(
     "model_extra, run_kwargs",
     [
-        ({}, {"mesh": "all"}),
+        # the mesh is ported; a mesh that mixes the CPU and a card is refused
+        ({}, {"mesh": ["cpu", "cuda:0"]}),
     ],
     ids=["mesh"],
 )
 def test_unported_options_raise(model_extra, run_kwargs, tmp_path):
     obs_df, expert_df = _field()
     path = tmp_path / "never.h5"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+    with pytest.raises(ValueError, match="mixes"):
         TOI(**_config(obs_df, expert_df, **model_extra)).run(store_path=str(path), device="cpu", **run_kwargs)
     assert not path.exists()
 

@@ -1,6 +1,6 @@
-"""Rehearse chip_smoke.py's phases 10 (svgp), 11 (zoo), 12 (host) and 13 (prep) on the CPU, before a run on the card.
+"""Rehearse chip_smoke.py's phases 10 (svgp), 11 (zoo), 12 (host), 13 (prep) and 14 (mesh) on the CPU, before a run on the card.
 
-    python tools/rehearse_chip_smoke.py [--parts a b c d e vff asvgp host prep_a prep_b prep_c] [--lanes B]
+    python tools/rehearse_chip_smoke.py [--parts a b c d e vff asvgp host prep_a prep_b prep_c mesh] [--lanes B]
                                         [--threads T] [--identity-natgrad] [--expert-stride S]
 
 Runs the phases' own functions with every entry point's default device
@@ -9,8 +9,10 @@ objectives and accuracy numbers that fix the phases' bounds can be read
 without a card. A failed check is printed and counted instead of raised:
 the kernel-launch checks always fail here, since the CPU runs each
 kernel's plain version. Parts a-e are phase 10's, "vff" and "asvgp" phase
-11's lanes, "host" phase 12, "prep_a" to "prep_c" phase 13's parts
-(default: phase 10's). ``--lanes`` cuts (a)-(c)'s batch (default: the
+11's lanes, "host" phase 12, "prep_a" to "prep_c" phase 13's parts,
+"mesh" phase 14 (its meshes are the CPU, once or twice, its children run
+with the same stubs, and phase 7's f32 fit is run first for (a) to hold
+to; default: phase 10's). ``--lanes`` cuts (a)-(c)'s batch (default: the
 phase's 128) and phase 13 (a)'s (the phase's 512). ``--identity-natgrad`` is the mutation check
 of (c)'s bound: it runs (c) once more with the natural-gradient step
 replaced by the identity, so q stays at its starting value, and prints
@@ -57,6 +59,33 @@ def _on_cpu(failed: list):
     cs.check = check
 
 
+def _mesh_on_cpu(expert_stride: int):
+    """Phase 14's meshes on the CPU: the default mesh is the CPU once, a
+    named one the CPU once per entry; the children apply the same stubs."""
+    def default_mesh(devices=None):
+        return (torch.device("cpu"),) * (1 if devices is None else len(list(devices)))
+
+    engine.default_mesh = default_mesh
+    torch.cuda.device_count = lambda: 1
+    cs.MESH_CHILD_CODE = (
+        "import sys; sys.path.insert(0, sys.argv[1]); import tools.rehearse_chip_smoke as r; "
+        f"r._on_cpu([]); r._mesh_on_cpu({expert_stride}); r._stride({expert_stride}); "
+        "r.cs.mesh_child(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])")
+
+
+def _stride(stride: int):
+    """Keep every ``stride``-th expert of phase 7's geometry."""
+    if stride <= 1:
+        return
+    full = cs.pipeline_inputs
+
+    def strided():
+        obs, experts, grid = full()
+        return obs, {c: v[::stride] for c, v in experts.items()}, grid
+
+    cs.pipeline_inputs = strided
+
+
 def _gap(tag, res, res_a):
     gap = res["objective"] - res_a["objective"]
     cs.log(f"rehearse_{tag}_vs_collapsed", neg_elbo_gap_min=float(gap.min()), neg_elbo_gap_max=float(gap.max()),
@@ -65,7 +94,7 @@ def _gap(tag, res, res_a):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parts", nargs="+", default=list("abcde"), choices=[*"abcde", "vff", "asvgp", "host", "prep_a", "prep_b", "prep_c"])
+    ap.add_argument("--parts", nargs="+", default=list("abcde"), choices=[*"abcde", "vff", "asvgp", "host", "prep_a", "prep_b", "prep_c", "mesh"])
     ap.add_argument("--expert-stride", type=int, default=1)
     ap.add_argument("--lanes", type=int, default=cs.SVGP_B)
     ap.add_argument("--threads", type=int, default=4)
@@ -76,14 +105,7 @@ def main(argv=None) -> int:
     _on_cpu(failed)
     t0 = time.perf_counter()
     parts = set(args.parts)
-    if args.expert_stride > 1:
-        full = cs.pipeline_inputs
-
-        def strided():
-            obs, experts, grid = full()
-            return obs, {c: v[:: args.expert_stride] for c, v in experts.items()}, grid
-
-        cs.pipeline_inputs = strided
+    _stride(args.expert_stride)
     for tag in ("vff", "asvgp"):
         if tag in parts:
             cs.zoo_lane(tag, profile=False)
@@ -96,6 +118,12 @@ def main(argv=None) -> int:
         cs.phase_prep_multioutput()
     if "prep_c" in parts:
         cs.phase_prep_data()
+    if "mesh" in parts:
+        _mesh_on_cpu(args.expert_stride)
+        buckets, seconds, _ = cs.mesh_sweep(None)
+        f32 = cs.by_expert(buckets, ("num_iter", "objective", "f_mean", "f_var"))
+        cs.log("rehearse_phase7_f32", experts=len(f32), seconds=seconds)
+        cs.phase_mesh(f32)
     if not parts & set("abcde"):
         return _done(failed, t0)
     batch = cs.make_large_tiles(args.lanes, cs.SVGP_N, cs.SVGP_P, cs.D, np.float32, min_fill=0.6)
