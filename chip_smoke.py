@@ -13,7 +13,8 @@
 Phases (each prints on its own lines; any failure raises):
 
 1. build     compile gpsat_tpu_torch/csrc/{block_chol,panel_chol,cholesky}.cu
-             with nvcc for sm_90a, all three at once
+             with nvcc for sm_90a and the host library
+             csrc/host/gpsat_native.cpp with g++, all four at once
 2. kernel    each CUDA kernel against its plain PyTorch version on the card at
              the shapes its path gives it ([512, 64, 64], [512, 128, 128],
              [512, 512, 512] f32; kernel 3 also at [8, 1024, 1024] and
@@ -161,6 +162,28 @@ Phases (each prints on its own lines; any failure raises):
              where both converged, and the children's run tokens are equal.
              A mesh naming a missing card or mixing the CPU and CUDA raises,
              and so does a failed shard; a failed child fails the phase
+15. xval     the host-side remainder: (a) the host library's grid-hash
+             radius index against scipy's kdtree on phase 7's geometry (local
+             select inclusive, prediction locations strict: equal sets, the
+             host_select seconds of each arm) and phase 7's f32 sweep on
+             each arm (equal predictions, kernel 1 launched (it_max + 2) * 2
+             times on the grid's); (b) along-track data from synthetic.py
+             (40 tracks of 150 points over 500 km, noise 0.05, a fold column
+             track % 4) written as zarr stores of blosc lz4 chunks, byte- and
+             bit-shuffled, read back through the dataloader (every column
+             exact) and every chunk decoded by the C++ loops and the Python
+             decoders (equal bytes); (c) xval.main on a reference config
+             over that store (GPR Matern32, f32, 121 experts on the 100 km
+             grid's nodes, radius 200 km), each of the four hold-out configs
+             through LocalExpertOI's setters and the sweep on the card
+             (>= 90 % converged, kernel 1 by the formula), 16 experts against
+             an f64 fit of their tiles on the CPU from the card's optima (10
+             iterations), and each fold's RMSE
+             against the noise-free truth held to the same fold scored from
+             the CPU's f64 predictions at the card's optima; (d)
+             prime_cache.prime for a bucket of 121 experts (the libraries
+             already built: 0 s each) and `python -m gpsat_tpu_torch.cli
+             {xval,prime_cache} --help`
 
 Then one {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 Imports nothing of JAX or of gpsat_tpu.
@@ -382,6 +405,30 @@ MESH_F64_ITER_LANES = 2
 MESH_CHILDREN = 2
 MESH_BUDGET_S = 30.0
 MESH_OPTIM = {"max_iter": OI_OPTIM["max_iter"]}
+# phase 15 (xval): the host library, the zarr / blosc readers and
+# cross-validation on along-track data. (b): synthetic.make_tracks' tracks
+# through make_ground_truth_field's field (the JAX package's defaults but
+# 150 points per track), noise 0.05, written as zarr stores of blosc lz4
+# chunks of XVAL_CHUNK rows; (c): GPR Matern32 on every hold-out fold, the
+# experts on the 100 km grid_2d_flatten grid's nodes (11 x 11)
+HOST_LIBRARY = "gpsat_native"
+XVAL_EXTENT, XVAL_TRACKS, XVAL_TRACK_POINTS, XVAL_FIELD_N = 500_000.0, 40, 150, 181
+XVAL_NOISE, XVAL_FOLDS, XVAL_CHUNK = 0.05, 4, 1024
+XVAL_EXPERT_RES, XVAL_RADIUS = 100_000.0, 200_000.0
+XVAL_MODEL = {"oi_model": "GPflowGPRModel",
+              "init_params": {"kernel": "Matern32", "coords_scale": [50_000, 50_000], "noise_variance": 0.0025,
+                              "smart_init": True, "jitter": 1e-5},
+              "constraints": {"lengthscales": {"low": 5_000, "high": 2_000_000}},
+              "optim_kwargs": {"max_iter": 100}}
+# each fold's RMSE against the noise-free truth, the card's f32 predictions
+# against the CPU's f64 predictions at the card's optima (the same
+# hyperparameters: only f32 roundoff remains), relative
+XVAL_RMSE_REL = 1e-2
+# the f64 reference fit of 16 experts on the CPU, from the card's f32 optima
+# (phases 12 and 13's rule): this many iterations of the f64 search
+XVAL_REF_MAX_ITER = 10
+XVAL_BUDGET_S = 30.0
+PRIME_SHAPES = [(121, 512, 64)]
 # a phase 14 (c) child: argv is the repo root, its process id, the process
 # count, the coordinator's port and the directory for its frames
 MESH_CHILD_CODE = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke as cs; "
@@ -2406,11 +2453,13 @@ def phase_prep(batch, init, profile: bool):
                     "prep_data": block_c}
 
 
-def mesh_sweep(mesh, locs=None, dtype=None, optim_kwargs=None, pad_multiple=OI_KW["pad_multiple"]):
+def mesh_sweep(mesh, locs=None, dtype=None, optim_kwargs=None, pad_multiple=OI_KW["pad_multiple"], index=None,
+               timers=None):
     """Phase 7's sweep without the polish over ``mesh`` (None: no mesh) on
-    the card, of ``locs`` (default all of phase 7's experts): (buckets,
+    the card, of ``locs`` (default all of phase 7's experts), its radius
+    queries on ``index`` (None: the sweep's default, the grid): (buckets,
     seconds, kernel launches), the counts set to 0 just before it and read
-    just after."""
+    just after; seconds per phase into ``timers``."""
     import torch
 
     from gpsat_tpu_torch.data.prediction_locations import PredictionLocations
@@ -2419,7 +2468,7 @@ def mesh_sweep(mesh, locs=None, dtype=None, optim_kwargs=None, pad_multiple=OI_K
     obs, experts, grid = pipeline_inputs()
     pred_loc = PredictionLocations("from_dataframe", coords_col=["x", "y"], df=grid, max_dist=OI_MAX_DIST)
     kw = {**OI_KW, "dtype": dtype or torch.float32, "optim_kwargs": optim_kwargs or MESH_OPTIM,
-          "pad_multiple": pad_multiple}
+          "pad_multiple": pad_multiple, "index": index, "timers": timers}
     torch.cuda.synchronize()
     for fn in counters().values():
         fn.launches = 0
@@ -2719,6 +2768,296 @@ def mesh_parts(f32_oi, t_phase, procs, out_dir):
     return launches_a["block_chol"], launches_b["block_chol"], sum(launches_c)
 
 
+def xval_data():
+    """Phase 15's along-track data (synthetic.py, numpy seed 0): tracks
+    sampled from the ground-truth field with noise, a fold column (track
+    mod 4), and the noise-free truth at every point."""
+    from gpsat_tpu_torch import synthetic as S
+
+    tracks = S.make_tracks(extent=XVAL_EXTENT, n_tracks=XVAL_TRACKS, pts_per_track=XVAL_TRACK_POINTS, seed=0)
+    field, xg, yg = S.make_ground_truth_field(extent=XVAL_EXTENT, n=XVAL_FIELD_N, seed=0)
+    df = S.sample_from_ground_truth(tracks, field, xg, yg, noise_std=XVAL_NOISE, seed=0, keep_cols=["track"])
+    df["fold"] = df["track"] % XVAL_FOLDS
+    return df, S.interp_2d(field, xg, yg, df["x"].to_numpy(), df["y"].to_numpy())
+
+
+def xval_index(host_build_s):
+    """Phase 15 (a): the grid index against the kdtree on phase 7's
+    geometry, then phase 7's f32 sweep on each arm. Returns kernel 1's
+    launches in the grid sweep."""
+    from gpsat_tpu_torch.data import select as sel
+    from gpsat_tpu_torch.data.prediction_locations import PredictionLocations
+
+    obs, experts, grid = pipeline_inputs()
+    sets, secs = {}, {}
+    for index in ("grid", "kdtree"):
+        t0 = time.perf_counter()
+        ix = sel.local_select_indices_all(obs, experts, OI_KW["local_select"], index=index)
+        t1 = time.perf_counter()
+        pcs = PredictionLocations("from_dataframe", coords_col=["x", "y"], df=grid, max_dist=OI_MAX_DIST,
+                                  index=index).batch_call(experts)
+        secs[index] = {"local_select_s": t1 - t0, "prediction_locations_s": time.perf_counter() - t1}
+        sets[index] = (ix, pcs)
+    same_select = all(np.array_equal(a, b) for a, b in zip(sets["grid"][0], sets["kdtree"][0]))
+    same_pred = all(np.array_equal(a, b) for a, b in zip(sets["grid"][1], sets["kdtree"][1]))
+    sweeps = {}
+    for index in ("grid", "kdtree"):
+        timers = {}
+        buckets, sec, launches = mesh_sweep(None, index=index, timers=timers)
+        sweeps[index] = (by_expert(buckets, ("f_mean", "f_var", "converged")), sec, launches, timers, buckets)
+    g, k = sweeps["grid"][0], sweeps["kdtree"][0]
+    d = max(float(np.abs(g[e][key] - k[e][key]).max()) for e in k for key in ("f_mean", "f_var")) if set(g) == set(
+        k) else float("inf")
+    expected, _ = shard_launches(sweeps["grid"][4], 1)
+    launches = sweeps["grid"][2]
+    log("xval_index", host_build_s=host_build_s, experts=len(experts["x"]), observations=len(obs["x"]),
+        prediction_points=int(sum(len(p) for p in sets["grid"][1])),
+        selected=int(sum(len(i) for i in sets["grid"][0])), host_s=secs, same_local_select=same_select,
+        same_prediction_locations=same_pred, sweep_s={i: sweeps[i][1] for i in sweeps},
+        sweep_host_select_s={i: sweeps[i][3].get("host_select") for i in sweeps}, experts_run=len(g),
+        converged=int(sum(v["converged"] for v in g.values())), max_abs_grid_vs_kdtree=d, launches=launches,
+        expected_block_chol=expected)
+    check(same_select, "xval (a): the grid's local-select sets differ from the kdtree's")
+    check(same_pred, "xval (a): the grid's prediction locations differ from the kdtree's")
+    check(d == 0.0, f"xval (a): the grid sweep's predictions differ from the kdtree sweep's by {d}")
+    check(launches == {"block_chol": expected, "panel_chol": 0, "cholesky": 0}, f"xval (a) launches {launches}")
+    return launches["block_chol"]
+
+
+def xval_stores(out_dir: Path):
+    """Phase 15 (b): the data as zarr stores of blosc lz4 chunks, byte- and
+    bit-shuffled, read back through the dataloader; every chunk through the
+    C++ loops and the Python decoders. Returns (data, truth, the
+    byte-shuffled store's path, the experts store's path)."""
+    from gpsat_tpu_torch.data import dataloader as DL
+    from gpsat_tpu_torch.data import zarr_reader as Z
+    from gpsat_tpu_torch.data.blosc import blosc_decode
+    from gpsat_tpu_torch.data.expert_locations import generate_local_expert_locations
+    from gpsat_tpu_torch.utils.grids import grid_2d_flatten
+
+    t0 = time.perf_counter()
+    df, truth = xval_data()
+    cols = ["x", "y", "track", "obs", "fold"]
+    stores, reads, chunks = {}, {}, {"chunks": 0, "bytes": 0, "lz4_frames": 0, "native_s": 0.0, "python_s": 0.0}
+    for shuffle, name in ((1, "byte_shuffle"), (2, "bit_shuffle")):
+        path = out_dir / f"obs_lz4_{name}.zarr"
+        Z.write_zarr(str(path), {c: (("index",), df[c].to_numpy()) for c in cols},
+                     coords={"index": np.arange(len(df))}, compress="blosc", shuffle=shuffle, chunks=(XVAL_CHUNK,))
+        t = time.perf_counter()
+        got = DL.load(source=str(path))
+        reads[name] = time.perf_counter() - t
+        check(list(got.columns) == ["index", *sorted(cols)], f"xval (b): {name} store columns {list(got.columns)}")
+        for c in cols:
+            check(got[c].dtype == df[c].dtype and np.array_equal(got[c].to_numpy(), df[c].to_numpy()),
+                  f"xval (b): column {c} of the {name} store differs from what was written")
+        check(np.array_equal(got["index"].to_numpy(), np.arange(len(df))), f"xval (b): {name} store's index")
+        for arr in sorted(p for p in path.iterdir() if p.is_dir()):
+            for chunk in sorted(f for f in arr.iterdir() if not f.name.startswith(".")):
+                buf = chunk.read_bytes()
+                t = time.perf_counter()
+                native = blosc_decode(buf, decoder="native")
+                t1 = time.perf_counter()
+                python = blosc_decode(buf, decoder="python")
+                chunks["native_s"] += t1 - t
+                chunks["python_s"] += time.perf_counter() - t1
+                check(native == python, f"xval (b): chunk {chunk.relative_to(out_dir)} decodes differently")
+                chunks["chunks"] += 1
+                chunks["bytes"] += len(native)
+                chunks["lz4_frames"] += int(not buf[2] & 0x02 and (buf[2] >> 5) & 7 == 1)
+        stores[name] = path
+    g = grid_2d_flatten([-XVAL_EXTENT, XVAL_EXTENT], [-XVAL_EXTENT, XVAL_EXTENT], grid_res=XVAL_EXPERT_RES,
+                        center=False)
+    locs = generate_local_expert_locations({"x": np.unique(g[:, 0]), "y": np.unique(g[:, 1])})
+    experts = out_dir / "experts.zarr"
+    Z.write_zarr(str(experts), {c: (("index",), locs[c].to_numpy()) for c in ("x", "y")},
+                 coords={"index": np.arange(len(locs))}, compress="blosc")
+    log("xval_stores", rows=len(df), tracks=XVAL_TRACKS, folds=XVAL_FOLDS, experts=len(locs), read_s=reads,
+        chunk_rows=XVAL_CHUNK, **chunks, seconds=time.perf_counter() - t0)
+    check(len(locs) == 121, f"xval (b): {len(locs)} expert locations, expected 121")
+    check(chunks["lz4_frames"] > 0, "xval (b): no chunk was lz4-compressed")
+    return df, truth, stores["byte_shuffle"], experts
+
+
+def xval_fold(cfg, device, dtype, loaded=None):
+    """One hold-out config through LocalExpertOI's setters and the sweep on
+    ``device`` (None: the card); with ``loaded`` (name -> [E, ...]) a
+    predict-only run at those parameters: (buckets, the LocalExpertOI, the
+    training frame, seconds)."""
+    from gpsat_tpu_torch.experts import LocalExpertOI, sweep
+
+    t0 = time.perf_counter()
+    oi = LocalExpertOI(expert_loc_config=cfg["locations"], data_config=cfg["data"], model_config=cfg["model"],
+                       pred_loc_config=cfg["pred_loc"])
+    train = oi.data.load(reset_index=True)
+    out = list(sweep(train, oi.expert_locs, coords_col=oi.data.coords_col, obs_col=oi.data.obs_col,
+                     local_select=oi.data.local_select, pred_loc=oi.pred_loc, model=oi.model,
+                     init_params=oi.model_init_params, constraints=oi.constraints, optim_kwargs=oi.optim_kwargs,
+                     optimise=loaded is None, loaded_params=loaded, dtype=dtype, device=device))
+    return [r for r in out if not r.get("skipped")], oi, train, time.perf_counter() - t0
+
+
+def xval_run(df, truth, store, experts, out_dir: Path):
+    """Phase 15 (c): xval.main on the reference config, each hold-out
+    config swept on the card, scored against the noise-free truth and
+    against the CPU's f64 predictions at the card's optima. Returns kernel
+    1's launches over the four folds."""
+    import pandas as pd
+    import torch
+
+    from gpsat_tpu_torch import xval
+    from gpsat_tpu_torch.data import select as sel
+    from gpsat_tpu_torch.experts import core_for
+    from gpsat_tpu_torch.parallel import batching
+    from gpsat_tpu_torch.parallel.engine import make_batched_runner, run_tile_batch
+
+    ref = {"data": {"data_source": str(store), "obs_col": "obs", "coords_col": ["x", "y"],
+                    "local_select": [{"col": ["x", "y"], "comp": "<", "val": XVAL_RADIUS}]},
+           "locations": {"source": str(experts), "keep_cols": ["x", "y"]},
+           "model": XVAL_MODEL, "run_kwargs": {"store_path": str(out_dir / "xval.h5")},
+           "pred_loc": {"method": "from_source"}, "comment": "chip_smoke phase 15"}
+    config = {"ref_config": ref,
+              "xval_config": {"pred_loc": {"method": "from_source", "max_dist": XVAL_RADIUS},
+                              "row_select_values": ["fold"], "func": "lambda fold: fold == {fold}",
+                              "col_args": "fold", "output_file": str(out_dir / "xval.h5")},
+              "output_config_file": str(out_dir / "xval_configs.json")}
+    t0 = time.perf_counter()
+    xval.main(config)
+    configs = json.loads((out_dir / "xval_configs.json").read_text())
+    expand_s = time.perf_counter() - t0
+    check(len(configs) == XVAL_FOLDS, f"xval (c): {len(configs)} hold-out configs, expected {XVAL_FOLDS}")
+
+    ip, cons = XVAL_MODEL["init_params"], XVAL_MODEL["constraints"]
+    core = core_for(ip, cons)
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+    folds = []
+    for cfg in configs:
+        buckets, oi, train, sec = xval_fold(cfg, None, torch.float32)  # None: the card
+        folds.append((cfg, buckets, oi, train, sec))
+    launches = {k: fn.launches for k, fn in counters().items()}
+    expected = sum((int(r["num_iter"].max()) + 2) * (batching.bucket_size(int(r["num_obs"].max())) // T)
+                   for f in folds for r in f[1])
+    fit_s = [f[4] for f in folds]
+
+    rows, n_run, n_conv = [], 0, 0
+    t0 = time.perf_counter()
+    for k, (cfg, buckets, oi, train, _) in enumerate(folds):
+        locs = {c: oi.expert_locs[c].to_numpy() for c in ("x", "y")}
+        E = len(locs["x"])
+        # the card's optima, row-aligned with the expert locations
+        loaded = {name: np.full((E,) + np.shape(v), np.nan) for name, v in
+                  core.init_cparams(2, dtype=np.float64).items()}
+        for r in buckets:
+            for name in loaded:
+                loaded[name][r["expert_index"]] = r[name]
+        cpu, _, _, _ = xval_fold(cfg, "cpu", torch.float64, loaded=loaded)
+        held = df[df["fold"] == int(cfg["pred_loc"]["load_kwargs"]["row_select"][-1]["func"].split("==")[-1])]
+        tr = pd.DataFrame({"pred_loc_x": held["x"].to_numpy(), "pred_loc_y": held["y"].to_numpy(),
+                       "truth": truth[held.index.to_numpy()]})
+        score = {tag: xval.score_xval_predictions({f"preds_{k}": preds_frame(b, locs)}, tr, "truth",
+                                                  inference_radius=XVAL_RADIUS).iloc[0]
+                 for tag, b in (("card_f32", buckets), ("cpu_f64", cpu))}
+        rows.append({"fold": k, "experts": E, "run": int(sum(len(r["expert_index"]) for r in buckets)),
+                     "held_out": len(held), "training": len(train), "scored": int(score["card_f32"]["n"]),
+                     "rmse_card_f32": float(score["card_f32"]["rmse"]), "rmse_cpu_f64": float(score["cpu_f64"]["rmse"]),
+                     "nll_card_f32": float(score["card_f32"]["nll"]), "nll_cpu_f64": float(score["cpu_f64"]["nll"])})
+        n_run += rows[-1]["run"]
+        n_conv += int(sum(r["converged"].sum() for r in buckets))
+    score_s = time.perf_counter() - t0
+
+    # 16 experts of fold 0 fitted again in f64 on the CPU, from the card's f32
+    # optima (the shared init's fit took 14.9 s of the phase, PERF.md
+    # section 4)
+    cfg, buckets, oi, train, _ = folds[0]
+    card = by_expert(buckets, ("f_mean", "f_var", "objective", *core.param_names))
+    ran = np.sort(np.asarray(list(card)))
+    pick = ran[:: max(len(ran) // CPU_TILES, 1)][:CPU_TILES]
+    sub = {c: oi.expert_locs[c].to_numpy()[pick] for c in ("x", "y")}
+    ix = sel.local_select_indices_all(train, sub, cfg["data"]["local_select"])
+    pcs = oi.pred_loc.batch_call(sub)
+    tiles = batching.assemble_tiles(sel.columns_array(train, ["x", "y"]), train["obs"], ix, pcs, expert_index=pick,
+                                    coords_scale=ip["coords_scale"])
+    t0 = time.perf_counter()
+    runner = make_batched_runner(core, device="cpu", max_iter=XVAL_REF_MAX_ITER, **CPU_F64_KW)
+    parts = [run_tile_batch(b, {name: np.stack([card[int(e)][name] for e in b.expert_index])
+                                for name in core.param_names}, runner, core, device="cpu") for b in tiles]
+    ref64 = {k: [row for p in parts for row in p[k]] for k in ("expert_index", "pred_mask", "f_mean", "f_var")}
+    ref64["objective"] = np.concatenate([p["objective"] for p in parts])
+    cpu_fit_s = time.perf_counter() - t0
+    d = np.zeros(len(pick))
+    f32_obj = np.zeros(len(pick))
+    for j, e in enumerate(ref64["expert_index"]):
+        p = int(ref64["pred_mask"][j].sum())
+        f32_obj[j] = card[int(e)]["objective"]
+        d[j] = max(float(np.abs(card[int(e)][key][:p] - ref64[key][j][:p]).max()) for key in ("f_mean", "f_var"))
+    check(len(ref64["expert_index"]) == len(pick), f"xval (c): {len(ref64['expert_index'])} CPU lanes")
+    same = np.abs(ref64["objective"] - f32_obj) <= WORSE_OPTIMUM_NATS
+    rel = [abs(r["rmse_card_f32"] - r["rmse_cpu_f64"]) / r["rmse_cpu_f64"] for r in rows]
+    log("xval", folds=rows, expand_s=expand_s, fit_s=fit_s, score_s=score_s, cpu_fit_s=cpu_fit_s,
+        experts_run=n_run, converged=n_conv, launches=launches, expected_block_chol=expected,
+        f32_vs_cpu_f64=float(d[same].max()) if same.any() else None, compared=int(same.sum()),
+        objectives_apart={int(e): [float(ref64["objective"][j]), float(f32_obj[j])]
+                          for j, e in enumerate(ref64["expert_index"]) if not same[j]},
+        bound=PRED_BOUND, rmse_rel_card_vs_cpu=rel, rmse_rel_bound=XVAL_RMSE_REL)
+    check(n_conv >= MIN_SHARE * n_run, f"xval (c): only {n_conv}/{n_run} lanes converged")
+    check(launches == {"block_chol": expected, "panel_chol": 0, "cholesky": 0}, f"xval (c) launches {launches}")
+    check(same.sum() >= MIN_COMPARED_SHARE * len(pick),
+          f"xval (c): the CPU f64 fit and the card's ended > 1 nat apart on {int((~same).sum())}/{len(pick)}")
+    check(d[same].max() <= PRED_BOUND, f"xval (c): card f32 vs CPU f64 on {len(pick)} experts: {d}")
+    check(all(np.isfinite(r["rmse_card_f32"]) and r["scored"] == r["held_out"] for r in rows),
+          f"xval (c): fold scores {rows}")
+    check(max(rel) <= XVAL_RMSE_REL, f"xval (c): fold RMSE card vs CPU f64, relative: {rel}")
+    return launches["block_chol"]
+
+
+def start_help_commands() -> list:
+    """Phase 15 (d)'s two `--help` commands, started with the phase."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    return [subprocess.Popen([sys.executable, "-m", "gpsat_tpu_torch.cli", cmd, "--help"], cwd=ROOT, env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for cmd in ("xval", "prime_cache")]
+
+
+def phase_xval(host_build_s):
+    """Phase 15: (a) the host library's grid index on phase 7's geometry,
+    (b) zarr stores of blosc chunks, (c) cross-validation on the card, (d)
+    prime and the two commands' --help. Returns kernel 1's launches in (a)'s
+    grid sweep and in (c)."""
+    import tempfile
+
+    from gpsat_tpu_torch.prime_cache import prime
+
+    t_phase = time.perf_counter()
+    procs = start_help_commands()
+    try:
+        launches_a = xval_index(host_build_s)
+        a_s = time.perf_counter() - t_phase
+        with tempfile.TemporaryDirectory() as out_dir:
+            df, truth, store, experts = xval_stores(Path(out_dir))
+            b_s = time.perf_counter() - t_phase - a_s
+            launches_c = xval_run(df, truth, store, experts, Path(out_dir))
+        c_s = time.perf_counter() - t_phase - a_s - b_s
+        t0 = time.perf_counter()
+        primed = prime(PRIME_SHAPES, model="gpr", verbose=False)
+        prime_s = time.perf_counter() - t0
+        helps = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()  # a no-op once it has ended
+    for cmd, p, (out, err) in zip(("xval", "prime_cache"), procs, helps):
+        check(p.returncode == 0 and "usage" in out, f"xval (d): {cmd} --help exited {p.returncode}: {err[-2000:]}")
+    log("xval_prime", libraries_s=primed["libraries"],
+        shapes={"x".join(map(str, k)): v for k, v in primed["shapes"].items()}, seconds=prime_s,
+        help_exit_codes=[p.returncode for p in procs])
+    check(all(v == 0.0 for v in primed["libraries"].values()), f"xval (d): prime rebuilt {primed['libraries']}")
+    phase_s = time.perf_counter() - t_phase
+    log("xval_phase", seconds=phase_s, budget_s=XVAL_BUDGET_S, a_s=a_s, b_s=b_s, c_s=c_s, d_s=prime_s)
+    return launches_a, launches_c
+
+
 def main(argv) -> int:
     import torch
 
@@ -2739,10 +3078,17 @@ def main(argv) -> int:
     ).stdout.strip().splitlines()[0]
     log("device", card=card, torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0])
 
+    def build_host():
+        t = time.perf_counter()
+        return _build.build_host_library(HOST_LIBRARY), time.perf_counter() - t
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, all started together
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:  # one nvcc per source and the g++, all started together
+        host = pool.submit(build_host)
         libs = list(pool.map(_build.build_library, KERNELS))
-    log("build", seconds=time.perf_counter() - t0, libraries=[str(lib.relative_to(ROOT)) for lib in libs])
+        host_lib, host_build_s = host.result()
+    log("build", seconds=time.perf_counter() - t0, libraries=[str(lib.relative_to(ROOT)) for lib in libs],
+        host_library=str(host_lib.relative_to(ROOT)), host_build_s=host_build_s)
     for lib in libs:
         print(Path(str(lib) + ".log").read_text().strip(), flush=True)
 
@@ -2769,6 +3115,7 @@ def main(argv) -> int:
         entries[0][f"launches_{tag}"] = n
     (entries[0]["launches_mesh_default"], entries[0]["launches_mesh_two_shards"],
      entries[0]["launches_mesh_processes"]) = phase_mesh(f32_oi)
+    entries[0]["launches_xval_index_grid"], entries[0]["launches_xval"] = phase_xval(host_build_s)
 
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -5,11 +5,15 @@ The port's own copy of ``gpsat_tpu/data/dataloader.py::load`` and
 inference, where pushdown, col_funcs (derived columns via config_func,
 including tuple-key multi-output), row_select, col_select.
 
-Sources this slice reads: a DataFrame (or a dict of columns), a CSV/TSV
-file, and an HDF5 table through the port's ``TableStore`` or, for a
-reference-produced pandas-HDFStore (PyTables) file, ``data/pytables_compat``.
-Parquet, netCDF and zarr raise ``NotImplementedError`` (ROADMAP.md Queue 1
-item 9). pandas is imported when ``load`` runs.
+Sources: a DataFrame (or a dict of columns), a CSV/TSV file, an HDF5
+table through the port's ``TableStore`` or, for a reference-produced
+pandas-HDFStore (PyTables) file, ``data/pytables_compat``; a parquet file
+(pandas with pyarrow, imported when one is read; {col, comp, val} wheres go
+down as pyarrow filters); a netCDF4 file (``data/netcdf``, h5py imported
+when one is read) and a zarr v2 store (``data/zarr_reader``: stdlib, numpy
+and pandas, blosc chunks through the C++ host library). netCDF and zarr
+sources come back with their dimensions reset to columns. pandas is
+imported when ``load`` runs.
 """
 
 from __future__ import annotations
@@ -32,13 +36,6 @@ FILE_SUFFIX_ENGINE_MAP = {
     "zarr": "zarr",
     "nc": "netcdf4",
 }
-_UNPORTED_ENGINES = ("parquet", "zarr", "netcdf4")
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet; see ROADMAP.md Queue 1 item 9")
-
-
 def add_cols(df, col_func_dict: Optional[dict] = None, filename=None, verbose: bool = False):
     """Add derived columns in place; tuple keys assign multiple columns
     (ref: GPSat/dataloader.py:46-134)."""
@@ -117,8 +114,24 @@ def load(
             else:
                 with TableStore(source, mode="r") as ts:
                     df = ts.select(table, where=where).reset_index()
-        elif eng in _UNPORTED_ENGINES:
-            raise _not_ported(f"the {eng} reader")
+        elif eng == "parquet":
+            filters = _wheres_to_parquet_filter(where)
+            df = pd.read_parquet(source, filters=filters, **source_kwargs)
+            if where:
+                df = sel.data_select(df, where=where)
+        elif eng == "netcdf4":
+            # the reference reads nc through xr.open_dataset + to_dataframe
+            # (GPSat/dataloader.py:388-394); netCDF4 files are HDF5
+            from gpsat_tpu_torch.data.netcdf import read_netcdf
+
+            df = read_netcdf(source, **source_kwargs).reset_index()
+            df = sel.data_select(df, where=where)
+        elif eng == "zarr":
+            # zarr v2 DirectoryStore (ref: GPSat/dataloader.py:1239-1254)
+            from gpsat_tpu_torch.data.zarr_reader import read_zarr
+
+            df = read_zarr(source, **source_kwargs).reset_index()
+            df = sel.data_select(df, where=where)
         else:
             raise ValueError(f"engine: {eng} not handled")
 
@@ -132,4 +145,43 @@ def load(
 
     if reset_index:
         df = df.reset_index(drop=True)
+    return df
+
+
+def _wheres_to_parquet_filter(where):
+    """{col, comp, val} dicts -> pyarrow filter tuples
+    (ref: GPSat/dataloader.py:1275-1288)."""
+    if not where:
+        return None
+    out = []
+    for wd in where:
+        if isinstance(wd, dict) and all(k in wd for k in ("col", "comp", "val")) and not wd.get("negate"):
+            out.append((wd["col"], wd["comp"], wd["val"]))
+    return out or None
+
+
+def add_data_to_col(df, add_data_to_col: Optional[dict] = None, verbose: bool = False):
+    """Set a column to each value in turn, replicating the rows per value
+    (ref: GPSat/dataloader.py add_data_to_col — a scalar sets one column;
+    a list of k values concatenates k copies of the DataFrame, one per
+    value)."""
+    import numpy as np
+    import pandas as pd
+
+    if add_data_to_col is None:
+        add_data_to_col = {}
+    assert isinstance(add_data_to_col, dict), (
+        f"add_data_to_col expected to be dict, got: {type(add_data_to_col)}"
+    )
+    for col, vals in add_data_to_col.items():
+        if not isinstance(vals, (list, tuple, np.ndarray)):
+            vals = [vals]
+        if verbose:
+            print(f"adding column: {col} with {len(vals)} value(s)")
+        parts = []
+        for v in vals:
+            tmp = df.copy(True)
+            tmp[col] = v
+            parts.append(tmp)
+        df = pd.concat(parts, axis=0)
     return df

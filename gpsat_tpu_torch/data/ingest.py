@@ -2,8 +2,8 @@
 
 The port's own copy of ``gpsat_tpu/data/ingest.py``; the stores it writes
 are the port's ``TableStore`` (the JAX package's format). netCDF sources
-(``read_engine`` "nc", "netcdf", "xarray") raise ``NotImplementedError``:
-the netCDF reader is not ported yet (ROADMAP.md Queue 1 item 9).
+(``read_engine`` "nc", "netcdf", "xarray") go through ``data/netcdf``'s
+h5py reader, their dimensions reset to columns.
 
 Re-implements the reference's ingest path:
 - ``read_from_multiple_files`` (ref: GPSat/dataloader.py:232-442): walk
@@ -117,7 +117,13 @@ def read_from_multiple_files(
                 print(f"reading: {path}")
             kw = dict(read_kwargs)
             if read_engine in ("nc", "netcdf", "xarray"):
-                raise NotImplementedError("the netCDF reader is not ported yet; see ROADMAP.md Queue 1 item 9")
+                # the reference reads nc through xr.open_dataset +
+                # to_dataframe (GPSat/dataloader.py:388-394); here through
+                # the h5py reader, the dims kept as columns so col and row
+                # selections see them
+                from gpsat_tpu_torch.data.netcdf import read_netcdf
+
+                df = read_netcdf(path, **kw).reset_index()
             else:
                 if read_engine == "tsv":
                     kw.setdefault("sep", "\t")

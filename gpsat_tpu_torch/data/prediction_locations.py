@@ -11,6 +11,13 @@ and ``batch_call`` for many experts at once, with the same row order.
 The grid (``df``) and the expert rows are DataFrames or mappings of column
 -> array, so ``batch_call`` needs no pandas. The radius rule is strict
 (d < max_dist), the reference's ``_max_dist_bool`` convention.
+
+``index`` picks the arm of the radius filter: "grid" (the default, as in
+the JAX package) runs the host library's ``max_dist_bool`` and grid-hash
+radius query (``gpsat_tpu_torch/native.py``), "kdtree" the plain versions:
+the numpy mask ``max_dist_bool`` below and scipy's ``cKDTree``. Both give
+the same rows in the same order on f64 coordinates (the host library
+compares in f64, the numpy mask in the grid's dtype).
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from typing import Optional
 
 import numpy as np
 
+from gpsat_tpu_torch import native
 from gpsat_tpu_torch.data import select as sel
 from gpsat_tpu_torch.utils.misc import loaded_pandas, to_array
 
@@ -53,8 +61,9 @@ def _match(x, y):
 
 
 class PredictionLocations:
-    def __init__(self, method: str = "expert_loc", coords_col=None, expert_loc=None, **kwargs):
+    def __init__(self, method: str = "expert_loc", coords_col=None, expert_loc=None, index: str = "grid", **kwargs):
         self.method = method
+        self.index = native.check_index(index)
         self.kwargs = kwargs
         self._coords_col = None
         self.coords_col = coords_col
@@ -122,16 +131,17 @@ class PredictionLocations:
         if (self.method == "from_dataframe") and ("local_select" in self.kwargs):
             cols = {c: out[:, i] for i, c in enumerate(self.coords_col)}
             ref = {c: self.expert_loc[0, i : i + 1] for i, c in enumerate(self.coords_col)}
-            out = out[sel.local_select_indices_all(cols, ref, self.kwargs["local_select"])[0]]
+            out = out[sel.local_select_indices_all(cols, ref, self.kwargs["local_select"], index=self.index)[0]]
 
         assert isinstance(out, np.ndarray), f"must return ndarray, got: {type(out)}"
         assert out.ndim == 2, f"must return 2d array, got {out.ndim}d"
         return out
 
-    def batch_call(self, expert_rows) -> list:
+    def batch_call(self, expert_rows, index: Optional[str] = None) -> list:
         """Per-expert prediction arrays for many experts in one pass.
 
-        ``expert_rows`` is a DataFrame or a mapping of column -> array. The
+        ``expert_rows`` is a DataFrame or a mapping of column -> array;
+        ``index`` (default: the object's) picks the radius filter's arm. The
         'from_dataframe' + max_dist case (a fine fixed grid radius-filtered
         per expert) runs one radius query for all experts instead of a
         full-grid mask per expert; every other method and option takes the
@@ -163,16 +173,21 @@ class PredictionLocations:
         E = sel.num_rows(expert_rows)
         locs = np.stack([np.asarray(expert_rows[c]) for c in self.coords_col], axis=1)
         if not batchable:
-            out = []
-            for i in range(E):
-                self.expert_loc = locs[i : i + 1]
-                out.append(self())
+            kept, self.index = self.index, native.check_index(index or self.index)
+            try:
+                out = []
+                for i in range(E):
+                    self.expert_loc = locs[i : i + 1]
+                    out.append(self())
+            finally:
+                self.index = kept
             return out
 
         vals = sel.columns_array(df, found_cols)
         refs = locs.astype(float)
         fc_loc = _match(found_cols, self.coords_col)
-        idx_sets = sel.radius_query_all(vals, refs[:, fc_loc], float(md), inclusive=False)
+        idx_sets = sel.radius_query_all(vals, refs[:, fc_loc], float(md), inclusive=False,
+                                        index=native.check_index(index or self.index))
         out = []
         full_dims = len(found_cols) == len(self.coords_col)
         missing = [c for c in self.coords_col if c not in found_cols]
@@ -231,7 +246,9 @@ class PredictionLocations:
         if max_dist is not None:
             if self.expert_loc.dtype != vals.dtype:
                 self.expert_loc = self.expert_loc.astype(vals.dtype)
-            b = max_dist_bool(vals, self.expert_loc[0, fc_loc], max_dist)
+            # the host library compares in f64, as the JAX package's does
+            mask = native.max_dist_bool if self.index == "grid" else max_dist_bool
+            b = mask(vals, self.expert_loc[0, fc_loc], max_dist)
             vals = vals[b]
 
         if len(found_cols) == len(self.coords_col):

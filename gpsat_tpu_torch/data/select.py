@@ -10,10 +10,16 @@ orchestrator uses (ref: GPSat/dataloader.py):
     entries
   - ``get_where_list`` (:2893-2978): static + dynamic global selects
 
+  - ``local_select_bool`` / ``local_data_select`` (one expert),
+    ``build_kdtrees`` and ``get_where_list_legacy``
+
 Tables are a DataFrame or any mapping of column name -> array (a DataFrame
-is one), so the sweep needs no pandas. The radius query is the scipy arm of
-the JAX package's ``native.radius_query_all``; its C++ grid-hash index is
-not ported yet (ROADMAP.md Queue 1 item 9).
+is one), so the sweep needs no pandas. The radius query of a 2-column
+entry runs on the host library's grid-hash index
+(``native.radius_query_all``, ``index="grid"``, the default, as in the JAX
+package) or on scipy's ``cKDTree`` (``index="kdtree"``, the plain
+version); both give the same sorted sets. An entry of another number of
+columns takes the kdtree.
 
 The reference is split on the boundary rule, and both rules are kept
 exactly: local selection is inclusive (d <= r, scipy's ball query, even for
@@ -25,12 +31,13 @@ boundary are the normal case, not a corner case.
 from __future__ import annotations
 
 import operator
+import warnings
 from functools import reduce
-from typing import List
+from typing import List, Optional
 
 import numpy as np
-from scipy.spatial import cKDTree
 
+from gpsat_tpu_torch import native
 from gpsat_tpu_torch.utils.config_func import config_func, eval_namespace
 from gpsat_tpu_torch.utils.misc import pandas_to_dict
 
@@ -112,37 +119,95 @@ def data_select(df, where=None, combine: str = "AND", copy: bool = True):
     return out.copy() if copy else out
 
 
-def radius_query_all(coords: np.ndarray, refs: np.ndarray, radius: float, *, inclusive: bool = True) -> List[np.ndarray]:
-    """Per-reference index arrays of the points within ``radius``.
+def radius_query_all(coords: np.ndarray, refs: np.ndarray, radius: float, *, inclusive: bool = True,
+                     index: str = "grid") -> List[np.ndarray]:
+    """Per-reference sorted index arrays of the points within ``radius``.
 
     ``inclusive`` selects the boundary rule: True = d <= r (scipy's
     ``query_ball_point``, the local-select convention, ref:
     dataloader.py:2437-2440); False = d < r (the ``_max_dist_bool``
     prediction-location convention, ref: prediction_locations.py:18-43).
+    ``index`` "grid" runs 2-d points on the host library's grid-hash index,
+    "kdtree" on scipy's ``cKDTree``; points of another dimension always
+    take the kdtree.
     """
+    native.check_index(index)
     coords = np.ascontiguousarray(coords, dtype=np.float64)
     refs = np.ascontiguousarray(np.atleast_2d(refs), dtype=np.float64)
-    tree = cKDTree(coords)
+    if coords.shape[1] != 2:
+        index = "kdtree"
+    return native.radius_query_all(coords, refs, radius, inclusive=inclusive, index=index)
+
+
+def build_kdtrees(df, local_select: List[dict]):
+    """One cKDTree per multi-column local_select entry, None for the others
+    (ref: dataloader.py:2293-2350)."""
+    from scipy.spatial import cKDTree
+
     out = []
-    for e, ix in enumerate(tree.query_ball_point(refs, radius)):
-        ix = np.asarray(ix, dtype=np.int64)
-        if not inclusive and len(ix):
-            d2 = ((coords[ix] - refs[e]) ** 2).sum(axis=1)
-            ix = ix[d2 < radius * radius]
-        out.append(ix)
+    for ls in local_select:
+        col = ls["col"]
+        if isinstance(col, str):
+            out.append(None)
+        else:
+            assert ls["comp"] in ("<", "<="), "multi-column select requires a less-than comparison"
+            out.append(cKDTree(columns_array(df, list(col))))
     return out
 
 
-def local_select_indices_all(df, ref_locs, local_select: List[dict]) -> List[np.ndarray]:
+def local_select_bool(df, reference_location, local_select: List[dict], kdtree=None) -> np.ndarray:
+    """Boolean mask of the rows within one expert's local window.
+
+    Single-column entries compare ``df[col] <comp> ref[col] + val`` (e.g.
+    t within +-4 days); multi-column entries keep the euclidean ball of
+    radius val around the expert (inclusive, scipy's ball query), through
+    ``kdtree`` (one tree, or ``build_kdtrees``'s list) when given.
+    """
+    from scipy.spatial import cKDTree
+
+    select = np.ones(num_rows(df), dtype=bool)
+    ref = pandas_to_dict(reference_location)
+    cols = column_names(df)
+    for idx, ls in enumerate(local_select):
+        col, comp = ls["col"], ls["comp"]
+        if isinstance(col, str):
+            assert col in cols, f"col: {col} not in data columns: {cols}"
+            assert col in ref, f"col: {col} not in reference location: {list(ref)}"
+            select &= np.asarray(_compare(np.asarray(df[col]), comp, ref[col] + ls["val"]))
+        else:
+            assert comp in ("<", "<="), "multi-column select requires a less-than comparison"
+            for c in col:
+                assert c in cols, f"column: {c} not in data columns"
+                assert c in ref, f"column: {c} not in reference location"
+            kdt = None
+            if kdtree is not None:
+                kdt = kdtree[idx] if isinstance(kdtree, list) else kdtree
+            if kdt is None:
+                kdt = cKDTree(columns_array(df, list(col)))
+            in_ids = kdt.query_ball_point(x=[ref[c] for c in col], r=ls["val"])
+            m = np.zeros(num_rows(df), dtype=bool)
+            m[in_ids] = True
+            select &= m
+    return select
+
+
+def local_data_select(df, reference_location, local_select, kdtree=None, verbose: bool = False):
+    """The rows of a DataFrame within one expert's local window."""
+    return df.loc[local_select_bool(df, reference_location, local_select, kdtree=kdtree), :]
+
+
+def local_select_indices_all(df, ref_locs, local_select: List[dict], *, index: str = "grid") -> List[np.ndarray]:
     """Per-expert sorted row-index arrays of the local window, all experts
     in one pass (ref: GPSat/dataloader.py:2354-2447 runs one KDTree query
     per expert).
 
     ``df`` and ``ref_locs`` are DataFrames or mappings of column -> array.
     The first multi-column entry is one radius query for all experts
-    (inclusive d <= r); the remaining entries filter each expert's
-    candidates: scalar ones compare ``df[col] <comp> ref[col] + val``,
-    further multi-column ones keep d^2 <= r^2.
+    (inclusive d <= r, on ``index``: "grid" or "kdtree", the same sets);
+    the remaining entries filter each expert's candidates: scalar ones
+    compare ``df[col] <comp> ref[col] + val``, further multi-column ones
+    keep d^2 <= r^2. Equal, expert by expert, to
+    ``np.flatnonzero(local_select_bool(...))``.
     """
     E = num_rows(ref_locs)
     n = num_rows(df)
@@ -154,7 +219,8 @@ def local_select_indices_all(df, ref_locs, local_select: List[dict]) -> List[np.
     if multi:
         ls0 = multi[0]
         cols = list(ls0["col"])
-        cand = radius_query_all(columns_array(df, cols), columns_array(ref_locs, cols), float(ls0["val"]))
+        cand = radius_query_all(columns_array(df, cols), columns_array(ref_locs, cols), float(ls0["val"]),
+                                index=index)
         multi_rest = multi[1:]
     else:
         cand = [np.arange(n, dtype=np.int64)] * E
@@ -206,3 +272,48 @@ def get_where_list(global_select, local_select=None, ref_loc=None) -> List[dict]
                 if loc_col == ls["col"]:
                     out.append({"col": gs["src_col"], "comp": ls["comp"], "val": func(ref[loc_col], ls["val"])})
     return out
+
+
+def get_where_list_legacy(read_in_by: Optional[dict] = None, where=None):
+    """Expand a ``read_in_by`` spec into a list of HDF-style where-string
+    lists (ref: GPSat/dataloader.py get_where_list_legacy). Each key maps to
+    {"values": ..., "how": ...}; "interval" makes [>=, <) pairs from
+    consecutive values, any other ``how`` is used as a comparison operator.
+    ``values`` may be {"func": ..., **kwargs}, resolved through
+    ``config_func``."""
+    import re
+
+    if read_in_by is None:
+        where_list = where
+        if not isinstance(where_list, list):
+            where_list = [where_list]
+        return where_list
+
+    assert isinstance(read_in_by, dict), (
+        f"read_in_by provided, expected to be dict, got: {type(read_in_by)}"
+    )
+    if where is not None:
+        warnings.warn("'read_in_by' is specified, as is 'where' in 'input' of config, will ignore 'where'")
+
+    where_dict = {}
+    for k, v in read_in_by.items():
+        vals = v["values"]
+        how = v["how"]
+        if isinstance(vals, dict):
+            vals = dict(vals)
+            func = vals.pop("func")
+            vals = config_func(func, kwargs=vals)
+        if isinstance(vals, (int, float, str)):
+            vals = [vals]
+        if not isinstance(vals, np.ndarray):
+            vals = np.array(vals)
+        numeric = bool(re.search("int|float", str(vals.dtype)))
+        q = "" if numeric else "'"
+        if how == "interval":
+            w = [[f"{k} >= {q}{vals[i]}{q}", f"{k} < {q}{vals[i + 1]}{q}"]
+                 for i in range(len(vals) - 1)]
+        else:
+            w = [[f"{k} {how} {q}{val}{q}"] for val in vals]
+        where_dict[k] = w
+
+    return reduce(lambda x, y: [xi + yi for xi in x for yi in y], where_dict.values())

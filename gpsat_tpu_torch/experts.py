@@ -131,6 +131,16 @@ class LocalExpertData:
     engine: Union[str, None] = None
     read_kwargs: Union[dict, None] = None
 
+    def set_data_source(self, verbose: bool = False):
+        """Normalize the data source for loading (ref: local_experts.py:68-81):
+        infer the engine from a string source's suffix so later load()
+        calls don't re-infer. Sources stay paths, opened per load."""
+        if isinstance(self.data_source, str) and self.engine is None:
+            suffix = os.path.splitext(self.data_source)[1].lower().lstrip(".")
+            self.engine = DL.FILE_SUFFIX_ENGINE_MAP.get(suffix, self.engine)
+            if verbose:
+                print(f"set_data_source: engine={self.engine} for {self.data_source}")
+
     def load(self, where=None, **kwargs):
         use_where = list(self.where) if self.where is not None else None
         if where is not None:
@@ -166,6 +176,18 @@ class _phase:
     def __exit__(self, *exc):
         self.timers[self.name] = self.timers.get(self.name, 0.0) + time.perf_counter() - self.t0
         return False
+
+
+# the timers of the most recently started LocalExpertOI.run
+_LAST_PHASES: dict = {}
+
+
+def get_phase_timers() -> dict:
+    """Seconds per phase of the most recently started ``LocalExpertOI.run``
+    (host_load, host_select, host_assembly, host_load_params, host_store,
+    device_dispatch, device_fetch, polish, host_model). Prefer the
+    per-instance ``LocalExpertOI.phase_timers`` when holding the object."""
+    return dict(_LAST_PHASES)
 
 
 # --------------------------------------------------------------------------
@@ -756,6 +778,7 @@ def sweep(
     device=None,
     mesh=None,
     timers: Optional[dict] = None,
+    index: Optional[str] = None,
 ) -> Iterator[dict]:
     """Fit and predict every expert of ``expert_locs`` on ``columns``.
 
@@ -795,6 +818,12 @@ def sweep(
     mesh's first device). Tiles are capped by the free memory of the mesh's
     first device.
 
+    ``index`` picks the radius queries' arm for local selection and the
+    prediction locations: "grid", the host library's grid-hash index, or
+    "kdtree", scipy's (the plain version); both give the same tiles. None
+    (the default): "grid" for local selection, ``pred_loc.index`` (itself
+    "grid" by default) for the prediction locations.
+
     It yields, first, the experts skipped for fewer than ``min_obs``
     observations (or no prediction location) as ``{"skipped": True,
     "expert_index", "num_obs"}``, then one result dict per bucket, the main
@@ -829,8 +858,8 @@ def sweep(
     obs_name = obs_col if isinstance(obs_col, str) else obs_col[0]
     E = sel.num_rows(expert_locs)
     with _phase(timers, "host_select"):
-        sel_ix = sel.local_select_indices_all(columns, expert_locs, local_select or [])
-        pcs = pred_loc.batch_call(expert_locs) if predict else [np.zeros((0, len(coords_col)))] * E
+        sel_ix = sel.local_select_indices_all(columns, expert_locs, local_select or [], index=index or "grid")
+        pcs = pred_loc.batch_call(expert_locs, index=index) if predict else [np.zeros((0, len(coords_col)))] * E
     run = [e for e in range(E) if len(sel_ix[e]) >= min_obs and not (predict and len(pcs[e]) == 0)]
     if len(run) < E:
         skipped = np.setdiff1d(np.arange(E), run)
@@ -1083,7 +1112,8 @@ class LocalExpertOI:
     def run(self, *args, **kwargs):
         """Run the sweep (see _run for the full signature). Seconds per
         phase accumulate into a fresh ``self.phase_timers`` for each call."""
-        self.phase_timers = {}
+        global _LAST_PHASES
+        self.phase_timers = _LAST_PHASES = {}
         return self._run(*args, **kwargs)
 
     def _run(
@@ -1420,6 +1450,34 @@ class LocalExpertOI:
         return out
 
     # ---- table building ----
+    @staticmethod
+    def dict_of_array_to_table(x, ref_loc=None, concat: bool = False, table=None, default_dim: int = 1):
+        """Dict of arrays -> DataFrame(s) multi-indexed by the reference
+        location (ref: local_experts.py:691-747)."""
+        import pandas as pd
+
+        from gpsat_tpu_torch.utils.tables import dict_of_array_to_dict_of_dataframe
+
+        assert isinstance(x, dict), f"input expected to be dict, got: {type(x)}"
+        if len(x) == 0:
+            return x
+        if concat:
+            assert table is not None, "concat is True but (replacement) table (name) not provided"
+        dfs = dict_of_array_to_dict_of_dataframe(x, concat=concat, reset_index=True)
+        if ref_loc is not None:
+            ref_loc = pandas_to_dict(ref_loc)
+            assert isinstance(ref_loc, dict), f"ref_loc expected to be dict (or Series), got: {type(ref_loc)}"
+            names = list(ref_loc.keys())
+            tup = tuple(ref_loc.values())
+            for df in dfs.values():
+                if len(names) == 1:
+                    df.index = pd.Index([tup[0]] * len(df), name=names[0])
+                else:
+                    df.index = pd.MultiIndex.from_tuples([tup] * len(df), names=names)
+        if not concat:
+            return dfs
+        return {(table if k == default_dim else f"{table}_{k}"): v for k, v in dfs.items()}
+
     @staticmethod
     def _expert_index_batch(xprt_locs, eis, coords_col):
         """(Multi)Index rows for many experts at once, one per entry of

@@ -1,11 +1,18 @@
-"""Misc utilities the orchestrator uses.
+"""Misc utilities mirroring the reference's utils surface.
 
-The port's own copy of the parts of ``gpsat_tpu/utils/misc.py`` this slice
-needs: ``cprint``, ``json_serializable``, ``pandas_to_dict``, ``to_array``,
-``nested_dict_literal_eval``, ``get_config_from_sysargv`` and
-``stats_on_vals`` (binning's data-quality report).
+The port's own copy of ``gpsat_tpu/utils/misc.py``:
+- cprint (ref: GPSat/utils.py:2402-2450), to_array (:668-...),
+  json_serializable (:1366), nested_dict_literal_eval (:31),
+  get_config_from_sysargv (:139-177), pandas_to_dict
+- stats_on_vals (ref: GPSat/utils.py:496-554; binning's data-quality report)
+- rmse / nll metrics (ref: GPSat/utils.py:2452-2464)
+- guess_track_num / track_num_for_date (ref: GPSat/utils.py:2466-2489)
+- compare_dataframes, json_load, not_nan, assign_category_col, log_lines,
+  convert_lon_lat_str, expand_dict_by_vals, pretty_print_class,
+  diff_distance, move_to_archive
 
-None of them but ``stats_on_vals`` imports pandas. An object can only be a DataFrame or a Series
+The functions the sweep reaches do not import pandas; the others import it
+when they run. An object can only be a DataFrame or a Series
 once its caller has imported pandas, so they look for it in ``sys.modules``;
 the device-facing sweep then runs where pandas is not installed.
 """
@@ -167,3 +174,136 @@ def stats_on_vals(vals, measure=None, name=None, qs=None):
     quantiles = {f"q{q:.2f}": np.quantile(finite, q) if finite.size else np.nan for q in qs}
     out = {**out, **quantiles}
     return pd.DataFrame.from_dict(out, orient="index", columns=[name if name else "vals"])
+
+
+def rmse(y_true, y_pred):
+    return np.sqrt(np.mean((np.asarray(y_true) - np.asarray(y_pred)) ** 2))
+
+
+def nll(y_true, mu, sig, return_mean: bool = True):
+    """Negative log likelihood of y under N(mu, sig^2)."""
+    y_true, mu, sig = np.asarray(y_true), np.asarray(mu), np.asarray(sig)
+    out = 0.5 * np.log(2 * np.pi * sig**2) + ((y_true - mu) ** 2) / (2 * sig**2)
+    return out.mean() if return_mean else out
+
+
+def guess_track_num(x, thresh, start_track: int = 0):
+    """Label satellite tracks: increment when the gap between consecutive
+    values exceeds thresh (ref: GPSat/utils.py:2466-2477)."""
+    x = np.asarray(x)
+    dx = np.abs(np.diff(x, prepend=x[0]))
+    return np.cumsum(dx > thresh) + start_track
+
+
+def track_num_for_date(x):
+    """Per-date track numbering from datetimes (ref: GPSat/utils.py:2480-2489)."""
+    import pandas as pd
+
+    x = pd.Series(pd.to_datetime(np.asarray(x)))
+    date = x.dt.date
+    out = np.zeros(len(x), dtype=int)
+    for d in pd.unique(date):
+        sel = (date == d).values
+        gaps = x[sel].diff().dt.total_seconds().fillna(0.0).values
+        out[sel] = np.cumsum(gaps > 60.0)
+    return out
+
+
+def compare_dataframes(df1, df2, merge_on, val_cols):
+    """Merge two frames on keys and report abs/rel differences of val_cols
+    (ref: GPSat/utils.py:2510-...; used by the binning regression test)."""
+    merged = df1.merge(df2, on=merge_on, how="outer", suffixes=("_1", "_2"), indicator=True)
+    for vc in val_cols:
+        merged[f"{vc}_abs_diff"] = np.abs(merged[f"{vc}_1"] - merged[f"{vc}_2"])
+        with np.errstate(divide="ignore", invalid="ignore"):
+            merged[f"{vc}_rel_diff"] = merged[f"{vc}_abs_diff"] / np.abs(merged[f"{vc}_1"])
+    return merged
+
+
+def json_load(path: str) -> dict:
+    """Load JSON with tuple-key restoration (ref: utils.py:87)."""
+    with open(path) as f:
+        return nested_dict_literal_eval(json.load(f))
+
+
+def not_nan(x) -> np.ndarray:
+    """~isnull as an array (ref: utils.py:965)."""
+    import pandas as pd
+
+    return ~pd.isnull(np.asarray(x))
+
+
+def assign_category_col(val: str, df, categories=None):
+    """Constant categorical column of len(df) (ref: utils.py:1041)."""
+    import pandas as pd
+
+    return pd.Categorical([val] * len(df), categories=categories)
+
+
+def log_lines(*args, level: str = "debug"):
+    """Send each arg to the logging module (ref: utils.py:1329)."""
+    import logging
+
+    fn = getattr(logging, level, logging.debug)
+    for a in args:
+        fn(str(a) if not isinstance(a, str) else a)
+
+
+def convert_lon_lat_str(x: str) -> float:
+    """Parse "74 0.1878 N" / "140 0.1198 W"-style strings to decimal
+    degrees (ref: utils.py:1885)."""
+    assert isinstance(x, str), f"expected str, got: {type(x)}"
+    parts = x.strip().split(" ")
+    deg, minutes, hemi = float(parts[0]), float(parts[1]), parts[-1].upper()
+    out = deg + minutes / 60.0
+    if hemi in ("S", "W"):
+        out = -out
+    return out
+
+
+def expand_dict_by_vals(d: dict, expand_keys) -> list:
+    """Cartesian expansion of list-valued keys into a list of dicts
+    (ref: utils.py:1933)."""
+    import itertools
+
+    expand_keys = [expand_keys] if isinstance(expand_keys, str) else list(expand_keys)
+    lists = [d[k] if isinstance(d[k], list) else [d[k]] for k in expand_keys]
+    out = []
+    for combo in itertools.product(*lists):
+        new = {k: v for k, v in d.items() if k not in expand_keys}
+        new.update(dict(zip(expand_keys, combo)))
+        out.append(new)
+    return out
+
+
+def pretty_print_class(cls) -> str:
+    """'module.ClassName' without the <class ...> wrapper (ref: utils.py:1965)."""
+    s = str(cls if isinstance(cls, type) else type(cls))
+    return s.split("'")[1] if "'" in s else s
+
+
+def diff_distance(x, p: int = 1) -> np.ndarray:
+    """|diff| with a leading NaN, for track-gap detection (ref: utils.py:2490)."""
+    x = np.asarray(x, dtype=float)
+    d = np.abs(np.diff(x)) ** p
+    return np.concatenate([[np.nan], d])
+
+
+def move_to_archive(top_dir: str, file_names=None, suffix: str = "", archive_sub_dir: str = "Archive",
+                    verbose: bool = False):
+    """Move files into an Archive/ subdirectory (ref: utils.py:178)."""
+    import os
+    import shutil
+
+    assert os.path.isdir(top_dir), f"not a directory: {top_dir}"
+    file_names = [file_names] if isinstance(file_names, str) else list(file_names or [])
+    dst_dir = os.path.join(top_dir, archive_sub_dir)
+    os.makedirs(dst_dir, exist_ok=True)
+    for fn in file_names:
+        src = os.path.join(top_dir, fn)
+        if not os.path.exists(src):
+            if verbose:
+                print(f"missing, skipping: {src}")
+            continue
+        base, ext = os.path.splitext(fn)
+        shutil.move(src, os.path.join(dst_dir, f"{base}{suffix}{ext}"))

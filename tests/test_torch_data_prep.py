@@ -404,8 +404,16 @@ def test_ingest_and_binning_match_jax(tmp_path):
     assert TING.get_run_info().keys() == JING.get_run_info().keys()
     pd.testing.assert_frame_equal(TING.read_flat_files(raw, r"track_0\.csv", sub_dirs=["day1"]),
                                   JING.read_flat_files(raw, r"track_0\.csv", sub_dirs=["day1"]))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        TING.read_from_multiple_files(raw, r"track_0\.csv", read_engine="nc", sub_dirs=["day1"])
+    # the .nc branch: a track written as netCDF4 reads into the same frame
+    # in both packages
+    from gpsat_tpu.data.netcdf import write_netcdf
+
+    write_netcdf(os.path.join(raw, "day1", "track_0.nc"), pd.read_csv(os.path.join(raw, "day1", "track_0.csv")))
+    got_nc = TING.read_from_multiple_files(raw, r"track_0\.nc", read_engine="nc", sub_dirs=["day1"])
+    pd.testing.assert_frame_equal(got_nc, JING.read_from_multiple_files(raw, r"track_0\.nc", read_engine="nc",
+                                                                        sub_dirs=["day1"]))
+    pd.testing.assert_frame_equal(got_nc.drop(columns="index"), pd.read_csv(os.path.join(raw, "day1", "track_0.csv")),
+                                  check_dtype=False, check_like=True)  # netCDF keeps variables by name
 
 
 def test_cli_commands_match_jax(tmp_path, monkeypatch):

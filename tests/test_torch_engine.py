@@ -5,6 +5,7 @@ port's device rule and import isolation."""
 import ast
 import functools
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -306,6 +307,13 @@ def test_port_imports_neither_jax_nor_gpsat_tpu():
         "import gpsat_tpu_torch.data.pytables_compat, gpsat_tpu_torch.data.ingest, gpsat_tpu_torch.data.binning\n"
         "import gpsat_tpu_torch.read_and_store, gpsat_tpu_torch.bin_data, gpsat_tpu_torch.datetime_utils\n"
         "import gpsat_tpu_torch.utils.projections, gpsat_tpu_torch.distributed\n"
+        "import gpsat_tpu_torch.native, gpsat_tpu_torch.build_native, gpsat_tpu_torch.data.blosc\n"
+        "import gpsat_tpu_torch.data.zarr_reader, gpsat_tpu_torch.data.netcdf, gpsat_tpu_torch.data.expert_locations\n"
+        "import gpsat_tpu_torch.utils, gpsat_tpu_torch.utils.grids, gpsat_tpu_torch.utils.tables\n"
+        "import gpsat_tpu_torch.utils.weights, gpsat_tpu_torch.synthetic, gpsat_tpu_torch.config\n"
+        "import gpsat_tpu_torch.config_dataclasses, gpsat_tpu_torch.xval, gpsat_tpu_torch.prime_cache\n"
+        "import gpsat_tpu_torch.dataloader, gpsat_tpu_torch.dataprepper, gpsat_tpu_torch.vff\n"
+        "import gpsat_tpu_torch.prediction_locations\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'gpsat_tpu' or m.startswith('gpsat_tpu.')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -321,3 +329,7 @@ def test_port_imports_neither_jax_nor_gpsat_tpu():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "gpsat_tpu", "optax"), f"{path.relative_to(REPO)} imports {mod}"
         assert "GPSAT_" not in path.read_text(), f"{path.relative_to(REPO)} names a GPSAT_* environment variable"
+    # the C++ host library's source: no include or mention of the JAX package
+    for path in sorted((REPO / "gpsat_tpu_torch" / "csrc" / "host").glob("*")):
+        text = path.read_text()
+        assert not re.search(r"\bjax\b|\bxla\b|gpsat_tpu(?!_torch)\b", text, re.IGNORECASE), path.name

@@ -1,6 +1,6 @@
-"""Rehearse chip_smoke.py's phases 10 (svgp), 11 (zoo), 12 (host), 13 (prep) and 14 (mesh) on the CPU, before a run on the card.
+"""Rehearse chip_smoke.py's phases 10 (svgp), 11 (zoo), 12 (host), 13 (prep), 14 (mesh) and 15 (xval) on the CPU, before a run on the card.
 
-    python tools/rehearse_chip_smoke.py [--parts a b c d e vff asvgp host prep_a prep_b prep_c mesh] [--lanes B]
+    python tools/rehearse_chip_smoke.py [--parts a b c d e vff asvgp host prep_a prep_b prep_c mesh xval] [--lanes B]
                                         [--threads T] [--identity-natgrad] [--expert-stride S]
 
 Runs the phases' own functions with every entry point's default device
@@ -12,7 +12,7 @@ kernel's plain version. Parts a-e are phase 10's, "vff" and "asvgp" phase
 11's lanes, "host" phase 12, "prep_a" to "prep_c" phase 13's parts,
 "mesh" phase 14 (its meshes are the CPU, once or twice, its children run
 with the same stubs, and phase 7's f32 fit is run first for (a) to hold
-to; default: phase 10's). ``--lanes`` cuts (a)-(c)'s batch (default: the
+to), "xval" phase 15 (the host library built first; default: phase 10's). ``--lanes`` cuts (a)-(c)'s batch (default: the
 phase's 128) and phase 13 (a)'s (the phase's 512). ``--identity-natgrad`` is the mutation check
 of (c)'s bound: it runs (c) once more with the natural-gradient step
 replaced by the identity, so q stays at its starting value, and prints
@@ -94,7 +94,8 @@ def _gap(tag, res, res_a):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parts", nargs="+", default=list("abcde"), choices=[*"abcde", "vff", "asvgp", "host", "prep_a", "prep_b", "prep_c", "mesh"])
+    ap.add_argument("--parts", nargs="+", default=list("abcde"), choices=[*"abcde", "vff", "asvgp", "host", "prep_a", "prep_b", "prep_c", "mesh",
+                                                                      "xval"])
     ap.add_argument("--expert-stride", type=int, default=1)
     ap.add_argument("--lanes", type=int, default=cs.SVGP_B)
     ap.add_argument("--threads", type=int, default=4)
@@ -124,6 +125,12 @@ def main(argv=None) -> int:
         f32 = cs.by_expert(buckets, ("num_iter", "objective", "f_mean", "f_var"))
         cs.log("rehearse_phase7_f32", experts=len(f32), seconds=seconds)
         cs.phase_mesh(f32)
+    if "xval" in parts:
+        from gpsat_tpu_torch.ops import _build
+
+        t = time.perf_counter()
+        _build.build_host_library(cs.HOST_LIBRARY)
+        cs.phase_xval(time.perf_counter() - t)
     if not parts & set("abcde"):
         return _done(failed, t0)
     batch = cs.make_large_tiles(args.lanes, cs.SVGP_N, cs.SVGP_P, cs.D, np.float32, min_fill=0.6)
