@@ -12,9 +12,9 @@
 
 Phases (each prints on its own lines; any failure raises):
 
-1. build     compile gpsat_tpu_torch/csrc/{block_chol,panel_chol,cholesky}.cu
-             with nvcc for sm_90a and the host library
-             csrc/host/gpsat_native.cpp with g++, all four at once
+1. build     compile gpsat_tpu_torch/csrc/{block_chol,panel_chol,cholesky,
+             mm3xtf32}.cu with nvcc for sm_90a and the host library
+             csrc/host/gpsat_native.cpp with g++, all five at once
 2. kernel    each CUDA kernel against its plain PyTorch version on the card at
              the shapes its path gives it ([512, 64, 64], [512, 128, 128],
              [512, 512, 512] f32; kernel 3 also at [8, 1024, 1024] and
@@ -24,7 +24,11 @@ Phases (each prints on its own lines; any failure raises):
              back to back (20 launches between one event pair), which leaves
              out the wrapper's host time; every kernel reports its blocks per
              SM, and with --profile kernel 3 its device time per __global__
-             function
+             function; the 3xTF32 product (csrc/mm3xtf32.cu, the counterpart
+             of XLA's Precision.HIGH dot) at phase 9 (b)'s chunk shapes, W Kuf
+             ([8, 500, 500] x [8, 500, 4096]) and A A^T ([8, 500, 4096] x its
+             transpose), against its plain version and the f64 product, timed
+             beside the true-f32 torch.matmul
 3. main      bench.py's workload (B=512, N=512, P=64, D=2, Matern32, f32,
              single-eval L-BFGS) through the port's engine on the "block"
              route: a warm-up call, then one timed call with the kernels'
@@ -65,7 +69,12 @@ Phases (each prints on its own lines; any failure raises):
              identity-padded to 512), gradients through the pair: (a) B=32
              tiles of N=4,096 unchunked and (b) B=8 tiles of N=16,384 in four
              checkpointed chunks of 4,096, each a warm-up call and a timed
-             call; (c) accuracy: 4 tiles of (a) fitted in f64 on the card,
+             call; (a) once more at accum_precision "high" (bit for bit (a):
+             the unchunked bound has no relaxed product) and (b) at "high"
+             (the chunk loop's W Kuf and A A^T through the 3xTF32 kernel, its
+             launches held to a formula; 4 tiles against an f64 fit on the
+             card, its f32 optima polished in f64 against that fit);
+             (c) accuracy: 4 tiles of (a) fitted in f64 on the card,
              (a)'s f32 optima polished in f64 on the card against that fit,
              and 2 tiles of N=1,024 in f64 on the card against the CPU; (d)
              the factor pair in its new role on a Kuu of (a)'s first
@@ -202,12 +211,13 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # H100 SXM, TF32 on the tensor cores, dense
 SECTOR_BYTES = 32  # the least the memory system moves at a time
 B, N, P, D = 512, 512, 64, 2
 T = 64
 CPU_TILES = 16
 PROFILED_CPU_TILES = 8
-KERNELS = ("block_chol", "panel_chol", "cholesky")
+KERNELS = ("block_chol", "panel_chol", "cholesky", "mm3xtf32")
 # the __global__ functions of those sources, as the profiler names them
 OWN_KERNELS = ("cholinv64_kernel", "panel128_kernel", "chol_")
 # f32 card vs f64 CPU on predictions: raw f32 optima sit ~3e-3 from f64 gold
@@ -267,6 +277,21 @@ SGPR_RUN_KW = dict(max_iter=300, linesearch="single_eval", tol_grad=1e-3, tol_f=
 SGPR_F64_KW = dict(max_iter=1000, **CPU_F64_KW)
 SGPR_F64_TILES = 4
 SGPR_SMALL = (2, 1024)
+# (b) again at accum_precision "high": the chunked loop's W Kuf and A A^T
+# through the 3xTF32 kernel (csrc/mm3xtf32.cu). The kernel's phase 2 rows
+# take (b)'s chunk shapes, MM_CHUNK being models.sgpr.DEFAULT_CHUNK: W Kuf of
+# [B, M, M] x [B, M, C] and A A^T of [B, M, C] x its transpose (one operand
+# twice: a diagonal of positive sums, the hardest case for an f32 sum).
+# Against the exact f64 product, relative to max (|A||B|), the kernel is
+# held to mm_bound(K): the split's 3 * 2^-22 per product (the dropped lo lo
+# term and the rounding of lo) and an f32 sum of K terms in the random-walk
+# model, 2 sqrt(K) 2^-24 (8.4e-6 at K = 4,096, 3.4e-6 at K = 500). The plain
+# version splits alike and sums in another order (true-f32 cuBLAS
+# products): the kernel is held to it within mm_bound(K) plus the plain
+# version's own error against f64 in the same run. A true-f32 torch.matmul's
+# error is logged beside (an error probe on one H100: kernel 0.9e-7-1.1e-6,
+# plain 0.3e-6-5.8e-6, torch.matmul 0.3e-6-3.7e-6 over six operand kinds).
+MM_CHUNK = 4096
 # raw f32 optima against the f64 fit on the same tiles: the raw-f32 band of
 # phase 4 (a CPU rehearsal on (a)'s first 4 tiles gave 7.8e-4; PERF.md
 # section 6)
@@ -505,14 +530,15 @@ def factor_bytes(Bn, n, outputs):
 
 
 def kernel_entry(name, source, replaces, shape, err, ms, plain_ms, library_ms, nbytes, flops, row_extra=None,
-                 **details):
+                 flops_per_s=F32_FLOPS_PER_S, **details):
     """One row of the {"kernels": [...]} line, with the kernel's bound: the
     larger of its bytes (what the function must read once and write once,
     ``factor_bytes``) over the card's memory rate and its operations over
-    the f32 peak. ``row_extra`` adds keys to the row; ``details`` go to the
-    log line only."""
+    the peak of the units they run on (``flops_per_s``: the f32 peak, or
+    the TF32 tensor cores'). ``row_extra`` adds keys to the row;
+    ``details`` go to the log line only."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    ops_ms = flops / flops_per_s * 1e3
     log("kernel", name=name, shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
         bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms, **(row_extra or {}), **details)
     return {
@@ -699,12 +725,87 @@ def phase_kernel_cholesky(CH, profile: bool):
     )
 
 
+def mm_bound(K):
+    """The 3xTF32 product's error bound relative to max (|A||B|) at inner
+    dimension K (MM_CHUNK's comment)."""
+    return 3 * 2.0**-22 + 2 * np.sqrt(K) * 2.0**-24
+
+
+def mm_errors(MM, a, b, ta, tb, C):
+    """max |C - plain| and, relative to max (|A||B|), the errors of C, of
+    the plain version and of a true-f32 torch.matmul against the f64
+    product, and |C - plain|."""
+    import torch
+
+    opa, opb = MM._op(a, ta), MM._op(b, tb)
+    scale = float(torch.matmul(opa.abs().double(), opb.abs().double()).max())
+    exact = torch.matmul(opa.double(), opb.double())
+    plain = MM.mm3xtf32_reference(a, b, ta, tb)
+    rel64 = {k: float((v.double() - exact).abs().max()) / scale
+             for k, v in (("kernel", C), ("plain", plain), ("matmul_f32", torch.matmul(opa, opb)))}
+    return float((C - plain).abs().max()), float((C - plain).abs().max()) / scale, rel64
+
+
+def phase_kernel_mm3xtf32(MM):
+    """The 3xTF32 product at phase 9 (b)'s chunk shapes, W Kuf and A A^T,
+    against its plain version and the f64 product; the card's process-wide
+    TF32 switch must stay off."""
+    import torch
+
+    Bm, M, C = SGPR_CHUNKED[0], SGPR_M, MM_CHUNK
+    rng = np.random.default_rng(0)
+    dev = torch.device("cuda")
+    W = torch.from_numpy(rng.standard_normal((Bm, M, M)).astype(np.float32)).to(dev)
+    Kuf = torch.from_numpy(rng.standard_normal((Bm, M, C)).astype(np.float32)).to(dev)
+    A = torch.from_numpy(rng.standard_normal((Bm, M, C)).astype(np.float32)).to(dev)
+    cases = {"w_kuf": (W, Kuf, False), "a_at": (A, A, True)}
+    rows = {}
+    for tag, (a, b, tb) in cases.items():
+        out = MM.mm3xtf32(a, b, False, tb)
+        torch.cuda.synchronize()
+        err, rel, rel64 = mm_errors(MM, a, b, False, tb, out)
+        K = b.shape[2] if tb else b.shape[1]
+        bound = mm_bound(K)
+        check(tuple(out.shape) == (Bm, M, C if tag == "w_kuf" else M) and bool(torch.isfinite(out).all()),
+              f"mm3xtf32 {tag}: shape {tuple(out.shape)} or non-finite values")
+        check(rel64["kernel"] <= bound, f"mm3xtf32 {tag} vs the f64 product: {rel64['kernel']} of max |A||B|")
+        check(rel <= bound + rel64["plain"], f"mm3xtf32 {tag} vs its plain version: {rel} of max |A||B|")
+        rows[tag] = dict(
+            shape=[Bm, M, out.shape[2], K], max_abs_err=err, rel_err=rel, rel_bound=bound,
+            rel_err_vs_f64=rel64["kernel"], plain_rel_err_vs_f64=rel64["plain"],
+            matmul_f32_rel_err_vs_f64=rel64["matmul_f32"],
+            ms=time_ms(lambda: MM.mm3xtf32(a, b, False, tb)),
+            ms_back_to_back=back_to_back_ms(lambda: MM.mm3xtf32(a, b, False, tb)),
+            plain_ms=time_ms(lambda: MM.mm3xtf32_reference(a, b, False, tb), reps=5),
+            library_ms=time_ms(lambda: torch.matmul(a, b.transpose(1, 2) if tb else b)),
+            nbytes=4 * (a.numel() + (0 if b is a else b.numel()) + out.numel()),
+            flops=3 * 2.0 * Bm * M * out.shape[2] * K)
+    check(not torch.backends.cuda.matmul.allow_tf32 and torch.get_float32_matmul_precision() == "highest",
+          "the process-wide TF32 switch was turned on")
+    w, t = rows["w_kuf"], rows["a_at"]
+    aat_bound = max(t["nbytes"] / HBM_BYTES_PER_S, t["flops"] / TF32_FLOPS_PER_S) * 1e3
+    return kernel_entry(
+        "mm3xtf32.mm3xtf32", "gpsat_tpu_torch/csrc/mm3xtf32.cu",
+        "gpsat_tpu/models/sgpr.py:139 (XLA's Precision.HIGH dot, no Pallas kernel)", w["shape"],
+        max(w["max_abs_err"], t["max_abs_err"]), w["ms"], w["plain_ms"], w["library_ms"],
+        nbytes=w["nbytes"], flops=w["flops"], flops_per_s=TF32_FLOPS_PER_S,
+        row_extra={"ms_back_to_back": w["ms_back_to_back"], "max_rel_err": max(w["rel_err"], t["rel_err"]),
+                   "max_rel_err_vs_f64": max(w["rel_err_vs_f64"], t["rel_err_vs_f64"]),
+                   "plain_max_rel_err_vs_f64": max(w["plain_rel_err_vs_f64"], t["plain_rel_err_vs_f64"]),
+                   "matmul_f32_max_rel_err_vs_f64": max(w["matmul_f32_rel_err_vs_f64"],
+                                                        t["matmul_f32_rel_err_vs_f64"]),
+                   "ms_aat": t["ms"], "ms_back_to_back_aat": t["ms_back_to_back"], "plain_ms_aat": t["plain_ms"],
+                   "library_ms_aat": t["library_ms"], "bound_ms_aat": aat_bound},
+        cases=rows)
+
+
 def counters():
     from gpsat_tpu_torch.ops.block_chol import factor_blocks
     from gpsat_tpu_torch.ops.cholesky import cholesky
+    from gpsat_tpu_torch.ops.mm3xtf32 import mm3xtf32
     from gpsat_tpu_torch.ops.panel_chol import factor_panels
 
-    return {"block_chol": factor_blocks, "panel_chol": factor_panels, "cholesky": cholesky}
+    return {"block_chol": factor_blocks, "panel_chol": factor_panels, "cholesky": cholesky, "mm3xtf32": mm3xtf32}
 
 
 def drive(phase, core, batch, init, profile_to=None):
@@ -780,7 +881,7 @@ def phase_main(batch, init, profile: bool):
     res, launches, it_max = drive("main", make_gpr_core(jitter=1e-5), batch, init, "profile.txt" if profile else None)
     # 8 diagonal blocks per factor pair; one pair per L-BFGS value+grad (the
     # initial one plus one per iteration of the slowest lane) and one in predict
-    expected = {"block_chol": (it_max + 2) * (N // T), "panel_chol": 0, "cholesky": 0}
+    expected = {"block_chol": (it_max + 2) * (N // T), "panel_chol": 0, "cholesky": 0, "mm3xtf32": 0}
     check(launches == expected, f"main path launches {launches}, expected {expected}")
     return res, launches["block_chol"]
 
@@ -854,7 +955,7 @@ def phase_panel(batch, init, main_res, profile: bool):
                                   "profile_panel.txt" if profile else None)
     # 4 diagonal 128-blocks per factor pair, one pair per value+grad; the
     # predict factors once with the full Cholesky kernel and never with kernel 1
-    expected = {"block_chol": 0, "panel_chol": (it_max + 1) * (N // T_PANEL), "cholesky": 1}
+    expected = {"block_chol": 0, "panel_chol": (it_max + 1) * (N // T_PANEL), "cholesky": 1, "mm3xtf32": 0}
     check(launches == expected, f"panel path launches {launches}, expected {expected}")
     dmean = float(np.abs(res["f_mean"] - main_res["f_mean"]).max())
     dvar = float(np.abs(res["f_var"] - main_res["f_var"]).max())
@@ -877,7 +978,7 @@ def phase_profiled(batch, init, profile: bool, kernel="Matern32", tag="profiled"
     res, launches, it_max = drive(tag, core, batch, init, f"profile_{tag}.txt" if profile else None)
     # one full Cholesky per value+grad and one in finalize_params; the predict
     # takes the "block" pair: 8 launches of kernel 1
-    expected = {"block_chol": N // T, "panel_chol": 0, "cholesky": it_max + 2}
+    expected = {"block_chol": N // T, "panel_chol": 0, "cholesky": it_max + 2, "mm3xtf32": 0}
     log(f"{tag}_launches", launches=launches, launches_predicted=expected,
         formula="cholesky: iters_max + 2, block_chol: N / 64")
     check(launches == expected, f"{tag} path launches {launches}, expected {expected}")
@@ -978,7 +1079,7 @@ def phase_oi(profile: bool):
     # launches each; the f64 polish launches none
     nmax = batching.bucket_size(int(cat["num_obs"].max()))
     expected = {"block_chol": sum((int(r["coarse"]["num_iter"].max()) + 2) * nmax // T for r in buckets),
-                "panel_chol": 0, "cholesky": 0}
+                "panel_chol": 0, "cholesky": 0, "mm3xtf32": 0}
     log("oi", mode=OI_MODE, experts=len(experts["x"]), run=n, skipped=n_skipped, buckets=len(buckets),
         observations=len(obs["x"]), prediction_points=int(sum(r["pred_mask"].sum() for r in buckets)),
         nmax_obs=int(cat["num_obs"].max()), wall_s=wall_s, experts_per_s=n / wall_s,
@@ -1185,7 +1286,7 @@ def phase_post(f32_oi, f32_it_max, profile: bool):
                      for e in common if d_obj[e] > WORSE_OPTIMUM_NATS}
     compared = [e for e in common if d_obj[e] <= WORSE_OPTIMUM_NATS]
     d_fit = max(max_abs_pred_diff(fit_by[e], f32_oi[e]) for e in compared) if compared else float("inf")
-    expected = {"block_chol": kernel1_launches(buckets, nmax), "panel_chol": 0, "cholesky": 0}
+    expected = {"block_chol": kernel1_launches(buckets, nmax), "panel_chol": 0, "cholesky": 0, "mm3xtf32": 0}
     log("post_fit", experts=n, buckets=len(buckets), seconds=seconds["fit"], phases_s=timers["fit"],
         head_width=[c["head_width"] for c in comp], tail_width=[c["tail_width"] for c in comp],
         tail_lanes=[len(c["tail_rows"]) for c in comp], head_iters_mean=float(head_iters.mean()),
@@ -1249,7 +1350,7 @@ def phase_post(f32_oi, f32_it_max, profile: bool):
     re_buckets = repredict(obs, experts, loaded, timers["repredict"])
     seconds["repredict"] = time.perf_counter() - t0
     launches_re = {k: fn.launches for k, fn in counters().items()}
-    expected = {"block_chol": kernel1_launches(re_buckets, nmax), "panel_chol": 0, "cholesky": 0}
+    expected = {"block_chol": kernel1_launches(re_buckets, nmax), "panel_chol": 0, "cholesky": 0, "mm3xtf32": 0}
     re_by = by_expert(re_buckets, ("f_mean", "f_var", "num_iter"))
     finite = all(np.isfinite(r["f_mean"]).all() and np.isfinite(r["f_var"]).all() for r in re_buckets)
     pick = np.asarray(sorted(re_by))[:: max(len(re_by) // CPU_TILES, 1)][:CPU_TILES]
@@ -1337,18 +1438,19 @@ def make_large_tiles(B, N, P, D, dtype, seed=0, min_fill=0.9):
     )
 
 
-def sgpr_core():
+def sgpr_core(accum_precision="highest"):
     """bench_large_n.py's core: Matern32, M = 500, softplus bijectors,
-    jitter 1e-6, chunk_size "auto", inducing points fixed; the "block" route."""
+    jitter 1e-6, chunk_size "auto", inducing points fixed; the "block" route;
+    the chunked loop's products at ``accum_precision``."""
     from gpsat_tpu_torch.models.sgpr import make_sgpr_core
 
-    return make_sgpr_core(kernel="Matern32", num_inducing_points=SGPR_M)
+    return make_sgpr_core(kernel="Matern32", num_inducing_points=SGPR_M, accum_precision=accum_precision)
 
 
-def drive_sgpr(tag, B, n, profile_to=None):
+def drive_sgpr(tag, B, n, profile_to=None, accum_precision="highest"):
     """One SGPR bucket at the full width through the engine: a warm-up call,
     then one timed call with the launch counts set to 0 just before it and
-    read just after. Returns (batch, core, results, kernel 1's launches)."""
+    read just after. Returns (batch, core, results, launches by kernel)."""
     import torch
 
     from gpsat_tpu_torch.models.sgpr import _resolve_chunk
@@ -1356,7 +1458,7 @@ def drive_sgpr(tag, B, n, profile_to=None):
     from gpsat_tpu_torch.utils.flops import sgpr_iter_flops
 
     batch = make_large_tiles(B, n, SGPR_P, D, np.float32)
-    core = sgpr_core()
+    core = sgpr_core(accum_precision)
     runner = make_batched_runner(core, fixed_params=core.default_fixed_params, **SGPR_RUN_KW)
     init = {"smart_init": True}
     t0 = time.perf_counter()
@@ -1376,10 +1478,16 @@ def drive_sgpr(tag, B, n, profile_to=None):
     it_max = int(res["num_iter"].max())
     # one evaluation before the loop, one per iteration of the slowest lane,
     # one in the predict; each factors Kuu and B, M identity-padded to a
-    # multiple of 64: one launch per 64-block of each
-    expected = {"block_chol": (it_max + 2) * 2 * (-(-SGPR_M // T)), "panel_chol": 0, "cholesky": 0}
+    # multiple of 64: one launch per 64-block of each. At "high", each chunk
+    # of a value and gradient runs W Kuf and A A^T forward, again in the
+    # checkpoint's recomputation, and two products in each one's backward
+    # (dW, dKuf; dA twice): 8 launches; the predict's chunks 2 each
+    C = _resolve_chunk(n, "auto")
+    chunks = -(-n // C) if C and n > C else 0
+    mm = chunks * (8 * (it_max + 1) + 2) if accum_precision == "high" else 0
+    expected = {"block_chol": (it_max + 2) * 2 * (-(-SGPR_M // T)), "panel_chol": 0, "cholesky": 0, "mm3xtf32": mm}
     tflops = B * it_max * sgpr_iter_flops(n, SGPR_M, D) / steady_s / 1e12
-    log(f"sgpr_{tag}", core=core.name, B=B, N=n, M=SGPR_M, chunk=_resolve_chunk(n, "auto"),
+    log(f"sgpr_{tag}", core=core.name, accum_precision=accum_precision, B=B, N=n, M=SGPR_M, chunk=C,
         experts_per_s=B / steady_s, points_per_s=B * n / steady_s, steady_s=steady_s, first_call_s=first_s,
         achieved_tflops=tflops, share_of_f32_peak=tflops * 1e12 / F32_FLOPS_PER_S, converged=conv,
         stall_exits=int(res["stalled"].sum()), failed_exits=int(res["failed"].sum()),
@@ -1390,13 +1498,14 @@ def drive_sgpr(tag, B, n, profile_to=None):
     check(launches["block_chol"] > 0 and launches == expected, f"sgpr {tag} launches {launches}, expected {expected}")
     if profile_to:
         trace(f"sgpr_{tag}", lambda: run_tile_batch(batch, init, runner, core), profile_to)
-    return batch, core, res, launches["block_chol"]
+    return batch, core, res, launches
 
 
-def phase_sgpr_accuracy(batch, core, res):
+def phase_sgpr_accuracy(batch, core, res, tag="sgpr_accuracy", small=True):
     """(c): (a)'s first tiles in f64 on the card (library arm), (a)'s f32
-    optima polished in f64 on the card, and 2 tiles of N=1,024 in f64 on the
-    card against the CPU."""
+    optima polished in f64 on the card, and (``small``) 2 tiles of N=1,024
+    in f64 on the card against the CPU. The same checks hold (b)'s fit at
+    accum_precision "high" (``tag`` "sgpr_high_accuracy")."""
     from gpsat_tpu_torch.parallel.batching import cast_batch, take_batch
     from gpsat_tpu_torch.parallel.engine import make_batched_runner, polish_tile_batch, run_tile_batch
 
@@ -1417,32 +1526,38 @@ def phase_sgpr_accuracy(batch, core, res):
     agree = np.abs(pol["objective"][idx] - f64["objective"]) <= WORSE_OPTIMUM_NATS
     d_pol = max((max_abs_pred_diff(pol, f64, [i]) for i in idx[agree]), default=float("inf"))
     check(np.array_equal(pol["inducing_points"], res["inducing_points"]), "sgpr polish moved the fixed inducing points")
-
-    small = make_large_tiles(*SGPR_SMALL, SGPR_P, D, np.float64)
-    t0 = time.perf_counter()
-    card = run_tile_batch(small, {"smart_init": True}, runner64, core)
-    card_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    cpu = run_tile_batch(small, {"smart_init": True},
-                         make_batched_runner(core, fixed_params=core.default_fixed_params, device="cpu", **SGPR_F64_KW),
-                         core, device="cpu")
-    cpu_s = time.perf_counter() - t0
-    d_small = max_abs_pred_diff(card, cpu)
-    log("sgpr_accuracy", tiles=SGPR_F64_TILES, f64_card_s=f64_s, f64_converged=int(f64["converged"].sum()),
-        f64_iters_max=int(f64["num_iter"].max()), raw_f32_vs_f64=raw, raw_bound=SGPR_RAW_BOUND,
-        objective_f32_minus_f64=(res["objective"][idx] - f64["objective"]).tolist(),
-        polish_s=polish_s, polish_converged=int(pol["converged"].sum()), polish_lanes=len(pol["converged"]),
-        polish_iters_mean=float(pol["num_iter"].mean()), polish_iters_max=int(pol["num_iter"].max()),
-        polish_failed=int(pol["failed"].sum()), polished_vs_f64=d_pol, polished_compared=int(agree.sum()),
-        polish_bound=F64_BOUND, small_tiles=list(SGPR_SMALL), small_card_s=card_s, small_cpu_s=cpu_s,
-        small_card_vs_cpu=d_small, small_bound=F64_BOUND, small_iters=[int(card["num_iter"].max()),
-                                                                        int(cpu["num_iter"].max())])
-    check(all(np.isfinite(r["f_mean"]).all() and np.isfinite(r["f_var"]).all() for r in (f64, pol, card, cpu)),
-          "sgpr accuracy: non-finite predictions")
-    check(raw <= SGPR_RAW_BOUND, f"sgpr: raw f32 vs f64 on the card: {raw}")
-    check(agree.sum() >= MIN_COMPARED_SHARE * len(idx), f"sgpr polish: objectives agree on {int(agree.sum())}/{len(idx)}")
-    check(d_pol <= F64_BOUND, f"sgpr: polished vs the f64 fit: {d_pol}")
-    check(d_small <= F64_BOUND, f"sgpr f64, card vs CPU at N={SGPR_SMALL[1]}: {d_small}")
+    row = dict(tiles=SGPR_F64_TILES, f64_card_s=f64_s, f64_converged=int(f64["converged"].sum()),
+               f64_iters_max=int(f64["num_iter"].max()), raw_f32_vs_f64=raw, raw_bound=SGPR_RAW_BOUND,
+               objective_f32_minus_f64=(res["objective"][idx] - f64["objective"]).tolist(),
+               polish_s=polish_s, polish_converged=int(pol["converged"].sum()), polish_lanes=len(pol["converged"]),
+               polish_iters_mean=float(pol["num_iter"].mean()), polish_iters_max=int(pol["num_iter"].max()),
+               polish_failed=int(pol["failed"].sum()), polished_vs_f64=d_pol, polished_compared=int(agree.sum()),
+               polish_bound=F64_BOUND)
+    fits = [f64, pol]
+    if small:
+        tiles = make_large_tiles(*SGPR_SMALL, SGPR_P, D, np.float64)
+        t0 = time.perf_counter()
+        card = run_tile_batch(tiles, {"smart_init": True}, runner64, core)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = run_tile_batch(tiles, {"smart_init": True},
+                             make_batched_runner(core, fixed_params=core.default_fixed_params, device="cpu",
+                                                 **SGPR_F64_KW),
+                             core, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        fits += [card, cpu]
+        row.update(small_tiles=list(SGPR_SMALL), small_card_s=card_s, small_cpu_s=cpu_s,
+                   small_card_vs_cpu=max_abs_pred_diff(card, cpu), small_bound=F64_BOUND,
+                   small_iters=[int(card["num_iter"].max()), int(cpu["num_iter"].max())])
+    log(tag, **row)
+    check(all(np.isfinite(r["f_mean"]).all() and np.isfinite(r["f_var"]).all() for r in fits),
+          f"{tag}: non-finite predictions")
+    check(raw <= SGPR_RAW_BOUND, f"{tag}: raw f32 vs f64 on the card: {raw}")
+    check(agree.sum() >= MIN_COMPARED_SHARE * len(idx), f"{tag} polish: objectives agree on {int(agree.sum())}/{len(idx)}")
+    check(d_pol <= F64_BOUND, f"{tag}: polished vs the f64 fit: {d_pol}")
+    if small:
+        check(row["small_card_vs_cpu"] <= F64_BOUND, f"sgpr f64, card vs CPU at N={SGPR_SMALL[1]}: "
+                                                     f"{row['small_card_vs_cpu']}")
 
 
 def phase_sgpr_pair(batch, core):
@@ -1546,7 +1661,7 @@ def phase_replace():
     def expected(buckets):
         # SGPR: two pairs of 64 per evaluation; GPR: one pair of Nmax = 128
         return {"block_chol": sum((int(r["num_iter"].max()) + 2) * 2 for r in buckets), "panel_chol": 0,
-                "cholesky": 0}
+                "cholesky": 0, "mm3xtf32": 0}
 
     both, wall_s, launches = run(experts, model="GPflowSGPRModel", replacement_threshold=REPLACE_THRESHOLD,
                                  replacement_model="GPflowGPRModel", replacement_optim_kwargs=REPLACE_OPTIM)
@@ -1578,13 +1693,42 @@ def phase_replace():
     return launches["block_chol"]
 
 
+def phase_sgpr_full_high(batch, res):
+    """(a) at accum_precision "high": the unchunked bound never reaches the
+    relaxed products (the JAX core relaxes its chunked loop only), so the
+    fit is (a)'s bit for bit and the 3xTF32 kernel launches no time."""
+    import torch
+
+    from gpsat_tpu_torch.parallel.engine import make_batched_runner, run_tile_batch
+
+    core = sgpr_core("high")
+    runner = make_batched_runner(core, fixed_params=core.default_fixed_params, **SGPR_RUN_KW)
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    high = run_tile_batch(batch, {"smart_init": True}, runner, core)
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters().items()}
+    same = all(np.array_equal(high[k], res[k]) for k in ("f_mean", "f_var", "objective", "num_iter"))
+    log("sgpr_full_high", accum_precision="high", seconds=seconds, bit_identical_to_highest=same, launches=launches)
+    check(same, "sgpr (a) at accum_precision 'high' differs from 'highest'")
+    check(launches["mm3xtf32"] == 0, f"sgpr (a) at 'high' launched the 3xTF32 kernel: {launches}")
+
+
 def phase_sgpr(profile: bool):
-    """Phase 9. Returns kernel 1's launches in (a), (b) and (e)."""
+    """Phase 9. Returns kernel 1's launches in (a), (b), (b) at "high" and
+    (e), and the 3xTF32 kernel's in (b) at "high"."""
     batch, core, res, launches_a = drive_sgpr("full", *SGPR_FULL, "profile_sgpr.txt" if profile else None)
+    phase_sgpr_full_high(batch, res)
     _, _, _, launches_b = drive_sgpr("chunked", *SGPR_CHUNKED)
+    hbatch, hcore, hres, launches_bh = drive_sgpr("chunked_high", *SGPR_CHUNKED, accum_precision="high")
+    check(launches_bh["mm3xtf32"] > 0, "sgpr (b) at 'high' never launched the 3xTF32 kernel")
     phase_sgpr_accuracy(batch, core, res)
+    phase_sgpr_accuracy(hbatch, sgpr_core("highest"), hres, tag="sgpr_high_accuracy", small=False)
     phase_sgpr_pair(batch, core)
-    return launches_a, launches_b, phase_replace()
+    return (launches_a["block_chol"], launches_b["block_chol"], launches_bh["block_chol"], phase_replace(),
+            launches_bh["mm3xtf32"])
 
 
 def svgp_runner(core, device=None, **kw):
@@ -1621,7 +1765,7 @@ def drive_svgp(tag, core, batch, run_kw, expected, flops_per_iter, profile_to=No
     launches = {k: fn.launches for k, fn in counters().items()}
     Bn = batch.B
     conv, it_max = int(res["converged"].sum()), int(res["num_iter"].max())
-    want = {"block_chol": expected(it_max), "panel_chol": 0, "cholesky": 0}
+    want = {"block_chol": expected(it_max), "panel_chol": 0, "cholesky": 0, "mm3xtf32": 0}
     tflops = Bn * it_max * flops_per_iter / steady_s / 1e12
     log(f"svgp_{tag}", core=core.name, B=Bn, N=batch.X.shape[1], M=SVGP_M, experts_per_s=Bn / steady_s,
         steady_s=steady_s, warmup_3_iter_s=first_s, converged=conv, stall_exits=int(res["stalled"].sum()),
@@ -1788,7 +1932,7 @@ def phase_svgp_config():
     launches = {k: fn.launches for k, fn in counters().items()}
     # per bucket: (it_max + 1) evaluations of the collapsed bound (two pairs
     # each), the closed-form q (two pairs), the predict (one pair)
-    want = {"block_chol": sum(2 * int(r["num_iter"].max()) + 5 for r in out), "panel_chol": 0, "cholesky": 0}
+    want = {"block_chol": sum(2 * int(r["num_iter"].max()) + 5 for r in out), "panel_chol": 0, "cholesky": 0, "mm3xtf32": 0}
     got = by_expert(out, ("f_mean", "f_var", "converged", "objective", "num_iter", "inducing_points"))
     n = len(got)
     conv = int(sum(v["converged"] for v in got.values()))
@@ -1927,7 +2071,7 @@ def zoo_lane(tag, profile: bool):
     # per iteration of the slowest lane) and one in the predict, W/64
     # launches each (W: the feature count identity-padded to 64)
     want = {"block_chol": sum(int(r["num_iter"].max()) + 2 for r in out) * (width // T), "panel_chol": 0,
-            "cholesky": 0}
+            "cholesky": 0, "mm3xtf32": 0}
     keep = ("f_mean", "f_var", "converged", "stalled", "failed", "objective", "num_iter", "num_obs",
             *core.param_names)
     got = by_expert(out, keep)
@@ -2067,7 +2211,7 @@ def host_class(tag, make, opt, formula, Xnew, ref_opt=CPU_F64_KW):
     s32 = time.perf_counter() - t0
     launches = launches_now()
     it = int(m32._last_opt_result.num_iter)
-    want = {"block_chol": formula(it), "panel_chol": 0, "cholesky": 0}
+    want = {"block_chol": formula(it), "panel_chol": 0, "cholesky": 0, "mm3xtf32": 0}
 
     t0 = time.perf_counter()
     cpu = make("cpu", torch.float64)
@@ -2272,7 +2416,7 @@ def mo_class(tag, make, fit32, fit_ref, formula, Xnew):
     torch.cuda.synchronize()
     s32 = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters().items()}
-    want = {"block_chol": formula(m32), "panel_chol": 0, "cholesky": 0}
+    want = {"block_chol": formula(m32), "panel_chol": 0, "cholesky": 0, "mm3xtf32": 0}
 
     t0 = time.perf_counter()
     cpu = make("cpu", torch.float64)
@@ -2423,7 +2567,7 @@ def phase_prep_data():
     n = sum(len(r["expert_index"]) for r in buckets)
     conv = sum(int(r["converged"].sum()) for r in buckets)
     nmax = batching.bucket_size(int(max(r["num_obs"].max() for r in buckets)))
-    want = {"block_chol": kernel1_launches(buckets, nmax), "panel_chol": 0, "cholesky": 0}
+    want = {"block_chol": kernel1_launches(buckets, nmax), "panel_chol": 0, "cholesky": 0, "mm3xtf32": 0}
     finite = all(np.isfinite(r["f_mean"]).all() and np.isfinite(r["f_var"]).all() for r in buckets)
     log("prep_data", tracks=PREP_TRACKS, raw_points=len(df), read_s=read_s, binned_cells=len(binned), bin_s=bin_s,
         binned_vs_numpy=d_bin, bin_bound=PREP_BIN_BOUND, same_cells=same_cells, experts_run=n,
@@ -2664,7 +2808,7 @@ def mesh_parts(f32_oi, t_phase, procs, out_dir):
         expected_block_chol=expected_a, max_abs_f_mean_vs_phase7=d_phase7, bound=MESH_SAME_BOUND)
     check(set(by_a) == set(f32_oi), f"mesh (a): {len(by_a)} experts, phase 7 ran {len(f32_oi)}")
     check(d_phase7 <= MESH_SAME_BOUND, f"mesh (a) vs phase 7's f32 fit: {d_phase7}")
-    check(launches_a == {"block_chol": expected_a, "panel_chol": 0, "cholesky": 0}, f"mesh (a) launches {launches_a}")
+    check(launches_a == {"block_chol": expected_a, "panel_chol": 0, "cholesky": 0, "mm3xtf32": 0}, f"mesh (a) launches {launches_a}")
 
     # (b) two shards: every card, or the card twice (two host threads)
     mesh_b = default_mesh() if torch.cuda.device_count() > 1 else default_mesh([0, 0])
@@ -2722,7 +2866,7 @@ def mesh_parts(f32_oi, t_phase, procs, out_dir):
         f64_launches=launches_f64, f64_width_probe=width_probe)
     check(set(by_b) == set(by_a), f"mesh (b): {n} experts, (a) ran {len(by_a)}")
     check(conv >= MIN_SHARE * n, f"mesh (b): only {conv}/{n} converged")
-    check(launches_b == {"block_chol": expected_b, "panel_chol": 0, "cholesky": 0}, f"mesh (b) launches {launches_b}")
+    check(launches_b == {"block_chol": expected_b, "panel_chol": 0, "cholesky": 0, "mm3xtf32": 0}, f"mesh (b) launches {launches_b}")
     check(len(both) >= MIN_SHARE * n, f"mesh (b): both converged on one optimum on {len(both)}/{n}")
     check(d_b <= PRED_BOUND, f"mesh (b) vs (a): {d_b}")
     check(len(m64) == len(alone) == len(w64) == MESH_F64_EXPERTS, f"mesh (b) f64: {len(m64)}, {len(alone)} experts")
@@ -2820,7 +2964,7 @@ def xval_index(host_build_s):
     check(same_select, "xval (a): the grid's local-select sets differ from the kdtree's")
     check(same_pred, "xval (a): the grid's prediction locations differ from the kdtree's")
     check(d == 0.0, f"xval (a): the grid sweep's predictions differ from the kdtree sweep's by {d}")
-    check(launches == {"block_chol": expected, "panel_chol": 0, "cholesky": 0}, f"xval (a) launches {launches}")
+    check(launches == {"block_chol": expected, "panel_chol": 0, "cholesky": 0, "mm3xtf32": 0}, f"xval (a) launches {launches}")
     return launches["block_chol"]
 
 
@@ -3001,7 +3145,7 @@ def xval_run(df, truth, store, experts, out_dir: Path):
                           for j, e in enumerate(ref64["expert_index"]) if not same[j]},
         bound=PRED_BOUND, rmse_rel_card_vs_cpu=rel, rmse_rel_bound=XVAL_RMSE_REL)
     check(n_conv >= MIN_SHARE * n_run, f"xval (c): only {n_conv}/{n_run} lanes converged")
-    check(launches == {"block_chol": expected, "panel_chol": 0, "cholesky": 0}, f"xval (c) launches {launches}")
+    check(launches == {"block_chol": expected, "panel_chol": 0, "cholesky": 0, "mm3xtf32": 0}, f"xval (c) launches {launches}")
     check(same.sum() >= MIN_COMPARED_SHARE * len(pick),
           f"xval (c): the CPU f64 fit and the card's ended > 1 nat apart on {int((~same).sum())}/{len(pick)}")
     check(d[same].max() <= PRED_BOUND, f"xval (c): card f32 vs CPU f64 on {len(pick)} experts: {d}")
@@ -3070,6 +3214,7 @@ def main(argv) -> int:
     from gpsat_tpu_torch.ops import _build
     from gpsat_tpu_torch.ops import block_chol as BC
     from gpsat_tpu_torch.ops import cholesky as CH
+    from gpsat_tpu_torch.ops import mm3xtf32 as MM
     from gpsat_tpu_torch.ops import panel_chol as PC
 
     card = subprocess.run(
@@ -3093,7 +3238,7 @@ def main(argv) -> int:
         print(Path(str(lib) + ".log").read_text().strip(), flush=True)
 
     profile = "--profile" in argv
-    entries = [phase_kernel(BC), phase_kernel_panel(PC), phase_kernel_cholesky(CH, profile)]
+    entries = [phase_kernel(BC), phase_kernel_panel(PC), phase_kernel_cholesky(CH, profile), phase_kernel_mm3xtf32(MM)]
     if "--kernels" in argv:
         return 0
     batch, init = bench_workload()
@@ -3103,8 +3248,8 @@ def main(argv) -> int:
     entries[2]["launches"], _ = phase_profiled(batch, init, profile)
     entries[0]["launches_oi"], f32_oi, f32_it_max = phase_oi(profile)
     entries[0]["launches_post_fit"], entries[0]["launches_post_repredict"] = phase_post(f32_oi, f32_it_max, profile)
-    (entries[0]["launches_sgpr_full"], entries[0]["launches_sgpr_chunked"],
-     entries[0]["launches_sgpr_replace"]) = phase_sgpr(profile)
+    (entries[0]["launches_sgpr_full"], entries[0]["launches_sgpr_chunked"], entries[0]["launches_sgpr_chunked_high"],
+     entries[0]["launches_sgpr_replace"], entries[3]["launches"]) = phase_sgpr(profile)
     (entries[0]["launches_svgp_collapsed"], entries[0]["launches_svgp_bernoulli"],
      entries[0]["launches_svgp_adam_natgrad"], entries[0]["launches_svgp_config"]) = phase_svgp(profile)
     entries[0]["launches_zoo_vff"], entries[0]["launches_zoo_asvgp"] = phase_zoo(profile)

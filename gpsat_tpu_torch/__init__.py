@@ -18,8 +18,11 @@ Three hand-written CUDA kernels replace the JAX package's Pallas kernels:
 the 64x64 diagonal-block Cholesky + inverse (``csrc/block_chol.cu``, bound in
 ``ops/block_chol.py``), the 128x128 one (``csrc/panel_chol.cu``,
 ``ops/panel_chol.py``) and the full blocked Cholesky (``csrc/cholesky.cu``,
-``ops/cholesky.py``), all built and loaded by ``ops/_build.py``. A CPU tensor
-takes the kernel's plain PyTorch version instead.
+``ops/cholesky.py``), all built and loaded by ``ops/_build.py``. A fourth,
+the batched 3xTF32 product (``csrc/mm3xtf32.cu``, ``ops/mm3xtf32.py``),
+stands in for XLA's ``Precision.HIGH`` dot in the SGPR chunk loop at
+``accum_precision="high"`` (``ops/precision.py``). A CPU tensor takes the
+kernel's plain PyTorch version instead.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
@@ -37,6 +40,11 @@ torch.set_float32_matmul_precision("highest")
 __version__ = "0.1.0"
 
 
+def get_path(*sub_dirs: str) -> str:
+    """Path under the installed package directory (ref: GPSat/__init__.py:13-15)."""
+    return _os.path.join(_os.path.dirname(_os.path.abspath(__file__)), *sub_dirs)
+
+
 def get_parent_path(*sub_dirs: str) -> str:
     """Path under the repository root (ref: GPSat/__init__.py helper)."""
     parent = _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
@@ -46,3 +54,8 @@ def get_parent_path(*sub_dirs: str) -> str:
 def get_config_path(*sub_dirs: str) -> str:
     """Path under <repo>/configs (ref: GPSat/__init__.py:23-25)."""
     return get_parent_path("configs", *sub_dirs)
+
+
+def get_data_path(*sub_dirs: str) -> str:
+    """Path under <repo>/data (ref: GPSat/__init__.py helper)."""
+    return get_parent_path("data", *sub_dirs)

@@ -6,9 +6,12 @@ Usage: python -m gpsat_tpu_torch.bin_data <config.json>
 The port's copy of ``gpsat_tpu/bin_data.py``. Config keys
 (reference-compatible): input {source/file, table, where, batch, load_by,
 ...}, bin_config {by_cols, val_col, grid_res, x_range, y_range,
-bin_statistic, ...}, output {file, table}, add_output_cols. A config
-asking for the reference's plots (``plot``) raises: they need
-``plot_utils``, which is not ported yet.
+bin_statistic, ...}, output {file, table}, add_output_cols. Other keys
+(the reference's ``plot``, say) are not read, as in the JAX package.
+
+``plot_wrapper`` is re-exported from ``plot_utils`` under the reference's
+module path (ref: bin_data.py:764) through the module's ``__getattr__``, so
+importing this module imports no matplotlib.
 """
 
 import sys
@@ -18,6 +21,39 @@ from gpsat_tpu_torch.data.binning import BinData, bin_data, bin_data_by  # noqa:
 from gpsat_tpu_torch.utils.misc import cprint, get_config_from_sysargv
 
 USAGE = "usage: python -m gpsat_tpu_torch.bin_data <config.json>"
+
+
+def __getattr__(name):
+    if name == "plot_wrapper":
+        from gpsat_tpu_torch.plot_utils import plot_wrapper
+
+        return plot_wrapper
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def get_bin_data_config():
+    """Config from sys.argv, falling back to the example bin config with
+    example data paths (ref: GPSat/bin_data.py:853-875)."""
+    import json
+    import os
+    import warnings
+
+    from gpsat_tpu_torch import get_config_path, get_parent_path
+    from gpsat_tpu_torch.utils.misc import nested_dict_literal_eval
+
+    config = get_config_from_sysargv()
+    if config is None:
+        config_file = get_config_path("example_bin_raw_data.json")
+        warnings.warn(f"\nconfig is empty / not provided, will just use an example config:\n{config_file}")
+        with open(config_file, "r") as f:
+            config = nested_dict_literal_eval(json.load(f))
+        config["input"]["file"] = get_parent_path("data", "example", "ABC.h5")
+        config["output"]["file"] = get_parent_path("data", "example", "ABC_binned.h5")
+        assert os.path.exists(config["input"]["file"]), (
+            f"config['input']['file']:\n{config['input']['file']}\ndoes not exist. "
+            f"to create run: python -m gpsat_tpu_torch.read_and_store"
+        )
+    return config
 
 
 def main(config: dict = None):
@@ -30,9 +66,6 @@ def main(config: dict = None):
         return 2
     config = dict(config)
     config.pop("comment", None)
-    if config.get("plot"):
-        raise NotImplementedError("bin_data's plots need plot_utils, which is not ported yet; see ROADMAP.md "
-                                  "Queue 1 item 9")
     df_bin, stats = BinData().bin_data(
         input=config.get("input"),
         bin_config=config.get("bin_config"),

@@ -106,6 +106,7 @@ from gpsat_tpu_torch.parallel.engine import (
     resolve_device,
     resolve_linesearch,
     resolve_mesh,
+    run_tile_batch,  # noqa: F401  (re-exported under the JAX package's path)
     run_tile_batch_async,
     run_tile_batch_carry,
     run_tile_batch_two_stage,
@@ -313,6 +314,8 @@ def make_core_for_model(model_cls, kernel: str, bijectors, init_params, factor: 
             train_inducing_points=bool(init_params.get("train_inducing_points", False)),
             mean_function=init_params.get("mean_function"),
             chunk_size=init_params.get("chunk_size", "auto"),
+            # the port's stand-in for the JAX package's precision environment variable
+            accum_precision=init_params.get("accum_precision", "highest"),
             **route,
         )
     if lane == "SVGPModel":
@@ -328,6 +331,7 @@ def make_core_for_model(model_cls, kernel: str, bijectors, init_params, factor: 
             natural_gradients=init_params.get("natural_gradients", False),
             gamma=float(init_params.get("gamma", 0.1)),
             chunk_size=init_params.get("chunk_size", "auto"),
+            accum_precision=init_params.get("accum_precision", "highest"),
             q_init=init_params.get("q_init", "auto"),
             # "auto": the collapsed bound for the Gaussian likelihood, joint
             # L-BFGS otherwise; "adam" the reference's optimiser
@@ -1574,6 +1578,36 @@ class LocalExpertOI:
             pdf.index = base_idx.repeat(size)
             tables[f"{pname}{table_suffix}"] = pdf
         return tables
+
+    def plot_locations_and_obs(self, image_file: Optional[str] = None, obs_col: Optional[str] = None,
+                               max_plots: int = 25, xy_col=("x", "y"), s_obs: float = 2.0):
+        """Review plot: expert locations over the observations they select
+        (ref: local_experts.py:1282-1463). One panel per expert (up to
+        ``max_plots``), coloured by the local observations that
+        ``data/select.local_data_select`` gives it. Returns the figure and
+        writes it to ``image_file`` when given."""
+        import matplotlib.pyplot as plt
+
+        assert self.expert_locs is not None, "expert locations not set"
+        obs_col = obs_col or self.data.obs_col
+        df = self.data.load(reset_index=True)
+        n = min(len(self.expert_locs), max_plots)
+        ncols = min(5, n)
+        nrows = -(-n // ncols)
+        fig, axs = plt.subplots(nrows, ncols, figsize=(3.2 * ncols, 3 * nrows), squeeze=False)
+        for i in range(n):
+            ax = axs[i // ncols][i % ncols]
+            rl = self.expert_locs.iloc[[i]]
+            df_loc = sel.local_data_select(df, rl, self.data.local_select or [])
+            if len(df_loc):
+                ax.scatter(df_loc[xy_col[0]], df_loc[xy_col[1]], c=df_loc[obs_col], s=s_obs, cmap="RdBu_r")
+            ax.scatter(rl[xy_col[0]], rl[xy_col[1]], marker="x", color="k", s=60)
+            ax.set_title(f"expert {i}: n={len(df_loc)}", fontsize=9)
+            ax.set_aspect("equal")
+        fig.tight_layout()
+        if image_file:
+            fig.savefig(image_file, dpi=110)
+        return fig
 
 
 # --------------------------------------------------------------------------

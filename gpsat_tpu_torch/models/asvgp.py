@@ -227,20 +227,21 @@ def _factors(cparams: dict, data: dict, knots: torch.Tensor, *, kernel: str, fac
     return collapsed_terms(cparams, data, Kuf_dims, Kuu_dims, factor=factor)
 
 
-def elbo(cparams: dict, data: dict, knots: torch.Tensor, kernel: str = "Matern12", factor: str = "block"):
-    """The collapsed ASVGP bound [B] of padded tiles."""
-    t = _factors(cparams, data, knots, kernel=kernel, factor=factor)
+def elbo(cparams: dict, data: dict, knots_list: torch.Tensor, kernel: str = "Matern12", factor: str = "block"):
+    """The collapsed ASVGP bound [B] of padded tiles; ``knots_list`` holds
+    each tile's knots per dimension, [B, D, M]."""
+    t = _factors(cparams, data, knots_list, kernel=kernel, factor=factor)
     return collapsed_elbo(t, cparams["kernel_variance"])
 
 
-def predict(cparams: dict, data: dict, Xnew: torch.Tensor, knots: torch.Tensor, kernel: str = "Matern12",
+def predict(cparams: dict, data: dict, Xnew: torch.Tensor, knots_list: torch.Tensor, kernel: str = "Matern12",
             full_cov: bool = False, factor: str = "block") -> dict:
     """ASVGP posterior at Xnew [B, P, D]: f_mean, f_var, y_var [B, P], and
     f_cov [B, P, P] (the separable product prior, as VFF's) with
-    ``full_cov``."""
-    t = _factors(cparams, data, knots, kernel=kernel, factor=factor)
+    ``full_cov``; ``knots_list`` as ``elbo``'s."""
+    t = _factors(cparams, data, knots_list, kernel=kernel, factor=factor)
     basis_eval, _ = SPLINE_PAIRS[kernel]
-    Kus = make_kvs([basis_eval(Xnew[:, :, i], knots[:, i]) for i in range(Xnew.shape[-1])])
+    Kus = make_kvs([basis_eval(Xnew[:, :, i], knots_list[:, i]) for i in range(Xnew.shape[-1])])
     return collapsed_predict(cparams, t, Kus, Xnew, kernel, full_cov)
 
 

@@ -148,6 +148,15 @@ def predict(
 # --------------------------------------------------------------------------
 
 
+def default_init_params(D: int, dtype=torch.float64, device=None) -> dict:
+    """gpflow defaults: unit lengthscales [D] and variances (gpflow_models.py:129-135)."""
+    return {
+        "lengthscales": torch.ones((D,), dtype=dtype, device=device),
+        "kernel_variance": torch.tensor(1.0, dtype=dtype, device=device),
+        "likelihood_variance": torch.tensor(1.0, dtype=dtype, device=device),
+    }
+
+
 class GPRModel(TorchCoreModel):
     """Exact GPR on one expert (the reference's GPflowGPRModel contract;
     gpsat_tpu/models/gpr.py::GPRModel): param names ``lengthscales,

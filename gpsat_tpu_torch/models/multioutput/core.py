@@ -313,13 +313,13 @@ def multivariate_gaussian_log_density(x, mu, cov) -> torch.Tensor:
     return -(P / 2) * _LOG_2PI - 0.5 * logdet - 0.5 * quad
 
 
-def add_likelihood_noise_cov(K_, R) -> torch.Tensor:
+def add_likelihood_noise_cov(K, R) -> torch.Tensor:
     """K: [..., N, N, P, P]; adds block-diagonal R at n == n'
     (ref: multioutput/utils.py add_likelihood_noise_cov)."""
-    K_ = _t(K_)
-    N = K_.shape[-3]
-    eye = torch.eye(N, dtype=K_.dtype, device=K_.device)[:, :, None, None]
-    return K_ + eye * _t(R, K_)
+    K = _t(K)
+    N = K.shape[-3]
+    eye = torch.eye(N, dtype=K.dtype, device=K.device)[:, :, None, None]
+    return K + eye * _t(R, K)
 
 
 def multioutput_conditional(Kmn, Kmm, Knn, f, H, R, *, full_cov: bool = False):

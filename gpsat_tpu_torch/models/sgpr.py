@@ -27,9 +27,14 @@ peak stays O(B M (M + C))); the factor pair of Kuu is computed once, outside
 the loop, and no checkpoint recomputes it. Rematerialisation is an argument,
 never an environment variable.
 
-Every matmul is true f32 (the package keeps TF32 off): the port has no
-counterpart of the JAX package's relaxed accumulation precision
-(``ops/precision.accum_precision``).
+``accum_precision`` ("highest" by default, or "high"; an argument, the
+port's stand-in for the environment variable the JAX package reads) sets the
+precision of the chunked loop's products A_i = W Kuf_i and A_i A_i^T, as the
+JAX core relaxes them in its chunked loop only (``ops/precision``): "high" is
+the 3xTF32 product, the hand-written kernel ``csrc/mm3xtf32.cu`` on the
+card, in the forward and in the checkpointed backward. The unchunked call,
+the Gram's cross products, the factor pairs and the matrix-vector product
+A_i ym_i stay true f32 at either level (the package keeps TF32 off).
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from gpsat_tpu_torch.models.base import lane_param_names
 from gpsat_tpu_torch.models.gpr import GPRModel
 from gpsat_tpu_torch.ops import kernels as K
 from gpsat_tpu_torch.ops import linalg as LA
+from gpsat_tpu_torch.ops import precision as PR
 from gpsat_tpu_torch.ops import transforms as T
 
 PARAM_NAMES = ["lengthscales", "kernel_variance", "likelihood_variance", "inducing_points"]
@@ -67,19 +73,23 @@ def _resolve_chunk(N: int, chunk_size) -> int:
     return int(chunk_size)
 
 
-def _chunk_terms(Winv, Z, X, ym, m, ls, kv, sigma, kernel: str):
+def _chunk_terms(Winv, Z, X, ym, m, ls, kv, sigma, kernel: str, level: str = "highest"):
     """One [M, C] chunk's share of A A^T [B, M, M], A ym [B, M, 1] and
-    sum(ym^2) [B], with A = W Kuf / sigma."""
+    sum(ym^2) [B], with A = W Kuf / sigma; W Kuf and A A^T at ``level``
+    (``ops/precision.accum_matmul``)."""
     Kuf = K.gram(kernel, Z, X, ls, kv) * m[:, None, :]
-    A = torch.matmul(Winv, Kuf) / sigma[:, None, None]
-    return torch.matmul(A, A.transpose(1, 2)), torch.matmul(A, ym[:, :, None]), torch.sum(ym * ym, dim=-1)
+    A = PR.accum_matmul(Winv, Kuf, level) / sigma[:, None, None]
+    AAT = PR.accum_matmul(A, A, level, transpose_b=True)
+    return AAT, torch.matmul(A, ym[:, :, None]), torch.sum(ym * ym, dim=-1)
 
 
 def _common_terms(cparams: dict, data: dict, *, kernel: str, jitter: float, chunk_size=None, factor: str = "block",
-                  chunk_remat: bool = True) -> dict:
+                  chunk_remat: bool = True, accum_precision: str = "highest") -> dict:
     """The factors the bound and the posterior share: (L, W) of Kuu,
     A A^T, A ym, (LB, WB) of B = A A^T + I, c = WB A ym / sigma, and the
-    data sums n = sum(mask) and ymsq = sum(ym^2)."""
+    data sums n = sum(mask) and ymsq = sum(ym^2). ``accum_precision``
+    applies to the chunked loop only."""
+    level = PR.accum_precision(accum_precision)
     X, y, m = data["X"], data["y"], data["mask"].to(data["X"].dtype)
     # a trainable prior mean: the bound is taken on the centred observations
     if MF.has_mean(cparams):
@@ -98,7 +108,7 @@ def _common_terms(cparams: dict, data: dict, *, kernel: str, jitter: float, chun
         remat = chunk_remat and torch.is_grad_enabled()
         AAT = Aerr = ymsq = 0.0
         for s in range(0, N, C):
-            args = (Winv, Z, X[:, s : s + C], ym[:, s : s + C], m[:, s : s + C], ls, kv, sigma, kernel)
+            args = (Winv, Z, X[:, s : s + C], ym[:, s : s + C], m[:, s : s + C], ls, kv, sigma, kernel, level)
             part = checkpoint(_chunk_terms, *args, use_reentrant=False) if remat else _chunk_terms(*args)
             AAT, Aerr, ymsq = AAT + part[0], Aerr + part[1], ymsq + part[2]
     else:
@@ -111,10 +121,10 @@ def _common_terms(cparams: dict, data: dict, *, kernel: str, jitter: float, chun
 
 
 def elbo(cparams: dict, data: dict, *, kernel: str, jitter: float = DEFAULT_JITTER, chunk_size=None,
-         factor: str = "block", chunk_remat: bool = True) -> torch.Tensor:
+         factor: str = "block", chunk_remat: bool = True, accum_precision: str = "highest") -> torch.Tensor:
     """Titsias collapsed evidence lower bound [B] of padded tiles."""
     t = _common_terms(cparams, data, kernel=kernel, jitter=jitter, chunk_size=chunk_size, factor=factor,
-                      chunk_remat=chunk_remat)
+                      chunk_remat=chunk_remat, accum_precision=accum_precision)
     n, s2 = t["n"], t["sigma2"]
     out = -0.5 * n * math.log(2.0 * math.pi)
     out = out - torch.sum(torch.log(torch.diagonal(t["LB"], dim1=-2, dim2=-1)), dim=-1)
@@ -127,18 +137,21 @@ def elbo(cparams: dict, data: dict, *, kernel: str, jitter: float = DEFAULT_JITT
 
 
 def neg_elbo(uparams: dict, data: dict, *, kernel: str, bijectors: dict, jitter: float = DEFAULT_JITTER,
-             chunk_size=None, factor: str = "block", chunk_remat: bool = True) -> torch.Tensor:
+             chunk_size=None, factor: str = "block", chunk_remat: bool = True,
+             accum_precision: str = "highest") -> torch.Tensor:
     p = T.forward_params(uparams, bijectors)
-    return -elbo(p, data, kernel=kernel, jitter=jitter, chunk_size=chunk_size, factor=factor, chunk_remat=chunk_remat)
+    return -elbo(p, data, kernel=kernel, jitter=jitter, chunk_size=chunk_size, factor=factor, chunk_remat=chunk_remat,
+                 accum_precision=accum_precision)
 
 
 def predict(cparams: dict, data: dict, Xnew: torch.Tensor, *, kernel: str, jitter: float = DEFAULT_JITTER,
-            chunk_size=None, full_cov: bool = False, factor: str = "block", chunk_remat: bool = True) -> dict:
+            chunk_size=None, full_cov: bool = False, factor: str = "block", chunk_remat: bool = True,
+            accum_precision: str = "highest") -> dict:
     """SGPR posterior mean and variance at Xnew [B, P, D] (gpflow's
     predict_f equations): f_mean, f_var, y_var [B, P], and f_cov [B, P, P]
     with ``full_cov``."""
     t = _common_terms(cparams, data, kernel=kernel, jitter=jitter, chunk_size=chunk_size, factor=factor,
-                      chunk_remat=chunk_remat)
+                      chunk_remat=chunk_remat, accum_precision=accum_precision)
     Z, ls, kv = cparams["inducing_points"], cparams["lengthscales"], cparams["kernel_variance"]
     tmp1 = torch.matmul(t["Winv"], K.gram(kernel, Z, Xnew, ls, kv))
     tmp2 = torch.matmul(t["WB"], tmp1)
@@ -214,6 +227,7 @@ def make_sgpr_core(
     chunk_size="auto",
     factor: str = "block",
     chunk_remat: bool = True,
+    accum_precision: str = "highest",
 ):
     """SGPR core for the batched engine (objective = the negative bound).
 
@@ -222,8 +236,8 @@ def make_sgpr_core(
     draws them per tile (``prepare_inducing_init``).
 
     ``factor`` names the route of both factor pairs (ops/linalg.PAIR_ROUTES);
-    ``chunk_size`` and ``chunk_remat`` the large-N accumulation (module
-    docstring)."""
+    ``chunk_size``, ``chunk_remat`` and ``accum_precision`` the large-N
+    accumulation (module docstring)."""
     from gpsat_tpu_torch.models.functional import ModelCore
 
     if factor not in LA.PAIR_ROUTES:
@@ -236,7 +250,8 @@ def make_sgpr_core(
     for p in MF.mean_param_names(mean_function):
         bijectors.setdefault(p, T.IDENTITY)
     M = int(num_inducing_points)
-    kw = dict(kernel=kernel, jitter=jitter, chunk_size=chunk_size, factor=factor, chunk_remat=chunk_remat)
+    kw = dict(kernel=kernel, jitter=jitter, chunk_size=chunk_size, factor=factor, chunk_remat=chunk_remat,
+              accum_precision=PR.accum_precision(accum_precision))
 
     def objective(uparams, data):
         return neg_elbo(uparams, data, bijectors=bijectors, **kw)

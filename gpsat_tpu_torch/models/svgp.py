@@ -43,6 +43,7 @@ from gpsat_tpu_torch.models.base import lane_param_names
 from gpsat_tpu_torch.models.gpr import GPRModel
 from gpsat_tpu_torch.ops import kernels as K
 from gpsat_tpu_torch.ops import linalg as LA
+from gpsat_tpu_torch.ops import precision as PR
 from gpsat_tpu_torch.ops import transforms as T
 
 PARAM_NAMES = [
@@ -226,14 +227,16 @@ def predict(cparams: dict, data: dict, Xnew: torch.Tensor, *, kernel: str, jitte
     return out
 
 
-def collapsed_q(cparams: dict, data: dict, *, kernel: str, jitter: float = DEFAULT_JITTER, chunk_size="auto"):
+def collapsed_q(cparams: dict, data: dict, *, kernel: str, jitter: float = DEFAULT_JITTER, chunk_size="auto",
+                accum_precision: str = "highest"):
     """Optimal whitened (q_mu [B, M], q_sqrt [B, M, M]) for a Gaussian
     likelihood at the current hyperparameters: with the SGPR factors
     A = L^-1 Kuf / sigma and B = I + A A^T, m_v = B^-1 A ym / sigma and
     S_v = B^-1 (the collapsed Titsias solution). Both come from
     ``sgpr._common_terms``' pair (LB, WB = LB^-1): m_v = WB^T c and
-    B^-1 = WB^T WB."""
-    t = SG._common_terms(cparams, data, kernel=kernel, jitter=jitter, chunk_size=chunk_size)
+    B^-1 = WB^T WB. ``accum_precision`` as ``sgpr.elbo``'s."""
+    t = SG._common_terms(cparams, data, kernel=kernel, jitter=jitter, chunk_size=chunk_size,
+                         accum_precision=accum_precision)
     WBt = t["WB"].transpose(1, 2)
     q_mu = torch.matmul(WBt, t["c"])[..., 0]
     Binv = torch.matmul(WBt, t["WB"])
@@ -280,6 +283,7 @@ def make_svgp_core(
     q_init="auto",
     solver="auto",
     mean_function=None,
+    accum_precision: str = "highest",
 ):
     """SVGP core for the batched engine, with the JAX package's three solvers
     and their rules (``gpsat_tpu/models/svgp.py::make_svgp_core``):
@@ -303,7 +307,9 @@ def make_svgp_core(
 
     ``prepare_batch_init`` draws the inducing points per tile as the SGPR
     core does (``sgpr.prepare_inducing_init``); ``chunk_size`` sets the
-    large-N accumulation."""
+    large-N accumulation, and ``accum_precision`` the precision of its chunked
+    products where the SGPR terms serve (the collapsed bound and
+    ``collapsed_q``, as in the JAX package; ``ops/precision``)."""
     from gpsat_tpu_torch.models.functional import ModelCore
 
     MF.validate(mean_function)
@@ -317,6 +323,8 @@ def make_svgp_core(
     mean_names = MF.mean_param_names(mean_function)
     M = int(num_inducing_points)
     kw = dict(kernel=kernel, jitter=jitter, chunk_size=chunk_size)
+    # the SGPR terms' keywords: the collapsed bound and collapsed_q
+    ckw = dict(kw, accum_precision=PR.accum_precision(accum_precision))
 
     def forward(uparams):
         return {k: bijectors[k].forward(v) for k, v in uparams.items()}
@@ -348,7 +356,7 @@ def make_svgp_core(
 
     def exact_q_update(uparams, data):
         """Closed-form optimal q at the current hyperparameters."""
-        q_mu, q_sqrt = collapsed_q(forward(uparams), data, **kw)
+        q_mu, q_sqrt = collapsed_q(forward(uparams), data, **ckw)
         return {"inducing_mean": q_mu, "inducing_chol": q_sqrt}
 
     def natgrad_update(uparams, data):
@@ -411,10 +419,10 @@ def make_svgp_core(
         def collapsed_objective(uparams, data):
             # the collapsed bound over the hyperparameters (+ Z if trained);
             # q is fixed here and set to its optimum afterwards
-            return -SG.elbo(forward(uparams), data, **kw)
+            return -SG.elbo(forward(uparams), data, **ckw)
 
         def finalize(cparams, data):
-            q_mu, q_sqrt = collapsed_q(cparams, data, **kw)
+            q_mu, q_sqrt = collapsed_q(cparams, data, **ckw)
             return {**cparams, "inducing_mean": q_mu, "inducing_chol": q_sqrt}
 
         return ModelCore(

@@ -8,6 +8,8 @@ back to numpy or scipy on its own. The plain versions stay, chosen by an
 explicit argument: ``radius_query_all(..., index="kdtree")`` is scipy's
 ``cKDTree``, ``data/prediction_locations.max_dist_bool`` the numpy mask,
 ``data/blosc``'s ``decoder="python"`` the pure-Python codecs.
+``HAS_NATIVE``, the JAX module's report of which path is live, builds the
+library when read and is then True (there is no other path).
 
 The host library holds:
   - ``max_dist_bool``: the strict euclidean-ball mask (d < r) of the
@@ -67,6 +69,16 @@ def library() -> ctypes.CDLL:
     if built != ABI_VERSION:
         raise RuntimeError(f"{LIBRARY} has ABI v{built}, this module binds v{ABI_VERSION}")
     return lib
+
+
+def __getattr__(name):
+    # the JAX module's HAS_NATIVE reports whether its library loaded or its
+    # numpy fallbacks are live; the port has no fallback, so the flag builds
+    # the library (raising as ``library()`` does) and is then True
+    if name == "HAS_NATIVE":
+        library()
+        return True
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _ptr(a: np.ndarray, ctype):

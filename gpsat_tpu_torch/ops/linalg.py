@@ -35,6 +35,8 @@ from gpsat_tpu_torch.ops.cholesky import cholesky
 from gpsat_tpu_torch.ops.panel_chol import T_PANEL, factor_panels
 from gpsat_tpu_torch.ops.recursive_chol import chol_winv_recursive
 
+DEFAULT_JITTER = 1e-6
+
 FACTOR_ROUTES = ("block", "panel", "cholesky", "recursive")
 PAIR_ROUTES = ("block", "cholesky", "recursive")
 

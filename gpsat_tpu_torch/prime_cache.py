@@ -28,7 +28,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-CUDA_KERNELS = ("block_chol", "panel_chol", "cholesky")
+CUDA_KERNELS = ("block_chol", "panel_chol", "cholesky", "mm3xtf32")
 HOST_LIBRARY = "gpsat_native"
 # the warm-up runner's iterations: it loads the modules, it does not fit
 WARMUP_ITER = 2

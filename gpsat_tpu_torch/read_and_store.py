@@ -18,6 +18,15 @@ from gpsat_tpu_torch.utils.misc import cprint, get_config_from_sysargv
 USAGE = "usage: python -m gpsat_tpu_torch.read_and_store <config.json>"
 
 
+def update_attr(x, cid, vals):
+    """Copy-modify-return an attrs dict (HDF attrs don't update in place;
+    ref: GPSat/read_and_store.py:19-27)."""
+    assert isinstance(x, dict)
+    tmp = x.copy()
+    tmp[cid] = vals
+    return tmp
+
+
 def main(config: dict = None):
     """Run one config; without one (none given here and none on the command
     line) print the usage and return 2."""

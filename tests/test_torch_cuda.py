@@ -692,3 +692,135 @@ def test_load_library_from_two_threads_builds_once(tmp_path, monkeypatch):
         t.join()
     assert len(runs) == 1 and got[0] is got[1] is not None
     assert len(list(tmp_path.glob("libblock_chol_*.so"))) == 1
+
+
+def _mm_operands(batch, M, N, K, ta, tb, seed, dev):
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.standard_normal((batch, K, M) if ta else (batch, M, K)).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.standard_normal((batch, N, K) if tb else (batch, K, N)).astype(np.float32)).to(dev)
+    return a, b
+
+
+def _mm_scale(a, b, ta, tb):
+    from gpsat_tpu_torch.ops import mm3xtf32 as MM
+
+    return float(torch.matmul(MM._op(a, ta).abs().double(), MM._op(b, tb).abs().double()).max())
+
+
+def _mm_bound(K):
+    # the 3xTF32 product's error relative to max (|A||B|) (chip_smoke.py's
+    # mm_bound): the split's 3 * 2^-22 and an f32 sum of K terms, 2 sqrt(K) 2^-24
+    return 3 * 2.0**-22 + 2 * np.sqrt(K) * 2.0**-24
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,M,N,K,ta,tb", [(3, 70, 90, 45, False, False), (2, 500, 500, 300, False, True),
+                                               (1, 33, 65, 100, True, False), (2, 17, 129, 9, True, True),
+                                               (8, 500, 1000, 500, False, False)])
+def test_mm3xtf32_kernel_matches_the_plain_version(batch, M, N, K, ta, tb):
+    # ragged shapes (no multiple of the 64 x 64 tile or of the K step of 32;
+    # the SGPR's M = 500), every orientation: against the exact product
+    # within _mm_bound(K) of max (|A||B|), and against the plain version
+    # (the same split, another f32 summation order) within that bound plus
+    # the plain version's own error
+    from gpsat_tpu_torch.ops import mm3xtf32 as MM
+
+    dev = _cuda()
+    a, b = _mm_operands(batch, M, N, K, ta, tb, seed=M + N + K, dev=dev)
+    before = MM.mm3xtf32.launches
+    C = MM.mm3xtf32(a, b, ta, tb)
+    torch.cuda.synchronize()
+    assert MM.mm3xtf32.launches == before + 1 and C.shape == (batch, M, N)
+    scale = _mm_scale(a, b, ta, tb)
+    exact = torch.matmul(MM._op(a, ta).double(), MM._op(b, tb).double())
+    plain = MM.mm3xtf32_reference(a, b, ta, tb)
+    err_plain = float((plain.double() - exact).abs().max()) / scale
+    assert float((C.double() - exact).abs().max()) <= _mm_bound(K) * scale
+    assert float((C - plain).abs().max()) <= (_mm_bound(K) + err_plain) * scale
+
+
+@pytest.mark.cuda
+def test_mm3xtf32_kernel_takes_strided_operands_and_refuses_the_rest():
+    # a sliced W (the factor pair's [B, 500, 500] view of a [B, 512, 512]
+    # buffer) needs no copy; f64 and a column-strided operand are refused
+    from gpsat_tpu_torch.ops import mm3xtf32 as MM
+
+    dev = _cuda()
+    Wfull = torch.randn(4, 512, 512, device=dev)
+    Kuf = torch.randn(4, 500, 300, device=dev)
+    W = Wfull[:, :500, :500]
+    exact = torch.matmul(W.double(), Kuf.double())
+    assert float((MM.mm3xtf32(W, Kuf).double() - exact).abs().max()) <= _mm_bound(500) * _mm_scale(W, Kuf, False, False)
+    with pytest.raises(TypeError):
+        MM.mm3xtf32(W.double(), Kuf.double())
+    with pytest.raises(ValueError):
+        MM.mm3xtf32(Kuf.transpose(1, 2), Kuf)  # a column-strided operand: pass transpose_a instead
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ta,tb", [(False, False), (False, True), (True, False), (True, True)])
+def test_mm3xtf32_backward_on_the_kernel_matches_autograd_of_the_plain_version(ta, tb):
+    # MM3xTF32's backward runs the kernel (two launches) and gives the same
+    # gradients as on the CPU (the plain version inside the same Function)
+    # and as f64 autograd of the exact product, in f32 roundoff (the plain
+    # version's bit rounding has no derivative of its own)
+    from gpsat_tpu_torch.ops import mm3xtf32 as MM
+
+    dev = _cuda()
+    g = torch.from_numpy(np.random.default_rng(8).standard_normal((2, 100, 70)).astype(np.float32))
+    grads = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu")), ("f64", torch.device("cpu"))):
+        a, b = _mm_operands(2, 100, 70, 130, ta, tb, seed=7, dev=device)
+        if name == "f64":
+            a, b = a.double(), b.double()
+        a.requires_grad_(True)
+        b.requires_grad_(True)
+        out = (torch.matmul(MM._op(a, ta), MM._op(b, tb)) if name == "f64" else MM.MM3xTF32.apply(a, b, ta, tb))
+        before = MM.mm3xtf32.launches
+        grads[name] = [t.double().cpu() for t in torch.autograd.grad(out, (a, b), g.to(out))]
+        if name == "card":
+            torch.cuda.synchronize()
+            assert MM.mm3xtf32.launches == before + 2
+    for want in (grads["cpu"], grads["f64"]):
+        for got, ref in zip(grads["card"], want):
+            assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_sgpr_chunked_high_runs_the_split_on_the_card():
+    # the chunked SGPR bound at accum_precision "high" on the card: the
+    # relaxed products per chunk and their backward through the kernel (8
+    # launches per chunk per value and gradient); its error against the f64
+    # bound on the CPU within 3x that of "highest" on the card (the bound of
+    # 2,048 points is a difference of terms ~40x its size, so each level's f32
+    # roundoff moves it by ~1e-5 of itself); the unchunked bound launches none
+    from gpsat_tpu_torch.models import sgpr as TS
+    from gpsat_tpu_torch.ops import mm3xtf32 as MM
+
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    B, N, M, C = 4, 2048, 100, 512
+    X = torch.from_numpy(rng.uniform(0, 5, (B, N, 2)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(np.sin(X.cpu().numpy()[..., 0]).astype(np.float32)).to(dev)
+    cp = {"lengthscales": torch.full((B, 2), 1.0, device=dev), "kernel_variance": torch.ones(B, device=dev),
+          "likelihood_variance": torch.full((B,), 0.05, device=dev),
+          "inducing_points": X[:, :M].clone()}
+    data = {"X": X, "y": y, "mask": torch.ones(B, N, device=dev)}
+    out = {}
+    for level, chunk in (("high", C), ("highest", C), ("high", None)):
+        params = {k: v.clone().requires_grad_(k != "inducing_points") for k, v in cp.items()}
+        before = MM.mm3xtf32.launches
+        e = TS.elbo(params, data, kernel="Matern32", chunk_size=chunk, accum_precision=level)
+        (g,) = torch.autograd.grad(e.sum(), [params["lengthscales"]])
+        torch.cuda.synchronize()
+        out[(level, chunk)] = (e.detach(), g, MM.mm3xtf32.launches - before)
+    assert out[("high", C)][2] == 8 * (N // C)
+    assert out[("highest", C)][2] == 0 and out[("high", None)][2] == 0
+    params = {k: v.double().cpu().requires_grad_(k != "inducing_points") for k, v in cp.items()}
+    e64 = TS.elbo(params, {k: v.double().cpu() for k, v in data.items()}, kernel="Matern32", chunk_size=C)
+    (g64,) = torch.autograd.grad(e64.sum(), [params["lengthscales"]])
+    err = {level: (float((out[(level, C)][0].double().cpu() - e64.detach()).abs().max()) / float(e64.abs().max()),
+                   float((out[(level, C)][1].double().cpu() - g64).abs().max()) / float(g64.abs().max()))
+           for level in ("high", "highest")}
+    assert err["high"][0] <= max(3 * err["highest"][0], 1e-6), err
+    assert err["high"][1] <= max(3 * err["highest"][1], 1e-5), err

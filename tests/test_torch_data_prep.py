@@ -419,8 +419,8 @@ def test_ingest_and_binning_match_jax(tmp_path):
 def test_cli_commands_match_jax(tmp_path, monkeypatch):
     # python -m gpsat_tpu_torch.cli read_and_store / bin_data on temp-path
     # copies of the example configs, against the JAX package's mains on the
-    # same configs: equal tables; a re-run skips the ingested batches; the
-    # plot step raises
+    # same configs: equal tables; a re-run skips the ingested batches; a
+    # config holding "plot" bins as in the JAX package
     raw = str(tmp_path / "raw")
     _write_tracks(raw, seed=1)
     with open(os.path.join(ROOT, "configs", "example_read_and_store_raw_data.json")) as f:
@@ -453,5 +453,15 @@ def test_cli_commands_match_jax(tmp_path, monkeypatch):
     assert len(outs["port"][1]["data"]) > 0
     from gpsat_tpu_torch import bin_data as port_bin_data
 
-    with pytest.raises(NotImplementedError, match="plot_utils"):
-        port_bin_data.main({**binc, "plot": True})
+    # a config that asks for the reference's plots bins as the JAX main bins
+    # it: neither main reads the key
+    binned = {}
+    for tag, main in (("port", port_bin_data.main), ("jax", jax_bin_data.main)):
+        cfg = {**binc, "plot": True, "input": {**binc["input"], "source": str(tmp_path / "port_obs.h5")},
+               "output": {**binc["output"], "file": str(tmp_path / f"{tag}_plot_binned.h5")}}
+        main(cfg)
+        binned[tag] = _tables(cfg["output"]["file"])[0]
+    assert sorted(binned["port"]) == sorted(binned["jax"]) and len(binned["port"]["data"]) > 0
+    for k in binned["jax"]:
+        drop = ["when"] if k.startswith("_") else []
+        pd.testing.assert_frame_equal(binned["port"][k].drop(columns=drop), binned["jax"][k].drop(columns=drop), obj=k)

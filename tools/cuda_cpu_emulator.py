@@ -1,14 +1,15 @@
 """Run the port's CUDA kernel sources on the CPU, one thread per CUDA thread,
 and hold them against their plain PyTorch versions at small shapes.
 
-    python tools/cuda_cpu_emulator.py [--kernels cholesky panel_chol block_chol] [--out DIR]
+    python tools/cuda_cpu_emulator.py [--kernels cholesky panel_chol block_chol mm3xtf32] [--out DIR]
 
 For a machine with no nvcc and no card: it checks a kernel's indexing,
 barriers and arithmetic order before a first run on the card, not its speed
 and not what nvcc would refuse. Each `gpsat_tpu_torch/csrc/<name>.cu` is
 rewritten for g++ (the runtime header below in place of cuda_runtime.h,
 `<<<grid, block, ...>>>` launches as calls of `emu_launch`, cp.async copies
-as plain 16-byte copies, shared memory as static arrays), built
+as plain 16-byte copies, shared memory as static arrays, nvcuda::wmma
+fragments as whole tiles held by every thread), built
 with g++ -std=c++20 into DIR (default: a temporary directory) and loaded
 with ctypes. Blocks run one after another; the threads of a block run
 concurrently, `__syncthreads` and `__syncwarp` are std::barriers and
@@ -43,6 +44,7 @@ RUNTIME_H = r"""
 #include <functional>
 #include <memory>
 #include <thread>
+#include <type_traits>
 #include <vector>
 #define __global__
 #define __device__
@@ -90,6 +92,57 @@ inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F*, int
     return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline unsigned __float_as_uint(float x) { unsigned u; std::memcpy(&u, &x, 4); return u; }
+inline float __uint_as_float(unsigned u) { float x; std::memcpy(&x, &u, 4); return x; }
+// nvcuda::wmma, one whole fragment per thread: every thread of a warp holds
+// all of a fragment's elements (num_elements is the tile's size) and does the
+// warp's whole product itself, so an element-wise pass over x[] (the same
+// operation on every element) acts as on the card; a store is made by lane 0.
+// tf32 inputs are truncated to their top 19 bits, as the tensor cores read them.
+namespace nvcuda { namespace wmma {
+struct row_major {}; struct col_major {};
+struct matrix_a {}; struct matrix_b {}; struct accumulator {};
+namespace precision { struct tf32 {}; }
+enum layout_t { mem_row_major, mem_col_major };
+template <class Use, int M, int N, int K, class T, class Layout = void> struct fragment {
+    static constexpr int rows = std::is_same_v<Use, matrix_b> ? K : M;
+    static constexpr int cols = std::is_same_v<Use, matrix_a> ? K : N;
+    static constexpr int num_elements = rows * cols;
+    float x[num_elements];
+};
+template <class Use, int M, int N, int K, class T, class L>
+inline void load_matrix_sync(fragment<Use, M, N, K, T, L>& f, const float* p, unsigned ld) {
+    using F = fragment<Use, M, N, K, T, L>;
+    for (int r = 0; r < F::rows; ++r)
+        for (int c = 0; c < F::cols; ++c)
+            f.x[r * F::cols + c] = std::is_same_v<L, col_major> ? p[r + c * ld] : p[r * ld + c];
+}
+template <class Use, int M, int N, int K, class T, class L>
+inline void fill_fragment(fragment<Use, M, N, K, T, L>& f, float v) {
+    for (auto& e : f.x) e = v;
+}
+inline float emu_tf32_input(float v) { return __uint_as_float(__float_as_uint(v) & 0xffffe000u); }
+template <int M, int N, int K, class T, class LA, class LB>
+inline void mma_sync(fragment<accumulator, M, N, K, float>& d, const fragment<matrix_a, M, N, K, T, LA>& a,
+                     const fragment<matrix_b, M, N, K, T, LB>& b, const fragment<accumulator, M, N, K, float>& c) {
+    float out[M * N];
+    for (int m = 0; m < M; ++m)
+        for (int n = 0; n < N; ++n) {
+            float s = c.x[m * N + n];
+            for (int k = 0; k < K; ++k) s += emu_tf32_input(a.x[m * K + k]) * emu_tf32_input(b.x[k * N + n]);
+            out[m * N + n] = s;
+        }
+    std::memcpy(d.x, out, sizeof(out));
+}
+template <int M, int N, int K>
+inline void store_matrix_sync(float* p, const fragment<accumulator, M, N, K, float>& f, unsigned ld, layout_t layout) {
+    __syncwarp();
+    if (threadIdx.x % 32 == 0)
+        for (int r = 0; r < M; ++r)
+            for (int c = 0; c < N; ++c) p[layout == mem_col_major ? r + c * ld : r * ld + c] = f.x[r * N + c];
+    __syncwarp();
+}
+}}  // namespace nvcuda::wmma
 inline void emu_launch(int grid, int block, const std::function<void()>& body) {
     gridDim.x = grid;
     blockDim.x = block;
@@ -112,7 +165,7 @@ SMEM_FLOATS = 65536  # 256 KB, more than a block may have on the card
 
 def rewrite(text: str) -> str:
     """A kernel source or header, rewritten for g++ and the runtime above."""
-    text = text.replace("#include <cuda_runtime.h>", '#include "emu_runtime.h"')
+    text = text.replace("#include <cuda_runtime.h>", '#include "emu_runtime.h"').replace("#include <mma.h>", "")
     text = re.sub(r'asm volatile\("cp\.async\.cg.*?\)\);', "std::memcpy(dst, src, 16);", text, flags=re.S)
     text = re.sub(r"const unsigned d = static_cast<unsigned>\(__cvta_generic_to_shared\(dst\)\);", "", text)
     text = re.sub(r"asm volatile\(.*?\);", "", text, flags=re.S)
@@ -228,7 +281,41 @@ def run_block_chol(lib) -> bool:
                       spd_beside_finite=finite)
 
 
-RUNS = {"cholesky": run_cholesky, "panel_chol": run_panel_chol, "block_chol": run_block_chol}
+def run_mm3xtf32(lib) -> bool:
+    from gpsat_tpu_torch.ops import mm3xtf32 as MM
+
+    fn = lib.gpsat_mm3xtf32_f32
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fn.argtypes = [vp, ll, ll, i, vp, ll, ll, i, vp, i, i, i, i, vp]
+    fn.restype = ctypes.c_int
+    rng = np.random.default_rng(0)
+    ok = True
+    # ragged shapes (none a multiple of the 64 x 64 tile or of the K step of
+    # 32), every orientation, a sliced operand (row stride above its width)
+    for (batch, M, N, K), ta, tb in [((2, 70, 90, 45), False, False), ((1, 70, 90, 45), True, False),
+                                     ((1, 33, 65, 100), False, True), ((2, 17, 129, 9), True, True)]:
+        a = torch.from_numpy(rng.standard_normal((batch, K, M) if ta else (batch, M, K)).astype(np.float32))
+        b = torch.from_numpy(rng.standard_normal((batch, N, K) if tb else (batch, K, N)).astype(np.float32))
+        cases = {"": (a, b)}
+        if not ta:
+            wide = torch.zeros(batch, M, K + 7)
+            wide[:, :, :K] = a
+            cases["a sliced"] = (wide[:, :, :K], b)
+        for tag, (x, y) in cases.items():
+            C = torch.full((batch, M, N), float("nan"))  # every element must be written
+            if fn(x.data_ptr(), x.stride(1), x.stride(0), int(ta), y.data_ptr(), y.stride(1), y.stride(0), int(tb),
+                  C.data_ptr(), batch, M, N, K, None) != 0:
+                raise RuntimeError("gpsat_mm3xtf32_f32 refused its input")
+            ref = MM.mm3xtf32_reference(x, y, ta, tb)
+            scale = float(torch.matmul(MM._op(x, ta).abs(), MM._op(y, tb).abs()).max())
+            err = float((C - ref).abs().max()) / scale
+            ok &= check(f"mm3xtf32 [{batch}, {M}, {N}, {K}] ta={ta} tb={tb} {tag}".rstrip(), err <= 1e-6,
+                        max_abs_err_rel=err)
+    return ok
+
+
+RUNS = {"cholesky": run_cholesky, "panel_chol": run_panel_chol, "block_chol": run_block_chol,
+        "mm3xtf32": run_mm3xtf32}
 
 
 def main(argv) -> int:
