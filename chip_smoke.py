@@ -26,9 +26,11 @@ Phases (each prints on its own lines; any failure raises):
              SM, and with --profile kernel 3 its device time per __global__
              function; the 3xTF32 product (csrc/mm3xtf32.cu, the counterpart
              of XLA's Precision.HIGH dot) at phase 9 (b)'s chunk shapes, W Kuf
-             ([8, 500, 500] x [8, 500, 4096]) and A A^T ([8, 500, 4096] x its
-             transpose), against its plain version and the f64 product, timed
-             beside the true-f32 torch.matmul
+             ([8, 500, 500] x [8, 500, 4096], W a view of an [8, 512, 512]
+             buffer), A A^T ([8, 500, 4096] x its transpose) and the TN dKuf
+             = W^T g, against its plain version and the f64 product (its
+             error at most the true-f32 torch.matmul's), each timed beside
+             the plain version and torch.matmul
 3. main      bench.py's workload (B=512, N=512, P=64, D=2, Matern32, f32,
              single-eval L-BFGS) through the port's engine on the "block"
              route: a warm-up call, then one timed call with the kernels'
@@ -747,56 +749,70 @@ def mm_errors(MM, a, b, ta, tb, C):
 
 
 def phase_kernel_mm3xtf32(MM):
-    """The 3xTF32 product at phase 9 (b)'s chunk shapes, W Kuf and A A^T,
-    against its plain version and the f64 product; the card's process-wide
-    TF32 switch must stay off."""
+    """The 3xTF32 product at phase 9 (b)'s chunk shapes, W Kuf (W the
+    factor pair's [8, 500, 500] view of an [8, 512, 512] buffer, as the
+    chunk loop passes it), A A^T and the backward's TN dKuf = W^T g, against
+    its plain version and the f64 product; at each its error against f64 is
+    at most the true-f32 torch.matmul's, and each is timed beside the plain
+    version and torch.matmul with its bound. The card's process-wide TF32
+    switch must stay off."""
     import torch
 
     Bm, M, C = SGPR_CHUNKED[0], SGPR_M, MM_CHUNK
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
-    W = torch.from_numpy(rng.standard_normal((Bm, M, M)).astype(np.float32)).to(dev)
+    pair = torch.from_numpy(rng.standard_normal((Bm, 512, 512)).astype(np.float32)).to(dev)
+    W = pair[:, :M, :M]
     Kuf = torch.from_numpy(rng.standard_normal((Bm, M, C)).astype(np.float32)).to(dev)
     A = torch.from_numpy(rng.standard_normal((Bm, M, C)).astype(np.float32)).to(dev)
-    cases = {"w_kuf": (W, Kuf, False), "a_at": (A, A, True)}
+    g = torch.from_numpy(rng.standard_normal((Bm, M, C)).astype(np.float32)).to(dev)
+    cases = {"w_kuf": (W, Kuf, False, False), "a_at": (A, A, False, True), "d_kuf": (W, g, True, False)}
     rows = {}
-    for tag, (a, b, tb) in cases.items():
-        out = MM.mm3xtf32(a, b, False, tb)
+    for tag, (a, b, ta, tb) in cases.items():
+        out = MM.mm3xtf32(a, b, ta, tb)
         torch.cuda.synchronize()
-        err, rel, rel64 = mm_errors(MM, a, b, False, tb, out)
+        err, rel, rel64 = mm_errors(MM, a, b, ta, tb, out)
         K = b.shape[2] if tb else b.shape[1]
+        N = b.shape[1] if tb else b.shape[2]
         bound = mm_bound(K)
-        check(tuple(out.shape) == (Bm, M, C if tag == "w_kuf" else M) and bool(torch.isfinite(out).all()),
+        check(tuple(out.shape) == (Bm, M, N) and bool(torch.isfinite(out).all()),
               f"mm3xtf32 {tag}: shape {tuple(out.shape)} or non-finite values")
         check(rel64["kernel"] <= bound, f"mm3xtf32 {tag} vs the f64 product: {rel64['kernel']} of max |A||B|")
         check(rel <= bound + rel64["plain"], f"mm3xtf32 {tag} vs its plain version: {rel} of max |A||B|")
+        check(rel64["kernel"] <= rel64["matmul_f32"],
+              f"mm3xtf32 {tag}: {rel64['kernel']} of max |A||B| against f64, above torch.matmul's "
+              f"{rel64['matmul_f32']}")
+        opa, opb = MM._op(a, ta), MM._op(b, tb)
+        plan = MM.plan(Bm, M, N, K, (a.data_ptr(), a.stride(1), a.stride(0)),
+                       (b.data_ptr(), b.stride(1), b.stride(0)), MM._sm_count(dev))
+        nbytes = 4 * (Bm * M * K + (0 if b is a else Bm * K * N) + out.numel())
+        flops = 3 * 2.0 * Bm * M * N * K
         rows[tag] = dict(
-            shape=[Bm, M, out.shape[2], K], max_abs_err=err, rel_err=rel, rel_bound=bound,
+            shape=[Bm, M, N, K], transpose=[ta, tb], max_abs_err=err, rel_err=rel, rel_bound=bound,
             rel_err_vs_f64=rel64["kernel"], plain_rel_err_vs_f64=rel64["plain"],
-            matmul_f32_rel_err_vs_f64=rel64["matmul_f32"],
-            ms=time_ms(lambda: MM.mm3xtf32(a, b, False, tb)),
-            ms_back_to_back=back_to_back_ms(lambda: MM.mm3xtf32(a, b, False, tb)),
-            plain_ms=time_ms(lambda: MM.mm3xtf32_reference(a, b, False, tb), reps=5),
-            library_ms=time_ms(lambda: torch.matmul(a, b.transpose(1, 2) if tb else b)),
-            nbytes=4 * (a.numel() + (0 if b is a else b.numel()) + out.numel()),
-            flops=3 * 2.0 * Bm * M * out.shape[2] * K)
+            matmul_f32_rel_err_vs_f64=rel64["matmul_f32"], splits=plan.splits, blocks=plan.blocks,
+            ms=time_ms(lambda: MM.mm3xtf32(a, b, ta, tb)),
+            ms_back_to_back=back_to_back_ms(lambda: MM.mm3xtf32(a, b, ta, tb)),
+            plain_ms=time_ms(lambda: MM.mm3xtf32_reference(a, b, ta, tb), reps=5),
+            library_ms=time_ms(lambda: torch.matmul(opa, opb)),
+            bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / TF32_FLOPS_PER_S) * 1e3, nbytes=nbytes, flops=flops)
+        rows[tag]["tflops_issued"] = flops / rows[tag]["ms"] / 1e9
     check(not torch.backends.cuda.matmul.allow_tf32 and torch.get_float32_matmul_precision() == "highest",
           "the process-wide TF32 switch was turned on")
-    w, t = rows["w_kuf"], rows["a_at"]
-    aat_bound = max(t["nbytes"] / HBM_BYTES_PER_S, t["flops"] / TF32_FLOPS_PER_S) * 1e3
+    w = rows["w_kuf"]
+    extra = {"ms_back_to_back": w["ms_back_to_back"],
+             "max_rel_err": max(r["rel_err"] for r in rows.values()),
+             "max_rel_err_vs_f64": max(r["rel_err_vs_f64"] for r in rows.values()),
+             "plain_max_rel_err_vs_f64": max(r["plain_rel_err_vs_f64"] for r in rows.values()),
+             "matmul_f32_max_rel_err_vs_f64": max(r["matmul_f32_rel_err_vs_f64"] for r in rows.values())}
+    for tag in ("a_at", "d_kuf"):
+        extra.update({f"{k}_{tag}": rows[tag][k] for k in ("ms", "ms_back_to_back", "plain_ms", "library_ms",
+                                                            "bound_ms")})
     return kernel_entry(
         "mm3xtf32.mm3xtf32", "gpsat_tpu_torch/csrc/mm3xtf32.cu",
         "gpsat_tpu/models/sgpr.py:139 (XLA's Precision.HIGH dot, no Pallas kernel)", w["shape"],
-        max(w["max_abs_err"], t["max_abs_err"]), w["ms"], w["plain_ms"], w["library_ms"],
-        nbytes=w["nbytes"], flops=w["flops"], flops_per_s=TF32_FLOPS_PER_S,
-        row_extra={"ms_back_to_back": w["ms_back_to_back"], "max_rel_err": max(w["rel_err"], t["rel_err"]),
-                   "max_rel_err_vs_f64": max(w["rel_err_vs_f64"], t["rel_err_vs_f64"]),
-                   "plain_max_rel_err_vs_f64": max(w["plain_rel_err_vs_f64"], t["plain_rel_err_vs_f64"]),
-                   "matmul_f32_max_rel_err_vs_f64": max(w["matmul_f32_rel_err_vs_f64"],
-                                                        t["matmul_f32_rel_err_vs_f64"]),
-                   "ms_aat": t["ms"], "ms_back_to_back_aat": t["ms_back_to_back"], "plain_ms_aat": t["plain_ms"],
-                   "library_ms_aat": t["library_ms"], "bound_ms_aat": aat_bound},
-        cases=rows)
+        max(r["max_abs_err"] for r in rows.values()), w["ms"], w["plain_ms"], w["library_ms"],
+        nbytes=w["nbytes"], flops=w["flops"], flops_per_s=TF32_FLOPS_PER_S, row_extra=extra, cases=rows)
 
 
 def counters():
@@ -1447,6 +1463,9 @@ def sgpr_core(accum_precision="highest"):
     return make_sgpr_core(kernel="Matern32", num_inducing_points=SGPR_M, accum_precision=accum_precision)
 
 
+SGPR_MS_PER_ITER = {}  # drive_sgpr's steady seconds per lockstep iteration (ms), by tag
+
+
 def drive_sgpr(tag, B, n, profile_to=None, accum_precision="highest"):
     """One SGPR bucket at the full width through the engine: a warm-up call,
     then one timed call with the launch counts set to 0 just before it and
@@ -1487,8 +1506,10 @@ def drive_sgpr(tag, B, n, profile_to=None, accum_precision="highest"):
     mm = chunks * (8 * (it_max + 1) + 2) if accum_precision == "high" else 0
     expected = {"block_chol": (it_max + 2) * 2 * (-(-SGPR_M // T)), "panel_chol": 0, "cholesky": 0, "mm3xtf32": mm}
     tflops = B * it_max * sgpr_iter_flops(n, SGPR_M, D) / steady_s / 1e12
+    SGPR_MS_PER_ITER[tag] = steady_s * 1e3 / max(it_max, 1)
     log(f"sgpr_{tag}", core=core.name, accum_precision=accum_precision, B=B, N=n, M=SGPR_M, chunk=C,
         experts_per_s=B / steady_s, points_per_s=B * n / steady_s, steady_s=steady_s, first_call_s=first_s,
+        ms_per_iteration=SGPR_MS_PER_ITER[tag],
         achieved_tflops=tflops, share_of_f32_peak=tflops * 1e12 / F32_FLOPS_PER_S, converged=conv,
         stall_exits=int(res["stalled"].sum()), failed_exits=int(res["failed"].sum()),
         iters_mean=float(res["num_iter"].mean()), iters_max=it_max,
@@ -1724,6 +1745,8 @@ def phase_sgpr(profile: bool):
     _, _, _, launches_b = drive_sgpr("chunked", *SGPR_CHUNKED)
     hbatch, hcore, hres, launches_bh = drive_sgpr("chunked_high", *SGPR_CHUNKED, accum_precision="high")
     check(launches_bh["mm3xtf32"] > 0, "sgpr (b) at 'high' never launched the 3xTF32 kernel")
+    log("sgpr_chunked_levels", ms_per_iteration_highest=SGPR_MS_PER_ITER["chunked"],
+        ms_per_iteration_high=SGPR_MS_PER_ITER["chunked_high"])
     phase_sgpr_accuracy(batch, core, res)
     phase_sgpr_accuracy(hbatch, sgpr_core("highest"), hres, tag="sgpr_high_accuracy", small=False)
     phase_sgpr_pair(batch, core)

@@ -10,7 +10,8 @@ plain TF32. ``mm3xtf32(a, b, transpose_a=, transpose_b=)`` on [B, ., .]
 f32 tensors:
 
 - a CUDA tensor goes through the hand-written kernel ``csrc/mm3xtf32.cu``
-  (tensor cores, wmma tf32), or the call raises;
+  (Hopper: cp.async staging, one split per staged tile, wgmma tf32), as
+  ``plan`` sets it up for the call, or the call raises;
 - a CPU tensor goes through ``mm3xtf32_reference``: the same split and three
   true-f32 products summed.
 
@@ -25,6 +26,9 @@ switch, which the package keeps off. The library is built and loaded by
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -34,7 +38,83 @@ from gpsat_tpu_torch.ops import _build
 _VP, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SYMBOLS = {
     "gpsat_mm3xtf32_f32": [_VP, _LL, _LL, _INT, _VP, _LL, _LL, _INT, _VP, _INT, _INT, _INT, _INT, _VP],
+    "gpsat_mm3xtf32_plan_f32": [_VP, _LL, _LL, _INT, _INT, _VP, _LL, _LL, _INT, _INT, _VP, _VP, _INT, _INT, _INT,
+                                _INT, _INT, _VP],
 }
+
+# csrc/mm3xtf32.cu's block tile of C, K step and rings of raw stages and of
+# split B tiles; a block asks for the raw ring (A and B), the split ring (hi
+# and lo) and 1 KB of alignment
+BM = BN = 128
+BK = 32
+STAGES, SPLITS = 4, 3
+SMEM_BYTES = (STAGES * 2 + SPLITS * 2) * BM * BK * 4 + 1024
+SMEM_LIMIT = 232_448  # a block's shared memory on an H100 (227 KB)
+H100_SMS = 132
+MIN_SPLIT_STEPS = 8  # a split of K keeps at least 8 K steps (256 of K)
+MAX_SPLITS = 16
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one call of the kernel is laid out: ``splits`` blocks a tile of
+    C over K (their partials added in split order), 16-byte copies of each
+    operand or not, the grid's blocks and each block's shared memory."""
+
+    splits: int
+    vec_a: bool
+    vec_b: bool
+    blocks: int
+    smem_bytes: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def vec16(ptr: int, ld: int, stride: int, batch: int) -> bool:
+    """Whether an f32 operand takes 16-byte copies: its base address, row
+    stride and (with more than one batch) batch stride in 16-byte
+    multiples."""
+    return ptr % 16 == 0 and ld % 4 == 0 and (batch == 1 or stride % 4 == 0)
+
+
+def plan(batch: int, M: int, N: int, K: int, a: Tuple[int, int, int], b: Tuple[int, int, int],
+         sms: int = H100_SMS) -> Plan:
+    """The kernel's plan for op(A) op(B) of [batch, M, K] x [batch, K, N]
+    on a card of ``sms`` SMs; ``a``, ``b``: each operand's (address, row
+    stride, batch stride), strides in elements.
+
+    A block takes SMEM_BYTES, so one runs per SM and the grid runs in waves
+    of ``sms`` blocks. The split over K is the one of at most MAX_SPLITS,
+    each of at least MIN_SPLIT_STEPS K steps, whose waves times K steps a
+    block is least (the fewest splits among equals): a grid that fills the
+    card keeps one split, one of few tiles is cut over K until it fills
+    it."""
+    tiles = batch * _cdiv(M, BM) * _cdiv(N, BN)
+    splits = _splits(tiles, _cdiv(K, BK), sms)
+    return Plan(splits=splits, vec_a=vec16(*a, batch), vec_b=vec16(*b, batch), blocks=tiles * splits,
+                smem_bytes=SMEM_BYTES)
+
+
+@functools.lru_cache(maxsize=1024)
+def _splits(tiles: int, steps: int, sms: int) -> int:
+    best, splits = None, 1
+    for s in range(1, max(1, min(MAX_SPLITS, steps // MIN_SPLIT_STEPS)) + 1):
+        cost = _cdiv(tiles * s, sms) * _cdiv(steps, s)
+        if best is None or cost < best:
+            best, splits = cost, s
+    return splits
+
+
+_sms = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sms[index]
 
 
 def round_tf32(x: torch.Tensor) -> torch.Tensor:
@@ -81,10 +161,10 @@ def mm3xtf32(a: torch.Tensor, b: torch.Tensor, transpose_a: bool = False, transp
     """op(a) op(b) [B, M, N] of [B, ., .] f32 tensors by the 3xTF32 split
     (op = transpose where asked).
 
-    CUDA tensors launch the hand-written kernel (f32, each operand's rows
-    unit-stride, any row and batch stride: a sliced W needs no copy) and
-    raise on anything it does not take; CPU tensors run the plain
-    version."""
+    CUDA tensors launch the hand-written kernel as ``plan`` lays it out
+    (f32, each operand's rows unit-stride, any row and batch stride: a
+    sliced W needs no copy) and raise on anything it does not take; CPU
+    tensors run the plain version."""
     if a.ndim != 3 or b.ndim != 3:
         raise ValueError(f"mm3xtf32 takes two [B, ., .] tensors, got {tuple(a.shape)} and {tuple(b.shape)}")
     if b.device != a.device:
@@ -103,9 +183,13 @@ def mm3xtf32(a: torch.Tensor, b: torch.Tensor, transpose_a: bool = False, transp
     C = torch.empty((batch, M, N), dtype=torch.float32, device=a.device)
     if C.numel() == 0:
         return C
+    p = plan(batch, M, N, K, (a.data_ptr(), lda, sa), (b.data_ptr(), ldb, sb), _sm_count(a.device))
+    # the splits' partial sums, added in split order into C
+    work = torch.empty(p.splits * C.numel(), dtype=torch.float32, device=a.device) if p.splits > 1 else None
     lib = _build.load_library("mm3xtf32", _SYMBOLS)
-    _build.launch("mm3xtf32", lib.gpsat_mm3xtf32_f32, a, a.data_ptr(), lda, sa, int(transpose_a), b.data_ptr(),
-                  ldb, sb, int(transpose_b), C.data_ptr(), batch, M, N, K)
+    _build.launch("mm3xtf32", lib.gpsat_mm3xtf32_plan_f32, a, a.data_ptr(), lda, sa, int(transpose_a),
+                  int(p.vec_a), b.data_ptr(), ldb, sb, int(transpose_b), int(p.vec_b), C.data_ptr(),
+                  None if work is None else work.data_ptr(), batch, M, N, K, p.splits)
     _build.count_launch(mm3xtf32)
     return C
 

@@ -694,10 +694,16 @@ def test_load_library_from_two_threads_builds_once(tmp_path, monkeypatch):
     assert len(list(tmp_path.glob("libblock_chol_*.so"))) == 1
 
 
-def _mm_operands(batch, M, N, K, ta, tb, seed, dev):
+def _mm_operands(batch, M, N, K, ta, tb, seed, dev, offset=0):
+    # offset: a is x[:, :, offset:] of a contiguous x (offset 1: its base 4
+    # bytes past a 16-byte boundary)
     rng = np.random.default_rng(seed)
     a = torch.from_numpy(rng.standard_normal((batch, K, M) if ta else (batch, M, K)).astype(np.float32)).to(dev)
     b = torch.from_numpy(rng.standard_normal((batch, N, K) if tb else (batch, K, N)).astype(np.float32)).to(dev)
+    if offset:
+        wide = torch.zeros(a.shape[:2] + (a.shape[2] + offset,), device=dev)
+        wide[:, :, offset:] = a
+        a = wide[:, :, offset:]
     return a, b
 
 
@@ -714,19 +720,28 @@ def _mm_bound(K):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,M,N,K,ta,tb", [(3, 70, 90, 45, False, False), (2, 500, 500, 300, False, True),
-                                               (1, 33, 65, 100, True, False), (2, 17, 129, 9, True, True),
-                                               (8, 500, 1000, 500, False, False)])
-def test_mm3xtf32_kernel_matches_the_plain_version(batch, M, N, K, ta, tb):
-    # ragged shapes (no multiple of the 64 x 64 tile or of the K step of 32;
-    # the SGPR's M = 500), every orientation: against the exact product
-    # within _mm_bound(K) of max (|A||B|), and against the plain version
-    # (the same split, another f32 summation order) within that bound plus
-    # the plain version's own error
+@pytest.mark.parametrize("batch,M,N,K,ta,tb,offset", [(3, 70, 90, 45, False, False, 0),
+                                                      (2, 500, 500, 300, False, True, 0),
+                                                      (1, 33, 65, 100, True, False, 0),
+                                                      (2, 17, 129, 9, True, True, 0),
+                                                      (8, 500, 1000, 500, False, False, 0),
+                                                      (8, 500, 500, 4096, False, True, 0),
+                                                      (8, 500, 4096, 500, True, False, 0),
+                                                      (2, 300, 260, 2048, True, True, 0),
+                                                      (2, 70, 90, 45, False, False, 1)])
+def test_mm3xtf32_kernel_matches_the_plain_version(batch, M, N, K, ta, tb, offset):
+    # ragged shapes (no multiple of the 128 x 128 tile or of the K step of
+    # 32; the SGPR's M = 500), every orientation, the SGPR chunk's A A^T
+    # (one wave of 128 tiles at K = 4,096) and its TN dKuf = W^T g, 18
+    # tiles cut over K into 7 splits (ops/mm3xtf32.plan), and an operand
+    # whose base is not 16-byte aligned (4-byte copies): against the
+    # exact product within _mm_bound(K) of max (|A||B|), and against the
+    # plain version (the same split, another f32 summation order) within
+    # that bound plus the plain version's own error
     from gpsat_tpu_torch.ops import mm3xtf32 as MM
 
     dev = _cuda()
-    a, b = _mm_operands(batch, M, N, K, ta, tb, seed=M + N + K, dev=dev)
+    a, b = _mm_operands(batch, M, N, K, ta, tb, seed=M + N + K, dev=dev, offset=offset)
     before = MM.mm3xtf32.launches
     C = MM.mm3xtf32(a, b, ta, tb)
     torch.cuda.synchronize()
@@ -755,6 +770,30 @@ def test_mm3xtf32_kernel_takes_strided_operands_and_refuses_the_rest():
         MM.mm3xtf32(W.double(), Kuf.double())
     with pytest.raises(ValueError):
         MM.mm3xtf32(Kuf.transpose(1, 2), Kuf)  # a column-strided operand: pass transpose_a instead
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ta,tb", [(False, False), (True, True)])
+def test_mm3xtf32_kernel_keeps_nan_and_infinities_where_the_plain_version_has_them(ta, tb):
+    # the split's fast rounding holds for finite values only: a thread whose
+    # values hold an infinity or a NaN (the card's own, bits 0x7fffffff, as
+    # inf - inf gives) rounds them as the plain version does
+    from gpsat_tpu_torch.ops import mm3xtf32 as MM
+
+    dev = _cuda()
+    a, b = _mm_operands(1, 70, 90, 40, ta, tb, seed=3, dev=dev)
+    a[0, 3, 5], b[0, 2, 7] = float("inf"), float("-inf")
+    a.view(torch.int32)[0, 9, 1] = 0x7fffffff
+    C = MM.mm3xtf32(a, b, ta, tb)
+    ref = MM.mm3xtf32_reference(a, b, ta, tb)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(C), torch.isnan(ref)) and torch.equal(torch.isinf(C), torch.isinf(ref))
+    # the finite entries against the exact product, within _mm_bound(K) of max (|A||B|)
+    fin = torch.isfinite(ref)
+    opa, opb = MM._op(a, ta).double(), MM._op(b, tb).double()
+    exact = torch.matmul(opa, opb)
+    scale = float(torch.matmul(opa.abs().nan_to_num(0, 0, 0), opb.abs().nan_to_num(0, 0, 0)).max())
+    assert bool(fin.any()) and float((C.double()[fin] - exact[fin]).abs().max()) <= _mm_bound(40) * scale
 
 
 @pytest.mark.cuda
