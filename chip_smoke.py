@@ -54,8 +54,8 @@ Phases (each prints on its own lines; any failure raises):
              "block" route, then the f64 polish on the card; 16 experts'
              f32 predictions against an f64 fit on the CPU, and their polished
              predictions against the CPU's polish from the same f32 optima.
-             It drives the sweep, not LocalExpertOI.run, because the card's
-             machine has no h5py for the results store
+             It drives the sweep without a store; phase 16 drives the same
+             geometry through LocalExpertOI.run and its results store
 8. post      the flagship workflow after phase 7's geometry, on the card: (a)
              the f32 fit with unconverged-lane compaction (carry_iters 25,
              no polish), held against phase 7's f32 fit; (b) the
@@ -123,10 +123,10 @@ Phases (each prints on its own lines; any failure raises):
              (b) the sweep's host-serial lane over phase 7's first 64 experts
              with TorchGPRModel in f64 on the card against the same lane on
              the CPU, and with PureNumpyGPR (in a child process whose numpy
-             BLAS keeps one thread, run beside (a)); (c) a torch.profiler
-             trace of a host-lane sweep written under a profile_dir (the
-             trace LocalExpertOI.run(profile_dir=...) writes; the card's
-             machine has no h5py for run's store)
+             BLAS keeps one thread, run beside (a)); (c) the torch.profiler
+             trace that LocalExpertOI.run(profile_dir=...) writes, of a run
+             on the host-serial lane over phase 7's first 8 experts with its
+             results store in a temporary directory
 13. prep     (a) phase 6's workload through the profiled core with
              RationalQuadratic, a kernel outside the fused set: its autodiff
              objective factors A with kernel 3 (gradients through the
@@ -195,6 +195,25 @@ Phases (each prints on its own lines; any failure raises):
              prime_cache.prime for a bucket of 121 experts (the libraries
              already built: 0 s each) and `python -m gpsat_tpu_torch.cli
              {xval,prime_cache} --help`
+16. cli      the flagship workflow through its normal entry points, every
+             store through the port's own HDF5 codec (no h5py): (a) phase
+             7's inputs as files (the observations a .h5 store, the expert
+             and prediction locations CSV) and a config with phase 7's model
+             settings, run by `gpsat_tpu_torch.cli local_expert_oi` into a
+             results.h5 (LocalExpertOI.run): kernel 1 launched (it_max + 2)
+             * 2 times, phase 7's experts in run_details, the stored
+             predictions within 1e-6 of phase 7's polished sweep where both
+             converged, run's phase timers, the store's bytes; (b) `cli
+             postprocessing` on that store with
+             configs/sea_ice_freeboard_postprocessing.json's smoothing (the
+             _SMOOTHED tables against smooth_table on the frames read back,
+             <= 1e-12), the predict-only re-run it writes through `cli
+             local_expert_oi` and load_params (kernel 1 launched 2 * 2
+             times), and the glue of its stored predictions against a plain
+             numpy weighted mean (<= 1e-12); (c) one table of 2,000,000
+             along-track rows in eight columns appended in 20 blocks, read
+             back whole and through a where on its datetime column, every
+             column exact, write and read MB/s; (d) h5py never imported
 
 Then one {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 Imports nothing of JAX or of gpsat_tpu.
@@ -261,7 +280,7 @@ OI_MAX_DIST = 200_000.0
 # more than this stopped on another, worse stationary point; f32 roundoff
 # moves the objective of one optimum by ~1e-2 at these tile sizes
 WORSE_OPTIMUM_NATS = 1.0
-OI_MODE = "sweep"  # the card's machine has pandas but no h5py (PERF.md, section 6)
+OI_MODE = "sweep"  # phase 7 drives the sweep; phase 16 drives the same geometry through LocalExpertOI.run
 # phase 8: the fit's compaction, and the share of experts the checks must cover
 POST_OPTIM = {"max_iter": 100, "carry_iters": 25}
 MIN_SHARE = 0.9
@@ -456,6 +475,18 @@ XVAL_RMSE_REL = 1e-2
 XVAL_REF_MAX_ITER = 10
 XVAL_BUDGET_S = 30.0
 PRIME_SHAPES = [(121, 512, 64)]
+# phase 16: the workflow through its entry points at phase 7's geometry.
+# (a) LocalExpertOI.run builds phase 7's tiles in phase 7's order and runs
+# the same arithmetic on them, so its stored predictions are held to phase
+# 7's sweep as phase 14 (a) holds the default mesh: the same fit
+CLI_SAME_BOUND = 1e-6
+# (b) the stored smoothing against smooth_table on the frames read back:
+# the same function on the same inputs
+CLI_SMOOTH_BOUND = 1e-12
+# (c) a month of along-track observations as read_and_store writes them:
+# eight columns, appended in blocks
+STORE_ROWS, STORE_BLOCKS, STORE_SOURCES = 2_000_000, 20, 12
+CLI_BUDGET_S = 45.0
 # a phase 14 (c) child: argv is the repo root, its process id, the process
 # count, the coordinator's port and the directory for its frames
 MESH_CHILD_CODE = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke as cs; "
@@ -1057,7 +1088,10 @@ def phase_oi(profile: bool):
     """The sweep at the pipeline geometry, f32 on the card with kernel 1 in
     every evaluation, then the f64 polish on the card (no kernel: f64 takes
     the library arm). Kernel launch counts are set to 0 just before the sweep
-    and read just after it. Returns kernel 1's launches."""
+    and read just after it. Returns kernel 1's launches, the f32 fit's
+    predictions and objectives by expert, its slowest lane's iterations, and
+    the polished predictions as a preds table with each expert's converged
+    flag (phase 16's reference)."""
     import torch
 
     from gpsat_tpu_torch.data import select as sel
@@ -1179,7 +1213,9 @@ def phase_oi(profile: bool):
             p = int(c["pred_mask"][j].sum())
             f32[int(e)] = {"num_iter": int(c["num_iter"][j]), "objective": float(c["objective"][j]),
                            "f_mean": c["f_mean"][j][:p], "f_var": c["f_var"][j][:p]}
-    return launches["block_chol"], f32, int(coarse["num_iter"].max())
+    polished = {"preds": preds_frame(buckets, experts),
+                "converged": {int(e): bool(c) for r in buckets for e, c in zip(r["expert_index"], r["converged"])}}
+    return launches["block_chol"], f32, int(coarse["num_iter"].max()), polished
 
 
 def by_expert(buckets, keys):
@@ -2273,29 +2309,58 @@ def host_class(tag, make, opt, formula, Xnew, ref_opt=CPU_F64_KW):
     return launches["block_chol"]
 
 
-def host_lane_sweep(model, experts_n, device, dtype, profile_dir=None, optim_kwargs=None):
-    """The sweep's host-serial lane over the first ``experts_n`` of phase
-    7's experts (those with at least min_obs observations) with phase 7's
-    model settings and the model's own optimiser settings unless
-    ``optim_kwargs``; (results by expert, seconds)."""
+def host_lane_experts(experts_n):
+    """Phase 7's inputs and the first ``experts_n`` of its experts that have
+    at least min_obs observations."""
     from gpsat_tpu_torch.data import select as sel
-    from gpsat_tpu_torch.data.prediction_locations import PredictionLocations
-    from gpsat_tpu_torch.decorators import profile_trace
-    from gpsat_tpu_torch.experts import sweep
 
     obs, experts, grid = pipeline_inputs()
     ix = sel.local_select_indices_all(obs, experts, OI_KW["local_select"])
     keep = np.flatnonzero([len(i) >= OI_KW["min_obs"] for i in ix])[:experts_n]
-    locs = {c: v[keep] for c, v in experts.items()}
+    return obs, {c: v[keep] for c, v in experts.items()}, grid
+
+
+def host_lane_sweep(model, experts_n, device, dtype):
+    """The sweep's host-serial lane over the first ``experts_n`` of phase
+    7's experts with phase 7's model settings and the model's own optimiser
+    settings; (results by expert, seconds)."""
+    from gpsat_tpu_torch.data.prediction_locations import PredictionLocations
+    from gpsat_tpu_torch.experts import sweep
+
+    obs, locs, grid = host_lane_experts(experts_n)
     pred_loc = PredictionLocations("from_dataframe", coords_col=["x", "y"], df=grid, max_dist=OI_MAX_DIST)
-    kw = {**OI_KW, "model": model, "optim_kwargs": optim_kwargs or {}, "device": device, "dtype": dtype}
+    kw = {**OI_KW, "model": model, "optim_kwargs": {}, "device": device, "dtype": dtype}
     t0 = time.perf_counter()
-    if profile_dir is None:
-        out = [r for r in sweep(obs, locs, pred_loc=pred_loc, **kw) if not r.get("skipped")]
-    else:
-        with profile_trace(profile_dir):
-            out = [r for r in sweep(obs, locs, pred_loc=pred_loc, **kw) if not r.get("skipped")]
+    out = [r for r in sweep(obs, locs, pred_loc=pred_loc, **kw) if not r.get("skipped")]
     return by_expert(out, ("f_mean", "f_var", "converged", "num_iter", "num_obs")), time.perf_counter() - t0
+
+
+def host_profile_run(trace_dir: Path) -> int:
+    """Phase 12 (c): LocalExpertOI.run(profile_dir=...) on the host-serial
+    lane over phase 7's first HOST_TRACE_EXPERTS experts, HOST_TRACE_STEPS
+    Adam steps each, its results store in a temporary directory. Returns the
+    experts in the store's run_details."""
+    import tempfile
+
+    import pandas as pd
+
+    from gpsat_tpu_torch.data.store import TableStore
+    from gpsat_tpu_torch.experts import LocalExpertOI
+
+    obs, locs, grid = host_lane_experts(HOST_TRACE_EXPERTS)
+    oi = LocalExpertOI(
+        expert_loc_config={"source": pd.DataFrame(locs)},
+        data_config={"data_source": pd.DataFrame(obs), "obs_col": OI_KW["obs_col"],
+                     "coords_col": OI_KW["coords_col"], "local_select": OI_KW["local_select"]},
+        model_config={"oi_model": "GPyTorchGPRModel", "init_params": OI_KW["init_params"],
+                      "constraints": OI_KW["constraints"], "optim_kwargs": {"n_iter": HOST_TRACE_STEPS}},
+        pred_loc_config={"method": "from_dataframe", "df": pd.DataFrame(grid), "max_dist": OI_MAX_DIST},
+    )
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_host_") as tmp:
+        store = str(Path(tmp) / "host.h5")
+        oi.run(store_path=store, min_obs=OI_KW["min_obs"], profile_dir=str(trace_dir))
+        with TableStore(store, mode="r") as s:
+            return len(s.select("run_details"))
 
 
 def pure_numpy_lane():
@@ -2399,12 +2464,12 @@ def host_phases(t_phase, child):
     # (c) profile_dir: the trace LocalExpertOI.run(profile_dir=...) writes
     trace_dir = ROOT / "chiprun_out" / "host_profile_dir"
     before = set(trace_dir.glob("*.pt.trace.json")) if trace_dir.exists() else set()
-    host_lane_sweep("GPyTorchGPRModel", HOST_TRACE_EXPERTS, None, torch.float32, profile_dir=str(trace_dir),
-                    optim_kwargs={"n_iter": HOST_TRACE_STEPS})
+    stored = host_profile_run(trace_dir)
     traces = sorted(set(trace_dir.glob("*.pt.trace.json")) - before)
     log("host_profile_dir", traces=[str(t.relative_to(ROOT)) for t in traces],
-        bytes=[t.stat().st_size for t in traces])
+        bytes=[t.stat().st_size for t in traces], stored_experts=stored)
     check(len(traces) == 1 and traces[0].stat().st_size > 0, f"host profile_dir: traces written {traces}")
+    check(stored == HOST_TRACE_EXPERTS, f"host profile_dir: {stored} experts stored, {HOST_TRACE_EXPERTS} run")
     log("host", seconds=time.perf_counter() - t_phase, classes_s=a_s)
     return out
 
@@ -3225,11 +3290,253 @@ def phase_xval(host_build_s):
     return launches_a, launches_c
 
 
+def cli_inputs(root: Path):
+    """Phase 7's inputs as the workflow's files: the observations as a .h5
+    store (table "data", the port's TableStore), the expert and prediction
+    locations as CSV, and a local_expert_oi config with phase 7's model
+    settings whose results store is results.h5 beside them. Returns the
+    config's path and phase 7's expert locations."""
+    import pandas as pd
+
+    from gpsat_tpu_torch.data.store import TableStore
+
+    obs, experts, grid = pipeline_inputs()
+    with TableStore(str(root / "obs.h5"), mode="w") as s:
+        s.append("data", pd.DataFrame(obs))
+    pd.DataFrame(experts).to_csv(root / "experts.csv", index=False)
+    pd.DataFrame(grid).to_csv(root / "pred_locs.csv", index=False)
+    cfg = {
+        "comment": "chip_smoke phase 16: phase 7's pan-Arctic geometry through the workflow's files",
+        "locations": {"source": str(root / "experts.csv")},
+        "data": {"data_source": str(root / "obs.h5"), "table": "data", "obs_col": OI_KW["obs_col"],
+                 "coords_col": OI_KW["coords_col"], "local_select": OI_KW["local_select"]},
+        "model": {"oi_model": "GPflowGPRModel", "init_params": OI_KW["init_params"],
+                  "constraints": OI_KW["constraints"], "optim_kwargs": OI_OPTIM},
+        "pred_loc": {"method": "from_dataframe", "df_file": str(root / "pred_locs.csv"), "max_dist": OI_MAX_DIST},
+        "run_kwargs": {"store_path": str(root / "results.h5"), "min_obs": OI_KW["min_obs"],
+                       "pad_multiple": OI_KW["pad_multiple"]},
+    }
+    path = root / "oi.json"
+    path.write_text(json.dumps(cfg))
+    return path, experts
+
+
+def cli_run(oi_polished, f32_it_max, root: Path):
+    """(a) LocalExpertOI.run through `gpsat_tpu_torch.cli local_expert_oi`,
+    held to phase 7's sweep. Returns kernel 1's launches, the results
+    store's path and the bucket width."""
+    import pandas as pd
+    import torch
+
+    from gpsat_tpu_torch import cli
+    from gpsat_tpu_torch.data.store import TableStore
+    from gpsat_tpu_torch.experts import get_phase_timers
+    from gpsat_tpu_torch.parallel import batching
+
+    cfg_path, experts = cli_inputs(root)
+    store = root / "results.h5"
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["local_expert_oi", str(cfg_path)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters().items()}
+    timers = get_phase_timers()
+    t0 = time.perf_counter()
+    with TableStore(str(store), mode="r") as s:
+        tables = s.keys()
+        rd = s.select("run_details", set_index=False)
+        preds = s.select("preds", set_index=False)
+    read_s = time.perf_counter() - t0
+    ran = rd[rd["num_obs"] >= OI_KW["min_obs"]]
+    nmax = batching.bucket_size(int(ran["num_obs"].max()))
+    expected = {"block_chol": (f32_it_max + 2) * nmax // T, "panel_chol": 0, "cholesky": 0, "mm3xtf32": 0}
+    ref = oi_polished["preds"]
+    want_set = {(float(experts["x"][e]), float(experts["y"][e])) for e in oi_polished["converged"]}
+    got_set = set(zip(ran["x"].astype(float), ran["y"].astype(float)))
+    # the experts both runs' polish converged on, row by row
+    both = ran[ran["optimise_success"].to_numpy()][["x", "y"]]
+    conv7 = {(float(experts["x"][e]), float(experts["y"][e])) for e, c in oi_polished["converged"].items() if c}
+    both = both[[(float(x), float(y)) in conv7 for x, y in both.to_numpy()]]
+    keys = ["x", "y", "pred_loc_x", "pred_loc_y"]
+    m = preds.merge(both, on=["x", "y"]).merge(ref.merge(both, on=["x", "y"]), on=keys, suffixes=("", "_oi"),
+                                              how="outer", indicator=True)
+    d = max(float(np.abs(m[c].to_numpy(np.float64) - m[f"{c}_oi"].to_numpy(np.float64)).max())
+            for c in ("f*", "f*_var"))
+    log("cli_run", rc=rc, experts=len(rd), run=len(ran), prediction_points=len(preds),
+        phase7_prediction_points=len(ref), tables=tables, wall_s=wall, experts_per_s=len(ran) / wall,
+        phases_s=timers, store_bytes=store.stat().st_size, read_back_s=read_s, converged=int(ran["optimise_success"].sum()),
+        compared_experts=len(both), max_abs_vs_phase7=d, bound=CLI_SAME_BOUND, launches=launches)
+    check(rc == 0, f"cli (a): local_expert_oi returned {rc}")
+    check(len(rd) == len(experts["x"]) and got_set == want_set,
+          f"cli (a): run_details has {len(rd)} experts, {len(got_set)} run, phase 7 ran {len(want_set)}")
+    check(len(preds) == len(ref), f"cli (a): {len(preds)} stored predictions, phase 7 made {len(ref)}")
+    check(launches == expected, f"cli (a) launches {launches}, expected {expected}")
+    check(len(both) >= MIN_SHARE * len(ran) and (m["_merge"] == "both").all(),
+          f"cli (a): {len(both)}/{len(ran)} experts converged in both runs, or their prediction rows differ")
+    check(np.isfinite(preds[["f*", "f*_var"]].to_numpy()).all(), "cli (a): non-finite stored predictions")
+    check(d <= CLI_SAME_BOUND, f"cli (a): stored predictions vs phase 7's sweep: {d}")
+    return launches["block_chol"], store, nmax
+
+
+def cli_post(store: Path, nmax: int):
+    """(b) `gpsat_tpu_torch.cli postprocessing` on (a)'s store with the
+    flagship postprocessing config's smoothing, the predict-only re-run it
+    writes, through `cli local_expert_oi`, and the glue of the re-run's
+    stored predictions. Returns kernel 1's launches in the re-run."""
+    import torch
+
+    from gpsat_tpu_torch import cli
+    from gpsat_tpu_torch.data.store import TableStore
+    from gpsat_tpu_torch.experts import get_phase_timers, get_results_from_h5file
+    from gpsat_tpu_torch.postprocess import SmoothingConfig, glue_local_predictions, smooth_table
+
+    post = json.loads(SMOOTH_CONFIG.read_text())
+    post["result_file"] = str(store)
+    post_path = store.with_name("post.json")
+    post_path.write_text(json.dumps(post))
+    suffix = post["table_suffix"]
+    t0 = time.perf_counter()
+    rc = cli.main(["postprocessing", str(post_path)])
+    smooth_s = time.perf_counter() - t0
+    params = post["params_to_smooth"]
+    dfs, cfgs = get_results_from_h5file(str(store), merge_on_expert_locations=False, select_tables=params)
+    coords = cfgs[-1]["data"]["coords_col"]
+    with TableStore(str(store), mode="r") as s:
+        smoothed = {p: s.select(f"{p}{suffix}").reset_index() for p in params}
+    d_smooth = 0.0
+    for p in params:
+        want = smooth_table(dfs[p].copy(), p, coords, ["x", "y"], SmoothingConfig(**post["smooth_config_dict"][p]))
+        want = want.reset_index().sort_values([*coords, "_dim_0"]).reset_index(drop=True)
+        got = smoothed[p].sort_values([*coords, "_dim_0"]).reset_index(drop=True)
+        check(len(got) == len(want) and (got[coords].to_numpy() == want[coords].to_numpy()).all(),
+              f"cli (b): {p}{suffix} rows differ from the in-memory smoothing's")
+        d_smooth = max(d_smooth, float(np.abs(got[p].to_numpy() - want[p].to_numpy()).max()))
+
+    rerun_cfg = store.with_name(f"{store.stem}{suffix}.json")
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rc_re = cli.main(["local_expert_oi", str(rerun_cfg)])
+    torch.cuda.synchronize()
+    rerun_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters().items()}
+    with TableStore(str(store), mode="r") as s:
+        preds = s.select(f"preds{suffix}").reset_index()
+        rd = s.select(f"run_details{suffix}", set_index=False)
+    ran = rd[rd["num_obs"] >= OI_KW["min_obs"]]
+    expected = {"block_chol": 2 * nmax // T, "panel_chol": 0, "cholesky": 0, "mm3xtf32": 0}
+    finite = bool(np.isfinite(preds[["f*", "f*_var"]].to_numpy()).all())
+    t0 = time.perf_counter()
+    glued = glue_local_predictions(preds, inference_radius=GLUE_RADIUS, R=GLUE_R)
+    glue_s = time.perf_counter() - t0
+    keys = ["pred_loc_x", "pred_loc_y"]
+    glued = glued.sort_values(keys).reset_index(drop=True)
+    d_glue = 0.0
+    for var in ("f*", "f*_var", "y_var", "f_bar"):
+        locs, plain = glue_numpy(preds, GLUE_RADIUS, GLUE_R, var)
+        check(np.array_equal(locs, glued[keys].to_numpy()), "cli (b): glued locations differ from the plain version's")
+        d_glue = max(d_glue, float(np.abs(glued[var].to_numpy() - plain).max() / np.abs(plain).max()))
+    log("cli_post", rc=rc, rerun_rc=rc_re, smooth_s=smooth_s, max_abs_smoothed_vs_in_memory=d_smooth,
+        smooth_bound=CLI_SMOOTH_BOUND, rerun_s=rerun_s, rerun_phases_s=get_phase_timers(), rerun_experts=len(ran),
+        rerun_prediction_points=len(preds), finite=finite, glue_s=glue_s, glued_locations=len(glued),
+        max_rel_glue_vs_numpy=d_glue, glue_bound=GLUE_REL_BOUND, launches=launches)
+    check(rc == 0 and rc_re == 0, f"cli (b): postprocessing returned {rc}, the re-run {rc_re}")
+    check(d_smooth <= CLI_SMOOTH_BOUND, f"cli (b): stored smoothing vs in memory: {d_smooth}")
+    check(len(ran) > 0 and finite and (ran["num_iter"] == 0).all(), "cli (b): re-run experts, iterations or finiteness")
+    check(launches == expected, f"cli (b) re-run launches {launches}, expected {expected}")
+    check(d_glue <= GLUE_REL_BOUND, f"cli (b): glue vs plain numpy: {d_glue}")
+    return launches["block_chol"]
+
+
+def cli_store(root: Path):
+    """(c) one table of STORE_ROWS along-track rows, eight columns, appended
+    in STORE_BLOCKS blocks, read back whole and through a where on its
+    datetime column; every column exact."""
+    import pandas as pd
+
+    from gpsat_tpu_torch.data.store import TableStore
+
+    rng = np.random.default_rng(0)
+    n = STORE_ROWS
+    sources = np.array([f"track_source_{i:02d}" for i in range(STORE_SOURCES)], dtype=object)
+    t0 = time.perf_counter()
+    frame = pd.DataFrame({
+        "x": rng.uniform(-OI_EXTENT, OI_EXTENT, n), "y": rng.uniform(-OI_EXTENT, OI_EXTENT, n),
+        "obs": rng.normal(0.3, 0.1, n), "elev": rng.normal(0.0, 1.0, n).astype(np.float32),
+        "track": rng.integers(0, 1 << 40, n),
+        "datetime": np.datetime64("2020-03-01", "ns") + np.sort(rng.integers(0, 30 * 86_400 * 10**9, n)).astype(
+            "timedelta64[ns]"),
+        "valid": rng.random(n) > 0.1,
+    })
+    frame["source"] = pd.Series(sources[rng.integers(0, STORE_SOURCES, n)], dtype=object)
+    make_s = time.perf_counter() - t0
+    payload = sum(frame[c].to_numpy().nbytes for c in frame.columns if c != "source") + int(
+        frame["source"].str.len().sum())
+    path = root / "along_track.h5"
+    block = n // STORE_BLOCKS
+    t0 = time.perf_counter()
+    with TableStore(str(path), mode="w") as s:
+        for b in range(STORE_BLOCKS):
+            s.append("data", frame.iloc[b * block:(b + 1) * block])
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with TableStore(str(path), mode="r") as s:
+        got = s.select("data")
+    read_s = time.perf_counter() - t0
+    where = {"col": "datetime", "comp": ">=", "val": "2020-03-15"}
+    t0 = time.perf_counter()
+    with TableStore(str(path), mode="r") as s:
+        sub = s.select("data", where=[where])
+    where_s = time.perf_counter() - t0
+    mask = frame["datetime"].to_numpy() >= np.datetime64("2020-03-15")
+    exact = {c: bool(np.array_equal(got[c].to_numpy(), frame[c].to_numpy())) for c in frame.columns}
+    exact_where = {c: bool(np.array_equal(sub[c].to_numpy(), frame[c].to_numpy()[mask])) for c in frame.columns}
+    log("cli_store", rows=len(got), blocks=STORE_BLOCKS, columns={c: str(frame[c].dtype) for c in frame.columns},
+        payload_bytes=payload, file_bytes=path.stat().st_size, make_s=make_s, write_s=write_s,
+        write_MBps=payload / write_s / 1e6, read_s=read_s, read_MBps=payload / read_s / 1e6, where_rows=len(sub),
+        where_s=where_s, exact=exact, exact_where=exact_where)
+    check(len(got) == n and all(exact.values()), f"cli (c): columns read back differ: {exact}")
+    check(len(sub) == int(mask.sum()) and all(exact_where.values()), f"cli (c): the where's rows differ: {exact_where}")
+
+
+def phase_cli(oi_polished, f32_it_max):
+    """Phase 16: the flagship workflow through its normal entry points on
+    the card, its stores through the port's own HDF5 codec: (a) local
+    expert OI, (b) postprocessing, the predict-only re-run and the glue,
+    (c) a store of 2,000,000 rows, (d) h5py never imported. Returns kernel
+    1's launches in (a) and in (b)'s re-run."""
+    import importlib.util
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        root = Path(tmp)
+        launches_run, store, nmax = cli_run(oi_polished, f32_it_max, root)
+        a_s = time.perf_counter() - t_phase
+        launches_rerun = cli_post(store, nmax)
+        b_s = time.perf_counter() - t_phase - a_s
+        cli_store(root)
+        c_s = time.perf_counter() - t_phase - a_s - b_s
+    spec = importlib.util.find_spec("h5py")
+    log("cli_h5py", find_spec=str(spec), loaded="h5py" in sys.modules)
+    check("h5py" not in sys.modules, "cli (d): h5py was imported")
+    log("cli_phase", seconds=time.perf_counter() - t_phase, budget_s=CLI_BUDGET_S, a_s=a_s, b_s=b_s, c_s=c_s)
+    return launches_run, launches_rerun
+
+
 def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    if not (ROOT / "gpsat_tpu_torch").is_dir():
+        print(f"chip_smoke: no gpsat_tpu_torch package in {ROOT}: run the script from a checkout of the repo",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     from concurrent.futures import ThreadPoolExecutor
@@ -3269,7 +3576,7 @@ def main(argv) -> int:
     phase_f64(*phase_accuracy(batch, init))
     entries[1]["launches"] = phase_panel(batch, init, main_res, profile)
     entries[2]["launches"], _ = phase_profiled(batch, init, profile)
-    entries[0]["launches_oi"], f32_oi, f32_it_max = phase_oi(profile)
+    entries[0]["launches_oi"], f32_oi, f32_it_max, oi_polished = phase_oi(profile)
     entries[0]["launches_post_fit"], entries[0]["launches_post_repredict"] = phase_post(f32_oi, f32_it_max, profile)
     (entries[0]["launches_sgpr_full"], entries[0]["launches_sgpr_chunked"], entries[0]["launches_sgpr_chunked_high"],
      entries[0]["launches_sgpr_replace"], entries[3]["launches"]) = phase_sgpr(profile)
@@ -3284,6 +3591,7 @@ def main(argv) -> int:
     (entries[0]["launches_mesh_default"], entries[0]["launches_mesh_two_shards"],
      entries[0]["launches_mesh_processes"]) = phase_mesh(f32_oi)
     entries[0]["launches_xval_index_grid"], entries[0]["launches_xval"] = phase_xval(host_build_s)
+    entries[0]["launches_cli_run"], entries[0]["launches_cli_rerun"] = phase_cli(oi_polished, f32_it_max)
 
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

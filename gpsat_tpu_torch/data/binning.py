@@ -11,7 +11,7 @@ written to the port's ``TableStore`` (the JAX package's format). Re-implements t
   ref: bin_data.py:268-271).
 - ``BinData`` (ref: GPSat/bin_data.py:87-760): config-driven pipeline with
   all-at-once and batch modes, stats reporting, and output written to the
-  h5py TableStore with raw/bin config + run info attached as attrs.
+  TableStore with raw/bin config + run info attached as attrs.
 """
 
 from __future__ import annotations

@@ -1,8 +1,10 @@
 """netCDF4 reading via h5py — no xarray/netCDF4 dependency.
 
 The port's own copy of ``gpsat_tpu/data/netcdf.py``. h5py is imported when
-a file is read or written, not with the module: the card's machine has no
-h5py, and the zarr reader shares ``_decode_cf`` from here.
+a file is read or written, not with the module, and the zarr reader shares
+``_decode_cf`` from here. netCDF4 files use HDF5 structures the port's own
+codec (``data/hdf5.py``) does not read, so without h5py reading or writing
+one raises an ImportError that names the file.
 
 netCDF4 files ARE HDF5 files: dimensions are HDF5 dimension scales
 (CLASS="DIMENSION_SCALE") and each variable's dims are recorded in its
@@ -31,6 +33,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import pandas as pd
+
+from gpsat_tpu_torch.data.pytables_compat import require_h5py
 
 # netCDF4 marks a dimension that has no coordinate variable with this NAME
 _PHONY_DIM_PREFIX = b"This is a netCDF dimension but not a netCDF variable"
@@ -166,8 +170,7 @@ def read_netcdf(
     """Read a (root-group) netCDF4/HDF5 file into a DataFrame with the
     dims as index levels — the xarray ``to_dataframe`` contract the
     reference ingest consumes."""
-    import h5py
-
+    h5py = require_h5py(path, "a netCDF4 file")
     with h5py.File(path, "r") as f:
         for key in f.keys():
             if isinstance(f[key], h5py.Group):
@@ -240,8 +243,7 @@ def write_netcdf(path: str, df_or_vars, coords: Optional[Dict[str, np.ndarray]] 
     tests/examples to build fixtures without netCDF4/xarray; real netCDF4
     readers open these files (the dimension-scale layout is the netCDF4
     on-disk convention)."""
-    import h5py
-
+    h5py = require_h5py(path, "a netCDF4 file")
     if isinstance(df_or_vars, pd.DataFrame) and isinstance(df_or_vars.index, pd.MultiIndex):
         # unstack onto the dense dim product (xarray's df.to_xarray()
         # convention): each index level becomes a dimension, missing cells

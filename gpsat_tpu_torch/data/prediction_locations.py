@@ -152,6 +152,11 @@ class PredictionLocations:
             # resolve the lazy load up front so from_source + max_dist
             # configs take the batched path too
             self._resolve_source()
+        if (self.method == "from_dataframe" and self.kwargs.get("df") is None and self.kwargs.get("df_file")
+                and self.coords_col is not None):
+            # likewise read a config's df_file once here: the per-expert
+            # path masks the whole grid once per expert
+            self.kwargs["df"] = self._grid_columns(None, self.kwargs["df_file"], self.kwargs.get("copy_df", False))
         md = self.kwargs.get("max_dist")
         df = self.kwargs.get("df")
         found_cols = (
@@ -230,16 +235,21 @@ class PredictionLocations:
             self.kwargs["Xout"] = Xout
         return Xout + self.expert_loc
 
-    def _from_dataframe(self, df=None, df_file=None, max_dist: Optional[float] = None, copy_df: bool = False, **kwargs):
+    def _grid_columns(self, df, df_file, copy_df: bool) -> dict:
+        """The grid's coordinate columns as a mapping, from ``df`` or read
+        from the CSV file ``df_file``."""
         if df is None:
             assert isinstance(df_file, str), f"df is None; df_file expected str, got: {type(df_file)}"
             import pandas as pd
 
             df = pd.read_csv(df_file)
         found_cols = [c for c in self.coords_col if c in sel.column_names(df)]
+        return {c: np.array(df[c]) if copy_df else np.asarray(df[c]) for c in found_cols}
+
+    def _from_dataframe(self, df=None, df_file=None, max_dist: Optional[float] = None, copy_df: bool = False, **kwargs):
         # keep only the coordinate columns, as a mapping, for later calls
-        df = {c: np.array(df[c]) if copy_df else np.asarray(df[c]) for c in found_cols}
-        self.kwargs["df"] = df
+        df = self.kwargs["df"] = self._grid_columns(df, df_file, copy_df)
+        found_cols = list(df)
 
         fc_loc = _match(found_cols, self.coords_col)
         vals = np.stack([df[c] for c in found_cols], axis=1)

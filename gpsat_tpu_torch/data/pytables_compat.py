@@ -1,9 +1,14 @@
-"""Read-only access to pandas-HDFStore (PyTables) files via h5py.
+"""Read-only access to pandas-HDFStore (PyTables) files.
 
 The port's own copy of ``gpsat_tpu/data/pytables_compat.py``, plus
 ``PyTablesStore`` / ``open_store``: the ``TableStore`` read surface
 (``keys``, ``in``, ``select``) over such a file, for the orchestrator's
-parameter loading. h5py and pandas are imported when a file is read.
+parameter loading. Which kind of file a path holds is read through the
+port's HDF5 codec (``data/hdf5.py``), so a ``TableStore`` file opens
+without h5py; a PyTables table's rows (compound datasets, often
+compressed) are read with h5py, imported when one is read, and without
+it ``read_table`` raises an ``ImportError`` that names the file. pandas is
+imported when a file is read.
 
 The reference writes all observation/result stores with pandas HDFStore in
 PyTables "table" format (ref: GPSat/local_experts.py:499-550 buffered
@@ -37,6 +42,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from gpsat_tpu_torch.data import hdf5
+
 
 def _attr(obj, name, default=None):
     v = obj.attrs.get(name, default)
@@ -62,37 +69,32 @@ def _unpickle_attr(raw):
         return None
 
 
-def is_pytables_store(path: str) -> bool:
-    """True when the file contains pandas_type-tagged PyTables groups."""
-    import h5py
-
+def require_h5py(path: str, what: str):
+    """h5py, or an ImportError naming ``path``: what the port's own HDF5
+    codec does not read (``what``) needs it."""
     try:
-        with h5py.File(path, "r") as f:
-            found = []
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            f"{path}: reading {what} needs h5py, which is not installed here; the port's own HDF5 codec "
+            "(gpsat_tpu_torch/data/hdf5.py) reads and writes TableStore files only") from e
+    return h5py
 
-            def visit(name, obj):
-                if isinstance(obj, h5py.Group) and "pandas_type" in obj.attrs:
-                    found.append(name)
 
-            f.visititems(visit)
-            return bool(found)
+def is_pytables_store(path: str) -> bool:
+    """True when the file contains pandas_type-tagged PyTables groups; False
+    for a file the port's HDF5 codec does not open (not HDF5, or a format
+    it does not read)."""
+    try:
+        return bool(list_tables(path))
     except OSError:
         return False
 
 
 def list_tables(path: str) -> List[str]:
     """Names of pandas tables in the store (HDFStore .keys() without '/')."""
-    import h5py
-
-    out = []
-    with h5py.File(path, "r") as f:
-
-        def visit(name, obj):
-            if isinstance(obj, h5py.Group) and "pandas_type" in obj.attrs:
-                out.append(name)
-
-        f.visititems(visit)
-    return sorted(out)
+    with hdf5.File(path, "r") as f:
+        return sorted(name for name, grp in f.visit_groups() if "pandas_type" in grp.attrs)
 
 
 def _decode_kind(vals: np.ndarray, kind: Optional[str], encoding: str):
@@ -110,11 +112,11 @@ def read_table(path: str, key: str, where=None):
     (the reference pushes these into PyTables query syntax; here the table
     is read then filtered — same results, no query engine needed).
     """
-    import h5py
     import pandas as pd
 
     from gpsat_tpu_torch.data.store import _where_mask
 
+    h5py = require_h5py(path, "a pandas-HDFStore (PyTables) table")
     with h5py.File(path, "r") as f:
         key = key.lstrip("/")
         assert key in f, f"table: '{key}' not in {path}; available: {list_tables(path)}"

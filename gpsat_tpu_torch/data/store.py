@@ -1,4 +1,4 @@
-"""Columnar HDF5 table store (h5py) for results and observations.
+"""Columnar HDF5 table store for results and observations.
 
 The port's own copy of ``gpsat_tpu/data/store.py::TableStore``. The file
 format is the same, so a store written by one package reads in the other:
@@ -6,9 +6,12 @@ each table is an HDF5 group with one resizable chunked dataset per column, a
 ``dtype_tag`` attribute on each, and the column and index names as JSON
 attributes of the group. DataFrames round-trip with their (multi-)index.
 
-h5py and pandas are imported when a store is opened, not when this module
-is imported, so the orchestrator's device-facing sweep runs without them.
-A pandas-HDFStore (PyTables) file reads through ``data/pytables_compat``.
+The file is read and written by the port's own HDF5 codec, ``data/hdf5.py``
+(numpy and ``struct``), whether or not an HDF5 library is installed, so a
+store opens wherever numpy does. pandas is imported when a table is
+selected, not when this module is imported, so the orchestrator's
+device-facing sweep runs without it. A pandas-HDFStore (PyTables) file
+reads through ``data/pytables_compat``.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import re
 from typing import Dict, List, Optional, Union
 
 import numpy as np
+
+from gpsat_tpu_torch.data import hdf5
 
 _ATTR_PREFIX = "gpsat_attr_"
 
@@ -70,10 +75,8 @@ class TableStore:
     """Append/select table store over a single HDF5 file."""
 
     def __init__(self, path: str, mode: str = "a"):
-        import h5py
-
         self.path = path
-        self._h5 = h5py.File(path, mode)
+        self._h5 = hdf5.File(path, mode)
 
     # --- lifecycle ---
     def close(self):
@@ -107,12 +110,7 @@ class TableStore:
             grp.attrs["index_cols"] = json.dumps(index_names)
             for c in df.columns:
                 vals, tag = self._encode(df[c].values)
-                ds = grp.create_dataset(
-                    str(c),
-                    data=vals,
-                    maxshape=(None,) + vals.shape[1:],
-                    chunks=True,
-                )
+                ds = grp.create_dataset(str(c), vals)
                 ds.attrs["dtype_tag"] = tag
         else:
             grp = self._h5[table]
@@ -151,17 +149,11 @@ class TableStore:
                         vals = cast
                     else:
                         # promote the stored int column to float in place
-                        old = ds[...].astype(vals.dtype)
+                        old = ds.read().astype(vals.dtype)
                         del grp[str(c)]
-                        ds = grp.create_dataset(
-                            str(c),
-                            data=old,
-                            maxshape=(None,) + old.shape[1:],
-                            chunks=True,
-                        )
+                        ds = grp.create_dataset(str(c), old)
                         ds.attrs["dtype_tag"] = tag
-                ds.resize(n_old + len(vals), axis=0)
-                ds[n_old:] = vals
+                ds.append(vals)
 
     def put(self, table: str, df, replace: bool = True):
         if replace and table in self._h5:
@@ -200,17 +192,17 @@ class TableStore:
                     m = re.match(r"\s*([\w\.\-]+)", str(wd))
                     assert m, f"could not parse where string: {wd}"
                     needed.add(m.group(1))
-            cache = {c: self._decode(grp[c][...], grp[c].attrs["dtype_tag"]) for c in needed}
+            cache = {c: self._decode(grp[c].read(), grp[c].attrs["dtype_tag"]) for c in needed}
             n_rows = grp[all_cols[0]].shape[0] if all_cols else 0
             mask = np.ones(n_rows, dtype=bool)
             for wd in where:
                 mask &= _where_mask(cache, wd)
             data = {
-                c: (cache[c][mask] if c in cache else self._decode(grp[c][...], grp[c].attrs["dtype_tag"])[mask])
+                c: (cache[c][mask] if c in cache else self._decode(grp[c].read(), grp[c].attrs["dtype_tag"])[mask])
                 for c in (columns or all_cols)
             }
         else:
-            data = {c: self._decode(grp[c][...], grp[c].attrs["dtype_tag"]) for c in (columns or all_cols)}
+            data = {c: self._decode(grp[c].read(), grp[c].attrs["dtype_tag"]) for c in (columns or all_cols)}
 
         df = pd.DataFrame(data)
         if set_index and index_cols and all(c in df.columns for c in index_cols):
@@ -239,8 +231,6 @@ class TableStore:
     # --- codec ---
     @staticmethod
     def _encode(vals):
-        import h5py
-
         # pandas 3 extension arrays (ArrowStringArray etc.) -> numpy first
         if not isinstance(vals, np.ndarray):
             vals = np.asarray(vals)
@@ -248,8 +238,8 @@ class TableStore:
             # keep the original unit (pandas 3 defaults to us) in the tag
             return vals.astype(np.int64), str(vals.dtype)
         if vals.dtype == object or vals.dtype.kind in ("U", "S"):
-            strs = [("" if v is None else str(v)) for v in vals]
-            return np.array(strs, dtype=h5py.string_dtype(encoding="utf-8")), "str"
+            # variable-length UTF-8 strings in the file
+            return np.array([("" if v is None else str(v)) for v in vals], dtype=object), "str"
         if vals.dtype == bool:
             return vals.astype(np.uint8), "bool"
         return vals, vals.dtype.str
@@ -259,7 +249,7 @@ class TableStore:
         if tag.startswith("datetime64"):
             return vals.astype(tag)
         if tag == "str":
-            return np.array([v.decode("utf-8") if isinstance(v, bytes) else v for v in vals], dtype=object)
+            return vals  # the codec decodes variable-length strings to str
         if tag == "bool":
             return vals.astype(bool)
         return vals

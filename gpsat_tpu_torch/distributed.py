@@ -16,7 +16,7 @@ per card under ``torchrun``) runs the same program:
    (:func:`run_token`, the JAX package's hash, so both packages give a
    config the same token), and with ``merge`` process 0 waits for every
    marker and writes the merged store (:func:`merge_stores`, whose
-   DataFrame part :func:`merge_frames` needs no h5py).
+   DataFrame part :func:`merge_frames` needs no store).
 
 CLI (the reference's JSON-config idiom):
 
@@ -205,7 +205,7 @@ def merge_frames(hosts: Sequence[Dict[str, object]], index_cols: Dict[str, list]
     concatenated in process order and, with ``sort``, stably sorted by
     their ``index_cols`` present, then the ``_dim_*`` and ``pred_loc_*``
     columns: the merged table is then a function of the result set alone,
-    whatever the number of processes. Needs pandas, not h5py."""
+    whatever the number of processes. Needs pandas, not a store."""
     import pandas as pd
 
     from gpsat_tpu_torch.experts import _comparable_config_str

@@ -17,7 +17,8 @@ keeps the JAX package's config surface and results schema:
 
 Steps 2-3 are ``sweep``: it takes columns as a mapping of name -> array
 and needs neither pandas nor h5py. ``LocalExpertOI`` wraps it with loading,
-grouping, the min-obs skips and the store (pandas, h5py). Experts present in
+grouping, the min-obs skips and the store (pandas; ``TableStore`` on the
+port's own HDF5 codec, so it runs where h5py is absent). Experts present in
 run_details are skipped on a rerun, and the config is checked against the
 stored oi_config, also for a store the JAX package wrote.
 

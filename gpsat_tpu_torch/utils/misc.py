@@ -122,7 +122,11 @@ def json_serializable(d, max_len_print: int = 100):
 
 
 def nested_dict_literal_eval(d: dict, verbose: bool = False) -> dict:
-    """Convert "('a', 'b')"-style string keys back to tuple keys."""
+    """Convert "('a', 'b')"-style string keys back to tuple keys. A list
+    (a file of several configs, as the predict-only config that
+    postprocessing writes) converts each of its dicts."""
+    if isinstance(d, list):
+        return [nested_dict_literal_eval(v, verbose) if isinstance(v, dict) else v for v in d]
     out = {}
     for k, v in d.items():
         key = k

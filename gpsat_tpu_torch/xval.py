@@ -10,7 +10,7 @@ locations become the held-out points themselves
 predictions are in gpsat_tpu_torch.utils.misc (rmse, nll — ref:
 utils.py:2452-2464); ``score_xval_predictions`` scores a mapping of
 ``preds_*`` frames (glue -> join -> RMSE/NLL), ``evaluate_xval_results``
-reads them from a results store first (h5py).
+reads them from a results store first (``TableStore``).
 
 Usage: python -m gpsat_tpu_torch.cli xval <config.json> (or python -m
 gpsat_tpu_torch.xval) with keys {ref_config | ref_config_file, xval_config
@@ -272,7 +272,7 @@ def evaluate_xval_results(
     """Score a cross-validation results store against held-out truth: every
     ``preds_<suffix>`` table (one per hold-out slice, written by the configs
     XvalConfig emits) through ``score_xval_predictions``. Reads the store
-    with h5py."""
+    through ``TableStore``."""
     from gpsat_tpu_torch.data.store import TableStore
 
     with TableStore(store_path, mode="r") as store:

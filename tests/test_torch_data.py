@@ -167,6 +167,27 @@ def test_prediction_locations_match_jax(method, kwargs):
         np.testing.assert_array_equal(pl(), got[0])
 
 
+def test_prediction_locations_from_a_grid_file_match_jax(tmp_path):
+    # a config names its grid by df_file: the port reads it once and takes
+    # the batched query, the JAX package masks the grid per expert; the
+    # same rows either way, and the same as a grid passed as columns
+    _, experts = _lattice()
+    g = np.arange(-900, 901, 25) * KM
+    gx, gy = np.meshgrid(g, g, indexing="ij")
+    grid = {"x": gx.ravel(), "y": gy.ravel()}
+    path = str(tmp_path / "grid.csv")
+    pd.DataFrame(grid).to_csv(path, index=False)
+    kw = dict(coords_col=["x", "y", "t"], max_dist=200 * KM)
+    got = TPL.PredictionLocations("from_dataframe", df_file=path, **kw).batch_call(experts)
+    ref = JPL.PredictionLocations("from_dataframe", df_file=path, **kw).batch_call(pd.DataFrame(experts))
+    cols = TPL.PredictionLocations("from_dataframe", df=grid, **kw).batch_call(experts)
+    assert len(got) == len(ref) == len(cols) == len(experts["x"])
+    for a, b, c in zip(got, ref, cols):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+
+
 def _frame():
     idx = pd.MultiIndex.from_arrays([np.array([1.0, 1.0, 2.0]), np.array([0.5, 0.5, 0.0])], names=["x", "y"])
     return pd.DataFrame(

@@ -1,7 +1,7 @@
-"""Rehearse chip_smoke.py's phases 10 (svgp), 11 (zoo), 12 (host), 13 (prep), 14 (mesh) and 15 (xval) on the CPU, before a run on the card.
+"""Rehearse chip_smoke.py's phases 10 (svgp), 11 (zoo), 12 (host), 13 (prep), 14 (mesh), 15 (xval) and 16 (cli) on the CPU, before a run on the card.
 
-    python tools/rehearse_chip_smoke.py [--parts a b c d e vff asvgp host prep_a prep_b prep_c mesh xval] [--lanes B]
-                                        [--threads T] [--identity-natgrad] [--expert-stride S]
+    python tools/rehearse_chip_smoke.py [--parts a b c d e vff asvgp host prep_a prep_b prep_c mesh xval cli]
+                                        [--lanes B] [--threads T] [--identity-natgrad] [--expert-stride S]
 
 Runs the phases' own functions with every entry point's default device
 set to the CPU and the CUDA memory calls stubbed, so the iteration counts,
@@ -12,7 +12,8 @@ kernel's plain version. Parts a-e are phase 10's, "vff" and "asvgp" phase
 11's lanes, "host" phase 12, "prep_a" to "prep_c" phase 13's parts,
 "mesh" phase 14 (its meshes are the CPU, once or twice, its children run
 with the same stubs, and phase 7's f32 fit is run first for (a) to hold
-to), "xval" phase 15 (the host library built first; default: phase 10's). ``--lanes`` cuts (a)-(c)'s batch (default: the
+to), "xval" phase 15 (the host library built first), "cli" phase 16 (phase
+7 run first for it to hold to; default: phase 10's). ``--lanes`` cuts (a)-(c)'s batch (default: the
 phase's 128) and phase 13 (a)'s (the phase's 512). ``--identity-natgrad`` is the mutation check
 of (c)'s bound: it runs (c) once more with the natural-gradient step
 replaced by the identity, so q stays at its starting value, and prints
@@ -37,7 +38,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
-from gpsat_tpu_torch import experts  # noqa: E402
+from gpsat_tpu_torch import experts, postprocess  # noqa: E402
 from gpsat_tpu_torch.models.svgp import make_svgp_core  # noqa: E402
 from gpsat_tpu_torch.parallel import engine  # noqa: E402
 from gpsat_tpu_torch.utils.flops import sgpr_iter_flops, svgp_iter_flops  # noqa: E402
@@ -52,7 +53,7 @@ def _on_cpu(failed: list):
             failed.append(msg)
             print(f"check failed: {msg[:300]}", flush=True)
 
-    engine.resolve_device = experts.resolve_device = resolve_device
+    engine.resolve_device = experts.resolve_device = postprocess.resolve_device = resolve_device
     torch.cuda.synchronize = lambda *a, **k: None
     torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
     torch.cuda.max_memory_allocated = lambda *a, **k: 0
@@ -95,7 +96,7 @@ def _gap(tag, res, res_a):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parts", nargs="+", default=list("abcde"), choices=[*"abcde", "vff", "asvgp", "host", "prep_a", "prep_b", "prep_c", "mesh",
-                                                                      "xval"])
+                                                                      "xval", "cli"])
     ap.add_argument("--expert-stride", type=int, default=1)
     ap.add_argument("--lanes", type=int, default=cs.SVGP_B)
     ap.add_argument("--threads", type=int, default=4)
@@ -107,6 +108,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     parts = set(args.parts)
     _stride(args.expert_stride)
+    if parts & {"host", "mesh", "cli"}:  # LocalExpertOI.run and the sweep take the default mesh
+        _mesh_on_cpu(args.expert_stride)
     for tag in ("vff", "asvgp"):
         if tag in parts:
             cs.zoo_lane(tag, profile=False)
@@ -120,7 +123,6 @@ def main(argv=None) -> int:
     if "prep_c" in parts:
         cs.phase_prep_data()
     if "mesh" in parts:
-        _mesh_on_cpu(args.expert_stride)
         buckets, seconds, _ = cs.mesh_sweep(None)
         f32 = cs.by_expert(buckets, ("num_iter", "objective", "f_mean", "f_var"))
         cs.log("rehearse_phase7_f32", experts=len(f32), seconds=seconds)
@@ -131,6 +133,9 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         _build.build_host_library(cs.HOST_LIBRARY)
         cs.phase_xval(time.perf_counter() - t)
+    if "cli" in parts:
+        _, _, it_max, polished = cs.phase_oi(False)
+        cs.phase_cli(polished, it_max)
     if not parts & set("abcde"):
         return _done(failed, t0)
     batch = cs.make_large_tiles(args.lanes, cs.SVGP_N, cs.SVGP_P, cs.D, np.float32, min_fill=0.6)
