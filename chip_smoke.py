@@ -214,6 +214,28 @@ Phases (each prints on its own lines; any failure raises):
              along-track rows in eight columns appended in 20 blocks, read
              back whole and through a where on its datetime column, every
              column exact, write and read MB/s; (d) h5py never imported
+17. formats  the readers' formats through the port's own HDF5 codec, with no
+             h5py: (a) every fixture of tests/fixtures/hdf5 (PyTables tables
+             uncompressed, zlib, blosc lz4 and bzip2; a PyTables results
+             store; netCDF-4 files of HDF5's earliest format and of
+             netCDF-C's: superblock 2, version-2 headers, dense links and
+             attributes, chunked and filtered variables, phony dimensions,
+             CF datetimes) read by pytables_compat.read_table and
+             read_netcdf, each frame equal to expected.npz (the JAX
+             package's h5py readers' frames), with the seconds of each read;
+             (b) phase 16 (c)'s 2,000,000 rows as ten netCDF files written by
+             DataLoader.write_to_netcdf and read back by `cli read_and_store`
+             with the nc engine into a TableStore: every column exact (the
+             datetimes by the CF decode's own float64 rule), write and read
+             MB/s; (c) phase 7's observations as one .nc file, the data
+             source of `cli local_expert_oi` at phase 7's geometry, read
+             through DataLoader.load's netCDF branch: phase 16 (a)'s checks
+             (phase 7's experts, kernel 1 launched (it_max + 2) * 2 times,
+             stored predictions within 1e-6 of phase 7's polished sweep);
+             (d) load_params from the PyTables results fixture over phase
+             7's first 64 experts, a predict-only run: the loaded init and
+             the stored parameters equal the fixture's values, kernel 1
+             launched 2 * Nmax/64 times; (e) h5py never imported
 
 Then one {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 Imports nothing of JAX or of gpsat_tpu.
@@ -487,6 +509,17 @@ CLI_SMOOTH_BOUND = 1e-12
 # eight columns, appended in blocks
 STORE_ROWS, STORE_BLOCKS, STORE_SOURCES = 2_000_000, 20, 12
 CLI_BUDGET_S = 45.0
+# phase 17: the readers' formats. The PyTables results fixture holds phase
+# 7's first FORMATS_EXPERTS experts (tools/make_hdf5_fixtures.py)
+FORMATS_EXPERTS = 64
+FORMATS_DIR = ROOT / "tests" / "fixtures" / "hdf5"
+# (b) phase 16 (c)'s rows written as this many netCDF files
+FORMATS_FILES = 10
+FORMATS_BUDGET_S = 60.0
+# (d) an f32 predict-only run stores the loaded parameters after their
+# constraint transform and back in f32: a few f32 ulps (4.4e-7 relative on
+# the CPU), relative
+FORMATS_STORED_REL = 2e-6
 # a phase 14 (c) child: argv is the repo root, its process id, the process
 # count, the coordinator's port and the directory for its frames
 MESH_CHILD_CODE = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke as cs; "
@@ -3290,26 +3323,33 @@ def phase_xval(host_build_s):
     return launches_a, launches_c
 
 
-def cli_inputs(root: Path):
+def cli_inputs(root: Path, obs_format: str = "h5"):
     """Phase 7's inputs as the workflow's files: the observations as a .h5
-    store (table "data", the port's TableStore), the expert and prediction
-    locations as CSV, and a local_expert_oi config with phase 7's model
-    settings whose results store is results.h5 beside them. Returns the
-    config's path and phase 7's expert locations."""
+    store (table "data", the port's TableStore) or, with ``obs_format``
+    "nc", as one netCDF file (DataLoader.write_to_netcdf), the expert and
+    prediction locations as CSV, and a local_expert_oi config with phase
+    7's model settings whose results store is results.h5 beside them.
+    Returns the config's path and phase 7's expert locations."""
     import pandas as pd
 
     from gpsat_tpu_torch.data.store import TableStore
+    from gpsat_tpu_torch.dataloader import DataLoader
 
     obs, experts, grid = pipeline_inputs()
-    with TableStore(str(root / "obs.h5"), mode="w") as s:
-        s.append("data", pd.DataFrame(obs))
+    if obs_format == "nc":
+        DataLoader.write_to_netcdf(pd.DataFrame(obs), str(root / "obs.nc"))
+        source = {"data_source": str(root / "obs.nc")}
+    else:
+        with TableStore(str(root / "obs.h5"), mode="w") as s:
+            s.append("data", pd.DataFrame(obs))
+        source = {"data_source": str(root / "obs.h5"), "table": "data"}
     pd.DataFrame(experts).to_csv(root / "experts.csv", index=False)
     pd.DataFrame(grid).to_csv(root / "pred_locs.csv", index=False)
     cfg = {
         "comment": "chip_smoke phase 16: phase 7's pan-Arctic geometry through the workflow's files",
         "locations": {"source": str(root / "experts.csv")},
-        "data": {"data_source": str(root / "obs.h5"), "table": "data", "obs_col": OI_KW["obs_col"],
-                 "coords_col": OI_KW["coords_col"], "local_select": OI_KW["local_select"]},
+        "data": {**source, "obs_col": OI_KW["obs_col"], "coords_col": OI_KW["coords_col"],
+                 "local_select": OI_KW["local_select"]},
         "model": {"oi_model": "GPflowGPRModel", "init_params": OI_KW["init_params"],
                   "constraints": OI_KW["constraints"], "optim_kwargs": OI_OPTIM},
         "pred_loc": {"method": "from_dataframe", "df_file": str(root / "pred_locs.csv"), "max_dist": OI_MAX_DIST},
@@ -3321,10 +3361,12 @@ def cli_inputs(root: Path):
     return path, experts
 
 
-def cli_run(oi_polished, f32_it_max, root: Path):
+def cli_run(oi_polished, f32_it_max, root: Path, obs_format: str = "h5", tag: str = "cli_run",
+            what: str = "cli (a)"):
     """(a) LocalExpertOI.run through `gpsat_tpu_torch.cli local_expert_oi`,
-    held to phase 7's sweep. Returns kernel 1's launches, the results
-    store's path and the bucket width."""
+    held to phase 7's sweep; phase 17 (c) runs it on observations in a
+    netCDF file (``obs_format`` "nc"). Returns kernel 1's launches, the
+    results store's path and the bucket width."""
     import pandas as pd
     import torch
 
@@ -3333,7 +3375,7 @@ def cli_run(oi_polished, f32_it_max, root: Path):
     from gpsat_tpu_torch.experts import get_phase_timers
     from gpsat_tpu_torch.parallel import batching
 
-    cfg_path, experts = cli_inputs(root)
+    cfg_path, experts = cli_inputs(root, obs_format)
     store = root / "results.h5"
     torch.cuda.synchronize()
     for fn in counters().values():
@@ -3365,19 +3407,19 @@ def cli_run(oi_polished, f32_it_max, root: Path):
                                               how="outer", indicator=True)
     d = max(float(np.abs(m[c].to_numpy(np.float64) - m[f"{c}_oi"].to_numpy(np.float64)).max())
             for c in ("f*", "f*_var"))
-    log("cli_run", rc=rc, experts=len(rd), run=len(ran), prediction_points=len(preds),
+    log(tag, rc=rc, experts=len(rd), run=len(ran), prediction_points=len(preds),
         phase7_prediction_points=len(ref), tables=tables, wall_s=wall, experts_per_s=len(ran) / wall,
         phases_s=timers, store_bytes=store.stat().st_size, read_back_s=read_s, converged=int(ran["optimise_success"].sum()),
         compared_experts=len(both), max_abs_vs_phase7=d, bound=CLI_SAME_BOUND, launches=launches)
-    check(rc == 0, f"cli (a): local_expert_oi returned {rc}")
+    check(rc == 0, f"{what}: local_expert_oi returned {rc}")
     check(len(rd) == len(experts["x"]) and got_set == want_set,
-          f"cli (a): run_details has {len(rd)} experts, {len(got_set)} run, phase 7 ran {len(want_set)}")
-    check(len(preds) == len(ref), f"cli (a): {len(preds)} stored predictions, phase 7 made {len(ref)}")
-    check(launches == expected, f"cli (a) launches {launches}, expected {expected}")
+          f"{what}: run_details has {len(rd)} experts, {len(got_set)} run, phase 7 ran {len(want_set)}")
+    check(len(preds) == len(ref), f"{what}: {len(preds)} stored predictions, phase 7 made {len(ref)}")
+    check(launches == expected, f"{what} launches {launches}, expected {expected}")
     check(len(both) >= MIN_SHARE * len(ran) and (m["_merge"] == "both").all(),
-          f"cli (a): {len(both)}/{len(ran)} experts converged in both runs, or their prediction rows differ")
-    check(np.isfinite(preds[["f*", "f*_var"]].to_numpy()).all(), "cli (a): non-finite stored predictions")
-    check(d <= CLI_SAME_BOUND, f"cli (a): stored predictions vs phase 7's sweep: {d}")
+          f"{what}: {len(both)}/{len(ran)} experts converged in both runs, or their prediction rows differ")
+    check(np.isfinite(preds[["f*", "f*_var"]].to_numpy()).all(), f"{what}: non-finite stored predictions")
+    check(d <= CLI_SAME_BOUND, f"{what}: stored predictions vs phase 7's sweep: {d}")
     return launches["block_chol"], store, nmax
 
 
@@ -3452,13 +3494,11 @@ def cli_post(store: Path, nmax: int):
     return launches["block_chol"]
 
 
-def cli_store(root: Path):
-    """(c) one table of STORE_ROWS along-track rows, eight columns, appended
-    in STORE_BLOCKS blocks, read back whole and through a where on its
-    datetime column; every column exact."""
+def along_track_frame():
+    """STORE_ROWS along-track rows in eight columns (seed 0): phase 16 (c)'s
+    table and phase 17 (b)'s files. Returns the frame, the seconds it took
+    and its payload bytes (strings at their UTF-8 length)."""
     import pandas as pd
-
-    from gpsat_tpu_torch.data.store import TableStore
 
     rng = np.random.default_rng(0)
     n = STORE_ROWS
@@ -3476,6 +3516,17 @@ def cli_store(root: Path):
     make_s = time.perf_counter() - t0
     payload = sum(frame[c].to_numpy().nbytes for c in frame.columns if c != "source") + int(
         frame["source"].str.len().sum())
+    return frame, make_s, payload
+
+
+def cli_store(root: Path):
+    """(c) one table of STORE_ROWS along-track rows, eight columns, appended
+    in STORE_BLOCKS blocks, read back whole and through a where on its
+    datetime column; every column exact."""
+    from gpsat_tpu_torch.data.store import TableStore
+
+    frame, make_s, payload = along_track_frame()
+    n = STORE_ROWS
     path = root / "along_track.h5"
     block = n // STORE_BLOCKS
     t0 = time.perf_counter()
@@ -3526,6 +3577,234 @@ def phase_cli(oi_polished, f32_it_max):
     check("h5py" not in sys.modules, "cli (d): h5py was imported")
     log("cli_phase", seconds=time.perf_counter() - t_phase, budget_s=CLI_BUDGET_S, a_s=a_s, b_s=b_s, c_s=c_s)
     return launches_run, launches_rerun
+
+
+def formats_expected(directory: Path = FORMATS_DIR):
+    """tests/fixtures/hdf5/expected.npz: [(entry, arrays)] per expected
+    frame; an entry names the file, the reader ("pytables" or "netcdf"),
+    the table, and the columns and index levels (name, dtype, kind)."""
+    with np.load(directory / "expected.npz", allow_pickle=False) as z:
+        entries = json.loads(str(z["meta"]))
+        arrays = {k: z[k] for k in z.files if k != "meta"}
+    return [(e, {k.split("/", 1)[1]: v for k, v in arrays.items() if k.startswith(f"{i}/")})
+            for i, e in enumerate(entries)]
+
+
+def _same_values(got: np.ndarray, want: np.ndarray, kind: str) -> bool:
+    if kind == "str":
+        return got.dtype == object and len(got) == len(want) and bool(np.all(got.astype("U") == want))
+    return got.dtype == want.dtype and np.array_equal(got, want, equal_nan=want.dtype.kind in "fcmM")
+
+
+def frame_differences(df, entry: dict, arrays: dict) -> list:
+    """How a frame differs from its expected entry: column names, dtypes
+    and values, index names, dtypes and values, all exact (NaN and NaT equal
+    themselves). Empty when they are the same."""
+    out = []
+    names = [c for c, _, _ in entry["columns"]]
+    if [str(c) for c in df.columns] != names:
+        return [f"columns {list(df.columns)} != {names}"]
+    for j, (c, dtype, kind) in enumerate(entry["columns"]):
+        if str(df[c].dtype) != dtype:
+            out.append(f"column {c}: dtype {df[c].dtype} != {dtype}")
+        elif not _same_values(df[c].to_numpy(), arrays[f"c{j}"], kind):
+            out.append(f"column {c}: values differ")
+    if df.index.nlevels != len(entry["index"]) or (df.index.nlevels > 1) != entry["multi"]:
+        return out + [f"index of {df.index.nlevels} levels != {len(entry['index'])}"]
+    for k, (name, dtype, kind) in enumerate(entry["index"]):
+        vals = df.index.get_level_values(k).to_numpy()
+        if df.index.names[k] != name or str(vals.dtype) != dtype or not _same_values(vals, arrays[f"i{k}"], kind):
+            out.append(f"index level {k} ({name}) differs")
+    return out
+
+
+def read_fixture(entry: dict, directory: Path = FORMATS_DIR):
+    """An expected entry's frame as the port reads its file."""
+    from gpsat_tpu_torch.data import pytables_compat as PT
+    from gpsat_tpu_torch.data.netcdf import read_netcdf
+
+    path = str(directory / entry["file"])
+    return PT.read_table(path, entry["key"]) if entry["reader"] == "pytables" else read_netcdf(path)
+
+
+def formats_fixtures():
+    """(a) every fixture of tests/fixtures/hdf5 through the port's readers,
+    held to expected.npz exactly, with the seconds of each read."""
+    seconds, bad = {}, {}
+    for entry, arrays in formats_expected():
+        label = f"{entry['file']}:{entry['key']}" if entry["key"] else entry["file"]
+        t0 = time.perf_counter()
+        df = read_fixture(entry)
+        seconds[label] = time.perf_counter() - t0
+        diff = frame_differences(df, entry, arrays)
+        if diff:
+            bad[label] = diff
+    log("formats_fixtures", frames=len(seconds), seconds=seconds, total_s=sum(seconds.values()), differ=bad)
+    check(not bad, f"formats (a): fixtures read differently from expected.npz: {bad}")
+
+
+def formats_netcdf(root: Path):
+    """(b) phase 16 (c)'s rows as FORMATS_FILES netCDF files written by
+    DataLoader.write_to_netcdf, read back by `cli read_and_store` with the nc
+    engine into a TableStore: every column exact, the datetimes by the CF
+    decode's own rule (nanoseconds since the epoch through float64, as
+    _decode_cf reads them in both packages); then read by read_netcdf
+    alone. Write and read MB/s of the payload, and the read split: the
+    same files read with decode_cf=False, and their variables read by the
+    codec alone (each file opened, every dataset read whole)."""
+    import pandas as pd
+
+    from gpsat_tpu_torch import cli
+    from gpsat_tpu_torch.data import hdf5
+    from gpsat_tpu_torch.data.netcdf import read_netcdf
+    from gpsat_tpu_torch.data.store import TableStore
+    from gpsat_tpu_torch.dataloader import DataLoader
+
+    frame, _, payload = along_track_frame()
+    n, k = len(frame), FORMATS_FILES
+    nc_dir = root / "nc"
+    nc_dir.mkdir()
+    bounds = np.linspace(0, n, k + 1).astype(int)
+    t0 = time.perf_counter()
+    for i in range(k):
+        DataLoader.write_to_netcdf(frame.iloc[bounds[i]:bounds[i + 1]], str(nc_dir / f"along_track_{i:02d}.nc"))
+    write_s = time.perf_counter() - t0
+    files = sorted(nc_dir.iterdir())
+    t0 = time.perf_counter()
+    frames = [read_netcdf(str(p)) for p in files]
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for p in files:
+        read_netcdf(str(p), decode_cf=False)
+    raw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for p in files:
+        with hdf5.File(str(p), "r") as f:
+            for name in f.keys():
+                f[name].read()
+    codec_s = time.perf_counter() - t0
+    cfg = {"output": {"file": str(root / "along_track_nc.h5"), "table": "data"}, "file_dirs": str(nc_dir),
+           "file_regex": r"along_track_\d+\.nc", "read_engine": "nc"}
+    (root / "read_and_store.json").write_text(json.dumps(cfg))
+    t0 = time.perf_counter()
+    rc = cli.main(["read_and_store", str(root / "read_and_store.json")])
+    store_s = time.perf_counter() - t0
+    with TableStore(cfg["output"]["file"], mode="r") as s:
+        got = s.select("data", set_index=False)
+    ns = frame["datetime"].to_numpy().astype(np.int64)
+    cf = (pd.Timestamp("1970-01-01") + pd.to_timedelta(ns.astype(np.float64), unit="ns")).to_numpy()
+    want = {**{c: frame[c].to_numpy() for c in frame.columns}, "datetime": cf, "index": np.arange(n)}
+    exact = {c: bool(c in got.columns and np.array_equal(got[c].to_numpy(), v)) for c, v in want.items()}
+    exact_read = all(np.array_equal(pd.concat(frames).reset_index()[c].to_numpy(), v) for c, v in want.items())
+    log("formats_netcdf", rc=rc, rows=len(got), files=k, payload_bytes=payload,
+        file_bytes=sum(p.stat().st_size for p in files), write_s=write_s, write_MBps=payload / write_s / 1e6,
+        read_s=read_s, read_MBps=payload / read_s / 1e6, read_no_cf_decode_s=raw_s, codec_s=codec_s,
+        cf_decode_s=read_s - raw_s, frame_build_s=raw_s - codec_s, read_and_store_s=store_s,
+        read_and_store_MBps=payload / store_s / 1e6, exact=exact, exact_read_netcdf=exact_read,
+        cf_datetime_max_abs_ns=int(np.abs(cf.astype(np.int64) - ns).max()))
+    check(rc == 0, f"formats (b): read_and_store returned {rc}")
+    check(len(got) == n and all(exact.values()) and exact_read, f"formats (b): columns read back differ: {exact}")
+
+
+def formats_load_params(root: Path):
+    """(d) load_params={"file": the PyTables results fixture} over phase 7's
+    first FORMATS_EXPERTS experts, a predict-only run through `cli
+    local_expert_oi`: the loaded init equals the fixture's values exactly,
+    the stored parameters are within FORMATS_STORED_REL of them, and kernel
+    1 launches 2 * Nmax / 64 times (one pair in the predict's bucket: phase
+    16 (b)'s formula). Returns the launches."""
+    import pandas as pd
+    import torch
+
+    from gpsat_tpu_torch import cli
+    from gpsat_tpu_torch.data import pytables_compat as PT
+    from gpsat_tpu_torch.data.store import TableStore
+    from gpsat_tpu_torch.experts import LocalExpertOI, core_for, initial_cparams
+    from gpsat_tpu_torch.parallel import batching
+
+    fixture = str(FORMATS_DIR / "results_store.h5")
+    cfg_path, experts = cli_inputs(root)
+    cfg = json.loads(cfg_path.read_text())
+    locs = pd.DataFrame({c: experts[c][:FORMATS_EXPERTS] for c in ("x", "y")})
+    locs.to_csv(root / "experts_64.csv", index=False)
+    cfg["locations"] = {"source": str(root / "experts_64.csv")}
+    cfg["model"]["load_params"] = {"file": fixture}
+    cfg["run_kwargs"].update(store_path=str(root / "loaded.h5"), optimise=False)
+    cfg_path = root / "load_params.json"
+    cfg_path.write_text(json.dumps(cfg))
+    want = {t: PT.read_table(fixture, t).reset_index() for t in ("lengthscales", "kernel_variance",
+                                                                  "likelihood_variance")}
+    ip, cons = OI_KW["init_params"], OI_KW["constraints"]
+    core = core_for(ip, cons)
+    oi = LocalExpertOI(model_config=cfg["model"])
+    loaded = oi._load_params_for_experts(locs, ["x", "y"], initial_cparams(core, ip, cons, 2), core, None) or {}
+    init_same = {}
+    for p, w in want.items():  # the fixture's values in the experts' order
+        w = w.sort_values(["x", "y", *(["_dim_0"] if p == "lengthscales" else [])], kind="stable")
+        by_loc = {k: g[p].to_numpy() for k, g in w.groupby(["x", "y"], sort=False)}
+        fixture_init = np.stack([by_loc[(x, y)] for x, y in locs[["x", "y"]].itertuples(index=False)])
+        init_same[p] = p in loaded and bool(np.array_equal(loaded[p].reshape(len(locs), -1),
+                                                           fixture_init.reshape(len(locs), -1)))
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["local_expert_oi", str(cfg_path)])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters().items()}
+    stored_rel, stored_rows = {}, {}
+    with TableStore(cfg["run_kwargs"]["store_path"], mode="r") as s:
+        rd = s.select("run_details", set_index=False)
+        ran = int((rd["num_obs"] >= OI_KW["min_obs"]).sum())
+        for p, w in want.items():
+            got = s.select(p).reset_index()
+            keys = ["x", "y", *(["_dim_0"] if p == "lengthscales" else [])]
+            m = got.merge(w, on=keys, suffixes=("", "_fixture"))
+            fx = m[f"{p}_fixture"].to_numpy()
+            stored_rows[p] = len(m) == ran * (2 if p == "lengthscales" else 1)
+            stored_rel[p] = float(np.abs(m[p].to_numpy(np.float64) - fx).max() / np.abs(fx).max()) if len(m) else None
+    nmax = batching.bucket_size(int(rd.loc[rd["num_obs"] >= OI_KW["min_obs"], "num_obs"].max()))
+    expected = {"block_chol": 2 * nmax // T, "panel_chol": 0, "cholesky": 0, "mm3xtf32": 0}
+    log("formats_load_params", rc=rc, experts=len(rd), run=int((rd["num_obs"] >= OI_KW["min_obs"]).sum()),
+        iterations=int(rd["num_iter"].max()), run_s=run_s, init_equals_fixture=init_same,
+        stored_rel_vs_fixture=stored_rel, stored_bound=FORMATS_STORED_REL, launches=launches, expected=expected)
+    check(rc == 0 and len(rd) == FORMATS_EXPERTS, f"formats (d): local_expert_oi returned {rc}, {len(rd)} experts")
+    check(init_same and all(init_same.values()), f"formats (d): loaded init vs the fixture: {init_same}")
+    check(all(stored_rows.values()) and all(r is not None and r <= FORMATS_STORED_REL for r in stored_rel.values())
+          and (rd["num_iter"] == 0).all(), f"formats (d): stored parameters vs the fixture: {stored_rel} {stored_rows}")
+    check(launches == expected, f"formats (d) launches {launches}, expected {expected}")
+    return launches["block_chol"]
+
+
+def phase_formats(oi_polished, f32_it_max):
+    """Phase 17: the readers' formats on the card's machine, with no h5py:
+    (a) the HDF5 fixtures against expected.npz, (b) netCDF files through
+    DataLoader.write_to_netcdf and `cli read_and_store`, (c) phase 7 from
+    a netCDF observations file through `cli local_expert_oi`, (d)
+    load_params from a PyTables results store, (e) h5py never imported.
+    Returns kernel 1's launches in (c) and (d)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_formats_") as tmp:
+        root = Path(tmp)
+        formats_fixtures()
+        a_s = time.perf_counter() - t_phase
+        formats_netcdf(root)
+        b_s = time.perf_counter() - t_phase - a_s
+        (root / "oi").mkdir()
+        launches_oi, _, _ = cli_run(oi_polished, f32_it_max, root / "oi", obs_format="nc", tag="formats_oi",
+                                       what="formats (c)")
+        c_s = time.perf_counter() - t_phase - a_s - b_s
+        (root / "load").mkdir()
+        launches_load = formats_load_params(root / "load")
+        d_s = time.perf_counter() - t_phase - a_s - b_s - c_s
+    log("formats_h5py", loaded="h5py" in sys.modules)
+    check("h5py" not in sys.modules, "formats (e): h5py was imported")
+    log("formats_phase", seconds=time.perf_counter() - t_phase, budget_s=FORMATS_BUDGET_S, a_s=a_s, b_s=b_s,
+        c_s=c_s, d_s=d_s)
+    return launches_oi, launches_load
 
 
 def main(argv) -> int:
@@ -3592,6 +3871,8 @@ def main(argv) -> int:
      entries[0]["launches_mesh_processes"]) = phase_mesh(f32_oi)
     entries[0]["launches_xval_index_grid"], entries[0]["launches_xval"] = phase_xval(host_build_s)
     entries[0]["launches_cli_run"], entries[0]["launches_cli_rerun"] = phase_cli(oi_polished, f32_it_max)
+    entries[0]["launches_formats_oi"], entries[0]["launches_formats_load_params"] = phase_formats(
+        oi_polished, f32_it_max)
 
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

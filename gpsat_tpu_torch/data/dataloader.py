@@ -9,8 +9,8 @@ Sources: a DataFrame (or a dict of columns), a CSV/TSV file, an HDF5
 table through the port's ``TableStore`` or, for a reference-produced
 pandas-HDFStore (PyTables) file, ``data/pytables_compat``; a parquet file
 (pandas with pyarrow, imported when one is read; {col, comp, val} wheres go
-down as pyarrow filters); a netCDF4 file (``data/netcdf``, h5py imported
-when one is read) and a zarr v2 store (``data/zarr_reader``: stdlib, numpy
+down as pyarrow filters); a netCDF4 file (``data/netcdf``, through the
+port's own HDF5 codec) and a zarr v2 store (``data/zarr_reader``: stdlib, numpy
 and pandas, blosc chunks through the C++ host library). netCDF and zarr
 sources come back with their dimensions reset to columns. pandas is
 imported when ``load`` runs.

@@ -1,71 +1,125 @@
-"""A reader and writer for the subset of HDF5 that ``TableStore`` files use.
+"""A reader of HDF5 files and a writer of HDF5's earliest format.
 
-Written in numpy and ``struct``; it needs no HDF5 library. It reads and
-writes HDF5's earliest file format, the one h5py writes unless asked for a
-later one:
+Written in numpy and ``struct``; it needs no HDF5 library. Section numbers
+below are those of the HDF5 File Format Specification version 3.0. It
+reads what h5py writes under every library-version bound up to v1.8, and
+the PyTables and netCDF-C layouts as h5py reproduces them (the datatypes
+and dataspaces in ``data/hdf5_types.py``; checksums, filters, fractal
+heaps and version-2 B-trees in ``data/hdf5_structures.py``). Files that
+PyTables, c-blosc or netCDF-C wrote themselves have not been held to it:
+``tests/fixtures/hdf5/MANIFEST.txt`` lists how the stand-ins differ. It
+reads:
 
-- superblock version 0, 8-byte addresses and lengths;
-- version-1 object headers, with continuation blocks when reading;
-- groups as symbol tables: a version-1 B-tree of type 0 over symbol-table
-  nodes (``SNOD``) whose names live in a local heap;
-- 1-D chunked datasets (layout class 2, an unlimited maximum, a version-1
-  B-tree of type 1 over the chunks);
-- fixed-point and floating-point numbers and variable-length strings,
-  whose bytes live in global heap collections;
-- attributes in the object header (compact storage).
+- superblocks of versions 0 to 3 (II.A), 8-byte addresses and lengths, no
+  user block; the checksum of versions 2 and 3 checked;
+- object headers of versions 1 and 2 (IV.A.1), continuation blocks
+  followed, version 2's checksums checked;
+- groups as symbol tables (a version-1 B-tree of type 0 over ``SNOD``
+  nodes, names in a local heap; III.A.1, III.C, III.D) and new-style
+  groups: link messages (IV.A.2.g) and, past a few links, a fractal heap
+  of links under version-2 B-trees (IV.A.2.c); keys in name order, or in
+  creation order where the group tracks it, as h5py gives them; soft and
+  external links listed, not followed;
+- attributes in the header (messages of versions 1 to 3) and in dense
+  storage (IV.A.2.v: a fractal heap under a version-2 B-tree);
+- compact, contiguous and chunked datasets (layout messages of versions 1
+  to 3, IV.A.2.i; the version-1 B-tree of type 1 over N-D chunks, edge
+  chunks cut to the dataset), chunks through the filter pipeline (deflate,
+  shuffle, fletcher32, blosc, bzip2) as each chunk's filter mask says,
+  missing chunks as the fill value (IV.A.2.e, IV.A.2.f);
+- dimension scales (``Dataset.dims``, ``DIMENSION_LIST``'s object
+  references resolved to the objects they name).
 
+It writes HDF5's earliest format, the one h5py writes unless asked for a
+later one: superblock 0, version-1 object headers, symbol-table groups,
+1-D chunked resizable datasets (``TableStore``'s columns) and N-D
+contiguous ones (netCDF variables), numeric, string and object-reference
+attributes, and dimension scales as HDF5's H5DS functions lay them out.
 Writing keeps what is on disk valid until the superblock is rewritten:
-chunks and global heap objects go to the end of the file as they come, and
-at ``close`` every object whose metadata changed gets a new object header
-(and, for a dataset, a new chunk B-tree; for a group, a new symbol table) at
-the end of the file, its parents up to the root likewise, and last the
-superblock points at the new root. Space left behind is not reused, as HDF5
-does not reuse it without a free-space manager. h5py and the HDF5 library
-read such a file and can append to it.
+chunks, contiguous data and global heap objects go to the end of the file
+as they come, and at ``close`` every object whose metadata changed gets a
+new object header (and, for a dataset, a new chunk B-tree; for a group, a
+new symbol table) at the end of the file, its parents up to the root
+likewise, and last the superblock points at the new root. New headers get
+their addresses before any is written, so that headers can refer to one
+another (a dimension scale and the variables it is attached to); the
+global heap objects of ``DIMENSION_LIST`` that name a moved scale are
+rewritten in place once the new headers are written. Space
+left behind is not reused, as HDF5 does not reuse it without a free-space
+manager. h5py and the HDF5 library read such a file and can append to it.
+Objects of the later formats (version-2 headers, new-style groups, dense
+attributes) and files of a later superblock are read, never written.
 
-A file this codec does not read (a later superblock or object-header
-version, new-style groups, a contiguous or compressed dataset, a compound
-datatype) raises ``FormatError``, an ``OSError``, which names what it
-found; a group of such datasets is still listed and its attributes read.
+A file this codec does not read raises ``FormatError``, an ``OSError``,
+which names what it found (a version-4 layout and its chunk index, an
+unknown filter, a region reference, a committed datatype, 4-byte offsets,
+a user block); a group of such datasets is still listed and its
+attributes read. It never hands over to another reader.
 """
 
 from __future__ import annotations
 
 import os
 import struct
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 
+from gpsat_tpu_torch.data.hdf5_structures import (
+    FractalHeap,
+    btree2_records,
+    check_filters,
+    check_sum,
+    parse_filters,
+    unfilter,
+)
+from gpsat_tpu_torch.data.hdf5_types import (
+    OBJ_REF_TYPE,
+    UNDEF,
+    VLEN_REF,
+    FormatError,
+    Type,
+    compound_type_bytes,
+    fix_strings,
+    parse_space,
+    parse_type,
+    space_bytes,
+    string_type_bytes,
+    type_bytes,
+    vlen_seq_type_bytes,
+)
+
+__all__ = ["File", "Group", "Dataset", "Empty", "FormatError", "guess_chunk_rows"]
+
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
-UNDEF = 0xFFFF_FFFF_FFFF_FFFF  # the undefined address, and H5S_UNLIMITED
 GROUP_LEAF_K, GROUP_INTERNAL_K = 4, 16  # HDF5's defaults, in every superblock this codec writes
 CHUNK_K = 32  # the chunk B-tree's K: fixed by a version-0 superblock
 GHEAP_MIN = 4096  # the least size of a global heap collection
 GHEAP_MAX_OBJECTS = 0xFFFF  # object indices are 16 bits; 0 is the free space
 SUPERBLOCK_SIZE = 96
 
-# object header message types
-NIL, DATASPACE, LINK_INFO, DATATYPE, FILL, LINK, LAYOUT = 0, 1, 2, 3, 5, 6, 8
+# object header message types (IV.A.2)
+NIL, DATASPACE, LINK_INFO, DATATYPE, FILL_OLD, FILL, LINK, EXTERNAL, LAYOUT = 0, 1, 2, 3, 4, 5, 6, 7, 8
 FILTERS, ATTRIBUTE, CONTINUATION, STAB, ATTR_INFO = 11, 12, 16, 17, 21
 
 # h5py's chunk guess (h5py/_hl/filters.py): a chunk of CHUNK_BASE scaled by
 # the dataset's size, within [CHUNK_MIN, CHUNK_MAX] bytes
 CHUNK_BASE, CHUNK_MIN, CHUNK_MAX = 16 * 1024, 8 * 1024, 1024 * 1024
 
-# a variable-length element on disk: its length, the global heap
-# collection's address and the object's index in it
-VLEN_REF = np.dtype([("len", "<u4"), ("addr", "<u8"), ("idx", "<u4")])
-
-# the fill-value message (version 2) HDF5 writes for h5py's chunked datasets:
-# space allocated incrementally, the fill written if set (numbers) or when
-# allocated (strings), a fill value defined with size 0 (the default, zeros)
+# the fill-value message (version 2) HDF5 writes for h5py's datasets: space
+# allocated incrementally (chunked) or late (contiguous), the fill written
+# if set (numbers) or when allocated (strings), a fill value defined with
+# size 0 (the default, zeros)
 FILL_NUMBER, FILL_STRING = bytes([2, 3, 2, 1, 0, 0, 0, 0]), bytes([2, 3, 0, 1, 0, 0, 0, 0])
+FILL_CONTIGUOUS, FILL_CONTIGUOUS_STRING = bytes([2, 2, 2, 1, 0, 0, 0, 0]), bytes([2, 2, 0, 1, 0, 0, 0, 0])
 HEADER_MIN = 256  # HDF5 gives a new object header this much room, a null message in what is free
 
+# the chunk index of a version-4 layout (IV.A.2.i)
+CHUNK_INDEXES = {1: "single chunk", 2: "implicit", 3: "fixed array", 4: "extensible array", 5: "version-2 B-tree"}
+DIM_SCALE_CLASS = b"DIMENSION_SCALE"
 
-class FormatError(OSError):
-    """Not an HDF5 file, or an HDF5 feature this codec does not read."""
+Msg = Tuple[int, int, bytes]  # (type, flags, body)
+AttrBody = Union[bytes, Callable[[bool], bytes]]  # a body, or one made when the header is written
 
 
 def _pad8(n: int) -> int:
@@ -92,77 +146,22 @@ def guess_chunk_rows(n: int, itemsize: int) -> int:
     return int(rows)
 
 
-# --------------------------------------------------------------------------
-# datatypes and dataspaces
-# --------------------------------------------------------------------------
+class Empty:
+    """The value of an attribute or dataset with a null dataspace: no data,
+    only a dtype (h5py's ``Empty``)."""
+
+    def __init__(self, dtype):
+        self.dtype = np.dtype(dtype)
+
+    def __repr__(self):
+        return f"Empty(dtype={self.dtype!r})"
 
 
-class _Type:
-    """A datatype message: its bytes and the numpy dtype its elements read
-    as (object for variable-length strings; None for a type this codec does
-    not read)."""
+class _Link:
+    """A soft or external link: listed by its group, never followed."""
 
-    __slots__ = ("raw", "dtype", "vlen_str")
-
-    def __init__(self, raw: bytes):
-        self.raw = raw
-        cv, b0, _, _, size = struct.unpack_from("<BBBBI", raw, 0)
-        cls = cv & 0x0F
-        order = ">" if b0 & 1 else "<"
-        self.vlen_str, self.dtype = False, None
-        if cls == 0 and size in (1, 2, 4, 8):
-            self.dtype = np.dtype(f"{order}{'i' if b0 & 0x08 else 'u'}{size}")
-        elif cls == 1 and size in (2, 4, 8):
-            self.dtype = np.dtype(f"{order}f{size}")
-        elif cls == 9 and (b0 & 0x0F) == 1:
-            self.dtype, self.vlen_str = np.dtype(object), True
-
-    @property
-    def storage(self) -> np.dtype:
-        """The dtype of the bytes on disk."""
-        return VLEN_REF if self.vlen_str else self.dtype
-
-    def check(self, what: str):
-        if self.dtype is None:
-            cls = self.raw[0] & 0x0F
-            raise FormatError(f"{what}: HDF5 datatype class {cls} is not one this codec reads")
-
-
-def _type_bytes(dtype) -> bytes:
-    """The datatype message for one of the dtypes ``TableStore`` writes, as
-    HDF5 encodes them (little-endian), or a variable-length UTF-8 string for
-    ``object``."""
-    dt = np.dtype(dtype)
-    if dt == object:
-        # class 9 (variable length), a string of UTF-8, null-padded; its base
-        # type is an unsigned byte
-        base = struct.pack("<BBBBIHH", 0x10, 0, 0, 0, 1, 0, 8)
-        return struct.pack("<BBBBI", 0x19, 0x01, 0x01, 0, 16) + base
-    if dt.kind in "iu":
-        return struct.pack("<BBBBIHH", 0x10, 0x08 if dt.kind == "i" else 0, 0, 0, dt.itemsize, 0, 8 * dt.itemsize)
-    if dt.kind == "f" and dt.itemsize in (4, 8):
-        exp, mant, bias = (8, 23, 127) if dt.itemsize == 4 else (11, 52, 1023)
-        bits = 8 * dt.itemsize
-        return struct.pack("<BBBBIHHBBBBI", 0x11, 0x20, bits - 1, 0, dt.itemsize, 0, bits, mant, exp, 0, mant, bias)
-    raise TypeError(f"this codec writes no HDF5 datatype for numpy dtype {dt}")
-
-
-def _space_bytes(dims: Tuple[int, ...], maxdims: Optional[Tuple[int, ...]] = None) -> bytes:
-    """A version-1 dataspace message; rank 0 is a scalar."""
-    out = struct.pack("<BBBB4x", 1, len(dims), 1 if maxdims is not None else 0, 0)
-    out += struct.pack(f"<{len(dims)}Q", *dims)
-    if maxdims is not None:
-        out += struct.pack(f"<{len(maxdims)}Q", *maxdims)
-    return out
-
-
-def _parse_space(raw: bytes) -> Tuple[Tuple[int, ...], Optional[Tuple[int, ...]]]:
-    version, rank, flags = raw[0], raw[1], raw[2]
-    if version != 1:
-        raise FormatError(f"dataspace message version {version} is not one this codec reads")
-    dims = struct.unpack_from(f"<{rank}Q", raw, 8)
-    maxdims = struct.unpack_from(f"<{rank}Q", raw, 8 + 8 * rank) if flags & 1 else None
-    return tuple(dims), (tuple(maxdims) if maxdims is not None else None)
+    def __init__(self, kind: str, target: str):
+        self.kind, self.target = kind, target
 
 
 # --------------------------------------------------------------------------
@@ -171,11 +170,12 @@ def _parse_space(raw: bytes) -> Tuple[Tuple[int, ...], Optional[Tuple[int, ...]]
 
 
 class File:
-    """An HDF5 file in this codec's subset. ``mode``: "r" (read only; the
-    file must exist), "r+" (read and write; must exist), "a" (read and
-    write; created if missing), "w" (created or truncated), "w-" (created;
-    must not exist). The root group's ``keys``, ``in``, ``[name]``,
-    ``del``, ``create_group`` and ``visit_groups`` are the file's."""
+    """An HDF5 file. ``mode``: "r" (read only; the file must exist), "r+"
+    (read and write; must exist), "a" (read and write; created if missing),
+    "w" (created or truncated), "w-" (created; must not exist). A file of a
+    later superblock opens only to be read. The root group's ``keys``,
+    ``in``, ``[name]``, ``del``, ``create_group``, ``create_dataset`` and
+    ``visit_groups`` are the file's."""
 
     def __init__(self, path, mode: str = "r"):
         path = os.fspath(path)
@@ -187,6 +187,8 @@ class File:
         self.writable = mode != "r"
         self._gcols: Dict[int, Dict[int, bytes]] = {}  # global heap collections read: addr -> idx -> bytes
         self._gheap = None  # the collection new objects go to: [addr, size, used, next index]
+        self._attached: List["Dataset"] = []  # datasets given dimension scales in this session
+        self._by_addr: Dict[int, "_Object"] = {}  # objects reached through an object reference
         self._f = None
         if mode == "w-" and os.path.exists(path):
             raise FileExistsError(f"unable to create file (file exists): {path}")
@@ -215,6 +217,14 @@ class File:
             raise FormatError(f"{self.path}: truncated file: {n} bytes at {addr} run past its end")
         return out
 
+    def _read_array(self, addr: int, dtype: np.dtype, count: int) -> np.ndarray:
+        """``count`` elements of ``dtype`` at ``addr``, into a new writable array."""
+        self._f.seek(addr)
+        out = np.fromfile(self._f, dtype=dtype, count=count)
+        if len(out) != count:
+            raise FormatError(f"{self.path}: truncated file: {count} elements at {addr} run past its end")
+        return out
+
     def _write(self, addr: int, data) -> None:
         self._f.seek(addr)
         self._f.write(data)
@@ -230,38 +240,61 @@ class File:
         self._write(addr, data)
         return addr
 
-    # --- superblock ---
+    # --- superblock (II.A) ---
     def _read_superblock(self) -> None:
         head = self._f.read(SUPERBLOCK_SIZE)
         if head[:8] != SIGNATURE:
-            raise FormatError(f"{self.path}: not an HDF5 file (no signature at offset 0)")
-        version = head[8]
-        if version != 0:
+            raise FormatError(f"{self.path}: not an HDF5 file (no signature at offset 0; a user block is not "
+                              "read either)")
+        version = self.superblock_version = head[8]
+        if version > 3:
             raise FormatError(f"{self.path}: HDF5 superblock version {version} is not one this codec reads "
-                              "(it reads and writes version 0, h5py's default)")
-        if head[13] != 8 or head[14] != 8:
-            raise FormatError(f"{self.path}: {head[13]}-byte addresses and {head[14]}-byte lengths; "
-                              "this codec reads 8-byte ones")
-        self._leaf_k, self._internal_k = struct.unpack_from("<HH", head, 16)
-        self._chunk_k = CHUNK_K
-        self._sb_pos = pos = 24
-        self._sb = bytearray(head)
-        base, _free, eof, access_info = struct.unpack_from("<4Q", head, pos)
+                              "(it reads versions 0 to 3)")
+        sizes = (head[13], head[14]) if version < 2 else (head[9], head[10])
+        if sizes != (8, 8):
+            raise FormatError(f"{self.path}: {sizes[0]}-byte offsets and {sizes[1]}-byte lengths; this codec "
+                              "reads 8-byte ones")
+        if version >= 2:
+            if len(head) < 48:
+                raise FormatError(f"{self.path}: truncated superblock")
+            check_sum(head[:48], self.path, "the superblock")
+            base, _ext, eof, root_addr = struct.unpack_from("<4Q", head, 12)
+            access_info = UNDEF
+        else:
+            self._leaf_k, self._internal_k = struct.unpack_from("<HH", head, 16)
+            self._sb_pos = pos = 24 if version == 0 else 28
+            base, _free, eof, access_info = struct.unpack_from("<4Q", head, pos)
+            root_addr = struct.unpack_from("<Q", head, pos + 40)[0]
         if base != 0 or access_info != UNDEF:
             raise FormatError(f"{self.path}: a user block or a file-access information block; this codec reads "
                               "neither")
+        if self.writable and version != 0:
+            raise FormatError(f"{self.path}: HDF5 superblock version {version}; this codec writes version 0 "
+                              "only, and opens this file to read")
+        self._chunk_k = CHUNK_K
+        self._sb = bytearray(head)
         self._eoa = max(_pad8(eof), _pad8(os.path.getsize(self.path)))
-        header = struct.unpack_from("<Q", head, pos + 40)[0]
-        self.root = _load(self, header)
+        self.root = _load(self, root_addr, "/")
         if not isinstance(self.root, Group):
             raise FormatError(f"{self.path}: the root object is not a group")
 
     # --- lifecycle ---
     def flush(self) -> None:
-        """Write the metadata that changed, then point the superblock at the
-        new root and the new end of the file."""
-        if not self.writable or not self.root._flush():
+        """Give every changed object a new header address, write the headers,
+        then point the superblock at the new root and the new end of the
+        file."""
+        if not self.writable:
             return
+        for ds in self._attached:  # a moved dataset moves its scales' REFERENCE_LIST records
+            if ds._dirty:
+                for scale in {s for scales in ds._dim_scales for s in scales}:
+                    scale._dirty = True
+        if not self.root._assign():
+            return
+        rewrites = [w for ds in self._attached for w in ds._place_dimension_list()]
+        self.root._write_headers()
+        for pos, blob in rewrites:  # after the headers they name, so that what is on disk stays valid
+            self._write(pos, blob)
         root, sb, pos = self.root, self._sb, self._sb_pos
         self._f.flush()
         if os.fstat(self._f.fileno()).st_size < self._eoa:
@@ -302,10 +335,57 @@ class File:
     def create_group(self, name: str) -> "Group":
         return self.root.create_group(name)
 
+    def create_dataset(self, name: str, data, contiguous: bool = False) -> "Dataset":
+        return self.root.create_dataset(name, data, contiguous=contiguous)
+
     def visit_groups(self) -> Iterator[Tuple[str, "Group"]]:
         return self.root.visit_groups()
 
-    # --- global heap ---
+    @property
+    def attrs(self) -> "Attributes":
+        return self.root.attrs
+
+    # --- object references ---
+    def deref(self, addr: int) -> "_Object":
+        """The object whose header is at ``addr`` (an object reference), named
+        by the first path that reaches it: the root group's links first, then
+        its subgroups', breadth first."""
+        obj = self._by_addr.get(addr)
+        if obj is not None:
+            return obj
+        queue = [self.root]
+        while queue:
+            group = queue.pop(0)
+            links = group._read_links()
+            for name, target in links.items():
+                if target == addr:
+                    self._by_addr[addr] = obj = group[name]
+                    return obj
+            for name, target in links.items():
+                if isinstance(target, int) and target != UNDEF:
+                    child = group[name]
+                    if isinstance(child, Group):
+                        queue.append(child)
+        self._by_addr[addr] = obj = _load(self, addr, None)
+        return obj
+
+    # --- values ---
+    def _decode(self, raw: np.ndarray, t: Type) -> np.ndarray:
+        """Values as h5py gives them from their bytes on disk (``raw``, of
+        ``t.storage``): variable-length elements from the global heap, fixed
+        strings as HDF5 converts them, enums of FALSE and TRUE as bool."""
+        if t.vlen == "str":
+            return self._decode_vlen_str(raw.reshape(-1)).reshape(raw.shape)
+        if t.vlen == "seq":
+            return self._decode_vlen_seq(raw, t.base)
+        raw = fix_strings(raw, t)
+        if t.dtype.kind == "b" and t.storage.kind != "b":
+            return raw.astype(bool)
+        if t.cls == 8 and t.dtype.kind != "b":
+            return raw.view(t.dtype)  # the enum's members in its metadata, as h5py gives them
+        return raw
+
+    # --- global heap (III.E) ---
     def _gheap_objects(self, addr: int) -> Dict[int, bytes]:
         """Every object of the collection at ``addr``: index -> bytes."""
         objs = self._gcols.get(addr)
@@ -326,12 +406,20 @@ class File:
         self._gcols[addr] = objs
         return objs
 
-    def _gheap_put(self, blobs: List[bytes]) -> Tuple[np.ndarray, np.ndarray]:
+    def _gheap_object(self, addr: int, idx: int) -> bytes:
+        blob = self._gheap_objects(addr).get(idx)
+        if blob is None:
+            raise FormatError(f"{self.path}: no global heap object {idx} in the collection at {addr}")
+        return blob
+
+    def _gheap_put(self, blobs: List[bytes]) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Store each of ``blobs`` as a global heap object, in this session's
         collections (a new one at the end of the file when the current one is
-        full); the (collection address, index) of each."""
+        full); the (collection address, index) of each, and the file
+        position of its bytes."""
         addrs = np.zeros(len(blobs), dtype=np.uint64)
         idxs = np.zeros(len(blobs), dtype=np.uint32)
+        at = np.zeros(len(blobs), dtype=np.uint64)
         i = 0
         while i < len(blobs):
             col = self._gheap
@@ -349,14 +437,14 @@ class File:
                     break
                 parts.append(struct.pack("<HH4xQ", col[3], 0, len(blob)) + _padded(blob))
                 self._gcols[col[0]][col[3]] = blob
-                addrs[i], idxs[i] = col[0], col[3]
+                addrs[i], idxs[i], at[i] = col[0], col[3], col[0] + col[2] + 16
                 col[2] += need
                 col[3] += 1
                 i += 1
             # the objects, then the free-space object over the rest
             free = struct.pack("<HH4xQ", 0, 0, col[1] - col[2])
             self._write(col[0] + start, b"".join(parts) + free)
-        return addrs, idxs
+        return addrs, idxs, at
 
     def _decode_vlen_str(self, refs: np.ndarray) -> np.ndarray:
         """Variable-length string references -> an object array of str."""
@@ -368,15 +456,21 @@ class File:
         uniq, first, inverse = np.unique(key, return_index=True, return_inverse=True)
         strs = np.empty(len(uniq), dtype=object)
         for j, (k, n) in enumerate(zip(uniq.tolist(), refs["len"][first].tolist())):
-            if k == 0:
-                strs[j] = ""
-                continue
-            blob = self._gheap_objects(k >> 16).get(k & 0xFFFF)
-            if blob is None:
-                raise FormatError(f"{self.path}: no global heap object {k & 0xFFFF} in the collection at {k >> 16}")
-            strs[j] = blob[:n].decode("utf-8")
+            strs[j] = "" if k == 0 else self._gheap_object(k >> 16, k & 0xFFFF)[:n].decode("utf-8")
         out[:] = strs[inverse.ravel()]
         return out
+
+    def _decode_vlen_seq(self, refs: np.ndarray, base: Type) -> np.ndarray:
+        """Variable-length sequence references -> an object array of arrays."""
+        out = np.empty(refs.size, dtype=object)
+        flat = refs.reshape(-1)
+        for i, (n, addr, idx) in enumerate(zip(flat["len"].tolist(), flat["addr"].tolist(), flat["idx"].tolist())):
+            if n == 0:
+                arr = np.zeros(0, dtype=base.storage)
+            else:
+                arr = np.frombuffer(self._gheap_object(addr, idx), dtype=base.storage, count=n).copy()
+            out[i] = self._decode(arr, base)
+        return out.reshape(refs.shape)
 
     def _encode_vlen_str(self, values) -> np.ndarray:
         """An array of str (None stands for "") -> variable-length
@@ -387,7 +481,7 @@ class File:
             (lookup.setdefault(v if type(v) is str else ("" if v is None else str(v)), len(lookup)) for v in values),
             dtype=np.int64, count=len(values))
         blobs = [u.encode("utf-8") for u in lookup]
-        addrs, idxs = self._gheap_put(blobs)  # "" too: HDF5 stores it as an object of 0 bytes
+        addrs, idxs, _ = self._gheap_put(blobs)  # "" too: HDF5 stores it as an object of 0 bytes
         refs = np.zeros(len(inverse), dtype=VLEN_REF)
         refs["len"] = np.array([len(b) for b in blobs], dtype=np.uint32)[inverse]
         refs["addr"], refs["idx"] = addrs[inverse], idxs[inverse]
@@ -395,17 +489,17 @@ class File:
 
 
 # --------------------------------------------------------------------------
-# object headers
+# object headers (IV.A.1)
 # --------------------------------------------------------------------------
 
 
-def _read_header(file: File, addr: int) -> List[Tuple[int, int, bytes]]:
-    """The messages of the version-1 object header at ``addr``, continuation
-    blocks followed, null messages and continuations left out."""
+def _read_header(file: File, addr: int) -> Tuple[int, int, List[Tuple[int, int, bytes, int]]]:
+    """The object header at ``addr``: its version, its flags (version 2; 0
+    for version 1) and its messages as (type, flags, body, creation order),
+    continuation blocks followed, null messages and continuations left out."""
     head = file._read(addr, 16)
     if head[:4] == b"OHDR":
-        raise FormatError(f"{file.path}: a version-2 object header at {addr}; this codec reads version 1 "
-                          "(HDF5's earliest format)")
+        return _read_header_v2(file, addr)
     version, _, nmsgs, _refs, size = struct.unpack_from("<BBHII", head, 0)
     if version != 1:
         raise FormatError(f"{file.path}: object header version {version} at {addr}")
@@ -421,11 +515,47 @@ def _read_header(file: File, addr: int) -> List[Tuple[int, int, bytes]]:
             if mtype == CONTINUATION:
                 blocks.append(struct.unpack_from("<QQ", body, 0))
             elif mtype != NIL:
-                msgs.append((mtype, flags, body))
-    return msgs
+                msgs.append((mtype, flags, body, 0))
+    return 1, 0, msgs
 
 
-def _header_bytes(msgs: List[Tuple[int, int, bytes]]) -> bytes:
+def _read_header_v2(file: File, addr: int):
+    """A version-2 object header (IV.A.1.b): ``OHDR``, its flags (bits 0-1
+    the width of chunk 0's size, 2 attribute creation order tracked, 4
+    attribute phase change values stored, 5 times stored), chunk 0, and
+    ``OCHK`` continuation blocks, each with its checksum."""
+    head = file._read(addr, 6)
+    if head[4] != 2:
+        raise FormatError(f"{file.path}: object header version {head[4]} at {addr}")
+    flags = head[5]
+    prefix = 6 + (16 if flags & 0x20 else 0) + (4 if flags & 0x10 else 0)
+    width = 1 << (flags & 3)
+    chunk0 = int.from_bytes(file._read(addr + prefix, width), "little")
+    prefix += width
+    buf = file._read(addr, prefix + chunk0 + 4)
+    check_sum(buf, file.path, f"the object header at {addr}")
+    hsize = 6 if flags & 0x04 else 4
+    blocks, msgs = [(buf, prefix, prefix + chunk0)], []
+    while blocks:
+        buf, pos, end = blocks.pop(0)
+        while pos + hsize <= end:
+            mtype, msize, mflags = struct.unpack_from("<BHB", buf, pos)
+            corder = struct.unpack_from("<H", buf, pos + 4)[0] if flags & 0x04 else 0
+            body = buf[pos + hsize:pos + hsize + msize]
+            pos += hsize + msize
+            if mtype == CONTINUATION:
+                caddr, clen = struct.unpack_from("<QQ", body, 0)
+                cbuf = file._read(caddr, clen)
+                if cbuf[:4] != b"OCHK":
+                    raise FormatError(f"{file.path}: no object header continuation block at {caddr}")
+                check_sum(cbuf, file.path, f"the object header continuation block at {caddr}")
+                blocks.append((cbuf, 4, clen - 4))
+            elif mtype != NIL:
+                msgs.append((mtype, mflags, body, corder))
+    return 2, flags, msgs
+
+
+def _header_bytes(msgs: List[Msg]) -> bytes:
     """A version-1 object header holding ``msgs`` in one block, a null
     message after them up to HEADER_MIN bytes, as HDF5 leaves room to add
     messages in place."""
@@ -440,23 +570,31 @@ def _header_bytes(msgs: List[Tuple[int, int, bytes]]) -> bytes:
     return struct.pack("<BBHII4x", 1, 0, len(parts), 1, len(data)) + data
 
 
-def _load(file: File, addr: int):
-    msgs = _read_header(file, addr)
+def _load(file: File, addr: int, name: Optional[str]):
+    version, hflags, msgs = _read_header(file, addr)
     types = {m[0] for m in msgs}
-    if STAB in types:
-        return Group(file, addr, msgs)
-    if LAYOUT in types:
-        return Dataset(file, addr, msgs)
-    if LINK_INFO in types or LINK in types:
-        raise FormatError(f"{file.path}: a new-style group (link messages) at {addr}; this codec reads "
-                          "symbol-table groups (HDF5's earliest format)")
-    return _Object(file, addr, msgs)  # a committed datatype: its attributes read, nothing else
+    if STAB in types or LINK_INFO in types or LINK in types:
+        cls = Group
+    elif LAYOUT in types:
+        cls = Dataset
+    else:
+        cls = _Object  # a committed datatype: its attributes read, nothing else
+    obj = cls(file, addr, msgs, hflags=hflags)
+    obj.name = name
+    if version == 2:
+        obj._frozen = obj._frozen or "a version-2 object header"
+    return obj
+
+
+# --------------------------------------------------------------------------
+# attributes (IV.A.2.m, IV.A.2.v)
+# --------------------------------------------------------------------------
 
 
 class Attributes:
-    """An object's attributes: ``attrs[name]`` (a str for a
-    variable-length string, a numpy value otherwise), ``attrs[name] =
-    str``, ``in``, ``keys``, ``items``."""
+    """An object's attributes: ``attrs[name]`` (a str for a variable-length
+    string, a numpy value otherwise), ``get``, ``attrs[name] = value`` (a
+    str, a number or a numeric array), ``in``, ``keys``, ``items``."""
 
     def __init__(self, obj: "_Object"):
         self._obj = obj
@@ -470,88 +608,14 @@ class Attributes:
     def __getitem__(self, name: str):
         return self._obj._attr_value(name)
 
+    def get(self, name: str, default=None):
+        return self[name] if name in self else default
+
     def items(self):
         return [(k, self[k]) for k in self.keys()]
 
     def __setitem__(self, name: str, value) -> None:
         self._obj._set_attr(name, value)
-
-
-class _Object:
-    """What a group and a dataset share: the header's address, the messages
-    kept as they were read, the attributes (raw message bodies, decoded on
-    demand) and whether the header must be written anew."""
-
-    def __init__(self, file: File, addr: Optional[int], msgs=()):
-        self._file = file
-        self._addr = addr
-        self._attrs: Dict[str, bytes] = {}
-        self._msgs = []
-        for mtype, flags, body in msgs:
-            if mtype == ATTRIBUTE:
-                self._attrs[_attr_name(body)] = body
-            elif mtype == ATTR_INFO:
-                raise FormatError(f"{file.path}: attributes in dense storage at {addr}; this codec reads them "
-                                  "in the object header")
-            else:
-                self._msgs.append((mtype, flags, body))
-        self._dirty = addr is None
-
-    @property
-    def attrs(self) -> Attributes:
-        return Attributes(self)
-
-    def _attr_value(self, name: str):
-        body = self._attrs[name]
-        version = body[0]
-        name_size, type_size, space_size = struct.unpack_from("<HHH", body, 2)
-        if version == 1:
-            pos = 8 + _pad8(name_size)
-            t = _Type(body[pos:pos + type_size])
-            pos += _pad8(type_size)
-            dims, _ = _parse_space(body[pos:pos + space_size])
-            pos += _pad8(space_size)
-        elif version in (2, 3):
-            if body[1] & 3:
-                raise FormatError(f"{self._file.path}: attribute {name!r} has a shared datatype or dataspace")
-            pos = 8 + (1 if version == 3 else 0) + name_size
-            t = _Type(body[pos:pos + type_size])
-            pos += type_size
-            dims, _ = _parse_space(body[pos:pos + space_size])
-            pos += space_size
-        else:
-            raise FormatError(f"{self._file.path}: attribute message version {version}")
-        t.check(f"{self._file.path}: attribute {name!r}")
-        n = int(np.prod(dims)) if dims else 1
-        raw = np.frombuffer(body, dtype=t.storage, count=n, offset=pos)
-        vals = self._file._decode_vlen_str(raw) if t.vlen_str else raw.copy()
-        if not dims:
-            return vals[0]
-        return vals.reshape(dims)
-
-    def _set_attr(self, name: str, value) -> None:
-        if not isinstance(value, str):
-            raise TypeError(f"attribute {name!r}: this codec writes str attributes, got {type(value).__name__}")
-        if not self._file.writable:
-            raise OSError(f"{self._file.path}: file is read-only")
-        ref = self._file._encode_vlen_str([value])
-        name_b = name.encode("utf-8") + b"\0"
-        dt, sp = _type_bytes(object), _space_bytes(())
-        self._attrs[name] = (struct.pack("<BBHHH", 1, 0, len(name_b), len(dt), len(sp))
-                             + _padded(name_b) + _padded(dt) + _padded(sp) + ref.tobytes())
-        self._dirty = True
-
-    def _header_msgs(self) -> List[Tuple[int, int, bytes]]:
-        return list(self._msgs) + [(ATTRIBUTE, 0, body) for body in self._attrs.values()]
-
-    def _flush(self) -> bool:
-        """Write this object's header anew if it changed; True when it did
-        (its parent must point at the new address)."""
-        if not self._dirty:
-            return False
-        self._addr = self._file._append(_header_bytes(self._header_msgs()))
-        self._dirty = False
-        return True
 
 
 def _attr_name(body: bytes) -> str:
@@ -561,40 +625,251 @@ def _attr_name(body: bytes) -> str:
     return body[pos:pos + name_size].split(b"\0", 1)[0].decode("utf-8")
 
 
+def _parse_attr(body: bytes, what: str):
+    """(datatype, dims, offset of the data) of an attribute message of
+    version 1, 2 or 3; dims None for a null dataspace."""
+    version = body[0]
+    name_size, type_size, space_size = struct.unpack_from("<HHH", body, 2)
+    if version == 1:
+        pos = 8 + _pad8(name_size)
+        t, _ = parse_type(body, pos)
+        pos += _pad8(type_size)
+        dims, _ = parse_space(body[pos:pos + space_size])
+        return t, dims, pos + _pad8(space_size)
+    if version in (2, 3):
+        if body[1] & 1:
+            raise FormatError(f"{what} has a shared (committed) datatype; this codec reads datatypes stored "
+                              "in the attribute")
+        if body[1] & 2:
+            raise FormatError(f"{what} has a shared dataspace")
+        pos = 8 + (1 if version == 3 else 0) + name_size
+        t, _ = parse_type(body, pos)
+        pos += type_size
+        dims, _ = parse_space(body[pos:pos + space_size])
+        return t, dims, pos + space_size
+    raise FormatError(f"{what}: attribute message version {version}")
+
+
+def _simple_space(dims: Tuple[int, ...]) -> bytes:
+    """The dataspace h5py writes for data of ``dims``: a scalar for rank 0,
+    else the dims with a maximum equal to them."""
+    return space_bytes(tuple(dims), tuple(dims) if dims else None)
+
+
+def _attr_bytes(name: str, tb: bytes, sb: bytes, data: bytes) -> bytes:
+    """A version-1 attribute message."""
+    name_b = name.encode("utf-8") + b"\0"
+    return (struct.pack("<BBHHH", 1, 0, len(name_b), len(tb), len(sb))
+            + _padded(name_b) + _padded(tb) + _padded(sb) + data)
+
+
+class _Object:
+    """What a group and a dataset share: the header's address, the messages
+    kept as they were read, the attributes (raw message bodies, decoded on
+    demand; in creation order where the header tracks it, else by name, as
+    h5py lists them), whether the header must be written anew, and why it
+    may not be (``_frozen``: a later format this codec reads only)."""
+
+    def __init__(self, file: File, addr: Optional[int], msgs=(), hflags: int = 0):
+        self._file = file
+        self._addr = addr
+        self.name: Optional[str] = "/" if addr is None else None
+        self._frozen: Optional[str] = None
+        self._attrs: Dict[str, AttrBody] = {}
+        self._msgs: List[Msg] = []
+        found, tracked = [], bool(hflags & 0x04)
+        for mtype, flags, body, corder in msgs:
+            if mtype == ATTRIBUTE:
+                if flags & 2:
+                    raise FormatError(f"{file.path}: a shared attribute message at {addr}")
+                found.append((corder, _attr_name(body), body))
+            elif mtype == ATTR_INFO:
+                tracked = bool(body[1] & 1)
+                found.extend(self._dense_attrs(body))
+                self._frozen = "attributes in dense storage"
+            else:
+                self._msgs.append((mtype, flags, body))
+        found.sort(key=(lambda a: a[0]) if tracked else (lambda a: a[1].encode("utf-8")))
+        self._attrs = {name: body for _, name, body in found}
+        self._dirty = addr is None
+        self._pending = False
+
+    def _dense_attrs(self, info: bytes):
+        """The attributes of an attribute-info message (IV.A.2.v) kept in a
+        fractal heap under a version-2 B-tree of type 8: (creation order,
+        name, body) each."""
+        f = self._file
+        pos = 2 + (2 if info[1] & 1 else 0)
+        heap_addr, name_btree = struct.unpack_from("<QQ", info, pos)
+        if heap_addr == UNDEF:
+            return []
+        heap = FractalHeap(f._read, heap_addr, f.path)
+        btype, recs = btree2_records(f._read, name_btree, f.path)
+        if btype != 8:
+            raise FormatError(f"{f.path}: an attribute name index of B-tree type {btype} at {name_btree}")
+        out = []
+        for r in recs:
+            mflags, corder = struct.unpack_from("<BI", r, 8)
+            if mflags & 2:
+                raise FormatError(f"{f.path}: a shared attribute in dense storage at {self._addr}")
+            body = heap.get(r[:8])
+            out.append((corder, _attr_name(body), body))
+        return out
+
+    @property
+    def attrs(self) -> Attributes:
+        return Attributes(self)
+
+    def _attr_value(self, name: str):
+        body = self._attrs[name]
+        if callable(body):
+            body = body(False)
+        what = f"{self._file.path}: attribute {name!r}"
+        t, dims, pos = _parse_attr(body, what)
+        t.check(what)
+        if dims is None:
+            return Empty(t.dtype)
+        n = int(np.prod(dims)) if dims else 1
+        raw = np.frombuffer(body, dtype=t.storage, count=n, offset=pos).copy()
+        vals = self._file._decode(raw, t)
+        if not dims:
+            return vals[0]
+        return vals.reshape(dims)
+
+    def _check_writable(self):
+        if not self._file.writable:
+            raise OSError(f"{self._file.path}: file is read-only")
+        if self._frozen:
+            raise FormatError(f"{self._file.path}: the object at {self._addr} has {self._frozen}; this codec "
+                              "writes HDF5's earliest format and reads, never writes, later ones")
+
+    def _set_attr(self, name: str, value) -> None:
+        self._check_writable()
+        if isinstance(value, str):
+            ref = self._file._encode_vlen_str([value])
+            body = _attr_bytes(name, type_bytes(object), space_bytes(()), ref.tobytes())
+        else:
+            arr = np.asarray(value)
+            if arr.dtype.kind not in "biuf":
+                raise TypeError(f"attribute {name!r}: this codec writes str and numeric attributes, got "
+                                f"{type(value).__name__}")
+            if isinstance(value, (int, float, bool)) and not isinstance(value, np.generic):
+                arr = np.asarray(value, dtype={int: np.int64, float: np.float64, bool: np.bool_}[type(value)])
+            arr = np.ascontiguousarray(arr, dtype=arr.dtype.newbyteorder("<") if arr.dtype.itemsize > 1 else None)
+            body = _attr_bytes(name, type_bytes(arr.dtype), _simple_space(arr.shape), arr.tobytes())
+        self._attrs[name] = body
+        self._dirty = True
+
+    def _set_attr_raw(self, name: str, body: AttrBody) -> None:
+        self._check_writable()
+        self._attrs[name] = body
+        self._dirty = True
+
+    def _header_msgs(self, final: bool) -> List[Msg]:
+        return list(self._msgs) + [(ATTRIBUTE, 0, b(final) if callable(b) else b) for b in self._attrs.values()]
+
+    def _assign(self) -> bool:
+        """Reserve a new header at the end of the file if this object changed;
+        True when it did (its parent must point at the new address)."""
+        if not self._dirty:
+            return False
+        self._addr = self._file._alloc(len(_header_bytes(self._header_msgs(False))))
+        self._dirty, self._pending = False, True
+        return True
+
+    def _write_headers(self) -> None:
+        if self._pending:
+            self._file._write(self._addr, _header_bytes(self._header_msgs(True)))
+            self._pending = False
+
+
 # --------------------------------------------------------------------------
-# groups
+# groups (IV.A.2.c, IV.A.2.g, IV.A.2.r; III.A.1, III.C, III.D)
 # --------------------------------------------------------------------------
+
+
+def _parse_link(body: bytes):
+    """A link message: (name, target, creation order); the target is an
+    object header address for a hard link, a ``_Link`` otherwise."""
+    flags, pos = body[1], 2
+    ltype = 0
+    if flags & 0x08:
+        ltype, pos = body[pos], pos + 1
+    corder = 0
+    if flags & 0x04:
+        corder, pos = struct.unpack_from("<q", body, pos)[0], pos + 8
+    if flags & 0x10:
+        pos += 1  # the name's character set
+    width = 1 << (flags & 3)
+    n = int.from_bytes(body[pos:pos + width], "little")
+    pos += width
+    name = body[pos:pos + n].decode("utf-8")
+    pos += n
+    if ltype == 0:
+        return name, struct.unpack_from("<Q", body, pos)[0], corder
+    size = struct.unpack_from("<H", body, pos)[0]
+    info = body[pos + 2:pos + 2 + size]
+    if ltype == 1:
+        return name, _Link("soft", info.decode("utf-8")), corder
+    if ltype == 64:
+        parts = info[1:].split(b"\0")
+        return name, _Link("external", f"{parts[0].decode('utf-8')}:{parts[1].decode('utf-8')}"), corder
+    return name, _Link(f"user-defined (type {ltype})", info.hex()), corder
 
 
 class Group(_Object):
-    """A symbol-table group: its links (name -> object header address, read
-    when first asked for) and the objects loaded through it."""
+    """A group: its links (name -> object header address, read when first
+    asked for) and the objects loaded through it. Symbol-table groups are
+    read and written; new-style groups (link messages, dense links) read."""
 
-    def __init__(self, file: File, addr: Optional[int], msgs=()):
-        super().__init__(file, addr, msgs)
+    def __init__(self, file: File, addr: Optional[int], msgs=(), hflags: int = 0):
+        super().__init__(file, addr, msgs, hflags)
         self._btree = self._heap = UNDEF
+        self._link_info, self._link_msgs = None, []
         for mtype, _, body in self._msgs:
             if mtype == STAB:
                 self._btree, self._heap = struct.unpack_from("<QQ", body, 0)
+            elif mtype == LINK_INFO:
+                self._link_info = body
+            elif mtype == LINK:
+                self._link_msgs.append(body)
+        if self._link_info is not None or self._link_msgs:
+            self._frozen = self._frozen or "a new-style group (link messages)"
         self._msgs = [m for m in self._msgs if m[0] != STAB]
-        self._links: Optional[Dict[str, int]] = None if addr is not None else {}
+        self._links: Optional[Dict[str, Union[int, _Link]]] = None if addr is not None else {}
         self._cache: Dict[str, bytes] = {}  # a symbol-table entry's cache type and scratch pad, as read
         self._objs: Dict[str, _Object] = {}
         self._links_dirty = addr is None
 
-    # --- reading the symbol table ---
-    def _read_links(self) -> Dict[str, int]:
+    # --- reading the links ---
+    def _read_links(self) -> Dict[str, Union[int, _Link]]:
         if self._links is not None:
             return self._links
         f = self._file
-        head = f._read(self._heap, 32)
-        if head[:4] != b"HEAP":
-            raise FormatError(f"{f.path}: no local heap at {self._heap}")
-        size, _free, data_addr = struct.unpack_from("<QQQ", head, 8)
-        heap = f._read(data_addr, size)
-        links: Dict[str, int] = {}
-        self._walk_btree(self._btree, heap, links)
-        self._links = dict(sorted(links.items()))
+        if self._btree != UNDEF:
+            head = f._read(self._heap, 32)
+            if head[:4] != b"HEAP":
+                raise FormatError(f"{f.path}: no local heap at {self._heap}")
+            size, _free, data_addr = struct.unpack_from("<QQQ", head, 8)
+            heap = f._read(data_addr, size)
+            links: Dict[str, int] = {}
+            self._walk_btree(self._btree, heap, links)
+            self._links = dict(sorted(links.items(), key=lambda kv: kv[0].encode("utf-8")))
+            return self._links
+        found = [_parse_link(body) for body in self._link_msgs]
+        tracked = False
+        if self._link_info is not None:
+            info = self._link_info
+            tracked = bool(info[1] & 1)
+            heap_addr, name_btree = struct.unpack_from("<QQ", info, 2 + (8 if tracked else 0))
+            if heap_addr != UNDEF:  # dense: link messages in a fractal heap, a B-tree of type 5 over their names
+                heap = FractalHeap(f._read, heap_addr, f.path)
+                btype, recs = btree2_records(f._read, name_btree, f.path)
+                if btype != 5:
+                    raise FormatError(f"{f.path}: a link name index of B-tree type {btype} at {name_btree}")
+                found.extend(_parse_link(heap.get(r[4:])) for r in recs)
+        found.sort(key=(lambda x: x[2]) if tracked else (lambda x: x[0].encode("utf-8")))
+        self._links = {name: target for name, target, _ in found}
         return self._links
 
     def _walk_btree(self, addr: int, heap: bytes, links: Dict[str, int]) -> None:
@@ -615,10 +890,13 @@ class Group(_Object):
             count = struct.unpack_from("<H", node, 6)[0]
             entries = f._read(child + 8, 40 * count)
             for j in range(count):
-                name_off, header = struct.unpack_from("<QQ", entries, 40 * j)
+                name_off, header, cache_type, _, value_off = struct.unpack_from("<QQIII", entries, 40 * j)
                 name = heap[name_off:heap.index(b"\0", name_off)].decode("utf-8")
-                links[name] = header
-                self._cache[name] = entries[40 * j + 16:40 * j + 40]
+                if cache_type == 2:  # a soft link: its value in the local heap
+                    links[name] = _Link("soft", heap[value_off:heap.index(b"\0", value_off)].decode("utf-8"))
+                else:
+                    links[name] = header
+                    self._cache[name] = entries[40 * j + 16:40 * j + 40]
 
     # --- the surface ---
     def keys(self) -> List[str]:
@@ -640,7 +918,13 @@ class Group(_Object):
             raise KeyError(f"{name!r} not in {self._file.path}")
         obj = self._objs.get(head)
         if obj is None:
-            obj = self._objs[head] = _load(self._file, links[head])
+            target = links[head]
+            if isinstance(target, _Link):
+                raise FormatError(f"{self._file.path}: {head!r} is a {target.kind} link to {target.target}; this "
+                                  "codec lists soft and external links and does not follow them")
+            obj = self._objs[head] = _load(self._file, target, f"{(self.name or '').rstrip('/')}/{head}")
+            if self._frozen:  # a change below would rewrite this group's header
+                obj._frozen = obj._frozen or f"a parent group with {self._frozen}"
         return obj[rest] if rest else obj
 
     def __delitem__(self, name: str) -> None:
@@ -657,38 +941,53 @@ class Group(_Object):
         self._new_name(name)
         return self._add(name, Group(self._file, None))
 
-    def create_dataset(self, name: str, data) -> "Dataset":
-        """A chunked, resizable 1-D dataset holding ``data`` (a numpy array
-        of a numeric dtype, or of str for variable-length UTF-8 strings);
-        its chunks as h5py would choose them for ``data``."""
+    def create_dataset(self, name: str, data, contiguous: bool = False) -> "Dataset":
+        """A dataset holding ``data`` (a numpy array of a numeric or bool
+        dtype, or of str for variable-length UTF-8 strings): by default a
+        chunked, resizable 1-D dataset, its chunks as h5py would choose them
+        for ``data``; with ``contiguous`` one of any rank (0 a scalar), its
+        data written now in one block, as h5py writes ``create_dataset(name,
+        data=data)``."""
         self._new_name(name)
         data = np.asarray(data)
-        if data.ndim != 1:
-            raise ValueError(f"{name!r}: this codec writes 1-D datasets, got shape {data.shape}")
         vlen = data.dtype == object or data.dtype.kind in ("U", "S")
-        dtype = np.dtype(object) if vlen else data.dtype.newbyteorder("<")
+        dtype = np.dtype(object) if vlen else data.dtype.newbyteorder("<") if data.dtype.itemsize > 1 else data.dtype
         ds = Dataset(self._file, None)
-        ds._type = _Type(_type_bytes(dtype))
-        ds._shape, ds._maxshape = (0,), (UNDEF,)
-        ds._chunk = guess_chunk_rows(len(data), 8 if vlen else dtype.itemsize)
-        ds._msgs = [(FILL, 1, FILL_STRING if vlen else FILL_NUMBER)]
-        ds._chunks = (np.zeros(0, np.uint64), np.zeros(0, np.uint64), np.zeros(0, np.uint32))
+        ds._type, _ = parse_type(type_bytes(dtype))
+        if contiguous:
+            f = self._file
+            raw = f._encode_vlen_str(data.reshape(-1)) if vlen else np.ascontiguousarray(data, dtype=dtype)
+            nbytes = raw.nbytes
+            addr = f._append(raw.tobytes()) if nbytes else UNDEF
+            ds._shape, ds._maxshape, ds._kind, ds._chunk = tuple(data.shape), None, "contiguous", None
+            ds._msgs = [(DATASPACE, 0, _simple_space(ds._shape)), (DATATYPE, 1, ds._type.raw),
+                        (FILL, 1, FILL_CONTIGUOUS_STRING if vlen else FILL_CONTIGUOUS),
+                        (LAYOUT, 0, struct.pack("<BBQQ", 3, 1, addr, nbytes))]
+            ds._data_addr = addr
+            return self._add(name, ds)
+        if data.ndim != 1:
+            raise ValueError(f"{name!r}: this codec writes chunked 1-D datasets, got shape {data.shape}")
+        ds._shape, ds._maxshape, ds._kind = (0,), (UNDEF,), "chunked"
+        ds._chunk = (guess_chunk_rows(len(data), 8 if vlen else dtype.itemsize),)
+        ds._msgs = [(DATASPACE, 0, b""), (DATATYPE, 1, ds._type.raw), (FILL, 1, FILL_STRING if vlen else FILL_NUMBER),
+                    (LAYOUT, 0, b"")]
+        ds._chunks = (np.zeros((0, 1), np.uint64), np.zeros(0, np.uint64), np.zeros(0, np.uint32),
+                      np.zeros(0, np.uint32))
         self._add(name, ds)
         ds.append(data)
         return ds
 
     def visit_groups(self, prefix: str = "") -> Iterator[Tuple[str, "Group"]]:
-        """(path, group) for every group below this one, depth first."""
-        for name in self.keys():
+        """(path, group) for every group below this one, depth first, through
+        hard links."""
+        for name, target in list(self._read_links().items()):
+            if isinstance(target, _Link):
+                continue
             obj = self[name]
             if isinstance(obj, Group):
                 path = f"{prefix}{name}"
                 yield path, obj
                 yield from obj.visit_groups(path + "/")
-
-    def _check_writable(self):
-        if not self._file.writable:
-            raise OSError(f"{self._file.path}: file is read-only")
 
     def _new_name(self, name: str) -> None:
         self._check_writable()
@@ -699,41 +998,47 @@ class Group(_Object):
 
     def _add(self, name: str, obj: _Object) -> _Object:
         self._read_links()[name] = UNDEF
-        self._links = dict(sorted(self._links.items()))
+        self._links = dict(sorted(self._links.items(), key=lambda kv: kv[0].encode("utf-8")))
         self._objs[name] = obj
+        obj.name = f"{(self.name or '').rstrip('/')}/{name}"
         self._links_dirty = True
         return obj
 
-    def _set_attr(self, name: str, value) -> None:
-        self._check_writable()
-        super()._set_attr(name, value)
-
     # --- writing ---
-    def _flush(self) -> bool:
-        """Write what changed below this group, then its symbol table and
-        header if they changed."""
+    def _assign(self) -> bool:
+        """Reserve new headers for what changed below this group, then write
+        its symbol table and reserve its own header if they changed."""
         for name, obj in self._objs.items():
-            if obj._flush():
+            if obj._assign():
                 self._links[name] = obj._addr
                 self._links_dirty = True
         if self._links_dirty:
             self._write_symbol_table()
             self._links_dirty = False
             self._dirty = True
-        return super()._flush()
+        return super()._assign()
 
-    def _header_msgs(self):
-        return [(STAB, 0, struct.pack("<QQ", self._btree, self._heap))] + super()._header_msgs()
+    def _write_headers(self) -> None:
+        for obj in self._objs.values():
+            obj._write_headers()
+        super()._write_headers()
+
+    def _header_msgs(self, final: bool):
+        return [(STAB, 0, struct.pack("<QQ", self._btree, self._heap))] + super()._header_msgs(final)
 
     def _write_symbol_table(self) -> None:
         """A local heap of the names, symbol-table nodes of up to 2 K_leaf
         entries each, and a B-tree over them, all at the end of the file."""
         f = self._file
         names = list(self._links)  # sorted: HDF5 bisects
-        heap, offsets = bytearray(8), []  # offset 0 holds the empty string
+        heap, offsets, soft = bytearray(8), [], {}  # offset 0 holds the empty string
         for name in names:
             offsets.append(len(heap))
             heap += _padded(name.encode("utf-8") + b"\0")
+        for name in names:
+            if isinstance(self._links[name], _Link):  # a soft link's value goes in the heap too
+                soft[name] = len(heap)
+                heap += _padded(self._links[name].target.encode("utf-8") + b"\0")
         heap_addr = f._alloc(32 + len(heap))
         f._write(heap_addr, struct.pack("<4sB3xQQQ", b"HEAP", 0, len(heap), 1, heap_addr + 32) + bytes(heap))
         cap = 2 * f._leaf_k
@@ -745,13 +1050,16 @@ class Group(_Object):
             struct.pack_into("<4sBxH", node, 0, b"SNOD", 1, len(members))
             for j, k in enumerate(members):
                 obj = self._objs.get(names[k])
+                target = self._links[names[k]]
                 if isinstance(obj, Group):  # a group's entry caches its symbol table, as HDF5's do
                     cache = struct.pack("<IIQQ", 1, 0, obj._btree, obj._heap)
+                elif names[k] in soft:
+                    cache, target = struct.pack("<IIIIQ", 2, 0, soft[names[k]], 0, 0), UNDEF
                 elif obj is None and names[k] in self._cache:
                     cache = self._cache[names[k]]
                 else:
                     cache = bytes(24)
-                node[8 + 40 * j:48 + 40 * j] = struct.pack("<QQ", offsets[k], self._links[names[k]]) + cache
+                node[8 + 40 * j:48 + 40 * j] = struct.pack("<QQ", offsets[k], target) + cache
             snod_addrs.append(f._append(bytes(node)))
         # the keys: heap offsets of the empty string, then of each node's last name
         left = [0] + [offsets[m[-1]] for m in groups[:-1]]
@@ -796,54 +1104,168 @@ def _write_btree(f: File, node_type: int, k: int, children: List[int], left, rig
 
 
 # --------------------------------------------------------------------------
-# datasets
+# datasets (IV.A.2.b, d, e, f, i, l)
 # --------------------------------------------------------------------------
 
 
-class Dataset(_Object):
-    """A 1-D chunked dataset, read whole and appended to."""
+def _fill_value(mtype: int, body: bytes) -> Optional[bytes]:
+    """The fill value of an old (type 4) or new (type 5, versions 1-3)
+    fill-value message, or None when it is undefined or left to the default."""
+    if mtype == FILL_OLD:
+        n = struct.unpack_from("<I", body, 0)[0]
+        return body[4:4 + n] if n else None
+    version = body[0]
+    if version in (1, 2):
+        if version == 2 and not body[3]:
+            return None
+        n = struct.unpack_from("<I", body, 4)[0]
+        return body[8:8 + n] if n else None
+    if version == 3:
+        if not body[1] & 0x20:
+            return None
+        n = struct.unpack_from("<I", body, 2)[0]
+        return body[6:6 + n] if n else None
+    raise FormatError(f"fill-value message version {version} is not one this codec reads")
 
-    def __init__(self, file: File, addr: Optional[int], msgs=()):
-        super().__init__(file, addr, msgs)
+
+class _DimensionProxy:
+    """One axis of a dataset's dimension scales (h5py's ``ds.dims[i]``):
+    ``items()`` [(the scale's NAME, the scale)], ``attach_scale``."""
+
+    def __init__(self, ds: "Dataset", axis: int):
+        self._ds, self._axis = ds, axis
+
+    def items(self) -> List[Tuple[str, "Dataset"]]:
+        ds = self._ds
+        if "DIMENSION_LIST" not in ds.attrs:
+            return []
+        refs = ds.attrs["DIMENSION_LIST"][self._axis]
+        out = []
+        for addr in np.asarray(refs).tolist():
+            scale = ds._file.deref(int(addr))
+            name = scale.attrs.get("NAME", b"")
+            out.append((name.decode("utf-8") if isinstance(name, bytes) else str(name), scale))
+        return out
+
+    def attach_scale(self, scale: "Dataset") -> None:
+        """Attach ``scale`` to this axis as HDF5's ``H5DSattach_scale`` does:
+        its object reference appended to the axis' entry of the dataset's
+        ``DIMENSION_LIST`` (a variable-length sequence per axis, in the
+        global heap) and (the dataset's reference, the axis) to the scale's
+        ``REFERENCE_LIST``. Both are encoded when the headers are written,
+        once every object has its address."""
+        ds, axis = self._ds, self._axis
+        ds._check_writable()
+        scale._check_writable()
+        if ds._dim_scales is None:
+            ds._dim_scales = [[] for _ in ds._shape]
+            ds._dim_heap = [None] * len(ds._shape)
+            ds._set_attr_raw("DIMENSION_LIST", ds._dimension_list)
+            ds._file._attached.append(ds)
+        if scale in ds._dim_scales[axis]:
+            return
+        ds._dim_scales[axis].append(scale)
+        if scale._ref_list is None:
+            scale._ref_list = []
+            scale._set_attr_raw("REFERENCE_LIST", scale._reference_list)
+        scale._ref_list.append((ds, axis))
+        ds._dirty = scale._dirty = True
+
+
+# REFERENCE_LIST's element: an object reference and an int, as H5DS lays it out
+REF_LIST_TYPE = compound_type_bytes([("dataset", 0, OBJ_REF_TYPE), ("dimension", 8, type_bytes(np.int32))], 16)
+
+
+class Dataset(_Object):
+    """A dataset, read whole (``read()``, ``ds[()]``); a 1-D chunked one
+    written by this codec is appended to."""
+
+    def __init__(self, file: File, addr: Optional[int], msgs=(), hflags: int = 0):
+        super().__init__(file, addr, msgs, hflags)
         self._unreadable = None  # why read and append refuse this dataset, if they do
-        self._chunks = None  # (offsets, addresses, sizes), read when first needed
+        self._chunks = None  # (offsets [n, rank], addresses, sizes, filter masks), read when first needed
         self._chunks_dirty = False
-        self._type_flags = 1  # the datatype message is constant
-        self._filtered = False
-        self._index = UNDEF
+        self._filters: list = []
+        self._fill: Optional[bytes] = None
+        self._index = self._data_addr = UNDEF
+        self._kind = self._compact = self._chunk = None
+        self._shape = self._maxshape = None
+        self._type: Optional[Type] = None
+        self._dim_scales = self._ref_list = None  # what this codec attaches, when writing
+        self._dim_heap = None  # DIMENSION_LIST's objects per axis: (count, collection, index, file position)
         if addr is None:
             return
+        fill_new = fill_old = None
         for mtype, flags, body in self._msgs:
+            if flags & 2 and mtype in (DATASPACE, DATATYPE, FILL_OLD, FILL, FILTERS):
+                what = "a committed (shared) datatype" if mtype == DATATYPE else f"a shared message of type {mtype}"
+                self._unreadable = f"{file.path}: the dataset at {addr} has {what}; this codec reads it stored in " \
+                                   "the dataset's header"
+                continue
             if mtype == DATASPACE:
-                self._shape, self._maxshape = _parse_space(body)
+                self._shape, self._maxshape = parse_space(body)
             elif mtype == DATATYPE:
-                self._type, self._type_flags = _Type(body), flags
-                if flags & 2:
-                    self._unreadable = f"{file.path}: the dataset at {addr} has a committed (shared) datatype"
+                self._type, _ = parse_type(body)
+            elif mtype == FILL:
+                fill_new = _fill_value(mtype, body)
+            elif mtype == FILL_OLD:
+                fill_old = _fill_value(mtype, body)
             elif mtype == FILTERS:
-                self._filtered = True
+                self._filters = parse_filters(body)
+            elif mtype == EXTERNAL:
+                self._unreadable = f"{file.path}: the dataset at {addr} is stored in external files"
             elif mtype == LAYOUT:
                 self._parse_layout(body)
-        self._msgs = [m for m in self._msgs if m[0] not in (DATASPACE, DATATYPE, LAYOUT)]
-        if self._unreadable is None and self._filtered:
-            self._unreadable = (f"{file.path}: the dataset at {addr} has filters (compression); this codec reads "
-                                "and writes unfiltered data")
+        self._fill = fill_new if fill_new is not None else fill_old
+        if self._unreadable is None and self._filters:
+            bad = check_filters(self._filters)
+            if bad:
+                self._unreadable = f"{file.path}: the dataset at {addr}: {bad}"
 
     def _parse_layout(self, body: bytes) -> None:
-        """Version 3 of the layout message, 1-D chunked; anything else is
-        noted, and refused when the data is read or written."""
-        version, cls = body[0], body[1]
-        if version == 3 and cls == 2 and body[2] == 2:
-            self._index = struct.unpack_from("<Q", body, 3)[0]
-            self._chunk = struct.unpack_from("<I", body, 11)[0]
+        """The data layout message (IV.A.2.i): versions 1 and 2, and 3 and 4
+        for compact and contiguous data and version 3 for chunked data over
+        a version-1 B-tree; a version-4 chunk index or virtual data is noted
+        and refused when the data is read."""
+        version = body[0]
+        where = f"{self._file.path}: the dataset at {self._addr}"
+        if version in (1, 2):
+            ndims, cls = body[1], body[2]
+            pos = 8
+            if cls in (1, 2):
+                addr = struct.unpack_from("<Q", body, pos)[0]
+                pos += 8
+            dims = struct.unpack_from(f"<{ndims}I", body, pos)
+            pos += 4 * ndims
+            if cls == 0:
+                n = struct.unpack_from("<I", body, pos)[0]
+                self._kind, self._compact = "compact", body[pos + 4:pos + 4 + n]
+            elif cls == 1:
+                self._kind, self._data_addr = "contiguous", addr
+            else:
+                self._kind, self._index, self._chunk = "chunked", addr, tuple(dims[:-1])
+            return
+        if version not in (3, 4):
+            self._unreadable = f"{where} has a layout message of version {version}"
+            return
+        cls = body[1]
+        if cls == 0:
+            n = struct.unpack_from("<H", body, 2)[0]
+            self._kind, self._compact = "compact", body[4:4 + n]
+        elif cls == 1:
+            self._kind, self._data_addr = "contiguous", struct.unpack_from("<Q", body, 2)[0]
+        elif cls == 2 and version == 3:
+            ndims = body[2]
+            self._kind, self._index = "chunked", struct.unpack_from("<Q", body, 3)[0]
+            self._chunk = tuple(struct.unpack_from(f"<{ndims}I", body, 11)[:-1])
+        elif cls == 2:
+            ndims, width = body[3], body[4]
+            index = body[5 + ndims * width]
+            self._unreadable = (f"{where} has a version-4 layout with a {CHUNK_INDEXES.get(index, index)} chunk "
+                                f"index (type {index}); this codec reads chunks under a version-1 B-tree "
+                                "(layout version 3, as HDF5 writes under library-version bounds up to v1.8)")
         else:
-            self._unreadable = (f"{self._file.path}: the dataset at {self._addr} has a layout message of version "
-                                f"{version}, class {cls}; this codec reads 1-D chunked datasets (version 3, class 2)")
-
-    def _set_attr(self, name: str, value) -> None:
-        if self._unreadable:
-            raise FormatError(self._unreadable)
-        super()._set_attr(name, value)
+            self._unreadable = f"{where} has a layout of class {cls} (virtual); this codec does not read it"
 
     # --- the surface ---
     @property
@@ -851,48 +1273,158 @@ class Dataset(_Object):
         return self._shape
 
     @property
+    def ndim(self) -> int:
+        return len(self._shape or ())
+
+    @property
     def dtype(self) -> np.dtype:
-        if self._unreadable:
-            raise FormatError(self._unreadable)
-        self._type.check(f"{self._file.path}: dataset at {self._addr}")
+        self._check_readable()
         return self._type.dtype
 
     @property
-    def chunks(self) -> Tuple[int]:
-        return (self._chunk,)
+    def chunks(self) -> Optional[Tuple[int, ...]]:
+        return self._chunk if self._kind == "chunked" else None
 
-    def read(self) -> np.ndarray:
-        """The whole dataset."""
-        t = self._type
-        t.check(f"{self._file.path}: dataset at {self._addr}")
+    @property
+    def dims(self) -> List[_DimensionProxy]:
+        return [_DimensionProxy(self, axis) for axis in range(self.ndim)]
+
+    def make_scale(self, name: str) -> None:
+        """Make this dataset a dimension scale, as HDF5's ``H5DSset_scale``
+        does: ``CLASS`` "DIMENSION_SCALE" and ``NAME`` as null-terminated
+        fixed-length strings."""
+        for attr, text in (("CLASS", DIM_SCALE_CLASS), ("NAME", name.encode("utf-8"))):
+            tb = string_type_bytes(len(text) + 1)
+            self._set_attr_raw(attr, _attr_bytes(attr, tb, space_bytes(()), text + b"\0"))
+
+    def _place_dimension_list(self) -> List[Tuple[int, bytes]]:
+        """Put DIMENSION_LIST's sequences in the global heap, once every
+        object has its address: an axis' first sequence, or one that has
+        gained a scale since, as a new object (its dataset's header is then
+        being rewritten); else the same object, its bytes rewritten in place
+        where a scale has moved, so that flushing again leaves no orphaned
+        objects. The (file position, bytes) of those rewrites."""
+        f, rewrites, new = self._file, [], []
+        for axis, scales in enumerate(self._dim_scales):
+            blob = np.array([s._addr for s in scales], dtype="<u8").tobytes()
+            held = self._dim_heap[axis]
+            if held is not None and held[0] == len(scales):
+                _, col, idx, pos = held
+                if f._gcols[col][idx] != blob:
+                    f._gcols[col][idx] = blob
+                    rewrites.append((pos, blob))
+            elif scales:
+                new.append((axis, blob))
+        if new:
+            addrs, idxs, at = f._gheap_put([blob for _, blob in new])
+            for j, (axis, _) in enumerate(new):
+                self._dim_heap[axis] = (len(self._dim_scales[axis]), int(addrs[j]), int(idxs[j]), int(at[j]))
+        return rewrites
+
+    def _dimension_list(self, final: bool) -> bytes:
+        """DIMENSION_LIST: per axis a variable-length sequence of object
+        references to its scales, the sequences in the global heap (placed
+        by ``_place_dimension_list``)."""
+        refs = np.zeros(len(self._dim_scales), dtype=VLEN_REF)
+        if final:
+            for axis, held in enumerate(self._dim_heap):
+                if held is not None:
+                    refs[axis] = held[:3]
+        tb = vlen_seq_type_bytes(OBJ_REF_TYPE)
+        return _attr_bytes("DIMENSION_LIST", tb, _simple_space((len(refs),)), refs.tobytes())
+
+    def _reference_list(self, final: bool) -> bytes:
+        """REFERENCE_LIST: (object reference, axis) of every attachment."""
+        rows = np.zeros(len(self._ref_list), dtype=np.dtype({"names": ["dataset", "dimension"],
+                                                             "formats": ["<u8", "<i4"], "offsets": [0, 8],
+                                                             "itemsize": 16}))
+        if final:
+            rows["dataset"] = [ds._addr for ds, _ in self._ref_list]
+            rows["dimension"] = [axis for _, axis in self._ref_list]
+        return _attr_bytes("REFERENCE_LIST", REF_LIST_TYPE, _simple_space((len(rows),)), rows.tobytes())
+
+    def _check_readable(self):
         if self._unreadable:
             raise FormatError(self._unreadable)
-        f = self._file
-        n = self._shape[0]
-        raw = np.zeros(n, dtype=t.storage)  # the fill value where no chunk was written
-        offsets, addrs, _ = self._chunk_index()
-        esize, c = t.storage.itemsize, self._chunk
-        # runs of chunks that lie end to end in the file are read at once
-        keep = offsets < n
-        offsets, addrs = offsets[keep].astype(np.int64), addrs[keep].astype(np.int64)
-        if len(offsets):
-            brk = np.flatnonzero((np.diff(addrs) != c * esize) | (np.diff(offsets) != c)) + 1
-            for s, e in zip(np.r_[0, brk], np.r_[brk, len(offsets)]):
-                lo = int(offsets[s])
-                hi = min(int(offsets[e - 1]) + c, n)
-                raw[lo:hi] = np.frombuffer(f._read(int(addrs[s]), (hi - lo) * esize), dtype=t.storage)
-        return f._decode_vlen_str(raw) if t.vlen_str else raw
+        self._type.check(f"{self._file.path}: dataset {self.name or self._addr}")
+
+    def __getitem__(self, key):
+        data = self.read()
+        if key is Ellipsis:
+            return data
+        return data[key]  # ds[()] of a scalar is its value, as h5py gives it
+
+    def read(self):
+        """The whole dataset (``Empty`` for a null dataspace)."""
+        self._check_readable()
+        t, f = self._type, self._file
+        if self._shape is None:
+            return Empty(t.dtype)
+        shape, n = self._shape, int(np.prod(self._shape))
+        full = shape + t.storage.shape  # an array datatype's dims after the dataset's, as numpy lays them out
+        if self._kind == "compact":
+            raw = np.frombuffer(self._compact, dtype=t.storage, count=n).reshape(full).copy()
+        elif self._kind == "contiguous":
+            if self._data_addr == UNDEF or n == 0:
+                raw = self._filled(shape)
+            else:
+                raw = f._read_array(self._data_addr, t.storage, n).reshape(full)
+        else:
+            raw = self._read_chunked()
+        return f._decode(raw, t)
+
+    def _filled(self, shape) -> np.ndarray:
+        """An array of ``shape`` holding the fill value (zeros if none)."""
+        storage = self._type.storage
+        out = np.zeros(shape, dtype=storage)
+        fill = self._fill
+        if fill is not None and len(fill) == storage.itemsize and self._type.vlen is None and any(fill):
+            out.reshape(-1).view(np.uint8).reshape(-1, storage.itemsize)[:] = np.frombuffer(fill, np.uint8)
+        return out
+
+    def _read_chunked(self) -> np.ndarray:
+        t, f = self._type, self._file
+        shape, cdims = self._shape, self._chunk
+        out = self._filled(shape)
+        offsets, addrs, sizes, masks = self._chunk_index()
+        esize = t.storage.itemsize
+        csize = int(np.prod(cdims)) * esize
+        inside = np.all(offsets < np.asarray(shape, dtype=np.uint64), axis=1) if len(offsets) else np.zeros(0, bool)
+        offsets, addrs, sizes, masks = offsets[inside], addrs[inside], sizes[inside], masks[inside]
+        if len(shape) == 1 and not self._filters and len(offsets):
+            # runs of unfiltered chunks that lie end to end in the file are read at once
+            c, n = cdims[0], shape[0]
+            offs, locs = offsets[:, 0].astype(np.int64), addrs.astype(np.int64)
+            brk = np.flatnonzero((np.diff(locs) != c * esize) | (np.diff(offs) != c)) + 1
+            for s, e in zip(np.r_[0, brk], np.r_[brk, len(offs)]):
+                lo, hi = int(offs[s]), min(int(offs[e - 1]) + c, n)
+                out[lo:hi] = f._read_array(int(locs[s]), t.storage, hi - lo)
+            return out
+        where = f"{f.path}: dataset {self.name or self._addr}"
+        for j in np.argsort(addrs, kind="stable").tolist():
+            buf = f._read(int(addrs[j]), int(sizes[j]))
+            if self._filters:
+                buf = unfilter(buf, self._filters, int(masks[j]), esize, where)
+            if len(buf) != csize:
+                raise FormatError(f"{where}: a chunk of {len(buf)} bytes where {csize} were expected")
+            chunk = np.frombuffer(buf, dtype=t.storage).reshape(cdims + t.storage.shape)
+            lo = offsets[j].astype(np.int64)
+            hi = np.minimum(lo + np.asarray(cdims), np.asarray(shape))
+            out[tuple(slice(a, b) for a, b in zip(lo, hi))] = chunk[tuple(slice(0, b - a) for a, b in zip(lo, hi))]
+        return out
 
     def append(self, data) -> None:
-        """Add ``data``'s rows at the end: the last chunk's free rows are
-        filled in place, the rest go into new chunks, end to end at the end of
-        the file."""
+        """Add ``data``'s rows at the end of a 1-D chunked dataset: the last
+        chunk's free rows are filled in place, the rest go into new chunks,
+        end to end at the end of the file."""
         f = self._file
-        if not f.writable:
-            raise OSError(f"{f.path}: file is read-only")
+        self._check_writable()
         if self._unreadable:
             raise FormatError(self._unreadable)
-        if self._maxshape is None or self._maxshape[0] != UNDEF:
+        if self._filters:
+            raise FormatError(f"{f.path}: the dataset at {self._addr} has filters; this codec appends to "
+                              "unfiltered data")
+        if self._kind != "chunked" or self._maxshape is None or len(self._shape) != 1 or self._maxshape[0] != UNDEF:
             raise OSError(f"{f.path}: the dataset at {self._addr} is not resizable")
         t = self._type
         t.check(f"{f.path}: dataset at {self._addr}")
@@ -900,11 +1432,12 @@ class Dataset(_Object):
         if t.vlen_str:
             raw = f._encode_vlen_str(data)
         else:
-            raw = np.ascontiguousarray(data, dtype=t.dtype)
+            raw = np.ascontiguousarray(data, dtype=t.storage)
         if raw.ndim != 1:
             raise ValueError(f"append: 1-D data expected, got shape {raw.shape}")
-        offsets, addrs, sizes = self._chunk_index()
-        n_old, c, esize = self._shape[0], self._chunk, t.storage.itemsize
+        offsets, addrs, sizes, masks = self._chunk_index()
+        offsets = offsets[:, 0]
+        n_old, c, esize = self._shape[0], self._chunk[0], t.storage.itemsize
         used = n_old % c
         if used and len(raw):
             last = n_old - used
@@ -915,9 +1448,9 @@ class Dataset(_Object):
             else:  # a chunk never written: write it whole
                 chunk = np.zeros(c, dtype=t.storage)
                 chunk[used:used + k] = raw[:k]
-                offsets, addrs, sizes = (np.r_[offsets, last].astype(np.uint64),
-                                         np.r_[addrs, f._append(chunk.tobytes())].astype(np.uint64),
-                                         np.r_[sizes, c * esize].astype(np.uint32))
+                offsets = np.r_[offsets, last].astype(np.uint64)
+                addrs = np.r_[addrs, f._append(chunk.tobytes())].astype(np.uint64)
+                sizes = np.r_[sizes, c * esize].astype(np.uint32)
             raw = raw[k:]
             n_done = n_old + k
         else:
@@ -930,63 +1463,66 @@ class Dataset(_Object):
             offsets = np.r_[offsets, n_done + c * np.arange(count)].astype(np.uint64)
             addrs = np.r_[addrs, base + c * esize * np.arange(count)].astype(np.uint64)
             sizes = np.r_[sizes, np.full(count, c * esize)].astype(np.uint32)
-        self._chunks = (offsets, addrs, sizes)
+        self._chunks = (offsets.reshape(-1, 1), addrs, sizes, np.zeros(len(addrs), np.uint32))
         self._shape = (n_done + len(raw),)
+        self._replace_msg(DATASPACE, space_bytes(self._shape, self._maxshape))
         self._chunks_dirty = self._dirty = True
 
-    # --- the chunk index ---
+    # --- the chunk index (III.A.1, B-tree type 1) ---
     def _chunk_index(self):
         if self._chunks is None:
-            found = []
+            rank = len(self._chunk)
+            entry = np.dtype([("size", "<u4"), ("mask", "<u4"), ("offs", "<u8", (rank + 1,)), ("child", "<u8")])
+            rows = [np.zeros(0, entry)]
             if self._index != UNDEF:
-                self._walk_chunks(self._index, found)
-            arr = np.array(found, dtype=np.uint64).reshape(-1, 3)
-            order = np.argsort(arr[:, 0], kind="stable")
-            arr = arr[order]
-            self._chunks = (arr[:, 0].copy(), arr[:, 1].copy(), arr[:, 2].astype(np.uint32))
+                self._walk_chunks(self._index, entry, rows)
+            arr = np.concatenate(rows)
+            arr = arr[np.lexsort(arr["offs"][:, :rank].T[::-1])] if len(arr) else arr
+            self._chunks = (arr["offs"][:, :rank].copy(), arr["child"].copy(), arr["size"].copy(), arr["mask"].copy())
         return self._chunks
 
-    def _walk_chunks(self, addr: int, found: list) -> None:
+    def _walk_chunks(self, addr: int, entry: np.dtype, rows: list) -> None:
         f = self._file
         head = f._read(addr, 24)
         if head[:4] != b"TREE" or head[4] != 1:
             raise FormatError(f"{f.path}: no chunk B-tree node at {addr}")
         level, n = head[5], struct.unpack_from("<H", head, 6)[0]
-        entry = np.dtype([("size", "<u4"), ("mask", "<u4"), ("offset", "<u8"), ("elem", "<u8"), ("child", "<u8")])
-        rows = np.frombuffer(f._read(addr + 24, 32 * n), dtype=entry, count=n)
+        found = np.frombuffer(f._read(addr + 24, entry.itemsize * n), dtype=entry, count=n)
         if level:
-            for child in rows["child"].tolist():
-                self._walk_chunks(child, found)
+            for child in found["child"].tolist():
+                self._walk_chunks(child, entry, rows)
             return
-        if np.any(rows["mask"] != 0):
-            raise FormatError(f"{f.path}: a chunk with a filter mask at {addr}")
-        found.extend(zip(rows["offset"].tolist(), rows["child"].tolist(), rows["size"].tolist()))
+        rows.append(found)
 
     # --- writing ---
-    def _flush(self) -> bool:
+    def _replace_msg(self, mtype: int, body: bytes) -> None:
+        self._msgs = [(m, fl, body if m == mtype else b) for m, fl, b in self._msgs]
+
+    def _set_attr(self, name: str, value) -> None:
+        if self._unreadable:
+            raise FormatError(self._unreadable)
+        super()._set_attr(name, value)
+
+    def _assign(self) -> bool:
         if self._chunks_dirty:
             self._write_chunk_btree()
             self._chunks_dirty = False
-        return super()._flush()
-
-    def _header_msgs(self):
-        msgs = [(DATASPACE, 0, _space_bytes(self._shape, self._maxshape)), (DATATYPE, self._type_flags, self._type.raw)]
-        msgs += list(self._msgs)
-        esize = self._type.storage.itemsize
-        msgs.append((LAYOUT, 0, struct.pack("<BBBQII", 3, 2, 2, self._index, self._chunk, esize)))
-        return msgs + [(ATTRIBUTE, 0, body) for body in self._attrs.values()]
+        return super()._assign()
 
     def _write_chunk_btree(self) -> None:
-        offsets, addrs, sizes = self._chunks
+        offsets, addrs, sizes, _ = self._chunks
+        offsets = offsets[:, 0]
         if not len(offsets):
             self._index = UNDEF
-            return
-        # a key: the chunk's byte size, its filter mask, its offset and the
-        # offset in the element's bytes, 0. A chunk's right key is the next
-        # chunk's key; the last one's, as HDF5 makes it, is one chunk further
-        # on in every dimension: its offset plus a chunk, and the element size
-        lefts = [(size, off, 0) for size, off in zip(sizes.tolist(), offsets.tolist())]
-        rights = lefts[1:] + [(0, int(offsets[-1]) + self._chunk, self._type.storage.itemsize)]
-        self._index = _write_btree(self._file, 1, self._file._chunk_k, addrs.tolist(), lefts, rights,
-                                   lambda key: struct.pack("<IIQQ", key[0], 0, key[1], key[2]),
-                                   empty_key=b"\0" * 24)
+        else:
+            # a key: the chunk's byte size, its filter mask, its offset and the
+            # offset in the element's bytes, 0. A chunk's right key is the next
+            # chunk's key; the last one's, as HDF5 makes it, is one chunk further
+            # on in every dimension: its offset plus a chunk, and the element size
+            lefts = [(size, off, 0) for size, off in zip(sizes.tolist(), offsets.tolist())]
+            rights = lefts[1:] + [(0, int(offsets[-1]) + self._chunk[0], self._type.storage.itemsize)]
+            self._index = _write_btree(self._file, 1, self._file._chunk_k, addrs.tolist(), lefts, rights,
+                                       lambda key: struct.pack("<IIQQ", key[0], 0, key[1], key[2]),
+                                       empty_key=b"\0" * 24)
+        self._replace_msg(LAYOUT, struct.pack("<BBBQII", 3, 2, 2, self._index, self._chunk[0],
+                                              self._type.storage.itemsize))

@@ -1,0 +1,363 @@
+"""HDF5's later on-disk structures for the port's codec (``data/hdf5.py``):
+the metadata checksum, the filter pipeline, fractal heaps and version-2
+B-trees. Section numbers are those of the HDF5 File Format Specification
+version 3.0. Each reader takes ``read(addr, n) -> bytes`` and the file's
+path (for messages); every signature and checksum is checked.
+"""
+
+from __future__ import annotations
+
+import bz2
+import struct
+import zlib
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from gpsat_tpu_torch.data.hdf5_types import UNDEF, FormatError, limit_enc_size
+
+_M = 0xFFFF_FFFF
+Reader = Callable[[int, int], bytes]
+
+
+# --------------------------------------------------------------------------
+# checksums (III.F: Jenkins' lookup3 "hashlittle", as H5_checksum_lookup3)
+# --------------------------------------------------------------------------
+
+
+def _rot(x: int, k: int) -> int:
+    return ((x << k) | (x >> (32 - k))) & _M
+
+
+def lookup3(data: bytes, initval: int = 0) -> int:
+    """Bob Jenkins' lookup3 hash of ``data``: the checksum of every
+    version-2 structure (superblock, object headers, B-tree nodes, heap
+    blocks)."""
+    n = len(data)
+    a = b = c = (0xDEADBEEF + n + initval) & _M
+    if n == 0:
+        return c
+    full = (n - 1) // 12  # the blocks mixed before the last one
+    words = struct.unpack_from(f"<{3 * full}I", data, 0)
+    for i in range(0, 3 * full, 3):
+        a, b, c = (a + words[i]) & _M, (b + words[i + 1]) & _M, (c + words[i + 2]) & _M
+        a = (a - c) & _M; a ^= _rot(c, 4); c = (c + b) & _M  # noqa: E702
+        b = (b - a) & _M; b ^= _rot(a, 6); a = (a + c) & _M  # noqa: E702
+        c = (c - b) & _M; c ^= _rot(b, 8); b = (b + a) & _M  # noqa: E702
+        a = (a - c) & _M; a ^= _rot(c, 16); c = (c + b) & _M  # noqa: E702
+        b = (b - a) & _M; b ^= _rot(a, 19); a = (a + c) & _M  # noqa: E702
+        c = (c - b) & _M; c ^= _rot(b, 4); b = (b + a) & _M  # noqa: E702
+    # the last 1-12 bytes, added as if zero-padded to 12
+    ta, tb, tc = struct.unpack("<3I", data[12 * full:].ljust(12, b"\0"))
+    a, b, c = (a + ta) & _M, (b + tb) & _M, (c + tc) & _M
+    c ^= b; c = (c - _rot(b, 14)) & _M  # noqa: E702
+    a ^= c; a = (a - _rot(c, 11)) & _M  # noqa: E702
+    b ^= a; b = (b - _rot(a, 25)) & _M  # noqa: E702
+    c ^= b; c = (c - _rot(b, 16)) & _M  # noqa: E702
+    a ^= c; a = (a - _rot(c, 4)) & _M  # noqa: E702
+    b ^= a; b = (b - _rot(a, 14)) & _M  # noqa: E702
+    c ^= b; c = (c - _rot(b, 24)) & _M  # noqa: E702
+    return c
+
+
+def check_sum(buf: bytes, path: str, what: str) -> None:
+    """``buf``'s last four bytes are the lookup3 checksum of the rest."""
+    stored = struct.unpack_from("<I", buf, len(buf) - 4)[0]
+    if lookup3(buf[:-4]) != stored:
+        raise FormatError(f"{path}: the checksum of {what} does not match")
+
+
+def fletcher32(data: bytes) -> int:
+    """HDF5's Fletcher-32 (``H5_checksum_fletcher32``): big-endian 16-bit
+    words, sums folded every 360 words, an odd last byte as the high byte
+    of a word, and a last fold to 16 bits."""
+    n = len(data) // 2
+    w = np.frombuffer(data, dtype=">u2", count=n).astype(np.int64)
+    s1 = s2 = 0
+    for lo in range(0, n, 360):
+        blk = w[lo:lo + 360]
+        t = len(blk)
+        # within a block: sum1 += w, sum2 += sum1 after each word
+        s2 = (s2 + t * s1 + int(np.sum(np.cumsum(blk)))) & _M  # uint32 sums, as in HDF5
+        s1 = (s1 + int(blk.sum())) & _M
+        s1 = (s1 & 0xFFFF) + (s1 >> 16)
+        s2 = (s2 & 0xFFFF) + (s2 >> 16)
+    if len(data) % 2:
+        s1 += data[-1] << 8
+        s2 += s1
+        s1 = (s1 & 0xFFFF) + (s1 >> 16)
+        s2 = (s2 & 0xFFFF) + (s2 >> 16)
+    s1 = (s1 & 0xFFFF) + (s1 >> 16)
+    s2 = (s2 & 0xFFFF) + (s2 >> 16)
+    return ((s2 << 16) | s1) & _M
+
+
+# --------------------------------------------------------------------------
+# the filter pipeline (IV.A.2.l) and the filters this codec applies
+# --------------------------------------------------------------------------
+
+DEFLATE, SHUFFLE, FLETCHER32, BZIP2, BLOSC = 1, 2, 3, 307, 32001
+FILTER_NAMES = {1: "deflate", 2: "shuffle", 3: "fletcher32", 4: "szip", 5: "nbit", 6: "scaleoffset",
+                305: "lzo", 307: "bzip2", 32000: "lzf", 32001: "blosc", 32004: "lz4", 32008: "bitshuffle",
+                32015: "zstd"}
+
+
+class Filter:
+    """One filter of a pipeline: its id, flags (bit 0: optional), name and
+    client data."""
+
+    __slots__ = ("id", "flags", "name", "client")
+
+    def __init__(self, fid: int, flags: int, name: str, client: Tuple[int, ...]):
+        self.id, self.flags, self.name, self.client = fid, flags, name, client
+
+    def label(self) -> str:
+        name = self.name or FILTER_NAMES.get(self.id, "unregistered")
+        return f"filter {self.id} ({name})"
+
+
+def parse_filters(body: bytes) -> List[Filter]:
+    """The filter pipeline message, versions 1 and 2, in pipeline order."""
+    version, n = body[0], body[1]
+    if version not in (1, 2):
+        raise FormatError(f"filter pipeline message version {version} is not one this codec reads")
+    pos, out = (8 if version == 1 else 2), []
+    for _ in range(n):
+        fid = struct.unpack_from("<H", body, pos)[0]
+        pos += 2
+        name_len = 0
+        if version == 1 or fid >= 256:
+            name_len = struct.unpack_from("<H", body, pos)[0]
+            pos += 2
+        flags, ncv = struct.unpack_from("<HH", body, pos)
+        pos += 4
+        name = body[pos:pos + name_len].split(b"\0", 1)[0].decode("ascii", "replace")
+        pos += name_len
+        client = struct.unpack_from(f"<{ncv}I", body, pos)
+        pos += 4 * ncv + (4 if version == 1 and ncv % 2 else 0)
+        out.append(Filter(fid, flags, name, client))
+    return out
+
+
+def check_filters(filters: List[Filter]) -> Optional[str]:
+    """Why chunks through ``filters`` cannot be read (a mandatory filter this
+    codec does not apply), or None. An optional one fails only on a chunk
+    that went through it (its filter-mask bit clear)."""
+    for flt in filters:
+        if flt.id not in (DEFLATE, SHUFFLE, FLETCHER32, BZIP2, BLOSC) and not flt.flags & 1:
+            return f"{flt.label()} is not one this codec applies (it applies deflate, shuffle, fletcher32, " \
+                   "blosc and bzip2)"
+    return None
+
+
+def unfilter(data: bytes, filters: List[Filter], mask: int, itemsize: int, where: str) -> bytes:
+    """Undo ``filters`` on one chunk, last first, skipping each filter whose
+    bit is set in the chunk's filter ``mask``."""
+    for i in range(len(filters) - 1, -1, -1):
+        if mask >> i & 1:
+            continue
+        flt = filters[i]
+        if flt.id == DEFLATE:
+            data = zlib.decompress(data)
+        elif flt.id == SHUFFLE:
+            size = flt.client[0] if flt.client else itemsize
+            n = len(data) // size
+            if size > 1 and n > 1:
+                head = np.frombuffer(data, dtype=np.uint8, count=n * size).reshape(size, n).T
+                data = head.tobytes() + data[n * size:]
+        elif flt.id == FLETCHER32:
+            if len(data) < 4:
+                raise FormatError(f"{where}: a fletcher32 chunk of {len(data)} bytes")
+            body, stored = data[:-4], struct.unpack("<I", data[-4:])[0]
+            want = fletcher32(body)
+            # HDF5 before 1.6.3 stored it with its 16-bit halves' bytes swapped; HDF5 accepts both
+            swapped = ((want & 0x00FF00FF) << 8) | ((want >> 8) & 0x00FF00FF)
+            if stored not in (want, swapped):
+                raise FormatError(f"{where}: fletcher32 checksum mismatch (stored {stored:#010x}, "
+                                  f"computed {want:#010x})")
+            data = body
+        elif flt.id == BZIP2:
+            data = bz2.decompress(data)
+        elif flt.id == BLOSC:
+            from gpsat_tpu_torch.data.blosc import blosc_decode
+
+            data = blosc_decode(data)
+        else:
+            raise FormatError(f"{where}: {flt.label()} is not one this codec applies")
+    return data
+
+
+# --------------------------------------------------------------------------
+# version-2 B-trees (III.A.2)
+# --------------------------------------------------------------------------
+
+
+def btree2_records(read: Reader, addr: int, path: str) -> Tuple[int, List[bytes]]:
+    """The type and the records of the version-2 B-tree at ``addr``, in key
+    order."""
+    head = read(addr, 38)
+    if head[:4] != b"BTHD":
+        raise FormatError(f"{path}: no version-2 B-tree header at {addr}")
+    check_sum(head, path, f"the version-2 B-tree header at {addr}")
+    btype, node_size, rec_size, depth = struct.unpack_from("<BIHH", head, 5)
+    root, root_n = struct.unpack_from("<QH", head, 16)
+    if root == UNDEF:
+        return btype, []
+    # H5B2__hdr_init: the most records a node at each depth holds, and the
+    # widths of the record counts stored beside each child pointer
+    leaf_max = (node_size - 10) // rec_size
+    count_size = limit_enc_size(leaf_max)
+    cum_max, cum_size = [leaf_max], [0]
+    for d in range(1, depth + 1):
+        ptr = 8 + count_size + cum_size[d - 1]
+        m = (node_size - (10 + ptr)) // (rec_size + ptr)
+        cum_max.append((m + 1) * cum_max[d - 1] + m)
+        cum_size.append(limit_enc_size(cum_max[d]))
+    out: List[bytes] = []
+
+    def walk(node: int, n: int, d: int) -> None:
+        buf = read(node, node_size)
+        sig = b"BTLF" if d == 0 else b"BTIN"
+        if buf[:4] != sig or buf[5] != btype:
+            raise FormatError(f"{path}: no version-2 B-tree {'leaf' if d == 0 else 'internal'} node at {node}")
+        recs = [buf[6 + i * rec_size:6 + (i + 1) * rec_size] for i in range(n)]
+        pos = 6 + n * rec_size
+        if d == 0:
+            check_sum(buf[:pos + 4], path, f"the version-2 B-tree node at {node}")
+            out.extend(recs)
+            return
+        children = []
+        for _ in range(n + 1):
+            child = struct.unpack_from("<Q", buf, pos)[0]
+            cn = int.from_bytes(buf[pos + 8:pos + 8 + count_size], "little")
+            pos += 8 + count_size + cum_size[d - 1]
+            children.append((child, cn))
+        check_sum(buf[:pos + 4], path, f"the version-2 B-tree node at {node}")
+        for i, (child, cn) in enumerate(children):
+            walk(child, cn, d - 1)
+            if i < n:
+                out.append(recs[i])
+
+    walk(root, root_n, depth)
+    return btype, out
+
+
+# --------------------------------------------------------------------------
+# fractal heaps (III.G)
+# --------------------------------------------------------------------------
+
+
+class FractalHeap:
+    """The fractal heap at ``addr``: ``get(heap_id)`` is an object's bytes.
+    Managed objects come from direct blocks found by walking the doubling
+    table of indirect blocks once; tiny objects from the ID itself; huge
+    objects from their own blocks, through the heap's version-2 B-tree when
+    the ID does not hold their address."""
+
+    def __init__(self, read: Reader, addr: int, path: str):
+        self._read, self.path = read, path
+        head = read(addr, 142)
+        if head[:4] != b"FRHP":
+            raise FormatError(f"{path}: no fractal heap header at {addr}")
+        self.id_len, filter_len, self.flags, self.max_man = struct.unpack_from("<HHBI", head, 5)
+        self.huge_btree = struct.unpack_from("<Q", head, 22)[0]
+        self.width, self.start, self.max_direct, max_bits, _, root, rows = struct.unpack_from("<HQQHHQH", head, 110)
+        size = 142 + (12 + filter_len if filter_len else 0) + 4
+        check_sum(read(addr, size), path, f"the fractal heap header at {addr}")
+        if filter_len:
+            raise FormatError(f"{path}: the fractal heap at {addr} is filtered; this codec reads unfiltered heaps")
+        self.off_size = (max_bits + 7) // 8
+        self.len_size = min((self.max_direct.bit_length() - 1 + 7) // 8, limit_enc_size(self.max_man))
+        self.max_dblock_rows = (self.max_direct.bit_length() - 1) - (self.start.bit_length() - 1) + 2
+        self._blocks: List[Tuple[int, int, int]] = []  # (heap offset, address, size) of each direct block
+        self._cache: Dict[int, bytes] = {}
+        self._huge: Optional[Dict[int, Tuple[int, int]]] = None
+        if root != UNDEF:
+            if rows == 0:
+                self._blocks.append((0, root, self.start))
+            else:
+                self._walk_indirect(root, rows, 0)
+        self._blocks.sort()
+        self._offsets = np.array([b[0] for b in self._blocks], dtype=np.int64)
+
+    def _row_size(self, row: int) -> int:
+        return self.start << max(row - 1, 0)
+
+    def _walk_indirect(self, addr: int, rows: int, block_off: int) -> None:
+        k = min(rows, self.max_dblock_rows) * self.width
+        n = max(rows - self.max_dblock_rows, 0) * self.width
+        size = 5 + 8 + self.off_size + 8 * (k + n) + 4
+        buf = self._read(addr, size)
+        if buf[:4] != b"FHIB":
+            raise FormatError(f"{self.path}: no fractal heap indirect block at {addr}")
+        check_sum(buf, self.path, f"the fractal heap indirect block at {addr}")
+        children = struct.unpack_from(f"<{k + n}Q", buf, 5 + 8 + self.off_size)
+        off = block_off
+        for i, child in enumerate(children):
+            row = i // self.width
+            bsize = self._row_size(row)
+            if child != UNDEF:
+                if i < k:
+                    self._blocks.append((off, child, bsize))
+                else:  # an indirect child: rows enough to span its size
+                    sub_rows = (bsize.bit_length() - 1) - ((self.start * self.width).bit_length() - 1) + 1
+                    self._walk_indirect(child, sub_rows, off)
+            off += bsize
+
+    def _block(self, j: int) -> bytes:
+        off, addr, size = self._blocks[j]
+        buf = self._cache.get(j)
+        if buf is None:
+            buf = self._read(addr, size)
+            if buf[:4] != b"FHDB":
+                raise FormatError(f"{self.path}: no fractal heap direct block at {addr}")
+            if self.flags & 2:  # checksummed direct blocks: the sum of the block with its field zeroed
+                at = 5 + 8 + self.off_size
+                stored = struct.unpack_from("<I", buf, at)[0]
+                if lookup3(buf[:at] + b"\0\0\0\0" + buf[at + 4:]) != stored:
+                    raise FormatError(f"{self.path}: the checksum of the fractal heap direct block at {addr} "
+                                      "does not match")
+            self._cache[j] = buf
+        return buf
+
+    def get(self, heap_id: bytes) -> bytes:
+        b0 = heap_id[0]
+        kind = (b0 >> 4) & 3
+        if b0 >> 6:
+            raise FormatError(f"{self.path}: fractal heap ID version {b0 >> 6}")
+        if kind == 0:  # managed: an offset in the heap's address space and a length
+            off = int.from_bytes(heap_id[1:1 + self.off_size], "little")
+            n = int.from_bytes(heap_id[1 + self.off_size:1 + self.off_size + self.len_size], "little")
+            j = int(np.searchsorted(self._offsets, off, side="right")) - 1
+            if j < 0 or off + n > self._blocks[j][0] + self._blocks[j][2]:
+                raise FormatError(f"{self.path}: fractal heap offset {off} lies in no direct block")
+            lo = off - self._blocks[j][0]
+            return self._block(j)[lo:lo + n]
+        if kind == 2:  # tiny: the bytes are in the ID
+            # the length in the ID's first byte while the ID holds at most 16
+            # bytes after it, and also at 18 bytes, where a second length byte
+            # would leave room for no more (HDF5's H5HF__tiny_init); in two
+            # bytes beyond that
+            if self.id_len <= 18:
+                n = (b0 & 0x0F) + 1
+                return heap_id[1:1 + n]
+            n = (((b0 & 0x0F) << 8) | heap_id[1]) + 1
+            return heap_id[2:2 + n]
+        if kind == 1:  # huge: in a block of its own
+            if self.id_len >= 17:
+                addr, n = struct.unpack_from("<QQ", heap_id, 1)
+                return self._read(addr, n)
+            key = int.from_bytes(heap_id[1:self.id_len], "little")
+            if self._huge is None:
+                btype, recs = btree2_records(self._read, self.huge_btree, self.path)
+                if btype != 1:
+                    raise FormatError(f"{self.path}: huge fractal heap objects under a version-2 B-tree of "
+                                      f"type {btype}; this codec reads type 1 (unfiltered)")
+                self._huge = {}
+                for r in recs:
+                    a, n = struct.unpack_from("<QQ", r, 0)
+                    self._huge[int.from_bytes(r[16:], "little")] = (a, n)
+            if key not in self._huge:
+                raise FormatError(f"{self.path}: no huge fractal heap object {key}")
+            return self._read(*self._huge[key])
+        raise FormatError(f"{self.path}: fractal heap ID of type {kind}")

@@ -3,7 +3,8 @@
 The port's own copy of ``gpsat_tpu/data/ingest.py``; the stores it writes
 are the port's ``TableStore`` (the JAX package's format). netCDF sources
 (``read_engine`` "nc", "netcdf", "xarray") go through ``data/netcdf``'s
-h5py reader, their dimensions reset to columns.
+reader (the port's own HDF5 codec, no h5py), their dimensions reset to
+columns.
 
 Re-implements the reference's ingest path:
 - ``read_from_multiple_files`` (ref: GPSat/dataloader.py:232-442): walk
@@ -119,7 +120,7 @@ def read_from_multiple_files(
             if read_engine in ("nc", "netcdf", "xarray"):
                 # the reference reads nc through xr.open_dataset +
                 # to_dataframe (GPSat/dataloader.py:388-394); here through
-                # the h5py reader, the dims kept as columns so col and row
+                # the codec's reader, the dims kept as columns so col and row
                 # selections see them
                 from gpsat_tpu_torch.data.netcdf import read_netcdf
 

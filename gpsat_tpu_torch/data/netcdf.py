@@ -1,10 +1,12 @@
-"""netCDF4 reading via h5py — no xarray/netCDF4 dependency.
+"""netCDF4 reading and writing through the port's own HDF5 codec — no
+xarray/netCDF4/h5py dependency.
 
-The port's own copy of ``gpsat_tpu/data/netcdf.py``. h5py is imported when
-a file is read or written, not with the module, and the zarr reader shares
-``_decode_cf`` from here. netCDF4 files use HDF5 structures the port's own
-codec (``data/hdf5.py``) does not read, so without h5py reading or writing
-one raises an ImportError that names the file.
+The port's own copy of ``gpsat_tpu/data/netcdf.py``: the same logic, the
+bytes read and written by ``data/hdf5.py`` (superblocks 0 and 2, version-2
+object headers, new-style and dense groups, dimension scales, chunked and
+deflate/shuffle/fletcher32-filtered variables, as netCDF-C and h5netcdf
+write them under library-version bounds up to v1.8) where the JAX package
+goes through h5py. The zarr reader shares ``_decode_cf`` from here.
 
 netCDF4 files ARE HDF5 files: dimensions are HDF5 dimension scales
 (CLASS="DIMENSION_SCALE") and each variable's dims are recorded in its
@@ -34,7 +36,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import pandas as pd
 
-from gpsat_tpu_torch.data.pytables_compat import require_h5py
+from gpsat_tpu_torch.data import hdf5
 
 # netCDF4 marks a dimension that has no coordinate variable with this NAME
 _PHONY_DIM_PREFIX = b"This is a netCDF dimension but not a netCDF variable"
@@ -130,7 +132,8 @@ def _attr_bytes(attrs, name) -> bytes:
 
 
 def _decode_bytes(vals: np.ndarray) -> np.ndarray:
-    """h5py variable-length strings arrive as bytes objects; give back str."""
+    """Variable-length strings as bytes objects (h5py's) -> str; the codec
+    already gives str."""
     if vals.dtype.kind == "O" and any(isinstance(x, (bytes, bytearray)) for x in vals.reshape(-1)[:1]):
         return np.asarray(
             [x.decode("utf-8", errors="replace") if isinstance(x, (bytes, bytearray)) else x
@@ -144,7 +147,7 @@ def _is_scale(ds) -> bool:
 
 
 def _dim_names(var, fallback_count: Dict[int, str]) -> List[str]:
-    """Dimension names of an h5py dataset via its attached scales; phony
+    """Dimension names of a dataset via its attached scales; phony
     names (per-length, netCDF4-style phony_dim_N) when none attached."""
     names = []
     for axis, dim in enumerate(var.dims):
@@ -170,10 +173,9 @@ def read_netcdf(
     """Read a (root-group) netCDF4/HDF5 file into a DataFrame with the
     dims as index levels — the xarray ``to_dataframe`` contract the
     reference ingest consumes."""
-    h5py = require_h5py(path, "a netCDF4 file")
-    with h5py.File(path, "r") as f:
+    with hdf5.File(path, "r") as f:
         for key in f.keys():
-            if isinstance(f[key], h5py.Group):
+            if isinstance(f[key], hdf5.Group):
                 raise NotImplementedError(
                     f"netCDF file {path} contains HDF5 group '{key}'; only flat "
                     "(classic-model) files are supported by this reader"
@@ -239,11 +241,11 @@ def read_netcdf(
 
 
 def write_netcdf(path: str, df_or_vars, coords: Optional[Dict[str, np.ndarray]] = None) -> None:
-    """Write a flat netCDF4-style (HDF5 + dimension scales) file. Used by
-    tests/examples to build fixtures without netCDF4/xarray; real netCDF4
-    readers open these files (the dimension-scale layout is the netCDF4
-    on-disk convention)."""
-    h5py = require_h5py(path, "a netCDF4 file")
+    """Write a flat netCDF4-style (HDF5 + dimension scales) file through the
+    port's HDF5 codec: HDF5's earliest format, contiguous variables, the
+    dimension scales as HDF5's H5DS functions lay them out, the file the JAX
+    writer makes through h5py. Real netCDF4 readers open these files (the
+    dimension-scale layout is the netCDF4 on-disk convention)."""
     if isinstance(df_or_vars, pd.DataFrame) and isinstance(df_or_vars.index, pd.MultiIndex):
         # unstack onto the dense dim product (xarray's df.to_xarray()
         # convention): each index level becomes a dimension, missing cells
@@ -296,24 +298,26 @@ def write_netcdf(path: str, df_or_vars, coords: Optional[Dict[str, np.ndarray]] 
             ints = vals.astype("datetime64[ns]").astype(np.int64)
             attrs = {"units": "nanoseconds since 1970-01-01",
                      "_FillValue": np.int64(np.iinfo(np.int64).min)}
-            return ints, attrs, None
+            return ints, attrs
         if vals.dtype.kind in "OUS":
             out = np.asarray(
                 ["" if v is None else str(v) for v in vals.reshape(-1)], dtype=object
             ).reshape(vals.shape)
-            return out, {}, h5py.string_dtype()
-        return vals, {}, None
+            return out, {}
+        return vals, {}
 
-    with h5py.File(path, "w") as f:
+    with hdf5.File(path, "w") as f:
         for d, vals in coords.items():
-            enc, attrs, dt = encode(vals)
-            ds = f.create_dataset(d, data=enc, dtype=dt)
-            ds.attrs.update(attrs)
+            enc, attrs = encode(vals)
+            ds = f.create_dataset(d, enc, contiguous=True)
+            for k, v in attrs.items():
+                ds.attrs[k] = v
             ds.make_scale(d)
         for name, (dims, vals) in data.items():
             dims = (dims,) if isinstance(dims, str) else tuple(dims)
-            enc, attrs, dt = encode(vals)
-            ds = f.create_dataset(name, data=enc, dtype=dt)
-            ds.attrs.update(attrs)
+            enc, attrs = encode(vals)
+            ds = f.create_dataset(name, enc, contiguous=True)
+            for k, v in attrs.items():
+                ds.attrs[k] = v
             for axis, d in enumerate(dims):
                 ds.dims[axis].attach_scale(f[d])

@@ -3,12 +3,11 @@
 The port's own copy of ``gpsat_tpu/data/pytables_compat.py``, plus
 ``PyTablesStore`` / ``open_store``: the ``TableStore`` read surface
 (``keys``, ``in``, ``select``) over such a file, for the orchestrator's
-parameter loading. Which kind of file a path holds is read through the
-port's HDF5 codec (``data/hdf5.py``), so a ``TableStore`` file opens
-without h5py; a PyTables table's rows (compound datasets, often
-compressed) are read with h5py, imported when one is read, and without
-it ``read_table`` raises an ``ImportError`` that names the file. pandas is
-imported when a file is read.
+parameter loading. Every file is read through the port's own HDF5 codec
+(``data/hdf5.py``): PyTables' compound tables with their array members,
+fixed strings, enums, bitfields and pickled attributes, chunked and
+zlib-, blosc- or bzip2-compressed; no h5py. pandas is imported when a
+file is read.
 
 The reference writes all observation/result stores with pandas HDFStore in
 PyTables "table" format (ref: GPSat/local_experts.py:499-550 buffered
@@ -69,18 +68,6 @@ def _unpickle_attr(raw):
         return None
 
 
-def require_h5py(path: str, what: str):
-    """h5py, or an ImportError naming ``path``: what the port's own HDF5
-    codec does not read (``what``) needs it."""
-    try:
-        import h5py
-    except ImportError as e:
-        raise ImportError(
-            f"{path}: reading {what} needs h5py, which is not installed here; the port's own HDF5 codec "
-            "(gpsat_tpu_torch/data/hdf5.py) reads and writes TableStore files only") from e
-    return h5py
-
-
 def is_pytables_store(path: str) -> bool:
     """True when the file contains pandas_type-tagged PyTables groups; False
     for a file the port's HDF5 codec does not open (not HDF5, or a format
@@ -116,8 +103,7 @@ def read_table(path: str, key: str, where=None):
 
     from gpsat_tpu_torch.data.store import _where_mask
 
-    h5py = require_h5py(path, "a pandas-HDFStore (PyTables) table")
-    with h5py.File(path, "r") as f:
+    with hdf5.File(path, "r") as f:
         key = key.lstrip("/")
         assert key in f, f"table: '{key}' not in {path}; available: {list_tables(path)}"
         grp = f[key]

@@ -106,8 +106,8 @@ class DataLoader:
         """Write variables to a netCDF4(-compatible HDF5) file
         (ref: dataloader.py write_to_netcdf — there a thin xr.Dataset
         wrapper; this accepts what data.netcdf.write_netcdf takes: a DataFrame (indexed by dims) or a
-        {name: (dims, values)} dict, written with h5py dimension scales
-        that round-trip through read_netcdf)."""
+        {name: (dims, values)} dict, written through the port's HDF5 codec
+        with dimension scales that round-trip through read_netcdf)."""
         assert mode == "w", f"only mode='w' is supported, got: {mode}"
         from gpsat_tpu_torch.data.netcdf import write_netcdf as _w
 

@@ -201,8 +201,11 @@ def test_codec_chunks_and_attributes_read_in_h5py(tmp_path):
         assert f["g"].attrs["more"] == "x" * 200 and f["g"].attrs["note"] == "é"
 
 
-@pytest.mark.parametrize("kind", ["missing", "not_hdf5", "latest_format", "compressed"])
+@pytest.mark.parametrize("kind", ["missing", "not_hdf5", "latest_format", "compressed", "layout_v4", "unknown_filter"])
 def test_codec_refuses_what_it_does_not_read(kind, tmp_path):
+    # what the codec does not read raises; HDF5's latest format (superblock 3,
+    # version-2 headers) and a compressed column read as h5py reads them,
+    # and an append to the compressed one is refused
     path = str(tmp_path / "f.h5")
     if kind == "missing":
         with pytest.raises(FileNotFoundError):
@@ -215,20 +218,29 @@ def test_codec_refuses_what_it_does_not_read(kind, tmp_path):
             TStore(path, mode="r")
         assert not TPT.is_pytables_store(path)
         return
-    if kind == "latest_format":
-        with h5py.File(path, "w", libver="latest") as f:
-            f.create_dataset("t/a", data=np.arange(3.0), maxshape=(None,))
-        with pytest.raises(hdf5.FormatError, match="superblock version"):
-            TStore(path, mode="r")
-        return
-    with h5py.File(path, "w") as f:
-        f.create_dataset("t/a", data=np.arange(30.0), maxshape=(None,), compression="gzip")
+    libver = "latest" if kind in ("latest_format", "layout_v4") else "earliest"
+    with h5py.File(path, "w", libver=libver) as f:
+        kw = {"latest_format": {}, "compressed": dict(maxshape=(None,), compression="gzip"),
+              "layout_v4": dict(maxshape=(None,)), "unknown_filter": dict(chunks=(8,), compression="lzf")}[kind]
+        f.create_dataset("t/a", data=np.arange(30.0), **kw)
         f["t"].attrs["columns"], f["t"].attrs["index_cols"] = '["a"]', "[]"
         f["t/a"].attrs["dtype_tag"] = "<f8"
     with TStore(path, mode="r") as s:
         assert s.keys() == ["t"]
-        with pytest.raises(hdf5.FormatError, match="filters"):
-            s.select("t")
+        if kind in ("latest_format", "compressed"):
+            with h5py.File(path, "r") as f:
+                want = f["t/a"][()]
+            np.testing.assert_array_equal(s.select("t")["a"].to_numpy(), want)
+        else:
+            with pytest.raises(hdf5.FormatError, match={"layout_v4": "version-4 layout with a extensible array",
+                                                        "unknown_filter": r"filter 32000 \(lzf\)"}[kind]):
+                s.select("t")
+    if kind == "latest_format":
+        with pytest.raises(hdf5.FormatError, match="superblock version 3"):
+            TStore(path, mode="a")
+    if kind == "compressed":
+        with TStore(path, mode="a") as s, pytest.raises(hdf5.FormatError, match="filters"):
+            s.append("t", pd.DataFrame({"a": [1.0]}))
 
 
 # the workflow's stores with h5py unimportable: LocalExpertOI.run on
@@ -293,23 +305,23 @@ class Block:
 sys.meta_path.insert(0, Block())
 STORE_DIR, PYTABLES, NETCDF = sys.argv[1:4]
 """ + WORKFLOW + r"""
+import pandas as pd
 from gpsat_tpu_torch.data import pytables_compat as PT
 from gpsat_tpu_torch.data import dataloader as DL
-from gpsat_tpu_torch.data.netcdf import read_netcdf
+from gpsat_tpu_torch.data.ingest import read_and_store
+from gpsat_tpu_torch.data.netcdf import read_netcdf, write_netcdf
 # a port-format store opens through open_store and the dataloader
 with PT.open_store(STORE_DIR + "/run.h5") as s:
     assert "preds" in s.keys() and len(s.select("preds")) == 12
 assert len(DL.load(STORE_DIR + "/run.h5", table="run_details")) == 4
-# a PyTables file is recognised, and its rows need h5py; so does netCDF4
-assert PT.is_pytables_store(PYTABLES) and PT.list_tables(PYTABLES) == ["data"]
-for fn in (lambda: PT.open_store(PYTABLES).select("data"), lambda: DL.load(PYTABLES, table="data"),
-           lambda: read_netcdf(NETCDF)):
-    try:
-        fn()
-    except ImportError as e:
-        assert ("needs h5py" in str(e)) and (PYTABLES in str(e) or NETCDF in str(e)), e
-    else:
-        raise AssertionError("no ImportError")
+# a PyTables file and a netCDF4 file read, and a netCDF file is written
+assert PT.is_pytables_store(PYTABLES) and PT.list_tables(PYTABLES) == ["data", "lengthscales"]
+frames = {"read_table": PT.read_table(PYTABLES, "data"), "select": PT.open_store(PYTABLES).select("lengthscales"),
+          "dl_load": DL.load(PYTABLES, table="data"), "read_netcdf": read_netcdf(NETCDF)}
+write_netcdf(STORE_DIR + "/written.nc", frames["read_table"])
+read_and_store({"file": STORE_DIR + "/ingest.h5", "table": "data"}, STORE_DIR, r"written\.nc", read_engine="nc")
+frames["read_and_store"] = DL.load(STORE_DIR + "/ingest.h5", table="data")
+pd.to_pickle(frames, STORE_DIR + "/frames.pkl")
 bad = [m for m in sys.modules if m.split(".")[0] in ("h5py", "jax", "gpsat_tpu")]
 assert not bad, bad
 print("ok")
@@ -329,18 +341,26 @@ def _store_frames(path):
 
 def test_workflow_store_without_h5py_matches_with_h5py(tmp_path):
     # the same run and CLI call in a process where h5py (and JAX) cannot be
-    # imported and here, where it can: equal frames in every table; in that
-    # process a port store opens through open_store and the dataloader,
-    # and a PyTables file or a netCDF4 file raises an ImportError naming it
-    pytables = str(tmp_path / "pytables.h5")
-    with h5py.File(pytables, "w") as f:
-        g = f.create_group("data")
-        g.attrs["pandas_type"] = np.bytes_(b"frame_table")
-        g.create_dataset("table", data=np.zeros(3, dtype=[("index", "<i8"), ("values_block_0", "<f8", (2,))]))
-    from gpsat_tpu_torch.data.netcdf import write_netcdf
+    # imported and here, where it can: equal frames in every table. In that
+    # process a port store opens through open_store and the dataloader, a
+    # PyTables file reads through read_table, PyTablesStore.select and the
+    # dataloader, a netCDF4 file (netCDF-C's layout) through read_netcdf, a
+    # frame is written by write_netcdf and ingested by read_and_store with
+    # the nc engine: each frame equal to the JAX package's h5py readers' on
+    # the same files
+    import importlib.util
 
-    netcdf = str(tmp_path / "obs.nc")
-    write_netcdf(netcdf, {"z": ("x", np.arange(3.0))}, coords={"x": np.arange(3.0)})
+    from gpsat_tpu.data import dataloader as JDL
+    from gpsat_tpu.data import ingest as JI
+    from gpsat_tpu.data import netcdf as JN
+    from gpsat_tpu.data import pytables_compat as JPT
+
+    spec = importlib.util.spec_from_file_location("make_hdf5_fixtures", REPO / "tools" / "make_hdf5_fixtures.py")
+    fx = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fx)
+    pytables, netcdf = str(tmp_path / "pytables.h5"), str(tmp_path / "obs.nc")
+    fx.write_pytables(pytables, "zlib", n=50)
+    fx.write_netcdf_variant(netcdf, libver="v108", track_order=True, layout="filtered")
 
     blocked, here = tmp_path / "blocked", tmp_path / "here"
     blocked.mkdir()
@@ -356,3 +376,15 @@ def test_workflow_store_without_h5py_matches_with_h5py(tmp_path):
         for t in want:
             pd.testing.assert_frame_equal(got[t], want[t], obj=f"{name} {t}")
     assert "preds_SMOOTHED" in _store_frames(str(blocked / "cli.h5"))
+
+    frames = pd.read_pickle(blocked / "frames.pkl")
+    JN.write_netcdf(str(here / "written.nc"), JPT.read_table(pytables, "data"))
+    JI.read_and_store({"file": str(here / "ingest.h5"), "table": "data"}, str(here), r"written\.nc", read_engine="nc")
+    want = {"read_table": JPT.read_table(pytables, "data"), "select": JPT.read_table(pytables, "lengthscales"),
+            "dl_load": JDL.load(pytables, table="data"), "read_netcdf": JN.read_netcdf(netcdf),
+            "read_and_store": JDL.load(str(here / "ingest.h5"), table="data")}
+    assert len(want["read_and_store"]) == len(want["read_table"]) == 50
+    for k, w in want.items():
+        pd.testing.assert_frame_equal(frames[k], w, obj=k)
+    # the netCDF file written without h5py reads in the JAX package as the one it writes
+    pd.testing.assert_frame_equal(JN.read_netcdf(str(blocked / "written.nc")), JN.read_netcdf(str(here / "written.nc")))

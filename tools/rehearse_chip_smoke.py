@@ -1,6 +1,6 @@
-"""Rehearse chip_smoke.py's phases 10 (svgp), 11 (zoo), 12 (host), 13 (prep), 14 (mesh), 15 (xval) and 16 (cli) on the CPU, before a run on the card.
+"""Rehearse chip_smoke.py's phases 10 (svgp), 11 (zoo), 12 (host), 13 (prep), 14 (mesh), 15 (xval), 16 (cli) and 17 (formats) on the CPU, before a run on the card.
 
-    python tools/rehearse_chip_smoke.py [--parts a b c d e vff asvgp host prep_a prep_b prep_c mesh xval cli]
+    python tools/rehearse_chip_smoke.py [--parts a b c d e vff asvgp host prep_a prep_b prep_c mesh xval cli formats]
                                         [--lanes B] [--threads T] [--identity-natgrad] [--expert-stride S]
 
 Runs the phases' own functions with every entry point's default device
@@ -12,8 +12,9 @@ kernel's plain version. Parts a-e are phase 10's, "vff" and "asvgp" phase
 11's lanes, "host" phase 12, "prep_a" to "prep_c" phase 13's parts,
 "mesh" phase 14 (its meshes are the CPU, once or twice, its children run
 with the same stubs, and phase 7's f32 fit is run first for (a) to hold
-to), "xval" phase 15 (the host library built first), "cli" phase 16 (phase
-7 run first for it to hold to; default: phase 10's). ``--lanes`` cuts (a)-(c)'s batch (default: the
+to), "xval" phase 15 (the host library built first), "cli" phase 16 and
+"formats" phase 17 (phase 7 run first for them to hold to; default:
+phase 10's). ``--lanes`` cuts (a)-(c)'s batch (default: the
 phase's 128) and phase 13 (a)'s (the phase's 512). ``--identity-natgrad`` is the mutation check
 of (c)'s bound: it runs (c) once more with the natural-gradient step
 replaced by the identity, so q stays at its starting value, and prints
@@ -96,7 +97,7 @@ def _gap(tag, res, res_a):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parts", nargs="+", default=list("abcde"), choices=[*"abcde", "vff", "asvgp", "host", "prep_a", "prep_b", "prep_c", "mesh",
-                                                                      "xval", "cli"])
+                                                                      "xval", "cli", "formats"])
     ap.add_argument("--expert-stride", type=int, default=1)
     ap.add_argument("--lanes", type=int, default=cs.SVGP_B)
     ap.add_argument("--threads", type=int, default=4)
@@ -108,7 +109,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     parts = set(args.parts)
     _stride(args.expert_stride)
-    if parts & {"host", "mesh", "cli"}:  # LocalExpertOI.run and the sweep take the default mesh
+    if parts & {"host", "mesh", "cli", "formats"}:  # LocalExpertOI.run and the sweep take the default mesh
         _mesh_on_cpu(args.expert_stride)
     for tag in ("vff", "asvgp"):
         if tag in parts:
@@ -133,9 +134,12 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         _build.build_host_library(cs.HOST_LIBRARY)
         cs.phase_xval(time.perf_counter() - t)
-    if "cli" in parts:
+    if parts & {"cli", "formats"}:
         _, _, it_max, polished = cs.phase_oi(False)
-        cs.phase_cli(polished, it_max)
+        if "cli" in parts:
+            cs.phase_cli(polished, it_max)
+        if "formats" in parts:
+            cs.phase_formats(polished, it_max)
     if not parts & set("abcde"):
         return _done(failed, t0)
     batch = cs.make_large_tiles(args.lanes, cs.SVGP_N, cs.SVGP_P, cs.D, np.float32, min_fill=0.6)
