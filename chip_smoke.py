@@ -516,6 +516,10 @@ FORMATS_DIR = ROOT / "tests" / "fixtures" / "hdf5"
 # (b) phase 16 (c)'s rows written as this many netCDF files
 FORMATS_FILES = 10
 FORMATS_BUDGET_S = 60.0
+# (d) the results fixture's version-4 copy; (f) the lzf fixture
+FORMATS_V4_RESULTS, FORMATS_LZF, FORMATS_LZF_REPS = "v4_results_store.h5", "v4_lzf.nc", 20
+# (g) each timing the median of this many repeats, after one untimed
+FORMATS_READ_REPS = 15
 # (d) an f32 predict-only run stores the loaded parameters after their
 # constraint transform and back in f32: a few f32 ulps (4.4e-7 relative on
 # the CPU), relative
@@ -3624,7 +3628,9 @@ def read_fixture(entry: dict, directory: Path = FORMATS_DIR):
     from gpsat_tpu_torch.data.netcdf import read_netcdf
 
     path = str(directory / entry["file"])
-    return PT.read_table(path, entry["key"]) if entry["reader"] == "pytables" else read_netcdf(path)
+    if entry["reader"] == "pytables":
+        return PT.read_table(path, entry["key"])
+    return read_netcdf(path, variables=entry.get("variables"))
 
 
 def formats_fixtures():
@@ -3706,13 +3712,14 @@ def formats_netcdf(root: Path):
     check(len(got) == n and all(exact.values()) and exact_read, f"formats (b): columns read back differ: {exact}")
 
 
-def formats_load_params(root: Path):
-    """(d) load_params={"file": the PyTables results fixture} over phase 7's
+def formats_load_params(root: Path, fixture: str = "results_store.h5", tag: str = "formats_load_params"):
+    """(d) load_params={"file": a PyTables results fixture} over phase 7's
     first FORMATS_EXPERTS experts, a predict-only run through `cli
     local_expert_oi`: the loaded init equals the fixture's values exactly,
     the stored parameters are within FORMATS_STORED_REL of them, and kernel
     1 launches 2 * Nmax / 64 times (one pair in the predict's bucket: phase
-    16 (b)'s formula). Returns the launches."""
+    16 (b)'s formula). Returns the launches and the stored parameter and
+    prediction tables."""
     import pandas as pd
     import torch
 
@@ -3722,7 +3729,7 @@ def formats_load_params(root: Path):
     from gpsat_tpu_torch.experts import LocalExpertOI, core_for, initial_cparams
     from gpsat_tpu_torch.parallel import batching
 
-    fixture = str(FORMATS_DIR / "results_store.h5")
+    fixture = str(FORMATS_DIR / fixture)
     cfg_path, experts = cli_inputs(root)
     cfg = json.loads(cfg_path.read_text())
     locs = pd.DataFrame({c: experts[c][:FORMATS_EXPERTS] for c in ("x", "y")})
@@ -3755,6 +3762,7 @@ def formats_load_params(root: Path):
     launches = {k: fn.launches for k, fn in counters().items()}
     stored_rel, stored_rows = {}, {}
     with TableStore(cfg["run_kwargs"]["store_path"], mode="r") as s:
+        stored = {t: s.select(t) for t in ("preds", *want)}
         rd = s.select("run_details", set_index=False)
         ran = int((rd["num_obs"] >= OI_KW["min_obs"]).sum())
         for p, w in want.items():
@@ -3766,24 +3774,176 @@ def formats_load_params(root: Path):
             stored_rel[p] = float(np.abs(m[p].to_numpy(np.float64) - fx).max() / np.abs(fx).max()) if len(m) else None
     nmax = batching.bucket_size(int(rd.loc[rd["num_obs"] >= OI_KW["min_obs"], "num_obs"].max()))
     expected = {"block_chol": 2 * nmax // T, "panel_chol": 0, "cholesky": 0, "mm3xtf32": 0}
-    log("formats_load_params", rc=rc, experts=len(rd), run=int((rd["num_obs"] >= OI_KW["min_obs"]).sum()),
+    log(tag, fixture=Path(fixture).name, rc=rc, experts=len(rd), run=int((rd["num_obs"] >= OI_KW["min_obs"]).sum()),
         iterations=int(rd["num_iter"].max()), run_s=run_s, init_equals_fixture=init_same,
         stored_rel_vs_fixture=stored_rel, stored_bound=FORMATS_STORED_REL, launches=launches, expected=expected)
-    check(rc == 0 and len(rd) == FORMATS_EXPERTS, f"formats (d): local_expert_oi returned {rc}, {len(rd)} experts")
-    check(init_same and all(init_same.values()), f"formats (d): loaded init vs the fixture: {init_same}")
+    what = f"formats (d) {Path(fixture).name}"
+    check(rc == 0 and len(rd) == FORMATS_EXPERTS, f"{what}: local_expert_oi returned {rc}, {len(rd)} experts")
+    check(init_same and all(init_same.values()), f"{what}: loaded init vs the fixture: {init_same}")
     check(all(stored_rows.values()) and all(r is not None and r <= FORMATS_STORED_REL for r in stored_rel.values())
-          and (rd["num_iter"] == 0).all(), f"formats (d): stored parameters vs the fixture: {stored_rel} {stored_rows}")
-    check(launches == expected, f"formats (d) launches {launches}, expected {expected}")
-    return launches["block_chol"]
+          and (rd["num_iter"] == 0).all(), f"{what}: stored parameters vs the fixture: {stored_rel} {stored_rows}")
+    check(launches == expected, f"{what} launches {launches}, expected {expected}")
+    return launches["block_chol"], stored
+
+
+def _table_max_abs_diff(got, want):
+    """The largest absolute difference of two frames' numeric columns (NaN
+    where both are NaN counts as equal), or None where their index,
+    columns, NaN positions or other columns differ."""
+    if not (got.index.equals(want.index) and list(got.columns) == list(want.columns)):
+        return None
+    num = list(want.select_dtypes("number").columns)
+    rest = [c for c in want.columns if c not in num]
+    if rest and not got[rest].equals(want[rest]):
+        return None
+    g, w = got[num].to_numpy(np.float64), want[num].to_numpy(np.float64)
+    if not np.array_equal(np.isnan(g), np.isnan(w)):
+        return None
+    both = ~np.isnan(w)
+    return float(np.abs(g[both] - w[both]).max()) if both.any() else 0.0
+
+
+def formats_load_params_v4(root: Path, launches_v18: int, stored_v18: dict):
+    """(d) again from the version-4 copy of the results fixture (extensible
+    array chunk indexes): kernel 1 launches as often as from the v1.8 file,
+    and the stored parameters and predictions equal that run's exactly."""
+    launches, stored = formats_load_params(root, FORMATS_V4_RESULTS, tag="formats_load_params_v4")
+    diff = {t: _table_max_abs_diff(stored[t], want) for t, want in stored_v18.items()}
+    log("formats_load_params_v4_vs_v18", launches_v4=launches, launches_v18=launches_v18, max_abs_diff=diff)
+    check(launches == launches_v18, f"formats (d) v4: kernel 1 launched {launches} times, {launches_v18} from v1.8")
+    check(all(d == 0.0 for d in diff.values()), f"formats (d) v4: stored tables differ from the v1.8 run: {diff}")
+    return launches
+
+
+def formats_lzf():
+    """(f) h5py's lzf filter: every lzf chunk of FORMATS_DIR's lzf fixture
+    decoded by the host library's C++ loop and by the plain Python one,
+    equal byte for byte (and the raw chunk passed through, its mask bit
+    set); the MB/s of each over the decoded bytes, every chunk decoded
+    FORMATS_LZF_REPS times (its chunks are of 1 KB)."""
+    from gpsat_tpu_torch.data import hdf5
+    from gpsat_tpu_torch.data.lzf import lzf_decode
+
+    seconds, decoded, chunks, raw_chunks, bad = {"native": 0.0, "python": 0.0}, 0, 0, 0, []
+    with hdf5.File(str(FORMATS_DIR / FORMATS_LZF), "r") as f:
+        for name in ("z", "u"):
+            ds = f[name]
+            n = int(np.prod(ds.chunks)) * ds.dtype.itemsize
+            _, addrs, sizes, masks = ds._chunk_index()
+            for a, size, mask in zip(addrs.tolist(), sizes.tolist(), masks.tolist()):
+                blob = f._read(a, size)
+                if mask & 1:
+                    raw_chunks += 1
+                    continue
+                out = {}
+                for decoder in ("native", "python"):
+                    t0 = time.perf_counter()
+                    for _ in range(FORMATS_LZF_REPS):
+                        out[decoder] = lzf_decode(blob, n, decoder=decoder)
+                    seconds[decoder] += time.perf_counter() - t0
+                chunks += 1
+                decoded += len(out["native"])
+                if out["native"] != out["python"] or len(out["native"]) != n:
+                    bad.append((name, a))
+    log("formats_lzf", chunks=chunks, raw_chunks=raw_chunks, decoded_bytes=decoded, reps=FORMATS_LZF_REPS,
+        seconds=seconds, native_MBps=FORMATS_LZF_REPS * decoded / seconds["native"] / 1e6,
+        python_MBps=FORMATS_LZF_REPS * decoded / seconds["python"] / 1e6, differ=bad)
+    check(chunks > 0 and raw_chunks == 1 and not bad, f"formats (f): lzf decoders differ on {bad} "
+          f"({chunks} chunks, {raw_chunks} stored raw)")
+
+
+def formats_throughput(root: Path):
+    """(g) reported, not checked: reading the largest version-4 fixture
+    (every dataset, through the codec) beside reading the same rows written
+    by the codec under the v1.8 layout (a version-1 B-tree over chunks of
+    the same rows; contiguous data contiguous). For each file, medians of
+    FORMATS_READ_REPS repeats: opening it (the headers), walking the chunk
+    index of each chunked dataset, reading every dataset. Then the
+    checksum's share of the version-4 read: every structure whose lookup3
+    that read checks, hashed by the host library's C++ loop and by the
+    plain Python one (equal, checked), and the read timed again with the
+    Python one checking them."""
+    import statistics
+    from unittest import mock
+
+    from gpsat_tpu_torch import native
+    from gpsat_tpu_torch.data import hdf5, hdf5_structures
+
+    largest = max(FORMATS_DIR.glob("v4_*"), key=lambda p: p.stat().st_size)
+    copy = root / "v18_copy.h5"
+    with hdf5.File(str(largest), "r") as f, hdf5.File(str(copy), "w") as out:
+        names = [k for k in f.keys() if isinstance(f[k], hdf5.Dataset)]
+        chunked = [k for k in names if f[k].chunks]
+        for k in names:
+            ds = f[k]
+            if ds.chunks and ds.ndim == 1:
+                out.create_dataset(k, ds[()], chunk_rows=ds.chunks[0])
+            else:
+                out.create_dataset(k, ds[()], contiguous=True)
+
+    def median_s(fn):
+        fn()
+        seconds = []
+        for _ in range(FORMATS_READ_REPS):
+            t0 = time.perf_counter()
+            fn()
+            seconds.append(time.perf_counter() - t0)
+        return statistics.median(seconds)
+
+    def opened(path):
+        with hdf5.File(str(path), "r") as f:
+            return [f[k].shape for k in names]
+
+    def walked(path):
+        with hdf5.File(str(path), "r") as f:
+            return [f[k]._chunk_index() for k in chunked]
+
+    def read(path):
+        with hdf5.File(str(path), "r") as f:
+            return sum(f[k][()].nbytes for k in names)
+
+    n4, n18 = read(largest), read(copy)
+    layouts = {}
+    for tag, path in (("v4", largest), ("v18", copy)):
+        layouts[tag] = {"open_s": median_s(lambda: opened(path)), "index_s": median_s(lambda: walked(path)),
+                        "read_s": median_s(lambda: read(path)), "file_bytes": path.stat().st_size}
+        layouts[tag]["MBps"] = n4 / layouts[tag]["read_s"] / 1e6
+
+    seen, checked = [], hdf5_structures.checksum
+
+    def recording(data):
+        seen.append(bytes(data))
+        return checked(data)
+
+    with mock.patch.object(hdf5_structures, "checksum", recording):
+        read(largest)
+    lookup3_s = {"native": median_s(lambda: [native.lookup3(b) for b in seen]),
+                 "python": median_s(lambda: [hdf5_structures.lookup3(b) for b in seen])}
+    with mock.patch.object(hdf5_structures, "checksum", hdf5_structures.lookup3):
+        read_python_s = median_s(lambda: read(largest))
+    differ = sum(native.lookup3(b) != hdf5_structures.lookup3(b) for b in seen)
+    log("formats_throughput", file=largest.name, datasets=names, chunked=chunked, payload_bytes=n4,
+        reps=FORMATS_READ_REPS, v4=layouts["v4"], v18=layouts["v18"],
+        v4_over_v18_read=layouts["v4"]["read_s"] / layouts["v18"]["read_s"],
+        checksummed={"structures": len(seen), "bytes": sum(map(len, seen))}, lookup3_s=lookup3_s,
+        v4_read_s={"native": layouts["v4"]["read_s"], "python": read_python_s},
+        python_lookup3_share=lookup3_s["python"] / read_python_s, lookup3_differ=differ)
+    check(n4 == n18, f"formats (g): {n4} bytes read from {largest.name}, {n18} from its v1.8 copy")
+    check(seen and not differ, f"formats (g): lookup3 in C++ and in Python differ on {differ} of "
+          f"{len(seen)} structures")
 
 
 def phase_formats(oi_polished, f32_it_max):
     """Phase 17: the readers' formats on the card's machine, with no h5py:
-    (a) the HDF5 fixtures against expected.npz, (b) netCDF files through
-    DataLoader.write_to_netcdf and `cli read_and_store`, (c) phase 7 from
-    a netCDF observations file through `cli local_expert_oi`, (d)
-    load_params from a PyTables results store, (e) h5py never imported.
-    Returns kernel 1's launches in (c) and (d)."""
+    (a) the HDF5 fixtures against expected.npz (version-4 layouts, lzf,
+    committed datatypes and a user block among them), (b) netCDF files
+    through DataLoader.write_to_netcdf and `cli read_and_store`, (c) phase
+    7 from a netCDF observations file through `cli local_expert_oi`, (d)
+    load_params from a PyTables results store, and from its version-4 copy,
+    (e) h5py never imported, (f) the lzf decoders, C++ and Python, (g) the
+    largest version-4 fixture's open, index walk and read beside its rows'
+    under v1.8, and lookup3's share of its read, C++ against Python.
+    Returns kernel 1's launches in (c), (d) and (d)'s version-4 run."""
     import tempfile
 
     t_phase = time.perf_counter()
@@ -3798,13 +3958,19 @@ def phase_formats(oi_polished, f32_it_max):
                                        what="formats (c)")
         c_s = time.perf_counter() - t_phase - a_s - b_s
         (root / "load").mkdir()
-        launches_load = formats_load_params(root / "load")
+        launches_load, stored = formats_load_params(root / "load")
+        (root / "load_v4").mkdir()
+        launches_load_v4 = formats_load_params_v4(root / "load_v4", launches_load, stored)
         d_s = time.perf_counter() - t_phase - a_s - b_s - c_s
+        formats_lzf()
+        formats_throughput(root)
+        fg_s = time.perf_counter() - t_phase - a_s - b_s - c_s - d_s
     log("formats_h5py", loaded="h5py" in sys.modules)
     check("h5py" not in sys.modules, "formats (e): h5py was imported")
-    log("formats_phase", seconds=time.perf_counter() - t_phase, budget_s=FORMATS_BUDGET_S, a_s=a_s, b_s=b_s,
-        c_s=c_s, d_s=d_s)
-    return launches_oi, launches_load
+    seconds = time.perf_counter() - t_phase
+    log("formats_phase", seconds=seconds, budget_s=FORMATS_BUDGET_S, a_s=a_s, b_s=b_s, c_s=c_s, d_s=d_s, fg_s=fg_s)
+    check(seconds <= FORMATS_BUDGET_S, f"formats: phase 17 took {seconds:.1f} s, over {FORMATS_BUDGET_S} s")
+    return launches_oi, launches_load, launches_load_v4
 
 
 def main(argv) -> int:
@@ -3871,8 +4037,8 @@ def main(argv) -> int:
      entries[0]["launches_mesh_processes"]) = phase_mesh(f32_oi)
     entries[0]["launches_xval_index_grid"], entries[0]["launches_xval"] = phase_xval(host_build_s)
     entries[0]["launches_cli_run"], entries[0]["launches_cli_rerun"] = phase_cli(oi_polished, f32_it_max)
-    entries[0]["launches_formats_oi"], entries[0]["launches_formats_load_params"] = phase_formats(
-        oi_polished, f32_it_max)
+    (entries[0]["launches_formats_oi"], entries[0]["launches_formats_load_params"],
+     entries[0]["launches_formats_load_params_v4"]) = phase_formats(oi_polished, f32_it_max)
 
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

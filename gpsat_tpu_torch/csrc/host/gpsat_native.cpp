@@ -54,7 +54,7 @@ extern "C" {
 // before any argtypes are trusted. The library's file name carries a hash of
 // this source, so a stale build is never loaded; the check guards against a
 // library renamed by hand. v5 made the grid index a handle.
-int64_t gpsat_abi_version() { return 5; }
+int64_t gpsat_abi_version() { return 6; }
 
 // Euclidean-ball mask: out[i] = ||locs[i,:] - ref||_2 < max_dist.
 // Per-dimension prefilter then full norm, matching the numba kernel's
@@ -277,6 +277,90 @@ int64_t gpsat_lz4_decompress(const uint8_t* src, int64_t src_len,
     // byte-by-byte: offset < mlen (overlapping match / RLE) is legal
     for (int64_t i = 0; i < mlen; ++i) op[i] = match[i];
     op += mlen;
+  }
+  return op - dst;
+}
+
+// HDF5's metadata checksum: Bob Jenkins' lookup3 "hashlittle" over bytes
+// (H5_checksum_lookup3), the words read little-endian byte by byte. Every
+// structure of HDF5's later formats ends in it (superblocks 2 and 3,
+// version-2 object headers, version-2 B-tree nodes, fractal heap blocks,
+// the fixed and extensible arrays of version-4 chunk indexes). Mirrors the
+// pure-Python lookup3 in gpsat_tpu_torch/data/hdf5_structures.py.
+static inline uint32_t rot32(uint32_t x, int k) { return (x << k) | (x >> (32 - k)); }
+
+static inline uint32_t le32(const uint8_t* p) {
+  return (uint32_t)p[0] | ((uint32_t)p[1] << 8) | ((uint32_t)p[2] << 16) | ((uint32_t)p[3] << 24);
+}
+
+uint32_t gpsat_lookup3(const uint8_t* k, int64_t length, uint32_t initval) {
+  uint32_t a, b, c;
+  a = b = c = 0xdeadbeefu + (uint32_t)length + initval;
+  if (length == 0) return c;
+  while (length > 12) {
+    a += le32(k);
+    b += le32(k + 4);
+    c += le32(k + 8);
+    a -= c; a ^= rot32(c, 4);  c += b;
+    b -= a; b ^= rot32(a, 6);  a += c;
+    c -= b; c ^= rot32(b, 8);  b += a;
+    a -= c; a ^= rot32(c, 16); c += b;
+    b -= a; b ^= rot32(a, 19); a += c;
+    c -= b; c ^= rot32(b, 4);  b += a;
+    length -= 12;
+    k += 12;
+  }
+  uint8_t tail[12] = {0};  // the last 1-12 bytes, zero-padded to 12
+  std::memcpy(tail, k, (size_t)length);
+  a += le32(tail);
+  b += le32(tail + 4);
+  c += le32(tail + 8);
+  c ^= b; c -= rot32(b, 14);
+  a ^= c; a -= rot32(c, 11);
+  b ^= a; b -= rot32(a, 25);
+  c ^= b; c -= rot32(b, 16);
+  a ^= c; a -= rot32(c, 4);
+  b ^= a; b -= rot32(a, 14);
+  c ^= b; c -= rot32(b, 24);
+  return c;
+}
+
+// LZF decompression (liblzf's lzf_d.c format, h5py's "lzf" HDF5 filter,
+// id 32000): a control byte below 32 starts a run of ctrl + 1 literals;
+// otherwise its top three bits are a match length less two (7: one more
+// length byte follows) and its low five bits with the next byte the
+// distance back less one. Returns bytes written to dst, or -1 on
+// malformed or overflowing input; bounds-checked like
+// gpsat_lz4_decompress. Mirrors the pure-Python _lzf_decompress_py in
+// gpsat_tpu_torch/data/lzf.py.
+int64_t gpsat_lzf_decompress(const uint8_t* src, int64_t src_len,
+                             uint8_t* dst, int64_t dst_len) {
+  const uint8_t* ip = src;
+  const uint8_t* const iend = src + src_len;
+  uint8_t* op = dst;
+  uint8_t* const oend = dst + dst_len;
+  while (ip < iend) {
+    const int64_t ctrl = *ip++;
+    if (ctrl < 32) {
+      const int64_t lit = ctrl + 1;
+      if (lit > iend - ip || lit > oend - op) return -1;
+      std::memcpy(op, ip, lit);
+      ip += lit;
+      op += lit;
+      continue;
+    }
+    int64_t len = ctrl >> 5;
+    if (len == 7) {
+      if (ip >= iend) return -1;
+      len += *ip++;
+    }
+    if (ip >= iend) return -1;
+    const int64_t back = ((ctrl & 0x1f) << 8) + *ip++ + 1;
+    len += 2;
+    if (back > op - dst || len > oend - op) return -1;
+    const uint8_t* match = op - back;
+    for (int64_t i = 0; i < len; ++i) op[i] = match[i];  // overlap-legal
+    op += len;
   }
   return op - dst;
 }

@@ -1,17 +1,20 @@
 """A reader of HDF5 files and a writer of HDF5's earliest format.
 
-Written in numpy and ``struct``; it needs no HDF5 library. Section numbers
-below are those of the HDF5 File Format Specification version 3.0. It
-reads what h5py writes under every library-version bound up to v1.8, and
-the PyTables and netCDF-C layouts as h5py reproduces them (the datatypes
-and dataspaces in ``data/hdf5_types.py``; checksums, filters, fractal
-heaps and version-2 B-trees in ``data/hdf5_structures.py``). Files that
-PyTables, c-blosc or netCDF-C wrote themselves have not been held to it:
+Written in numpy and ``struct``; it needs no HDF5 library (lookup3 and
+lzf run in the port's C++ host library). Section numbers below are those
+of the HDF5 File Format Specification version 3.0. It reads what h5py
+writes under every library-version bound, "latest" included, and the
+PyTables and netCDF-C layouts as h5py reproduces them (the datatypes and
+dataspaces in ``data/hdf5_types.py``; checksums, filters, fractal heaps,
+version-2 B-trees and the version-4 chunk indexes in
+``data/hdf5_structures.py``). Files that PyTables, c-blosc or netCDF-C
+wrote themselves have not been held to it:
 ``tests/fixtures/hdf5/MANIFEST.txt`` lists how the stand-ins differ. It
 reads:
 
-- superblocks of versions 0 to 3 (II.A), 8-byte addresses and lengths, no
-  user block; the checksum of versions 2 and 3 checked;
+- superblocks of versions 0 to 3 (II.A) at offset 0 or past a user block
+  (512, 1024, 2048 ... bytes), 8-byte addresses and lengths; the checksum
+  of versions 2 and 3 checked;
 - object headers of versions 1 and 2 (IV.A.1), continuation blocks
   followed, version 2's checksums checked;
 - groups as symbol tables (a version-1 B-tree of type 0 over ``SNOD``
@@ -23,10 +26,16 @@ reads:
 - attributes in the header (messages of versions 1 to 3) and in dense
   storage (IV.A.2.v: a fractal heap under a version-2 B-tree);
 - compact, contiguous and chunked datasets (layout messages of versions 1
-  to 3, IV.A.2.i; the version-1 B-tree of type 1 over N-D chunks, edge
-  chunks cut to the dataset), chunks through the filter pipeline (deflate,
-  shuffle, fletcher32, blosc, bzip2) as each chunk's filter mask says,
+  to 4, IV.A.2.i): N-D chunks under the version-1 B-tree of type 1 or a
+  version-4 index (a single chunk, implicit chunks, a fixed array, an
+  extensible array, a version-2 B-tree of records 10 and 11), edge chunks
+  cut to the dataset, chunks through the filter pipeline (deflate,
+  shuffle, fletcher32, lzf, blosc, bzip2) as each chunk's filter mask
+  says, partial edge chunks stored unfiltered where the layout says so,
   missing chunks as the fill value (IV.A.2.e, IV.A.2.f);
+- datatypes stored in the header or committed (a shared datatype message
+  pointing at a committed datatype's header), for datasets and
+  attributes; committed datatypes themselves as ``Datatype`` objects;
 - dimension scales (``Dataset.dims``, ``DIMENSION_LIST``'s object
   references resolved to the objects they name).
 
@@ -48,13 +57,16 @@ rewritten in place once the new headers are written. Space
 left behind is not reused, as HDF5 does not reuse it without a free-space
 manager. h5py and the HDF5 library read such a file and can append to it.
 Objects of the later formats (version-2 headers, new-style groups, dense
-attributes) and files of a later superblock are read, never written.
+attributes, version-4 layouts) and files of a later superblock are read,
+never written; a file of superblock 0 past a user block is written to as
+any other, the user block kept.
 
 A file this codec does not read raises ``FormatError``, an ``OSError``,
-which names what it found (a version-4 layout and its chunk index, an
-unknown filter, a region reference, a committed datatype, 4-byte offsets,
-a user block); a group of such datasets is still listed and its
-attributes read. It never hands over to another reader.
+which names what it found (an unknown filter, a region reference, 4-byte
+offsets, virtual or external storage, a message in the
+shared-object-header-message table, a filtered fractal heap); a group of
+such datasets is still listed and its attributes read. It never hands
+over to another reader.
 """
 
 from __future__ import annotations
@@ -67,9 +79,12 @@ import numpy as np
 
 from gpsat_tpu_torch.data.hdf5_structures import (
     FractalHeap,
+    btree2_chunks,
     btree2_records,
     check_filters,
     check_sum,
+    extensible_array_chunks,
+    fixed_array_chunks,
     parse_filters,
     unfilter,
 )
@@ -89,7 +104,7 @@ from gpsat_tpu_torch.data.hdf5_types import (
     vlen_seq_type_bytes,
 )
 
-__all__ = ["File", "Group", "Dataset", "Empty", "FormatError", "guess_chunk_rows"]
+__all__ = ["File", "Group", "Dataset", "Datatype", "Empty", "FormatError", "guess_chunk_rows"]
 
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
 GROUP_LEAF_K, GROUP_INTERNAL_K = 4, 16  # HDF5's defaults, in every superblock this codec writes
@@ -190,6 +205,8 @@ class File:
         self._attached: List["Dataset"] = []  # datasets given dimension scales in this session
         self._by_addr: Dict[int, "_Object"] = {}  # objects reached through an object reference
         self._f = None
+        self._base = 0  # the superblock's offset in the file: the user block's size; addresses are relative to it
+        self._committed: Dict[int, Type] = {}  # committed datatypes read: header address -> type
         if mode == "w-" and os.path.exists(path):
             raise FileExistsError(f"unable to create file (file exists): {path}")
         if mode in ("w", "w-"):
@@ -211,7 +228,7 @@ class File:
 
     # --- raw i/o ---
     def _read(self, addr: int, n: int) -> bytes:
-        self._f.seek(addr)
+        self._f.seek(self._base + addr)
         out = self._f.read(n)
         if len(out) != n:
             raise FormatError(f"{self.path}: truncated file: {n} bytes at {addr} run past its end")
@@ -219,14 +236,14 @@ class File:
 
     def _read_array(self, addr: int, dtype: np.dtype, count: int) -> np.ndarray:
         """``count`` elements of ``dtype`` at ``addr``, into a new writable array."""
-        self._f.seek(addr)
+        self._f.seek(self._base + addr)
         out = np.fromfile(self._f, dtype=dtype, count=count)
         if len(out) != count:
             raise FormatError(f"{self.path}: truncated file: {count} elements at {addr} run past its end")
         return out
 
     def _write(self, addr: int, data) -> None:
-        self._f.seek(addr)
+        self._f.seek(self._base + addr)
         self._f.write(data)
 
     def _alloc(self, n: int) -> int:
@@ -241,11 +258,22 @@ class File:
         return addr
 
     # --- superblock (II.A) ---
+    def _find_superblock(self) -> int:
+        """The superblock's offset: 0, or past a user block, at 512, 1024,
+        2048 and so on, as HDF5 searches for it."""
+        size, pos = os.fstat(self._f.fileno()).st_size, 0
+        while pos < size:
+            self._f.seek(pos)
+            if self._f.read(8) == SIGNATURE:
+                return pos
+            pos = 512 if pos == 0 else 2 * pos
+        raise FormatError(f"{self.path}: not an HDF5 file (no signature at offset 0, 512, 1024 or any larger "
+                          "power of two within the file)")
+
     def _read_superblock(self) -> None:
+        self._base = self._find_superblock()
+        self._f.seek(self._base)
         head = self._f.read(SUPERBLOCK_SIZE)
-        if head[:8] != SIGNATURE:
-            raise FormatError(f"{self.path}: not an HDF5 file (no signature at offset 0; a user block is not "
-                              "read either)")
         version = self.superblock_version = head[8]
         if version > 3:
             raise FormatError(f"{self.path}: HDF5 superblock version {version} is not one this codec reads "
@@ -258,22 +286,22 @@ class File:
             if len(head) < 48:
                 raise FormatError(f"{self.path}: truncated superblock")
             check_sum(head[:48], self.path, "the superblock")
-            base, _ext, eof, root_addr = struct.unpack_from("<4Q", head, 12)
+            _stored_base, _ext, eof, root_addr = struct.unpack_from("<4Q", head, 12)
             access_info = UNDEF
         else:
             self._leaf_k, self._internal_k = struct.unpack_from("<HH", head, 16)
             self._sb_pos = pos = 24 if version == 0 else 28
-            base, _free, eof, access_info = struct.unpack_from("<4Q", head, pos)
+            _stored_base, _free, eof, access_info = struct.unpack_from("<4Q", head, pos)
             root_addr = struct.unpack_from("<Q", head, pos + 40)[0]
-        if base != 0 or access_info != UNDEF:
-            raise FormatError(f"{self.path}: a user block or a file-access information block; this codec reads "
-                              "neither")
+        if access_info != UNDEF:
+            raise FormatError(f"{self.path}: a file driver information block; this codec reads files without one")
         if self.writable and version != 0:
             raise FormatError(f"{self.path}: HDF5 superblock version {version}; this codec writes version 0 "
                               "only, and opens this file to read")
         self._chunk_k = CHUNK_K
         self._sb = bytearray(head)
-        self._eoa = max(_pad8(eof), _pad8(os.path.getsize(self.path)))
+        # HDF5 stores the end of the file as an absolute offset, every other address relative to the superblock
+        self._eoa = max(_pad8(eof - self._base), _pad8(os.path.getsize(self.path) - self._base))
         self.root = _load(self, root_addr, "/")
         if not isinstance(self.root, Group):
             raise FormatError(f"{self.path}: the root object is not a group")
@@ -297,9 +325,10 @@ class File:
             self._write(pos, blob)
         root, sb, pos = self.root, self._sb, self._sb_pos
         self._f.flush()
-        if os.fstat(self._f.fileno()).st_size < self._eoa:
-            self._f.truncate(self._eoa)  # HDF5 refuses a file shorter than its end-of-file address
-        struct.pack_into("<4Q", sb, pos, 0, UNDEF, self._eoa, UNDEF)
+        end = self._base + self._eoa
+        if os.fstat(self._f.fileno()).st_size < end:
+            self._f.truncate(end)  # HDF5 refuses a file shorter than its end-of-file address
+        struct.pack_into("<4Q", sb, pos, self._base, UNDEF, end, UNDEF)
         struct.pack_into("<QQIIQQ", sb, pos + 32, 0, root._addr, 1, 0, root._btree, root._heap)
         self._write(0, bytes(sb))
         self._f.flush()
@@ -335,8 +364,9 @@ class File:
     def create_group(self, name: str) -> "Group":
         return self.root.create_group(name)
 
-    def create_dataset(self, name: str, data, contiguous: bool = False) -> "Dataset":
-        return self.root.create_dataset(name, data, contiguous=contiguous)
+    def create_dataset(self, name: str, data, contiguous: bool = False,
+                       chunk_rows: Optional[int] = None) -> "Dataset":
+        return self.root.create_dataset(name, data, contiguous=contiguous, chunk_rows=chunk_rows)
 
     def visit_groups(self) -> Iterator[Tuple[str, "Group"]]:
         return self.root.visit_groups()
@@ -368,6 +398,27 @@ class File:
                         queue.append(child)
         self._by_addr[addr] = obj = _load(self, addr, None)
         return obj
+
+    # --- committed datatypes (IV.A.2.d; shared messages, IV.A.2) ---
+    def _shared_type(self, body: bytes, what: str) -> Type:
+        """The datatype a shared datatype message points to: a committed
+        datatype's object header (a shared message of version 1, 2 or 3,
+        type 2). A message in the shared-object-header-message table
+        (version 3, type 1) is refused."""
+        version, kind = body[0], body[1]
+        if version == 3 and kind == 1:
+            raise FormatError(f"{what} has its datatype in the shared-object-header-message table; this codec "
+                              "reads committed datatypes and datatypes stored in the header")
+        if version not in (1, 2, 3):
+            raise FormatError(f"{what}: shared message version {version}")
+        addr = struct.unpack_from("<Q", body, 16 if version == 1 else 2)[0]
+        t = self._committed.get(addr)
+        if t is None:
+            found = [b for mtype, flags, b, _ in _read_header(self, addr)[2] if mtype == DATATYPE and not flags & 2]
+            if not found:
+                raise FormatError(f"{what}: no committed datatype at {addr}")
+            t = self._committed[addr] = parse_type(found[0])[0]
+        return t
 
     # --- values ---
     def _decode(self, raw: np.ndarray, t: Type) -> np.ndarray:
@@ -577,8 +628,10 @@ def _load(file: File, addr: int, name: Optional[str]):
         cls = Group
     elif LAYOUT in types:
         cls = Dataset
+    elif DATATYPE in types:
+        cls = Datatype
     else:
-        cls = _Object  # a committed datatype: its attributes read, nothing else
+        cls = _Object
     obj = cls(file, addr, msgs, hflags=hflags)
     obj.name = name
     if version == 2:
@@ -625,9 +678,10 @@ def _attr_name(body: bytes) -> str:
     return body[pos:pos + name_size].split(b"\0", 1)[0].decode("utf-8")
 
 
-def _parse_attr(body: bytes, what: str):
+def _parse_attr(file: File, body: bytes, what: str):
     """(datatype, dims, offset of the data) of an attribute message of
-    version 1, 2 or 3; dims None for a null dataspace."""
+    version 1, 2 or 3; dims None for a null dataspace. A shared datatype
+    is read from its committed datatype's header."""
     version = body[0]
     name_size, type_size, space_size = struct.unpack_from("<HHH", body, 2)
     if version == 1:
@@ -637,13 +691,11 @@ def _parse_attr(body: bytes, what: str):
         dims, _ = parse_space(body[pos:pos + space_size])
         return t, dims, pos + _pad8(space_size)
     if version in (2, 3):
-        if body[1] & 1:
-            raise FormatError(f"{what} has a shared (committed) datatype; this codec reads datatypes stored "
-                              "in the attribute")
         if body[1] & 2:
-            raise FormatError(f"{what} has a shared dataspace")
+            raise FormatError(f"{what} has a shared dataspace; this codec reads dataspaces stored in the "
+                              "attribute")
         pos = 8 + (1 if version == 3 else 0) + name_size
-        t, _ = parse_type(body, pos)
+        t = file._shared_type(body[pos:pos + type_size], what) if body[1] & 1 else parse_type(body, pos)[0]
         pos += type_size
         dims, _ = parse_space(body[pos:pos + space_size])
         return t, dims, pos + space_size
@@ -725,7 +777,7 @@ class _Object:
         if callable(body):
             body = body(False)
         what = f"{self._file.path}: attribute {name!r}"
-        t, dims, pos = _parse_attr(body, what)
+        t, dims, pos = _parse_attr(self._file, body, what)
         t.check(what)
         if dims is None:
             return Empty(t.dtype)
@@ -781,6 +833,21 @@ class _Object:
         if self._pending:
             self._file._write(self._addr, _header_bytes(self._header_msgs(True)))
             self._pending = False
+
+
+class Datatype(_Object):
+    """A committed datatype (h5py's ``Datatype``): its ``dtype`` and its
+    attributes."""
+
+    def __init__(self, file: File, addr: Optional[int], msgs=(), hflags: int = 0):
+        super().__init__(file, addr, msgs, hflags)
+        body = next(b for mtype, _, b in self._msgs if mtype == DATATYPE)
+        self._type = file._committed.setdefault(addr, parse_type(body)[0])
+        self._frozen = self._frozen or "a committed datatype"
+
+    @property
+    def dtype(self) -> np.dtype:
+        return self._type.dtype
 
 
 # --------------------------------------------------------------------------
@@ -941,13 +1008,14 @@ class Group(_Object):
         self._new_name(name)
         return self._add(name, Group(self._file, None))
 
-    def create_dataset(self, name: str, data, contiguous: bool = False) -> "Dataset":
+    def create_dataset(self, name: str, data, contiguous: bool = False,
+                       chunk_rows: Optional[int] = None) -> "Dataset":
         """A dataset holding ``data`` (a numpy array of a numeric or bool
         dtype, or of str for variable-length UTF-8 strings): by default a
-        chunked, resizable 1-D dataset, its chunks as h5py would choose them
-        for ``data``; with ``contiguous`` one of any rank (0 a scalar), its
-        data written now in one block, as h5py writes ``create_dataset(name,
-        data=data)``."""
+        chunked, resizable 1-D dataset, its chunks of ``chunk_rows`` rows or,
+        without it, as h5py would choose them for ``data``; with
+        ``contiguous`` one of any rank (0 a scalar), its data written now in
+        one block, as h5py writes ``create_dataset(name, data=data)``."""
         self._new_name(name)
         data = np.asarray(data)
         vlen = data.dtype == object or data.dtype.kind in ("U", "S")
@@ -968,7 +1036,9 @@ class Group(_Object):
         if data.ndim != 1:
             raise ValueError(f"{name!r}: this codec writes chunked 1-D datasets, got shape {data.shape}")
         ds._shape, ds._maxshape, ds._kind = (0,), (UNDEF,), "chunked"
-        ds._chunk = (guess_chunk_rows(len(data), 8 if vlen else dtype.itemsize),)
+        if chunk_rows is not None and chunk_rows < 1:
+            raise ValueError(f"{name!r}: chunk_rows must be at least 1, got {chunk_rows}")
+        ds._chunk = (chunk_rows or guess_chunk_rows(len(data), 8 if vlen else dtype.itemsize),)
         ds._msgs = [(DATASPACE, 0, b""), (DATATYPE, 1, ds._type.raw), (FILL, 1, FILL_STRING if vlen else FILL_NUMBER),
                     (LAYOUT, 0, b"")]
         ds._chunks = (np.zeros((0, 1), np.uint64), np.zeros(0, np.uint64), np.zeros(0, np.uint32),
@@ -1189,6 +1259,9 @@ class Dataset(_Object):
         self._fill: Optional[bytes] = None
         self._index = self._data_addr = UNDEF
         self._kind = self._compact = self._chunk = None
+        # a version-4 layout's chunk index: its type (CHUNK_INDEXES), the
+        # layout's flags and, for a single chunk, its filtered size and mask
+        self._index_type, self._layout_flags, self._single = None, 0, None
         self._shape = self._maxshape = None
         self._type: Optional[Type] = None
         self._dim_scales = self._ref_list = None  # what this codec attaches, when writing
@@ -1197,10 +1270,16 @@ class Dataset(_Object):
             return
         fill_new = fill_old = None
         for mtype, flags, body in self._msgs:
-            if flags & 2 and mtype in (DATASPACE, DATATYPE, FILL_OLD, FILL, FILTERS):
-                what = "a committed (shared) datatype" if mtype == DATATYPE else f"a shared message of type {mtype}"
-                self._unreadable = f"{file.path}: the dataset at {addr} has {what}; this codec reads it stored in " \
-                                   "the dataset's header"
+            if mtype == DATATYPE and flags & 2:  # a committed datatype
+                try:
+                    self._type = file._shared_type(body, f"{file.path}: the dataset at {addr}")
+                except FormatError as e:
+                    self._unreadable = str(e)
+                continue
+            if flags & 2 and mtype in (DATASPACE, FILL_OLD, FILL, FILTERS):
+                self._unreadable = f"{file.path}: the dataset at {addr} has a shared message of type {mtype} " \
+                                   "(a shared dataspace, fill value or filter pipeline); this codec reads it " \
+                                   "stored in the dataset's header"
                 continue
             if mtype == DATASPACE:
                 self._shape, self._maxshape = parse_space(body)
@@ -1223,10 +1302,10 @@ class Dataset(_Object):
                 self._unreadable = f"{file.path}: the dataset at {addr}: {bad}"
 
     def _parse_layout(self, body: bytes) -> None:
-        """The data layout message (IV.A.2.i): versions 1 and 2, and 3 and 4
-        for compact and contiguous data and version 3 for chunked data over
-        a version-1 B-tree; a version-4 chunk index or virtual data is noted
-        and refused when the data is read."""
+        """The data layout message (IV.A.2.i), versions 1 to 4: compact,
+        contiguous and chunked data, chunks under a version-1 B-tree
+        (versions 1 to 3) or any version-4 chunk index; virtual data is
+        noted and refused when the data is read."""
         version = body[0]
         where = f"{self._file.path}: the dataset at {self._addr}"
         if version in (1, 2):
@@ -1259,11 +1338,26 @@ class Dataset(_Object):
             self._kind, self._index = "chunked", struct.unpack_from("<Q", body, 3)[0]
             self._chunk = tuple(struct.unpack_from(f"<{ndims}I", body, 11)[:-1])
         elif cls == 2:
-            ndims, width = body[3], body[4]
-            index = body[5 + ndims * width]
-            self._unreadable = (f"{where} has a version-4 layout with a {CHUNK_INDEXES.get(index, index)} chunk "
-                                f"index (type {index}); this codec reads chunks under a version-1 B-tree "
-                                "(layout version 3, as HDF5 writes under library-version bounds up to v1.8)")
+            # flags (bit 0: partial edge chunks not filtered; bit 1: a single
+            # chunk's filtered size and mask follow), the chunk's dims (the
+            # element size last) in ``width`` bytes each, the index type, its
+            # parameters, the index's address
+            flags, ndims, width = body[2], body[3], body[4]
+            dims = [int.from_bytes(body[5 + i * width:5 + (i + 1) * width], "little") for i in range(ndims)]
+            pos = 5 + ndims * width
+            index = body[pos]
+            pos += 1
+            if index == 1:
+                if flags & 2:
+                    self._single = struct.unpack_from("<QI", body, pos)
+                    pos += 12
+            elif index in (3, 4, 5):
+                pos += {3: 1, 4: 5, 5: 6}[index]  # the index's parameters: its own header holds them too
+            elif index != 2:
+                self._unreadable = f"{where} has a version-4 layout with a chunk index of type {index}"
+                return
+            self._kind, self._chunk, self._index_type, self._layout_flags = "chunked", tuple(dims[:-1]), index, flags
+            self._index = struct.unpack_from("<Q", body, pos)[0]
         else:
             self._unreadable = f"{where} has a layout of class {cls} (virtual); this codec does not read it"
 
@@ -1404,7 +1498,7 @@ class Dataset(_Object):
         for j in np.argsort(addrs, kind="stable").tolist():
             buf = f._read(int(addrs[j]), int(sizes[j]))
             if self._filters:
-                buf = unfilter(buf, self._filters, int(masks[j]), esize, where)
+                buf = unfilter(buf, self._filters, int(masks[j]), esize, where, csize)
             if len(buf) != csize:
                 raise FormatError(f"{where}: a chunk of {len(buf)} bytes where {csize} were expected")
             chunk = np.frombuffer(buf, dtype=t.storage).reshape(cdims + t.storage.shape)
@@ -1418,6 +1512,10 @@ class Dataset(_Object):
         chunk's free rows are filled in place, the rest go into new chunks,
         end to end at the end of the file."""
         f = self._file
+        if self._index_type is not None:
+            raise FormatError(f"{f.path}: the dataset at {self._addr} has a version-4 layout (a "
+                              f"{CHUNK_INDEXES[self._index_type]} chunk index); this codec appends to chunks under "
+                              "a version-1 B-tree")
         self._check_writable()
         if self._unreadable:
             raise FormatError(self._unreadable)
@@ -1468,8 +1566,12 @@ class Dataset(_Object):
         self._replace_msg(DATASPACE, space_bytes(self._shape, self._maxshape))
         self._chunks_dirty = self._dirty = True
 
-    # --- the chunk index (III.A.1, B-tree type 1) ---
+    # --- the chunk index (III.A.1, B-tree type 1; IV.A.2.i) ---
     def _chunk_index(self):
+        """(offsets [n, rank], addresses, sizes, filter masks) of the chunks
+        written, in offset order."""
+        if self._chunks is None and self._index_type is not None:
+            self._chunks = self._v4_chunks()
         if self._chunks is None:
             rank = len(self._chunk)
             entry = np.dtype([("size", "<u4"), ("mask", "<u4"), ("offs", "<u8", (rank + 1,)), ("child", "<u8")])
@@ -1480,6 +1582,56 @@ class Dataset(_Object):
             arr = arr[np.lexsort(arr["offs"][:, :rank].T[::-1])] if len(arr) else arr
             self._chunks = (arr["offs"][:, :rank].copy(), arr["child"].copy(), arr["size"].copy(), arr["mask"].copy())
         return self._chunks
+
+    def _v4_chunks(self):
+        """The chunks under a version-4 layout's index. Element indices run
+        in row-major order over the chunk grid of the maximum dims; an
+        extensible array's over dims reordered so that the unlimited one
+        comes first (``H5VM_swizzle_coords``). With the layout's flag bit 0
+        a partial edge chunk is stored unfiltered: its mask is given every
+        bit."""
+        f, rank, addr = self._file, len(self._chunk), self._index
+        cdims = np.asarray(self._chunk, dtype=np.int64)
+        shape = np.asarray(self._shape, dtype=np.int64)
+        maxshape = self._maxshape or self._shape
+        nbytes = int(np.prod(cdims)) * self._type.storage.itemsize
+        grid = [-(-int(m) // int(c)) if m != UNDEF else 0 for m, c in zip(maxshape, cdims)]
+        order = list(range(rank))
+        sizes = masks = None
+        if addr == UNDEF:
+            keys, addrs = np.zeros(0, np.int64), np.zeros(0, np.uint64)
+        elif self._index_type == 1:  # one chunk at the address: the whole dataset
+            keys, addrs = np.zeros(1, np.int64), np.array([addr], np.uint64)
+            if self._single is not None:
+                sizes, masks = np.array([self._single[0]], np.uint64), np.array([self._single[1]], np.uint32)
+        elif self._index_type == 2:  # implicit: every chunk of the grid, end to end
+            keys = np.arange(int(np.prod(grid)), dtype=np.int64)
+            addrs = (addr + keys * nbytes).astype(np.uint64)
+        elif self._index_type == 3:
+            keys, addrs, sizes, masks = fixed_array_chunks(f._read, addr, f.path)
+        elif self._index_type == 4:
+            unlim = [i for i, m in enumerate(maxshape) if m == UNDEF]
+            if len(unlim) != 1:
+                raise FormatError(f"{f.path}: an extensible array chunk index over {len(unlim)} unlimited dims")
+            order = unlim + [i for i in range(rank) if i != unlim[0]]
+            keys, addrs, sizes, masks = extensible_array_chunks(f._read, addr, f.path)
+        else:
+            keys, addrs, sizes, masks = btree2_chunks(f._read, addr, f.path, rank)
+        if keys.ndim == 1:  # element indices -> scaled offsets, the first of ``order`` varying slowest
+            inner = [grid[i] for i in order[1:]]
+            slow, rest = np.divmod(keys, int(np.prod(inner)))
+            scaled = np.zeros((len(keys), rank), np.int64)
+            scaled[:, order] = np.column_stack([slow, *(np.unravel_index(rest, inner) if inner else ())])
+        else:
+            scaled = keys
+        offsets = scaled * cdims
+        if sizes is None:
+            sizes, masks = np.full(len(addrs), nbytes, np.uint64), np.zeros(len(addrs), np.uint32)
+        if self._layout_flags & 1 and len(offsets):
+            masks = np.where(np.any(offsets + cdims > shape, axis=1), np.uint32(0xFFFFFFFF), masks)
+        sort = np.lexsort(offsets.T[::-1]) if len(offsets) else np.zeros(0, np.int64)
+        return (offsets[sort].astype(np.uint64), addrs[sort].astype(np.uint64), sizes[sort].astype(np.uint64),
+                masks[sort].astype(np.uint32))
 
     def _walk_chunks(self, addr: int, entry: np.dtype, rows: list) -> None:
         f = self._file

@@ -1,8 +1,10 @@
 """HDF5's later on-disk structures for the port's codec (``data/hdf5.py``):
-the metadata checksum, the filter pipeline, fractal heaps and version-2
-B-trees. Section numbers are those of the HDF5 File Format Specification
-version 3.0. Each reader takes ``read(addr, n) -> bytes`` and the file's
-path (for messages); every signature and checksum is checked.
+the metadata checksum, the filter pipeline, fractal heaps, version-2
+B-trees and the chunk indexes of version-4 layouts (fixed and extensible
+arrays, B-trees of chunk records). Section numbers are those of the HDF5
+File Format Specification version 3.0. Each reader takes ``read(addr, n)
+-> bytes`` and the file's path (for messages); every signature and
+checksum is checked.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ def _rot(x: int, k: int) -> int:
 def lookup3(data: bytes, initval: int = 0) -> int:
     """Bob Jenkins' lookup3 hash of ``data``: the checksum of every
     version-2 structure (superblock, object headers, B-tree nodes, heap
-    blocks)."""
+    blocks, chunk index arrays). The plain version of the host library's
+    loop, which ``checksum`` runs."""
     n = len(data)
     a = b = c = (0xDEADBEEF + n + initval) & _M
     if n == 0:
@@ -60,11 +63,29 @@ def lookup3(data: bytes, initval: int = 0) -> int:
     return c
 
 
+def checksum(data: bytes) -> int:
+    """lookup3 of ``data`` in the C++ host library (built at first use; a
+    failed build raises)."""
+    from gpsat_tpu_torch import native
+
+    return native.lookup3(data)
+
+
 def check_sum(buf: bytes, path: str, what: str) -> None:
     """``buf``'s last four bytes are the lookup3 checksum of the rest."""
     stored = struct.unpack_from("<I", buf, len(buf) - 4)[0]
-    if lookup3(buf[:-4]) != stored:
+    if checksum(buf[:-4]) != stored:
         raise FormatError(f"{path}: the checksum of {what} does not match")
+
+
+def _checked(read: Reader, addr: int, n: int, sig: bytes, path: str, what: str) -> bytes:
+    """The ``n`` bytes of the structure at ``addr``: its signature and its
+    checksum (the last four bytes) checked."""
+    buf = read(addr, n)
+    if sig and buf[:4] != sig:
+        raise FormatError(f"{path}: no {what} at {addr}")
+    check_sum(buf, path, f"the {what} at {addr}")
+    return buf
 
 
 def fletcher32(data: bytes) -> int:
@@ -96,7 +117,7 @@ def fletcher32(data: bytes) -> int:
 # the filter pipeline (IV.A.2.l) and the filters this codec applies
 # --------------------------------------------------------------------------
 
-DEFLATE, SHUFFLE, FLETCHER32, BZIP2, BLOSC = 1, 2, 3, 307, 32001
+DEFLATE, SHUFFLE, FLETCHER32, BZIP2, LZF, BLOSC = 1, 2, 3, 307, 32000, 32001
 FILTER_NAMES = {1: "deflate", 2: "shuffle", 3: "fletcher32", 4: "szip", 5: "nbit", 6: "scaleoffset",
                 305: "lzo", 307: "bzip2", 32000: "lzf", 32001: "blosc", 32004: "lz4", 32008: "bitshuffle",
                 32015: "zstd"}
@@ -144,15 +165,15 @@ def check_filters(filters: List[Filter]) -> Optional[str]:
     codec does not apply), or None. An optional one fails only on a chunk
     that went through it (its filter-mask bit clear)."""
     for flt in filters:
-        if flt.id not in (DEFLATE, SHUFFLE, FLETCHER32, BZIP2, BLOSC) and not flt.flags & 1:
+        if flt.id not in (DEFLATE, SHUFFLE, FLETCHER32, BZIP2, LZF, BLOSC) and not flt.flags & 1:
             return f"{flt.label()} is not one this codec applies (it applies deflate, shuffle, fletcher32, " \
-                   "blosc and bzip2)"
+                   "lzf, blosc and bzip2)"
     return None
 
 
-def unfilter(data: bytes, filters: List[Filter], mask: int, itemsize: int, where: str) -> bytes:
-    """Undo ``filters`` on one chunk, last first, skipping each filter whose
-    bit is set in the chunk's filter ``mask``."""
+def unfilter(data: bytes, filters: List[Filter], mask: int, itemsize: int, where: str, chunk_bytes: int) -> bytes:
+    """Undo ``filters`` on one chunk of ``chunk_bytes`` bytes, last first,
+    skipping each filter whose bit is set in the chunk's filter ``mask``."""
     for i in range(len(filters) - 1, -1, -1):
         if mask >> i & 1:
             continue
@@ -178,6 +199,15 @@ def unfilter(data: bytes, filters: List[Filter], mask: int, itemsize: int, where
             data = body
         elif flt.id == BZIP2:
             data = bz2.decompress(data)
+        elif flt.id == LZF:
+            from gpsat_tpu_torch.data.lzf import lzf_decode
+
+            # h5py's filter keeps the chunk's bytes in its third client value
+            n = flt.client[2] if len(flt.client) > 2 and flt.client[2] else chunk_bytes
+            try:
+                data = lzf_decode(data, n)
+            except ValueError as e:
+                raise FormatError(f"{where}: {e}") from None
         elif flt.id == BLOSC:
             from gpsat_tpu_torch.data.blosc import blosc_decode
 
@@ -240,6 +270,162 @@ def btree2_records(read: Reader, addr: int, path: str) -> Tuple[int, List[bytes]
 
     walk(root, root_n, depth)
     return btype, out
+
+
+# --------------------------------------------------------------------------
+# the chunk indexes of a version-4 layout (IV.A.2.i): fixed arrays,
+# extensible arrays and version-2 B-trees of chunk records. Each returns
+# (keys, addresses, sizes, filter masks) of the chunks it holds: keys are
+# element indices (the arrays) or scaled offsets (the B-tree); sizes and
+# masks are None where the chunks are not filtered. Elements of the
+# undefined address, and pages never written, are missing chunks.
+# --------------------------------------------------------------------------
+
+Chunks = Tuple[np.ndarray, np.ndarray, Optional[np.ndarray], Optional[np.ndarray]]
+
+
+def _bit(bitmap: bytes, i: int) -> bool:
+    """Bit ``i`` of a page-init bitmap, the first bit the most significant
+    (``H5VM_bit_get``)."""
+    return bool(bitmap[i // 8] & (0x80 >> (i % 8)))
+
+
+def _entries(raw: bytes, n: int, esize: int, filtered: bool, first: int) -> Chunks:
+    """``n`` elements of ``esize`` bytes, the first of index ``first``: a
+    chunk's address, and for filtered chunks its size (in the element's
+    bytes after the address but the last four) and its filter mask."""
+    a = np.frombuffer(raw, np.uint8, n * esize).reshape(n, esize)
+    addr = a[:, :8].copy().view("<u8").reshape(-1)
+    keep = addr != UNDEF
+    idx = np.arange(first, first + n, dtype=np.int64)[keep]
+    if not filtered:
+        return idx, addr[keep], None, None
+    width = esize - 12
+    size = np.zeros(n, np.uint64)
+    for k in range(width):
+        size |= a[:, 8 + k].astype(np.uint64) << np.uint64(8 * k)
+    mask = a[:, 8 + width:esize].copy().view("<u4").reshape(-1)
+    return idx, addr[keep], size[keep], mask[keep]
+
+
+def _concat(parts: List[Chunks], filtered: bool) -> Chunks:
+    if not parts:
+        z = np.zeros(0, np.uint64)
+        return np.zeros(0, np.int64), z, (z if filtered else None), (np.zeros(0, np.uint32) if filtered else None)
+    cols = list(zip(*parts))
+    return tuple(np.concatenate(c) if c[0] is not None else None for c in cols)
+
+
+def fixed_array_chunks(read: Reader, addr: int, path: str) -> Chunks:
+    """The chunks of a fixed array (``FAHD``, then ``FADB``): one element
+    per chunk of the chunk grid, in pages of 2^page_bits elements past that
+    many, each page with its checksum and a bit in the data block's
+    page-init bitmap."""
+    head = _checked(read, addr, 28, b"FAHD", path, "fixed array header")
+    client, esize, page_bits = head[5], head[6], head[7]
+    nelmts, dblk = struct.unpack_from("<QQ", head, 8)
+    filtered = client == 1
+    if dblk == UNDEF or nelmts == 0:
+        return _concat([], filtered)
+    page = 1 << page_bits
+    npages = -(-nelmts // page) if nelmts > page else 0
+    prefix = 14 + (npages + 7) // 8
+    what = "fixed array data block"
+    if not npages:
+        buf = _checked(read, dblk, prefix + nelmts * esize + 4, b"FADB", path, what)
+        return _entries(buf[prefix:], nelmts, esize, filtered, 0)
+    bitmap = _checked(read, dblk, prefix + 4, b"FADB", path, what)[14:prefix]
+    parts = []
+    for p in range(npages):
+        if _bit(bitmap, p):
+            n = min(page, nelmts - p * page)
+            at = dblk + prefix + 4 + p * (page * esize + 4)
+            pbuf = _checked(read, at, n * esize + 4, b"", path, "fixed array data block page")
+            parts.append(_entries(pbuf, n, esize, filtered, p * page))
+    return _concat(parts, filtered)
+
+
+def extensible_array_chunks(read: Reader, addr: int, path: str) -> Chunks:
+    """The chunks of an extensible array (``EAHD``): elements first in the
+    index block (``EAIB``), then in data blocks (``EADB``) whose addresses
+    the index block holds for the first super blocks and secondary blocks
+    (``EASB``) hold for the rest; super block u has 2^(u // 2) data blocks of
+    2^((u + 1) // 2) times the least data block's elements
+    (``H5EA__hdr_init``). A data block of more than 2^page_bits elements is
+    paged, its pages marked in its secondary block's page-init bitmap."""
+    head = _checked(read, addr, 72, b"EAHD", path, "extensible array header")
+    client, esize, max_bits, iblk_elmts, dblk_min, sblk_min_ptrs, page_bits = head[5:12]
+    iblock = struct.unpack_from("<Q", head, 60)[0]
+    filtered = client == 1
+    if iblock == UNDEF:
+        return _concat([], filtered)
+    nsblks = 1 + max_bits - (dblk_min.bit_length() - 1)
+    ndblks = [1 << (u // 2) for u in range(nsblks)]
+    dblk_n = [(1 << ((u + 1) // 2)) * dblk_min for u in range(nsblks)]
+    start_idx = np.concatenate([[0], np.cumsum([a * b for a, b in zip(ndblks, dblk_n)])]).tolist()
+    start_dblk = np.concatenate([[0], np.cumsum(ndblks)]).tolist()
+    off_size = (max_bits + 7) // 8
+    page = 1 << page_bits
+    in_iblock = 2 * (sblk_min_ptrs.bit_length() - 1)  # super blocks whose data blocks the index block holds
+    n_dblk_addrs, n_sblk_addrs = 2 * (sblk_min_ptrs - 1), nsblks - in_iblock
+    size = 14 + iblk_elmts * esize + 8 * (n_dblk_addrs + n_sblk_addrs) + 4
+    buf = _checked(read, iblock, size, b"EAIB", path, "extensible array index block")
+    parts = [_entries(buf[14:], iblk_elmts, esize, filtered, 0)]
+    pos = 14 + iblk_elmts * esize
+    dblk_addrs = struct.unpack_from(f"<{n_dblk_addrs}Q", buf, pos)
+    sblk_addrs = struct.unpack_from(f"<{n_sblk_addrs}Q", buf, pos + 8 * n_dblk_addrs)
+    dprefix = 14 + off_size  # a data block's signature, version, class, header address and offset
+
+    def data_block(a: int, u: int, j: int, pages: Optional[bytes]) -> None:
+        """The j-th data block of super block u, at ``a``."""
+        n, first = dblk_n[u], iblk_elmts + start_idx[u] + j * dblk_n[u]
+        if pages is None:
+            b = _checked(read, a, dprefix + n * esize + 4, b"EADB", path, "extensible array data block")
+            parts.append(_entries(b[dprefix:], n, esize, filtered, first))
+            return
+        _checked(read, a, dprefix + 4, b"EADB", path, "extensible array data block")
+        npages = n // page
+        for p in range(npages):
+            if _bit(pages, j * npages + p):
+                b = _checked(read, a + dprefix + 4 + p * (page * esize + 4), page * esize + 4, b"", path,
+                             "extensible array data block page")
+                parts.append(_entries(b, page, esize, filtered, first + p * page))
+
+    for u in range(in_iblock):
+        if dblk_n[u] > page:
+            raise FormatError(f"{path}: a paged data block in the extensible array index block at {iblock}")
+        for j in range(ndblks[u]):
+            if dblk_addrs[start_dblk[u] + j] != UNDEF:
+                data_block(dblk_addrs[start_dblk[u] + j], u, j, None)
+    for s, sblk in enumerate(sblk_addrs):
+        if sblk == UNDEF:
+            continue
+        u = in_iblock + s
+        paged = dblk_n[u] > page
+        init = ndblks[u] * ((dblk_n[u] // page + 7) // 8) if paged else 0
+        b = _checked(read, sblk, 14 + off_size + init + 8 * ndblks[u] + 4, b"EASB", path,
+                     "extensible array secondary block")
+        pages = b[14 + off_size:14 + off_size + init] if paged else None
+        for j, a in enumerate(struct.unpack_from(f"<{ndblks[u]}Q", b, 14 + off_size + init)):
+            if a != UNDEF:
+                data_block(a, u, j, pages)
+    return _concat(parts, filtered)
+
+
+def btree2_chunks(read: Reader, addr: int, path: str, rank: int) -> Chunks:
+    """The chunks of a version-2 B-tree of type 10 (unfiltered: an address
+    and the scaled offsets) or 11 (filtered: an address, the chunk's size,
+    its filter mask and the scaled offsets); keys are the scaled offsets,
+    [n, rank]."""
+    btype, recs = btree2_records(read, addr, path)
+    if btype not in (10, 11):
+        raise FormatError(f"{path}: a chunk index of version-2 B-tree type {btype} at {addr}")
+    n = len(recs)
+    esize = (len(recs[0]) if n else 8 + 8 * rank + (12 if btype == 11 else 0)) - 8 * rank
+    a = np.frombuffer(b"".join(recs), np.uint8).reshape(n, esize + 8 * rank)
+    scaled = a[:, esize:].copy().view("<u8").reshape(n, rank).astype(np.int64)
+    idx, addrs, sizes, masks = _entries(a[:, :esize].tobytes(), n, esize, btype == 11, 0)
+    return scaled[idx], addrs, sizes, masks
 
 
 # --------------------------------------------------------------------------
@@ -314,7 +500,7 @@ class FractalHeap:
             if self.flags & 2:  # checksummed direct blocks: the sum of the block with its field zeroed
                 at = 5 + 8 + self.off_size
                 stored = struct.unpack_from("<I", buf, at)[0]
-                if lookup3(buf[:at] + b"\0\0\0\0" + buf[at + 4:]) != stored:
+                if checksum(buf[:at] + b"\0\0\0\0" + buf[at + 4:]) != stored:
                     raise FormatError(f"{self.path}: the checksum of the fractal heap direct block at {addr} "
                                       "does not match")
             self._cache[j] = buf

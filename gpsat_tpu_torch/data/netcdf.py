@@ -2,11 +2,11 @@
 xarray/netCDF4/h5py dependency.
 
 The port's own copy of ``gpsat_tpu/data/netcdf.py``: the same logic, the
-bytes read and written by ``data/hdf5.py`` (superblocks 0 and 2, version-2
+bytes read and written by ``data/hdf5.py`` (superblocks 0 to 3, version-2
 object headers, new-style and dense groups, dimension scales, chunked and
-deflate/shuffle/fletcher32-filtered variables, as netCDF-C and h5netcdf
-write them under library-version bounds up to v1.8) where the JAX package
-goes through h5py. The zarr reader shares ``_decode_cf`` from here.
+filtered variables under any chunk index, committed datatypes, a user
+block) where the JAX package goes through h5py. The zarr reader shares
+``_decode_cf`` from here.
 
 netCDF4 files ARE HDF5 files: dimensions are HDF5 dimension scales
 (CLASS="DIMENSION_SCALE") and each variable's dims are recorded in its
@@ -25,7 +25,11 @@ DIMENSION_LIST attribute. This module reproduces the slice of
   (standard/gregorian calendars).
 
 Scope: root-group variables (the reference's ESA/GPOD inputs are flat
-classic-model files); HDF5 groups raise with a clear message.
+classic-model files); HDF5 groups raise with a clear message. The
+datatypes netCDF-C commits in the root group (a user-defined enum,
+compound or vlen type) are not variables and are passed over; the JAX
+reader, through h5py, takes them for variables and fails on them unless
+``variables`` names what to read.
 """
 
 from __future__ import annotations
@@ -181,8 +185,9 @@ def read_netcdf(
                     "(classic-model) files are supported by this reader"
                 )
 
-        scales = {k: f[k] for k in f.keys() if _is_scale(f[k])}
-        data_vars = {k: f[k] for k in f.keys() if k not in scales}
+        names = [k for k in f.keys() if not isinstance(f[k], hdf5.Datatype)]
+        scales = {k: f[k] for k in names if _is_scale(f[k])}
+        data_vars = {k: f[k] for k in names if k not in scales}
         if variables is not None:
             missing = [v for v in variables if v not in data_vars and v not in scales]
             if missing:

@@ -5,9 +5,9 @@ The port's own copy of ``gpsat_tpu/data/pytables_compat.py``, plus
 (``keys``, ``in``, ``select``) over such a file, for the orchestrator's
 parameter loading. Every file is read through the port's own HDF5 codec
 (``data/hdf5.py``): PyTables' compound tables with their array members,
-fixed strings, enums, bitfields and pickled attributes, chunked and
-zlib-, blosc- or bzip2-compressed; no h5py. pandas is imported when a
-file is read.
+fixed strings, enums, bitfields and pickled attributes, chunked under
+any chunk index (version-4 layouts included) and zlib-, lzf-, blosc- or
+bzip2-compressed; no h5py. pandas is imported when a file is read.
 
 The reference writes all observation/result stores with pandas HDFStore in
 PyTables "table" format (ref: GPSat/local_experts.py:499-550 buffered

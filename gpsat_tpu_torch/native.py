@@ -22,7 +22,9 @@ The host library holds:
     build, then every expert's query in parallel, in place of one KDTree
     query per expert (ref: GPSat/dataloader.py:2354-2447);
   - the blosc codec loops ``lz4_decompress``, ``blosclz_decompress`` and
-    ``byte_unshuffle``.
+    ``byte_unshuffle``;
+  - ``lzf_decompress``, the loop of h5py's lzf filter (``data/lzf.py``);
+  - ``lookup3``, HDF5's metadata checksum (``data/hdf5_structures.py``).
 
 Every index is a handle of its own, so host threads (one per shard of a
 mesh, ``parallel/engine.run_on_mesh``) may build and query indices at once.
@@ -38,7 +40,7 @@ import numpy as np
 from gpsat_tpu_torch.ops import _build
 
 LIBRARY = "gpsat_native"
-ABI_VERSION = 5
+ABI_VERSION = 6
 INDEXES = ("grid", "kdtree")
 
 _d = ctypes.POINTER(ctypes.c_double)
@@ -58,6 +60,8 @@ _SYMBOLS = {
     "gpsat_lz4_decompress": ((_u8, ctypes.c_int64, _u8, ctypes.c_int64), ctypes.c_int64),
     "gpsat_byte_unshuffle": ((_u8, ctypes.c_int64, ctypes.c_int64, _u8), None),
     "gpsat_blosclz_decompress": ((_u8, ctypes.c_int64, _u8, ctypes.c_int64), ctypes.c_int64),
+    "gpsat_lzf_decompress": ((_u8, ctypes.c_int64, _u8, ctypes.c_int64), ctypes.c_int64),
+    "gpsat_lookup3": ((ctypes.c_char_p, ctypes.c_int64, ctypes.c_uint32), ctypes.c_uint32),
 }
 
 
@@ -260,6 +264,23 @@ def blosclz_decompress(buf: bytes, dst_len: int) -> bytes:
     if n != dst_len:
         raise ValueError(f"corrupt blosclz stream: decoded {n} of {dst_len} bytes")
     return dst.tobytes()
+
+
+def lzf_decompress(buf: bytes, dst_len: int) -> bytes:
+    """LZF decode (C++) into at most ``dst_len`` bytes: the chunks of h5py's
+    lzf filter. Raises on a corrupt or overflowing stream."""
+    src, sp = _bytes_ptr(buf)
+    dst = np.empty(dst_len, dtype=np.uint8)
+    n = library().gpsat_lzf_decompress(sp, len(src), _ptr(dst, ctypes.c_uint8), dst_len)
+    if n < 0:
+        raise ValueError(f"corrupt lzf stream: it does not decode into {dst_len} bytes")
+    return dst[:n].tobytes()
+
+
+def lookup3(buf: bytes, initval: int = 0) -> int:
+    """Jenkins' lookup3 hash of ``buf`` (C++): the checksum that ends every
+    structure of HDF5's later formats."""
+    return int(library().gpsat_lookup3(bytes(buf), len(buf), initval))
 
 
 def byte_unshuffle(buf: bytes, typesize: int) -> bytes:

@@ -1,7 +1,10 @@
 """The port's HDF5 codec (gpsat_tpu_torch/data/hdf5.py) on the later formats
-that PyTables and netCDF-4 files use: every variant written here by h5py
-and read through the port, held to h5py and to the JAX package's h5py
-readers (``gpsat_tpu.data.pytables_compat.read_table``,
+that PyTables and netCDF-4 files use and on what h5py writes under its
+usual options (libver "latest": every version-4 chunk index, by filter and
+rank; the lzf filter, its C++ and Python decoders; committed datatypes;
+user blocks): every variant written here by h5py and read through the
+port, held to h5py and to the JAX package's h5py readers
+(``gpsat_tpu.data.pytables_compat.read_table``,
 ``gpsat_tpu.data.netcdf.read_netcdf``) exactly; the port's netCDF writer
 against the JAX writer; the fixtures of tests/fixtures/hdf5 against their
 expected frames; and the files the codec refuses, each with a named
@@ -33,12 +36,14 @@ from gpsat_tpu_torch.data import ingest as TI
 from gpsat_tpu_torch.data import netcdf as TN
 from gpsat_tpu_torch.data import pytables_compat as TPT
 from gpsat_tpu_torch.data.blosc import blosc_encode
+from gpsat_tpu_torch.data.lzf import lzf_decode
 from gpsat_tpu_torch.data.store import TableStore as TStore
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 import chip_smoke as CS  # noqa: E402
 
+FX_DIR = REPO / "tests" / "fixtures" / "hdf5"
 _spec = importlib.util.spec_from_file_location("make_hdf5_fixtures", REPO / "tools" / "make_hdf5_fixtures.py")
 FX = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(FX)
@@ -91,6 +96,9 @@ def _walk(h, c, path="/"):
     for k in h.attrs.keys():
         if k not in ("REFERENCE_LIST", "DIMENSION_LIST"):
             _same(h.attrs[k], c.attrs[k], f"{path} attr {k}")
+    if isinstance(h, h5py.Datatype):
+        assert isinstance(c, hdf5.Datatype) and c.dtype == h.dtype, path
+        return
     if isinstance(h, h5py.Group):
         assert c.keys() == list(h.keys()), path
         for k in h.keys():
@@ -326,6 +334,76 @@ def test_layout_messages_of_versions_1_and_2(tmp_path):
 
 
 # --------------------------------------------------------------------------
+# version-4 layouts: every chunk index HDF5 writes at libver "latest"
+# --------------------------------------------------------------------------
+
+SHAPES = {1: ((23,), (4,)), 2: ((10, 7), (3, 2)), 3: ((6, 5, 4), (4, 2, 3))}
+V4_INDEXES = {"single": "single chunk", "implicit": "implicit", "fixed": "fixed array",
+              "fixed_paged": "fixed array", "extensible": "extensible array",
+              "extensible_paged": "extensible array", "btree": "v2 B-tree"}
+V4_CASES = [(index, flt, rank) for index in V4_INDEXES for flt in (None, "gzip", "lzf") for rank in (1, 2, 3)
+            if not (index == "implicit" and flt)  # HDF5 keeps implicit chunks unfiltered
+            and not (index == "btree" and rank == 1)  # two unlimited dims or more
+            and not (index == "fixed_paged" and rank != 1) and not (index == "extensible_paged" and rank != 2)]
+
+
+def _write_v4(path, index, flt, rank):
+    """One dataset "v" under the chunk index ``index``; chunks through
+    ``flt``; some chunks never written (the fill value) where the index
+    allows it; a rank-3 filtered dataset's partial edge chunks stored
+    unfiltered. Paged: a fixed array of 2,100 one-element chunks (three
+    pages, the middle one never written), and an extensible array whose
+    swizzled index reaches a paged data block (maxshape (70000, None))."""
+    import ctypes
+
+    shape, chunks = SHAPES[rank]
+    maxshape = shape
+    if index == "single":
+        chunks = shape
+    elif index == "implicit":
+        maxshape = tuple(n + 2 for n in shape)
+    elif index == "fixed_paged":
+        shape = maxshape = (2100,)
+        chunks = (1,)
+    elif index == "extensible":
+        maxshape = {1: (None,), 2: (10, None), 3: (6, None, 4)}[rank]  # (10, None): the index swizzled
+    elif index == "extensible_paged":
+        shape, maxshape, chunks = (1100, 3), (70_000, None), (1, 1)
+    elif index == "btree":
+        maxshape = (None,) * rank
+    rng = np.random.default_rng(rank)
+    data = np.round(rng.normal(size=shape), 3)
+    filters = {None: (), "gzip": (lambda d: d.set_shuffle(), lambda d: d.set_deflate(5)),
+               "lzf": (lambda d: d.set_filter(32000, h5py.h5z.FLAG_OPTIONAL, ()),)}[flt]
+
+    def dcpl_fn(d):
+        if index == "implicit":
+            d.set_alloc_time(h5py.h5d.ALLOC_TIME_EARLY)
+        if flt and rank == 3:
+            FX._hdf5_call("H5Pset_chunk_opts", ctypes.c_int64(d.id), ctypes.c_uint(FX.DONT_FILTER_PARTIAL_CHUNKS))
+
+    with h5py.File(path, "w", libver="latest") as f:
+        v = FX._variable(f, "v", [], dcpl_fn=dcpl_fn, shape=shape, maxshape=maxshape, chunks=chunks, dtype="f8",
+                         fillvalue=-4.5, filters=filters)
+        if index == "single":
+            v[...] = data
+        elif index == "fixed_paged":
+            v[:900], v[2050] = data[:900], data[2050]
+        elif index == "extensible_paged":
+            v[:276, 2], v[1000, 2], v[5:9, 0] = data[:276, 2], data[1000, 2], data[5:9, 0]
+        else:
+            v[chunks[0]:] = data[chunks[0]:]  # the first row of chunks never written
+        assert FX.chunk_index_type(v) == V4_INDEXES[index]
+
+
+@pytest.mark.parametrize("index,flt,rank", V4_CASES, ids=[f"{i}-{f or 'raw'}-{r}d" for i, f, r in V4_CASES])
+def test_version4_chunk_indexes_read_as_h5py(index, flt, rank, tmp_path):
+    path = str(tmp_path / "v4.h5")
+    _write_v4(path, index, flt, rank)
+    assert _same_as_h5py(path) == 3
+
+
+# --------------------------------------------------------------------------
 # datatypes
 # --------------------------------------------------------------------------
 
@@ -386,20 +464,172 @@ def test_datatypes_read_as_h5py(tmp_path):
           suppress_health_check=[HealthCheck.function_scoped_fixture])
 @given(dtype=st.sampled_from(["<i1", ">i2", "<u4", ">u8", "<f4", ">f8", "?", "S3"]),
        shape=st.lists(st.integers(0, 6), min_size=0, max_size=3).map(tuple),
-       layout=st.sampled_from(["contiguous", "chunked", "gzip"]), seed=st.integers(0, 2**16))
-def test_round_trip_property(dtype, shape, layout, seed, tmp_path):
-    # any of these dtypes, shapes and layouts written by h5py reads back
-    # through the codec as h5py reads it
+       layout=st.sampled_from(["contiguous", "chunked", "gzip"]), seed=st.integers(0, 2**16),
+       libver=st.sampled_from(["earliest", "latest"]), unlimited=st.integers(0, 3))
+def test_round_trip_property(dtype, shape, layout, seed, libver, unlimited, tmp_path):
+    # any of these dtypes, shapes and layouts written by h5py under either
+    # library-version bound reads back through the codec as h5py reads it;
+    # at "latest" the chunk index follows the unlimited dims (none: a fixed
+    # array or a single chunk; one: an extensible array; more: a v2 B-tree)
     rng = np.random.default_rng(seed)
     data = rng.integers(0, 100, shape).astype(dtype) if np.dtype(dtype).kind != "f" else rng.normal(size=shape)
     data = np.asarray(data, dtype=dtype)
     path = str(tmp_path / f"p{seed}.h5")
     kw = {}
     if layout != "contiguous" and len(shape) and all(shape):
-        kw = {"chunks": tuple(max(1, n // 2) for n in shape), **({"compression": "gzip"} if layout == "gzip" else {})}
-    with h5py.File(path, "w") as f:
+        kw = {"chunks": tuple(max(1, n // 2) for n in shape), **({"compression": "gzip"} if layout == "gzip" else {}),
+              "maxshape": tuple(None if i < unlimited else n for i, n in enumerate(shape))}
+    with h5py.File(path, "w", libver=libver) as f:
         f.create_dataset("v", data=data, **kw)
-    assert _same_as_h5py(path) == 0
+    assert _same_as_h5py(path) == (3 if libver == "latest" else 0)
+
+
+# --------------------------------------------------------------------------
+# h5py's lzf filter, committed datatypes and user blocks
+# --------------------------------------------------------------------------
+
+
+def _lzf_chunks(path, name):
+    """The stored bytes of every chunk of ``name`` that went through lzf, and
+    the bytes h5py reads for it."""
+    out = []
+    with h5py.File(path, "r") as h:
+        ds = h[name]
+        for i in range(ds.id.get_num_chunks()):
+            info = ds.id.get_chunk_info(i)
+            mask, blob = ds.id.read_direct_chunk(info.chunk_offset)
+            if not mask:
+                sl = tuple(slice(o, o + c) for o, c in zip(info.chunk_offset, ds.chunks))
+                block = np.full(ds.chunks, 0, ds.dtype)
+                part = ds[sl]
+                block[tuple(slice(0, n) for n in part.shape)] = part
+                out.append((blob, block.tobytes()))
+    return out
+
+
+def test_lzf_native_and_python_decoders_agree(tmp_path):
+    # the C++ loop and the plain Python one give the same bytes, and h5py's,
+    # on the fixture's chunks and on chunks of long, overlapping and far
+    # matches; both refuse a stream that overflows or points before its start
+    path = str(tmp_path / "lzf.h5")
+    rng = np.random.default_rng(11)
+    with h5py.File(path, "w") as f:
+        runs = np.repeat(rng.integers(0, 5, 400), rng.integers(1, 300, 400))[:60_000].astype(np.uint8)
+        f.create_dataset("runs", data=runs, chunks=(20_000,), compression="lzf")
+        text = np.frombuffer((b"the quick brown fox " * 3000)[:50_000], np.uint8)
+        f.create_dataset("text", data=text, chunks=(25_000,), compression="lzf")
+    chunks = [c for name in ("runs", "text") for c in _lzf_chunks(path, name)]
+    chunks += [c for name in ("z", "u") for c in _lzf_chunks(str(FX_DIR / "v4_lzf.nc"), name)]
+    assert len(chunks) >= 18
+    for blob, want in chunks:
+        native = lzf_decode(blob, len(want))
+        assert native == lzf_decode(blob, len(want), decoder="python") == want
+    blob, want = chunks[0]
+    for decoder in ("native", "python"):
+        with pytest.raises(ValueError, match="corrupt lzf"):
+            lzf_decode(blob, len(want) - 1, decoder=decoder)
+        with pytest.raises(ValueError, match="corrupt lzf"):
+            lzf_decode(b"\x20\x05", 16, decoder=decoder)  # a match before the first byte
+
+
+def test_lzf_reads_raise_when_the_host_library_does_not_build(tmp_path, monkeypatch):
+    # no fallback to the Python loop: the codec raises as the build does (a
+    # file of superblock 0, whose metadata carries no checksums)
+    from gpsat_tpu_torch import native
+
+    path = str(tmp_path / "lzf.h5")
+    with h5py.File(path, "w") as h:
+        h.create_dataset("z", data=np.zeros(64), chunks=(16,), compression="lzf")
+
+    def no_build():
+        raise RuntimeError("g++ failed")
+
+    monkeypatch.setattr(native, "library", no_build)
+    with hdf5.File(path, "r") as f:
+        with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+            f["z"][()]
+
+
+@pytest.mark.parametrize("length", [*range(41), 4096 + 7])
+def test_lookup3_native_and_python_agree(length):
+    # the host library's lookup3, which the codec's checksums run, against
+    # the plain Python one: every tail length of the last 12-byte block,
+    # several blocks, and a long buffer; two initial values
+    from gpsat_tpu_torch import native
+
+    data = np.random.default_rng(length).integers(0, 256, length, dtype=np.uint8).tobytes()
+    for initval in (0, 0x9E3779B9):
+        assert native.lookup3(data, initval) == hdf5_structures.lookup3(data, initval)
+
+
+def test_chunk_rows_sets_a_written_column_chunks(tmp_path):
+    # create_dataset's chunk_rows gives the column those chunks (h5py reads
+    # them back); without it the chunks are h5py's guess; below 1 it raises
+    path = str(tmp_path / "c.h5")
+    rows = np.arange(1000, dtype=np.int32)
+    with hdf5.File(path, "w") as f:
+        f.create_dataset("one", rows, chunk_rows=1)
+        f.create_dataset("seven", rows, chunk_rows=7)
+        f.create_dataset("guess", rows)
+        with pytest.raises(ValueError, match="chunk_rows"):
+            f.create_dataset("zero", rows, chunk_rows=0)
+    with h5py.File(path, "r") as h:
+        assert h["one"].chunks == (1,) and h["seven"].chunks == (7,)
+        assert h["guess"].chunks == (hdf5.guess_chunk_rows(1000, 4),)
+        for k in ("one", "seven", "guess"):
+            np.testing.assert_array_equal(h[k][()], rows)
+
+
+@pytest.mark.parametrize("libver", ["earliest", "v108", "latest"])
+def test_committed_datatypes_read_as_h5py(libver, tmp_path):
+    # enum, compound and vlen types committed as netCDF-C commits them, used
+    # by datasets and attributes; the types themselves read as h5py's
+    # Datatype objects
+    path = str(tmp_path / "t.h5")
+    with h5py.File(path, "w", libver=FX.LIBVER.get(libver, libver), track_order=libver != "earliest") as f:
+        f["enum_t"] = h5py.enum_dtype({"LOW": 0, "MID": 1, "HIGH": 2}, "i1")
+        f["cmp_t"] = np.dtype([("a", "<i4"), ("b", ">f8"), ("c", "S3")])
+        f["vlen_t"] = h5py.vlen_dtype(np.dtype("<i2"))
+        f["enum_t"].attrs["note"] = "committed"
+        f.create_dataset("e", data=np.array([0, 2, 1, 1], "i1"), dtype=f["enum_t"], chunks=(2,), compression="gzip")
+        f.create_dataset("c", data=np.array([(1, 2.5, b"ab"), (3, 4.5, b"xyz")], f["cmp_t"].dtype), dtype=f["cmp_t"])
+        v = f.create_dataset("v", (3,), dtype=f["vlen_t"])
+        v[0], v[2] = np.arange(3, dtype="i2"), np.arange(5, dtype="i2")
+        f["e"].attrs.create("ae", np.array([2, 0], "i1"), dtype=f["enum_t"])
+        f["e"].attrs.create("ac", np.array([(7, 8.5, b"q")], f["cmp_t"].dtype), dtype=f["cmp_t"])
+        av = np.empty(2, object)
+        av[0], av[1] = np.arange(2, dtype="i2"), np.arange(4, dtype="i2")
+        f.attrs.create("av", av, dtype=f["vlen_t"])
+    _same_as_h5py(path)
+    with hdf5.File(path, "r") as f:
+        assert h5py.check_enum_dtype(f["e"].dtype) == {"LOW": 0, "MID": 1, "HIGH": 2}
+        assert h5py.check_enum_dtype(f["enum_t"].dtype) == {"LOW": 0, "MID": 1, "HIGH": 2}
+
+
+@pytest.mark.parametrize("size", [512, 4096])
+@pytest.mark.parametrize("libver", ["earliest", "latest"])
+def test_user_block_files_read_as_h5py(libver, size, tmp_path):
+    # every address relative to the superblock past the user block; a file
+    # of superblock 0 also written to, which h5py reads with its user block
+    path = str(tmp_path / "ub.h5")
+    with h5py.File(path, "w", libver=libver, userblock_size=size) as f:
+        f.create_dataset("c", data=np.arange(100), chunks=(7,), maxshape=(None,))
+        f.create_dataset("x", data=np.arange(10.0))
+        f.attrs["a"] = "text"
+    with open(path, "r+b") as fh:
+        fh.write(b"a user's block")
+    assert _same_as_h5py(path) == (3 if libver == "latest" else 0)
+    if libver == "latest":
+        return
+    with hdf5.File(path, "r+") as f:
+        f["c"].append(np.arange(5))
+        f.create_dataset("y", np.arange(3.0), contiguous=True)
+        f.attrs["b"] = "more"
+    with h5py.File(path, "r") as h:
+        assert h.userblock_size == size and h.attrs["b"] == "more"
+        np.testing.assert_array_equal(h["c"][()], np.r_[np.arange(100), np.arange(5)])
+    assert Path(path).read_bytes()[:14] == b"a user's block"
+    _same_as_h5py(path)
 
 
 # --------------------------------------------------------------------------
@@ -433,6 +663,38 @@ def test_netcdf_files_match_jax(variant, tmp_path):
                                   JN.read_netcdf(path, variables=["count"]))
     pd.testing.assert_frame_equal(TN.read_netcdf(path, decode_cf=False), JN.read_netcdf(path, decode_cf=False))
     pd.testing.assert_frame_equal(TDL.load(path), JDL.load(path))
+
+
+@pytest.mark.parametrize("name", [FX.V4_RESULTS, *FX.V4_NETCDF])
+def test_later_format_fixtures_match_h5py_and_jax_readers(name):
+    # the version-4, lzf, committed-type and user-block fixtures: every
+    # object as h5py reads it, and each frame as the JAX reader gives it
+    path = str(FX_DIR / name)
+    _same_as_h5py(path)
+    if name == FX.V4_RESULTS:
+        assert TPT.list_tables(path) == JPT.list_tables(path)
+        for key in ("lengthscales", "kernel_variance", "likelihood_variance"):
+            pd.testing.assert_frame_equal(TPT.read_table(path, key), JPT.read_table(path, key))
+        return
+    variables = FX.V4_NETCDF[name][1]
+    for decode_cf in (True, False):
+        pd.testing.assert_frame_equal(TN.read_netcdf(path, variables=variables, decode_cf=decode_cf),
+                                      JN.read_netcdf(path, variables=variables, decode_cf=decode_cf))
+
+
+def test_netcdf_reader_passes_over_committed_datatypes(tmp_path):
+    # netCDF-C commits a user-defined type in the root group: the port's
+    # reader lists the variables only (the JAX reader fails on the type
+    # unless told which variables to read)
+    path = str(tmp_path / "enum.nc")
+    with h5py.File(path, "w", libver=("v108", "v108"), track_order=True) as f:
+        x = f.create_dataset("x", data=np.arange(4.0))
+        x.make_scale("x")
+        f["flag_t"] = h5py.enum_dtype({"A": 0, "B": 1}, "u1")
+        f.create_dataset("flag", data=np.array([0, 1, 1, 0], "u1"), dtype=f["flag_t"]).dims[0].attach_scale(x)
+    pd.testing.assert_frame_equal(TN.read_netcdf(path), JN.read_netcdf(path, variables=["flag"]))
+    with pytest.raises(AttributeError):
+        JN.read_netcdf(path)
 
 
 def test_read_and_store_nc_engine_matches_jax(tmp_path):
@@ -562,40 +824,36 @@ def _flip_chunk_byte(path, name):
         fh.write(bytes([b[0] ^ 0xFF]))
 
 
-REFUSALS = {
-    "fletcher32_mismatch": "fletcher32 checksum mismatch",
-    "layout_v4_extensible_array": "version-4 layout with a extensible array chunk index",
-    "layout_v4_fixed_array": "version-4 layout with a fixed array chunk index",
-    "unknown_filter_lzf": r"filter 32000 \(lzf\)",
-    "region_reference": "region reference",
-    "committed_datatype": "committed",
-    "four_byte_offsets": "4-byte offsets",
-    "user_block": "user block",
-    "superblock_checksum": "checksum of the superblock",
-}
+def _case_file(path, kind):
+    """The file of a refusal or a read case: ``v`` the object it is about."""
+    import ctypes
 
-
-@pytest.mark.parametrize("kind", sorted(REFUSALS))
-def test_codec_names_what_it_refuses(kind, tmp_path):
-    path = str(tmp_path / "r.h5")
     data = np.arange(40.0)
     fcpl = h5py.h5p.create(h5py.h5p.FILE_CREATE)
     if kind == "four_byte_offsets":
         fcpl.set_sizes(4, 4)
     if kind == "user_block":
         fcpl.set_userblock(512)
-    libver = "latest" if kind.startswith("layout_v4") or kind == "superblock_checksum" else "earliest"
+    if kind in ("shared_datatype_table", "shared_dataspace"):  # one index of the shared-message table
+        fid = ctypes.c_int64(fcpl.id)
+        FX._hdf5_call("H5Pset_shared_mesg_nindexes", fid, ctypes.c_uint(1))
+        FX._hdf5_call("H5Pset_shared_mesg_index", fid, ctypes.c_uint(0),
+                      ctypes.c_uint(0x0008 if kind == "shared_datatype_table" else 0x0002), ctypes.c_uint(0))
+    latest = kind.startswith("layout_v4") or kind in ("superblock_checksum", "virtual_dataset", "earray_checksum",
+                                                      "append_version4", "filtered_fractal_heap")
     fapl = h5py.h5p.create(h5py.h5p.FILE_ACCESS)
-    fapl.set_libver_bounds(*{"latest": (h5py.h5f.LIBVER_LATEST,) * 2,
-                             "earliest": (h5py.h5f.LIBVER_EARLIEST, h5py.h5f.LIBVER_LATEST)}[libver])
+    fapl.set_libver_bounds(*((h5py.h5f.LIBVER_LATEST,) * 2 if latest else (h5py.h5f.LIBVER_EARLIEST,
+                                                                            h5py.h5f.LIBVER_LATEST)))
     with h5py.File(h5py.h5f.create(path.encode(), h5py.h5f.ACC_TRUNC, fcpl=fcpl, fapl=fapl)) as f:
         if kind == "fletcher32_mismatch":
             f.create_dataset("v", data=data, chunks=(8,), fletcher32=True)
-        elif kind == "layout_v4_extensible_array":
+        elif kind in ("layout_v4_extensible_array", "append_version4"):
             f.create_dataset("v", data=data, chunks=(8,), maxshape=(None,))
+        elif kind == "earray_checksum":  # past the index block's four elements: a data block
+            f.create_dataset("v", data=data, chunks=(2,), maxshape=(None,))
         elif kind == "layout_v4_fixed_array":
             f.create_dataset("v", data=data, chunks=(8,))
-        elif kind == "unknown_filter_lzf":
+        elif kind in ("unknown_filter_lzf", "unknown_applied_filter"):
             f.create_dataset("v", data=data, chunks=(8,), compression="lzf")
         elif kind == "region_reference":
             f.create_dataset("x", data=data)
@@ -604,6 +862,24 @@ def test_codec_names_what_it_refuses(kind, tmp_path):
         elif kind == "committed_datatype":
             f["t"] = np.dtype("f8")
             f.create_dataset("v", data=data, dtype=f["t"])
+        elif kind == "virtual_dataset":
+            f.create_dataset("x", data=data)
+            layout = h5py.VirtualLayout(shape=(40,), dtype="f8")
+            layout[:] = h5py.VirtualSource(f["x"])
+            f.create_virtual_dataset("v", layout)
+        elif kind == "external_storage":
+            f.create_dataset("v", data=data, external=[(path + ".raw", 0, h5py.h5f.UNLIMITED)])
+        elif kind in ("shared_datatype_table", "shared_dataspace"):  # the second user of a message shares it
+            rec = np.zeros(40, [("a", "<i4"), ("b", "<f8")])
+            f.create_dataset("x", data=rec)
+            f.create_dataset("v", data=rec)
+        elif kind == "filtered_fractal_heap":  # a group's dense links, deflated
+            gcpl = h5py.h5p.create(h5py.h5p.GROUP_CREATE)
+            gcpl.set_link_creation_order(h5py.h5p.CRT_ORDER_TRACKED)
+            FX._hdf5_call("H5Pset_deflate", ctypes.c_int64(gcpl.id), ctypes.c_uint(5))
+            h5py.h5g.create(f.id, b"v", gcpl=gcpl)
+            for i in range(30):
+                f["v"].create_group(f"link_{i:03d}")
         else:
             f.create_dataset("v", data=data)
     if kind == "fletcher32_mismatch":
@@ -612,6 +888,56 @@ def test_codec_names_what_it_refuses(kind, tmp_path):
         with open(path, "r+b") as fh:
             fh.seek(28)  # the end-of-file address
             fh.write(struct.pack("<Q", 1 << 40))
+    if kind == "unknown_applied_filter":  # the pipeline names lz4 (32004), which the chunks did go through
+        with hdf5.File(path, "r") as f:
+            body = [b for t, _, b, _ in hdf5._read_header(f, f["v"]._addr)[2] if t == hdf5.FILTERS][0]
+        raw = Path(path).read_bytes()
+        assert body[0] == 1 and raw.count(body) == 1  # a version-1 pipeline: the first id at offset 8
+        Path(path).write_bytes(raw.replace(body, body[:8] + struct.pack("<H", 32004) + body[10:]))
+    if kind == "earray_checksum":
+        raw = bytearray(Path(path).read_bytes())
+        at = raw.index(b"EADB") + 20  # an element's byte
+        raw[at] ^= 0xFF
+        Path(path).write_bytes(bytes(raw))
+
+
+REFUSALS = {
+    "fletcher32_mismatch": "fletcher32 checksum mismatch",
+    "unknown_applied_filter": r"filter 32004 \(lzf\) is not one this codec applies",
+    "region_reference": "region reference",
+    "four_byte_offsets": "4-byte offsets",
+    "superblock_checksum": "checksum of the superblock",
+    "virtual_dataset": "virtual",
+    "external_storage": "external files",
+    "earray_checksum": "checksum of the extensible array data block",
+    "append_version4": "version-4 layout \\(a extensible array chunk index\\); this codec appends",
+    "shared_datatype_table": "its datatype in the shared-object-header-message table",
+    "shared_dataspace": "a shared message of type 1 \\(a shared dataspace",
+    "filtered_fractal_heap": "fractal heap at \\d+ is filtered",
+}
+
+
+@pytest.mark.parametrize("kind", sorted(REFUSALS))
+def test_codec_names_what_it_refuses(kind, tmp_path):
+    path = str(tmp_path / "r.h5")
+    _case_file(path, kind)
     with pytest.raises(hdf5.FormatError, match=REFUSALS[kind]):
         with hdf5.File(path, "r") as f:
-            f["v"][()]
+            if kind == "append_version4":
+                f["v"].append(np.arange(3.0))
+            elif kind == "filtered_fractal_heap":
+                f["v"].keys()
+            else:
+                f["v"][()]
+
+
+@pytest.mark.parametrize("kind", ["layout_v4_extensible_array", "layout_v4_fixed_array", "unknown_filter_lzf",
+                                  "committed_datatype", "user_block"])
+def test_formerly_refused_files_read_as_h5py(kind, tmp_path):
+    # what the codec refused before it read version-4 layouts, lzf, committed
+    # datatypes and user blocks
+    path = str(tmp_path / "r.h5")
+    _case_file(path, kind)
+    assert _same_as_h5py(path) == (3 if kind.startswith("layout_v4") else 0)
+    with hdf5.File(path, "r") as f:
+        np.testing.assert_array_equal(f["v"][()], np.arange(40.0))

@@ -17,6 +17,15 @@ Needs h5py and the JAX package (it runs on the CPU, with
   chunked variables with edge chunks under deflate, shuffle and fletcher32,
   phony dimensions, CF datetimes, and 20 variables and attributes (dense
   links and attributes);
+- the later formats h5py writes (``check_structure`` asserts each file
+  holds what it is there for): at libver "latest", a copy of the results
+  store in chunks of two rows (extensible arrays past their index block),
+  an extensible array of 10,000 one-row chunks (secondary blocks), one
+  whose chunks reach paged data blocks (a swizzled unlimited dim), fixed
+  arrays of 1,200 chunks (paged, a page never written; partial edge
+  chunks stored unfiltered), single-chunk, implicit and version-2 B-tree
+  indexes, and h5py's lzf filter with one chunk stored raw; netCDF-C's
+  committed enum, compound and vlen types; a 512-byte user block;
 - ``expected.npz``: each fixture's frame as the JAX package's readers
   (``gpsat_tpu.data.pytables_compat.read_table``,
   ``gpsat_tpu.data.netcdf.read_netcdf``) give it, through h5py; its
@@ -45,7 +54,8 @@ sys.path.insert(0, str(ROOT))
 # PyTables' filter ids and the blosc filter's compressor code for lz4
 BLOSC_ID, BZIP2_ID, BLOSC_LZ4 = 32001, 307, 1
 PHONY_NAME = b"This is a netCDF dimension but not a netCDF variable."
-LIBVER = {"earliest": "earliest", "earliest_v108": ("earliest", "v108"), "v108": ("v108", "v108")}
+LIBVER = {"earliest": "earliest", "earliest_v108": ("earliest", "v108"), "v108": ("v108", "v108"),
+          "latest": "latest"}
 
 
 # --------------------------------------------------------------------------
@@ -199,12 +209,13 @@ def write_pytables(path, storage, n=300, seed=0):
             write_frame_table(f, key, storage=storage, **kw)
 
 
-def results_store(path, experts, seed=0):
+def results_store(path, experts, seed=0, libver="earliest", chunk_rows=32):
     """A GPSat results store (PyTables) of ``experts`` ({"x", "y"}): the
     lengthscales (one row per dimension, ``_dim_0``), kernel_variance and
     likelihood_variance of each, in the units the runs store (lengthscales
     over coords_scale), f32-representable so that an f32 run loads them
-    exactly."""
+    exactly; zlib chunks of ``chunk_rows`` rows, the library-version
+    bounds ``libver`` (an h5py ``libver``)."""
     import h5py
 
     rng = np.random.default_rng(seed)
@@ -213,16 +224,17 @@ def results_store(path, experts, seed=0):
     ls = rng.uniform(1.0, 8.0, (e, 2)).astype(np.float32).astype(np.float64)
     kv = rng.uniform(0.01, 0.1, e).astype(np.float32).astype(np.float64)
     lv = rng.uniform(1e-3, 1e-2, e).astype(np.float32).astype(np.float64)
-    with h5py.File(path, "w") as f:
+    with h5py.File(path, "w", libver=libver) as f:
         _bytes_attr(f, "CLASS", "GROUP")
         write_frame_table(f, "lengthscales", index_fields={"x": (np.repeat(x, 2), "float"),
                                                            "y": (np.repeat(y, 2), "float")},
                           blocks=[("values_block_0", ["_dim_0", "lengthscales"],
                                    np.stack([np.tile([0.0, 1.0], e), ls.reshape(-1)], axis=1))],
-                          storage="zlib", chunk_rows=32)
+                          storage="zlib", chunk_rows=chunk_rows)
         for name, vals in (("kernel_variance", kv), ("likelihood_variance", lv)):
             write_frame_table(f, name, index_fields={"x": (x, "float"), "y": (y, "float")},
-                              blocks=[("values_block_0", [name], vals[:, None])], storage="zlib", chunk_rows=32)
+                              blocks=[("values_block_0", [name], vals[:, None])], storage="zlib",
+                              chunk_rows=chunk_rows)
     return {"lengthscales": ls, "kernel_variance": kv, "likelihood_variance": lv}
 
 
@@ -232,7 +244,7 @@ def results_store(path, experts, seed=0):
 
 
 def write_netcdf_variant(path, libver="earliest", track_order=False, layout="contiguous", extra=0, phony=False,
-                         cf_time=True, seed=0):
+                         cf_time=True, seed=0, userblock=0):
     """A netCDF-4-layout file as h5py can lay it out: dimension scales x
     (7), y (11) and t (5) with coordinate variables, a [7, 11, 5] float
     variable and a [11, 5] int variable, a string variable over x; the
@@ -242,7 +254,8 @@ def write_netcdf_variant(path, libver="earliest", track_order=False, layout="con
     fletcher32); ``extra`` more variables over x, each with as many
     attributes (dense links and attributes past 8); ``phony`` a dimension
     with no coordinate variable, as netCDF-C writes it; ``cf_time`` t in
-    "days since" with a _FillValue, else plain integers."""
+    "days since" with a _FillValue, else plain integers; ``userblock``
+    bytes of a user block before the superblock (0: none)."""
     import h5py
 
     rng = np.random.default_rng(seed)
@@ -251,7 +264,7 @@ def write_netcdf_variant(path, libver="earliest", track_order=False, layout="con
         kw = {"chunks": (3, 4, 2)}
         if layout == "filtered":
             kw.update(compression="gzip", shuffle=True, fletcher32=True)
-    with h5py.File(path, "w", libver=LIBVER[libver], track_order=track_order) as f:
+    with h5py.File(path, "w", libver=LIBVER[libver], track_order=track_order, userblock_size=userblock) as f:
         f.attrs["_NCProperties"] = np.bytes_(b"version=2,netcdf=4.9.2,hdf5=1.14.6")
         f.attrs["title"] = "gpsat fixture"
         x = f.create_dataset("x", data=np.linspace(-1.0, 1.0, 7))
@@ -289,6 +302,222 @@ def write_netcdf_variant(path, libver="earliest", track_order=False, layout="con
                 v.attrs[f"a{j:02d}"] = np.int64(i * j)
 
 
+# --------------------------------------------------------------------------
+# version-4 layouts (libver "latest"), h5py's lzf filter, committed
+# datatypes and a user block
+# --------------------------------------------------------------------------
+
+# HDF5's chunk index types (H5D_chunk_index_t) and the extensible array's
+# fixed parameters (H5Dearray.c): 4 elements in the index block, data
+# blocks of 16 elements and more, pages of 2^10 elements. Its first paged
+# data block holds element 4 + 131056 (super block 13: data blocks of 2,048
+# elements, two pages each).
+INDEX_TYPES = {0: "v1 B-tree", 1: "single chunk", 2: "implicit", 3: "fixed array", 4: "extensible array",
+               5: "v2 B-tree"}
+EA_FIRST_PAGED = 4 + 131056
+FA_PAGE = 1024
+DONT_FILTER_PARTIAL_CHUNKS = 0x0002  # H5D_CHUNK_DONT_FILTER_PARTIAL_CHUNKS
+
+
+def _hdf5_call(name, *args):
+    """Call a function of the HDF5 library h5py was built on, for what h5py
+    does not bind (H5Pset_chunk_opts, H5Dget_chunk_index_type, the
+    shared-message table's settings, a group's filters); raises on a
+    negative status."""
+    import ctypes
+
+    import h5py
+
+    fn = getattr(ctypes.CDLL(h5py.h5p.__file__), name)
+    status = fn(*args)
+    if status < 0:
+        raise RuntimeError(f"{name} failed ({status})")
+
+
+def chunk_index_type(ds) -> str:
+    """The chunk index HDF5 keeps for an h5py dataset (its name in
+    INDEX_TYPES)."""
+    import ctypes
+
+    out = ctypes.c_int(-1)
+    _hdf5_call("H5Dget_chunk_index_type", ctypes.c_int64(ds.id.id), ctypes.byref(out))
+    return INDEX_TYPES[out.value]
+
+
+def _phony_dims(f, sizes):
+    """netCDF-C's dimensions without a variable: a scale of no data each,
+    NAME its phony marker and the size."""
+    out = []
+    for i, n in enumerate(sizes):
+        d = f.create_dataset(f"dim{i}", shape=(n,), dtype="f4")
+        d.make_scale(PHONY_NAME.decode() + f"{n:10d}")
+        out.append(d)
+    return out
+
+
+def _variable(f, name, dims, dcpl_fn=None, **kw):
+    """A dataset attached to the scales ``dims``. With ``dcpl_fn`` it is made
+    through h5py's low-level API: ``filters`` (functions of the creation
+    property list, each setting one filter) and then ``dcpl_fn(dcpl)`` set
+    what h5py's create_dataset cannot."""
+    import h5py
+
+    if dcpl_fn is None:
+        ds = f.create_dataset(name, **kw)
+    else:
+        dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+        dcpl.set_chunk(kw["chunks"])
+        dcpl.set_fill_value(np.array(kw.get("fillvalue", 0), dtype=kw["dtype"]))
+        for flt in kw.get("filters", ()):
+            flt(dcpl)
+        dcpl_fn(dcpl)
+        maxshape = tuple(h5py.h5s.UNLIMITED if m is None else m for m in kw.get("maxshape", kw["shape"]))
+        space = h5py.h5s.create_simple(kw["shape"], maxshape)
+        h5py.h5d.create(f.id, name.encode(), h5py.h5t.py_create(np.dtype(kw["dtype"])), space, dcpl=dcpl)
+        ds = f[name]
+    for axis, d in enumerate(dims):
+        ds.dims[axis].attach_scale(d)
+    return ds
+
+
+def write_v4_earray(path, n=10_000):
+    """An extensible array of ``n`` one-row chunks (secondary blocks past
+    element 244): a variable over an unlimited dimension t, its coordinate
+    variable contiguous."""
+    import h5py
+
+    with h5py.File(path, "w", libver="latest") as f:
+        t = f.create_dataset("t", data=np.arange(n, dtype=np.int32) * 3)
+        t.make_scale("t")
+        v = _variable(f, "v", [t], data=(np.arange(n) % 251 - 125).astype(np.int16), chunks=(1,), maxshape=(None,))
+        v.attrs["units"] = "1"
+
+
+def write_v4_earray_paged(path):
+    """Extensible arrays whose chunks reach paged data blocks: [1100, 3]
+    variables of one-element chunks whose first dim may grow to 70,000 and
+    whose second is unlimited, so that the swizzled index of column c, row r
+    is 70,000 c + r; column 2 reaches super block 13 (paged data blocks),
+    rows 0-275 in one page, the rest of the column (another page) written
+    at one row only or not at all. "p" unfiltered, "q" through deflate;
+    fill values where nothing was written."""
+    import h5py
+
+    rng = np.random.default_rng(7)
+    with h5py.File(path, "w", libver="latest") as f:
+        dims = _phony_dims(f, (1100, 3))
+        kw = dict(shape=(1100, 3), maxshape=(70_000, None), chunks=(1, 1), dtype="f4", fillvalue=-2.5)
+        p = _variable(f, "p", dims, **kw)
+        p[:276, 2] = rng.normal(size=276)
+        p[1000, 2] = 9.0  # the second page of the same data block
+        p[500:600, 1] = 3.0
+        p[:10, 0] = np.arange(10)
+        q = _variable(f, "q", dims, compression="gzip", **kw)
+        q[:276, 2] = rng.normal(size=276)
+        q[700, 1] = 5.0
+        q[:3, 0] = 6.0
+
+
+def write_v4_farray(path):
+    """Fixed arrays: "f", [40, 30] of one-element chunks (1,200 chunks: two
+    pages of 1,024), rows 0-32 written but for two chunks, so that the
+    second page was never written; "g" through shuffle and deflate in
+    chunks of (7, 7), its partial edge chunks stored unfiltered
+    (H5D_CHUNK_DONT_FILTER_PARTIAL_CHUNKS)."""
+    import ctypes
+
+    import h5py
+
+    rng = np.random.default_rng(8)
+    with h5py.File(path, "w", libver="latest") as f:
+        y = f.create_dataset("y", data=np.arange(40, dtype=np.float64) * 0.5)
+        y.make_scale("y")
+        x = f.create_dataset("x", data=np.arange(30, dtype=np.int16))
+        x.make_scale("x")
+        fv = _variable(f, "f", [y, x], shape=(40, 30), chunks=(1, 1), dtype="f4", fillvalue=-1.0)
+        vals = rng.normal(size=(33, 30)).astype(np.float32)
+        fv[:5], fv[6:32] = vals[:5], vals[6:32]  # chunks (5, 5) and (32, 29) never written
+        fv[5, :5], fv[5, 6:], fv[32, :29] = vals[5, :5], vals[5, 6:], vals[32, :29]
+        g = _variable(f, "g", [y, x], dcpl_fn=lambda d: _hdf5_call(
+            "H5Pset_chunk_opts", ctypes.c_int64(d.id), ctypes.c_uint(DONT_FILTER_PARTIAL_CHUNKS)),
+            shape=(40, 30), chunks=(7, 7), dtype="f8", filters=(lambda d: d.set_shuffle(), lambda d: d.set_deflate(4)))
+        g[...] = np.round(rng.normal(size=(40, 30)), 2)
+
+
+def write_v4_indexes(path):
+    """The other three indexes over dims y (10) and x (12): a single chunk
+    unfiltered ("s1") and through deflate ("s2", its filtered size and mask
+    in the layout message), implicit chunks allocated early ("im": chunks
+    of (3, 4), the dims' maximum (12, 14)), and version-2 B-trees of chunk
+    records over two unlimited dims, of type 10 ("b10", one-element chunks)
+    and 11 ("b11", deflate over (3, 5), one chunk never written)."""
+    import h5py
+
+    rng = np.random.default_rng(9)
+    with h5py.File(path, "w", libver="latest") as f:
+        y = f.create_dataset("y", data=np.arange(10, dtype=np.float32))
+        y.make_scale("y")
+        x = f.create_dataset("x", data=np.arange(12, dtype=np.float32) * 10)
+        x.make_scale("x")
+        data = rng.integers(-1000, 1000, (10, 12)).astype(np.int32)
+        _variable(f, "s1", [y, x], data=data, chunks=(10, 12))
+        _variable(f, "s2", [y, x], data=data * 2, chunks=(10, 12), compression="gzip")
+        im = _variable(f, "im", [y, x], dcpl_fn=lambda d: d.set_alloc_time(h5py.h5d.ALLOC_TIME_EARLY),
+                       shape=(10, 12), maxshape=(12, 14), chunks=(3, 4), dtype="i4", fillvalue=-9)
+        im[:9] = data[:9] * 3
+        _variable(f, "b10", [y, x], data=data * 4, chunks=(1, 1), maxshape=(None, None))
+        b11 = _variable(f, "b11", [y, x], shape=(10, 12), chunks=(3, 5), maxshape=(None, None), dtype="i4",
+                        compression="gzip", shuffle=True, fillvalue=7)
+        b11[:9] = data[:9] * 5
+        b11[9, :10] = data[9, :10] * 5  # the chunk at (9, 10) never written
+
+
+def write_v4_lzf(path):
+    """h5py's lzf filter on fixed-array chunks: "z", [48, 40] f8 of (16, 8)
+    chunks, and "u", uint8 of the same chunks, zeros but for one chunk of
+    random bytes, which LZF cannot shrink and HDF5 stores raw, its mask
+    bit set."""
+    import h5py
+
+    rng = np.random.default_rng(10)
+    with h5py.File(path, "w", libver="latest") as f:
+        y = f.create_dataset("y", data=np.arange(48, dtype=np.float64))
+        y.make_scale("y")
+        x = f.create_dataset("x", data=np.arange(40, dtype=np.float64))
+        x.make_scale("x")
+        z = np.round(np.sin(np.arange(48)[:, None] / 5.0) * np.cos(np.arange(40)[None, :] / 7.0), 3)
+        _variable(f, "z", [y, x], data=z, chunks=(16, 8), compression="lzf")
+        u = np.zeros((48, 40), np.uint8)
+        u[16:32, 8:16] = rng.integers(0, 256, (16, 8))
+        _variable(f, "u", [y, x], data=u, chunks=(16, 8), compression="lzf")
+
+
+def write_committed_types(path):
+    """netCDF-C's user-defined types as it commits them in the root group:
+    an enum "flag_t", a compound "obs_t" and a vlen "ragged_t"; a variable
+    of each over x, and attributes of the enum and the compound. netCDF-C's
+    bounds (v1.8, creation order tracked)."""
+    import h5py
+
+    with h5py.File(path, "w", libver=LIBVER["v108"], track_order=True) as f:
+        f.attrs["_NCProperties"] = np.bytes_(b"version=2,netcdf=4.9.2,hdf5=1.14.6")
+        x = f.create_dataset("x", data=np.linspace(0.0, 3.0, 7))
+        x.make_scale("x")
+        f["flag_t"] = h5py.enum_dtype({"CLEAR": 0, "CLOUD": 1, "ICE": 2}, "i1")
+        f["obs_t"] = np.dtype([("value", "<f8"), ("count", "<i4")])
+        f["ragged_t"] = h5py.vlen_dtype(np.dtype("<i2"))
+        flag = _variable(f, "flag", [x], data=np.array([0, 1, 2, 2, 1, 0, 1], "i1"), dtype=f["flag_t"])
+        flag.attrs.create("valid_flags", np.array([0, 2], "i1"), dtype=f["flag_t"])
+        flag.attrs.create("summary", np.array([(1.5, 3)], f["obs_t"].dtype), dtype=f["obs_t"])
+        obs = np.zeros(7, f["obs_t"].dtype)
+        obs["value"], obs["count"] = np.arange(7) / 4.0, np.arange(7) * 2
+        _variable(f, "obs", [x], data=obs, dtype=f["obs_t"])
+        ragged = _variable(f, "ragged", [x], shape=(7,), dtype=f["ragged_t"])
+        for i in range(7):
+            ragged[i] = np.arange(i, dtype=np.int16)
+        f.create_dataset("count", data=np.arange(7, dtype=np.int32) * 3).dims[0].attach_scale(x)
+
+
 NETCDF_VARIANTS = {
     "nc_earliest": dict(),
     "nc_netcdf_c": dict(libver="v108", track_order=True),
@@ -306,12 +535,81 @@ PYTABLES_VARIANTS = ("plain", "zlib", "blosc", "bzip2")
 # --------------------------------------------------------------------------
 
 
+V4_RESULTS = "v4_results_store.h5"
+# file -> (writer, the variables its expected frame reads; None: all)
+V4_NETCDF = {
+    "v4_earray.nc": (write_v4_earray, None),
+    "v4_earray_paged.nc": (write_v4_earray_paged, None),
+    "v4_farray.nc": (write_v4_farray, None),
+    "v4_indexes.nc": (write_v4_indexes, None),
+    "v4_lzf.nc": (write_v4_lzf, None),
+    "nc_committed_types.nc": (write_committed_types, ["flag", "count"]),
+    "nc_user_block.nc": (lambda path: write_netcdf_variant(path, userblock=512), None),
+}
+
+
+def check_structure(path: Path) -> None:
+    """Each fixture of the later formats holds what it is there for: the
+    chunk index of each dataset (HDF5's own word on it), the structures'
+    signatures, paged blocks, an lzf chunk stored raw, committed types, a
+    user block."""
+    import h5py
+
+    raw = path.read_bytes()
+    with h5py.File(path, "r") as f:
+        index = {k: chunk_index_type(f[k]) for k in f if isinstance(f[k], h5py.Dataset) and f[k].chunks}
+
+        def has(*sigs):
+            for sig in sigs:
+                assert sig in raw, f"{path.name}: no {sig!r}"
+
+        if path.name == V4_RESULTS:
+            tables = [f[t]["table"] for t in ("lengthscales", "kernel_variance", "likelihood_variance")]
+            assert all(chunk_index_type(t) == "extensible array" for t in tables), path.name
+            assert all(t.id.get_num_chunks() > 4 for t in tables), "the tables' chunks end in the index block"
+            has(b"EAHD", b"EAIB", b"EADB")
+        elif path.name == "v4_earray.nc":
+            assert index == {"v": "extensible array"} and f["v"].id.get_num_chunks() == 10_000, index
+            has(b"EASB", b"EADB")
+        elif path.name == "v4_earray_paged.nc":
+            assert index == {"p": "extensible array", "q": "extensible array"}, index
+            for k in index:
+                ds = f[k].id
+                offsets = [ds.get_chunk_info(i).chunk_offset for i in range(ds.get_num_chunks())]
+                assert max(c * 70_000 + r for r, c in offsets) >= EA_FIRST_PAGED, f"{k}: no paged data block"
+            has(b"EASB")
+        elif path.name == "v4_farray.nc":
+            assert index == {"f": "fixed array", "g": "fixed array"}, index
+            assert np.prod(f["f"].shape) > FA_PAGE and f["f"].id.get_num_chunks() < FA_PAGE, "f: not paged"
+            mask, blob = f["g"].id.read_direct_chunk((35, 28))  # a partial edge chunk, stored raw
+            assert mask == 0 and len(blob) == 7 * 7 * 8, (mask, len(blob))
+            has(b"FAHD", b"FADB")
+        elif path.name == "v4_indexes.nc":
+            assert index == {"s1": "single chunk", "s2": "single chunk", "im": "implicit", "b10": "v2 B-tree",
+                             "b11": "v2 B-tree"}, index
+            has(b"BTHD", b"BTLF")
+        elif path.name == "v4_lzf.nc":
+            assert index == {"z": "fixed array", "u": "fixed array"}, index
+            assert f["u"].id.get_create_plist().get_filter(0)[0] == 32000
+            masks = [f["u"].id.get_chunk_info(i).filter_mask for i in range(f["u"].id.get_num_chunks())]
+            assert sorted(masks) == [0] * (len(masks) - 1) + [1], masks
+        elif path.name == "nc_committed_types.nc":
+            assert all(isinstance(f[t], h5py.Datatype) for t in ("flag_t", "obs_t", "ragged_t"))
+            assert all(f[k].id.get_type().committed() for k in ("flag", "obs", "ragged"))
+        elif path.name == "nc_user_block.nc":
+            assert f.userblock_size == 512 and raw[512:520] == b"\x89HDF\r\n\x1a\n"
+        else:
+            raise ValueError(f"no structure to check in {path.name}")
+
+
 def frame_arrays(df):
     """A frame as (meta, arrays): each column and index level an array
     (strings as unicode), with the dtypes and names to check it by."""
     cols, arrays = [], {}
     for j, c in enumerate(df.columns):
         vals = df[c].to_numpy()
+        if vals.dtype.metadata:  # an enum's members: npz keeps no dtype metadata
+            vals = vals.astype(np.dtype(vals.dtype.str))
         kind = "str" if vals.dtype == object else "array"
         arrays[f"c{j}"] = vals.astype("U") if kind == "str" else vals
         cols.append([str(c), str(df[c].dtype), kind])
@@ -334,10 +632,10 @@ def make(out: Path) -> None:
     out.mkdir(parents=True, exist_ok=True)
     entries, arrays = [], {}
 
-    def expect(file, reader, key, df):
+    def expect(file, reader, key, df, **extra):
         meta, arrs = frame_arrays(df)
         i = len(entries)
-        entries.append({"file": file, "reader": reader, "key": key, **meta})
+        entries.append({"file": file, "reader": reader, "key": key, **extra, **meta})
         arrays.update({f"{i}/{k}": v for k, v in arrs.items()})
 
     for storage in PYTABLES_VARIANTS:
@@ -355,6 +653,16 @@ def make(out: Path) -> None:
     for name, kw in NETCDF_VARIANTS.items():
         write_netcdf_variant(out / f"{name}.nc", **kw)
         expect(f"{name}.nc", "netcdf", None, JN.read_netcdf(str(out / f"{name}.nc")))
+    # the version-4 set, lzf, committed datatypes and a user block
+    results_store(out / V4_RESULTS, first, libver="latest", chunk_rows=2)
+    for key in ("lengthscales", "kernel_variance", "likelihood_variance"):
+        expect(V4_RESULTS, "pytables", key, JPT.read_table(str(out / V4_RESULTS), key))
+    for name, (write, variables) in V4_NETCDF.items():
+        write(out / name)
+        kw = {"variables": variables} if variables else {}
+        expect(name, "netcdf", None, JN.read_netcdf(str(out / name), **kw), **kw)
+    for name in (V4_RESULTS, *V4_NETCDF):
+        check_structure(out / name)
     np.savez_compressed(out / "expected.npz", meta=np.array(json.dumps(entries)), **arrays)
     files = sorted(p.name for p in out.iterdir() if p.suffix in (".h5", ".nc"))
     manifest = [
@@ -375,7 +683,12 @@ def make(out: Path) -> None:
         "  PyTables' full index (ranges, bounds, the light-weight sorted/indices pairs).",
         "- netCDF-C's _Netcdf4Dimid / _Netcdf4Coordinates attributes and its own fill-value messages are not",
         "  written; a phony dimension is a dimension scale with netCDF-C's NAME and no data.",
-        "- Library-version bounds stop at v1.8, as netCDF-C sets them; no file has a version-4 layout.",
+        "- The v4_* files are written at libver \"latest\" (version-4 layouts: the chunk indexes that",
+        "  check_structure names). netCDF-C sets a low bound of v1.8, so its files have version-3 layouts;",
+        "  nc_committed_types.nc is written at that bound.",
+        "- nc_committed_types.nc commits its enum, compound and vlen types in the root group as netCDF-C",
+        "  does; its expected frame reads the variables the JAX reader can (\"variables\" in the entry):",
+        "  that reader takes a committed datatype for a variable, and its CF decode refuses compounds.",
     ]
     (out / "MANIFEST.txt").write_text("\n".join(manifest) + "\n")
     print(f"wrote {len(files)} files and {len(entries)} expected frames to {out}")

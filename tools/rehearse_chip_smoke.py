@@ -1,6 +1,7 @@
 """Rehearse chip_smoke.py's phases 10 (svgp), 11 (zoo), 12 (host), 13 (prep), 14 (mesh), 15 (xval), 16 (cli) and 17 (formats) on the CPU, before a run on the card.
 
-    python tools/rehearse_chip_smoke.py [--parts a b c d e vff asvgp host prep_a prep_b prep_c mesh xval cli formats]
+    python tools/rehearse_chip_smoke.py [--parts a b c d e vff asvgp host prep_a prep_b prep_c mesh xval cli formats
+                                                 formats_codec]
                                         [--lanes B] [--threads T] [--identity-natgrad] [--expert-stride S]
 
 Runs the phases' own functions with every entry point's default device
@@ -14,7 +15,10 @@ kernel's plain version. Parts a-e are phase 10's, "vff" and "asvgp" phase
 with the same stubs, and phase 7's f32 fit is run first for (a) to hold
 to), "xval" phase 15 (the host library built first), "cli" phase 16 and
 "formats" phase 17 (phase 7 run first for them to hold to; default:
-phase 10's). ``--lanes`` cuts (a)-(c)'s batch (default: the
+phase 10's), "formats_codec" the parts of phase 17 that need no sweep of
+phase 7 ((a) the fixtures, (d) load_params from the v1.8 and the
+version-4 results fixtures, (f) the lzf decoders, (g) the version-4 read
+MB/s; a few seconds, h5py never imported). ``--lanes`` cuts (a)-(c)'s batch (default: the
 phase's 128) and phase 13 (a)'s (the phase's 512). ``--identity-natgrad`` is the mutation check
 of (c)'s bound: it runs (c) once more with the natural-gradient step
 replaced by the identity, so q stays at its starting value, and prints
@@ -97,7 +101,7 @@ def _gap(tag, res, res_a):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parts", nargs="+", default=list("abcde"), choices=[*"abcde", "vff", "asvgp", "host", "prep_a", "prep_b", "prep_c", "mesh",
-                                                                      "xval", "cli", "formats"])
+                                                                      "xval", "cli", "formats", "formats_codec"])
     ap.add_argument("--expert-stride", type=int, default=1)
     ap.add_argument("--lanes", type=int, default=cs.SVGP_B)
     ap.add_argument("--threads", type=int, default=4)
@@ -109,7 +113,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     parts = set(args.parts)
     _stride(args.expert_stride)
-    if parts & {"host", "mesh", "cli", "formats"}:  # LocalExpertOI.run and the sweep take the default mesh
+    if parts & {"host", "mesh", "cli", "formats", "formats_codec"}:  # LocalExpertOI.run takes the default mesh
         _mesh_on_cpu(args.expert_stride)
     for tag in ("vff", "asvgp"):
         if tag in parts:
@@ -134,6 +138,8 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         _build.build_host_library(cs.HOST_LIBRARY)
         cs.phase_xval(time.perf_counter() - t)
+    if "formats_codec" in parts:
+        _formats_codec()
     if parts & {"cli", "formats"}:
         _, _, it_max, polished = cs.phase_oi(False)
         if "cli" in parts:
@@ -170,6 +176,24 @@ def main(argv=None) -> int:
     if "e" in parts:
         cs.phase_svgp_config()
     return _done(failed, t0)
+
+
+def _formats_codec():
+    """Phase 17's parts that need no sweep of phase 7, with h5py never
+    imported."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="rehearse_formats_") as tmp:
+        root = Path(tmp)
+        cs.formats_fixtures()
+        (root / "load").mkdir()
+        launches, stored = cs.formats_load_params(root / "load")
+        (root / "load_v4").mkdir()
+        cs.formats_load_params_v4(root / "load_v4", launches, stored)
+        cs.formats_lzf()
+        cs.formats_throughput(root)
+    cs.log("formats_h5py", loaded="h5py" in sys.modules)
+    cs.check("h5py" not in sys.modules, "formats (e): h5py was imported")
 
 
 def _done(failed, t0) -> int:
