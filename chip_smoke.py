@@ -235,7 +235,15 @@ Phases (each prints on its own lines; any failure raises):
              (d) load_params from the PyTables results fixture over phase
              7's first 64 experts, a predict-only run: the loaded init and
              the stored parameters equal the fixture's values, kernel 1
-             launched 2 * Nmax/64 times; (e) h5py never imported
+             launched 2 * Nmax/64 times, and from its version-4 copy; (e)
+             h5py never imported; (f) the lzf decoders, C++ and Python; (g)
+             a version-4 read beside the same rows under v1.8; (h)
+             LocalExpertOI.run restarted into copies of two results stores
+             that gpsat_tpu's TableStore wrote through h5py (superblock 3,
+             deflate+shuffle columns; superblock 2) and into the codec's
+             superblock-0 copy of each: the stored rows unchanged, the new
+             rows 0.0 from the copy's, kernel 1 launched alike; then
+             200,000 rows appended to each store's predictions (MB/s)
 
 Then one {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 Imports nothing of JAX or of gpsat_tpu.
@@ -520,6 +528,14 @@ FORMATS_BUDGET_S = 60.0
 FORMATS_V4_RESULTS, FORMATS_LZF, FORMATS_LZF_REPS = "v4_results_store.h5", "v4_lzf.nc", 20
 # (g) each timing the median of this many repeats, after one untimed
 FORMATS_READ_REPS = 15
+# (h) results stores that h5py wrote (tools/make_hdf5_fixtures.py: the JAX
+# TableStore over h5py, at libver "latest" with deflate+shuffle columns and
+# at "v108" unfiltered), each the first half of restart_oi's run over phase
+# 7's experts FORMATS_RESTART_EXPERTS; then rows appended to a store's
+# predictions, filtered and not
+FORMATS_RESTART_STORES = ("restart_latest_gzip.h5", "restart_v108.h5")
+FORMATS_RESTART_EXPERTS = slice(3, 11)
+FORMATS_APPEND_ROWS, FORMATS_APPEND_BLOCKS = 200_000, 4
 # (d) an f32 predict-only run stores the loaded parameters after their
 # constraint transform and back in f32: a few f32 ulps (4.4e-7 relative on
 # the CPU), relative
@@ -3852,6 +3868,117 @@ def formats_lzf():
           f"({chunks} chunks, {raw_chunks} stored raw)")
 
 
+def restart_oi(store_path, device, first_half: bool = False):
+    """(h)'s run: LocalExpertOI.run with phase 7's data, model settings and
+    prediction grid over phase 7's experts FORMATS_RESTART_EXPERTS, into
+    ``store_path`` on ``device``; the frames are the config's own, so a
+    restart matches its stored config. ``first_half``: only the first half
+    of the experts' results are kept (the fixture's stores). Returns the
+    run's wall seconds."""
+    import pandas as pd
+
+    from gpsat_tpu_torch.experts import LocalExpertOI
+
+    obs, experts, grid = pipeline_inputs()
+    locs = pd.DataFrame({c: experts[c][FORMATS_RESTART_EXPERTS] for c in ("x", "y")})
+    oi = LocalExpertOI(
+        expert_loc_config={"source": locs},
+        data_config={"data_source": pd.DataFrame(obs), "obs_col": OI_KW["obs_col"], "coords_col": OI_KW["coords_col"],
+                     "local_select": OI_KW["local_select"]},
+        model_config={"oi_model": "GPflowGPRModel", "init_params": OI_KW["init_params"],
+                      "constraints": OI_KW["constraints"], "optim_kwargs": OI_OPTIM},
+        pred_loc_config={"method": "from_dataframe", "df": pd.DataFrame(grid), "max_dist": OI_MAX_DIST})
+    t0 = time.perf_counter()
+    oi.run(store_path=str(store_path), min_obs=OI_KW["min_obs"], pad_multiple=OI_KW["pad_multiple"], device=device)
+    return time.perf_counter() - t0
+
+
+def formats_restart(root: Path):
+    """(h) LocalExpertOI.run restarts into a copy of each of
+    FORMATS_RESTART_STORES, which h5py wrote (superblock 3: version-2
+    headers, new-style groups, extensible-array chunk indexes, deflate and
+    shuffle; superblock 2: version-3 layouts, the chunk K in the superblock
+    extension), and into the codec's own superblock-0 copy of each (every
+    table read and written anew by TableStore): the stored rows stay as they
+    were, exactly; the new rows are 0.0 from the copy's (run_time, the wall
+    clock, aside) and kernel 1 launches as often in both. Then
+    FORMATS_APPEND_ROWS of the predictions' rows appended to each store in
+    FORMATS_APPEND_BLOCKS appends, read back exactly: the MB/s into its
+    deflate+shuffle columns and into unfiltered ones. Returns kernel 1's
+    launches in the restarts."""
+    import shutil
+
+    import torch
+
+    from gpsat_tpu_torch.data import hdf5
+    from gpsat_tpu_torch.data.store import TableStore
+
+    def tables(path):
+        with TableStore(str(path), mode="r") as s:
+            return {t: s.select(t, set_index=False) for t in s.keys()}
+
+    report, launches_all, append_mbps = {}, [], {}
+    for name in FORMATS_RESTART_STORES:
+        store, copy = root / name, root / f"sb0_{name}"
+        shutil.copy(FORMATS_DIR / name, store)
+        with hdf5.File(str(store), "r") as f:
+            superblock = f.superblock_version
+        before = tables(store)
+        with TableStore(str(FORMATS_DIR / name), mode="r") as s, TableStore(str(copy), mode="w") as out:
+            for t in s.keys():
+                out.append(t, s.select(t))
+        wall, launches, after = {}, {}, {}
+        for tag, path in (("h5py", store), ("sb0", copy)):
+            torch.cuda.synchronize()
+            for fn in counters().values():
+                fn.launches = 0
+            wall[tag] = restart_oi(path, None)
+            torch.cuda.synchronize()
+            launches[tag] = {k: fn.launches for k, fn in counters().items()}
+            after[tag] = tables(path)
+        with hdf5.File(str(store), "r") as f:
+            kept_superblock = f.superblock_version == superblock
+        stored_same = {t: after["h5py"][t].iloc[:len(df)].equals(df) for t, df in before.items()}
+        new_rows = {t: len(after["h5py"][t]) - len(df) for t, df in before.items()}
+        diff = {}
+        for t, df in after["sb0"].items():
+            got, want = (x.iloc[len(before[t]):].drop(columns=["run_time"], errors="ignore").reset_index(drop=True)
+                         for x in (after["h5py"][t], df))
+            diff[t] = _table_max_abs_diff(got, want) if len(want) or len(got) else 0.0
+        # the rows appended to the predictions: its own rows, tiled
+        preds = after["h5py"]["preds"]
+        block = preds.iloc[np.arange(FORMATS_APPEND_ROWS // FORMATS_APPEND_BLOCKS) % len(preds)].reset_index(drop=True)
+        nbytes = FORMATS_APPEND_ROWS // FORMATS_APPEND_BLOCKS * FORMATS_APPEND_BLOCKS * sum(
+            block[c].to_numpy().dtype.itemsize for c in block.columns)
+        t0 = time.perf_counter()
+        with TableStore(str(store), mode="a") as s:
+            for _ in range(FORMATS_APPEND_BLOCKS):
+                s.append("preds", block)
+        append_s = time.perf_counter() - t0
+        grown = tables(store)["preds"]
+        appended_same = grown.iloc[:len(preds)].equals(preds) and all(
+            grown.iloc[len(preds) + k * len(block):len(preds) + (k + 1) * len(block)].reset_index(drop=True).equals(block)
+            for k in range(FORMATS_APPEND_BLOCKS))
+        with hdf5.File(str(store), "r") as f:
+            filters = sorted({flt.label() for c in f["preds"].keys() for flt in f["preds"][c]._filters})
+        append_mbps[name] = nbytes / append_s / 1e6
+        report[name] = dict(superblock=superblock, kept_superblock=kept_superblock, restart_s=wall["h5py"],
+                            restart_sb0_s=wall["sb0"], h5py_over_sb0=wall["h5py"] / wall["sb0"], new_rows=new_rows,
+                            stored_rows_same=stored_same, max_abs_diff_vs_sb0=diff, launches=launches,
+                            append_rows=FORMATS_APPEND_ROWS, append_bytes=nbytes, append_s=append_s,
+                            append_MBps=append_mbps[name], append_filters=filters, appended_same=appended_same)
+        what = f"formats (h) {name}"
+        check(kept_superblock and all(stored_same.values()), f"{what}: stored rows changed: {stored_same}")
+        check(new_rows["run_details"] > 0 and all(d == 0.0 for d in diff.values()),
+              f"{what}: the restart's new rows vs the superblock-0 copy's: {diff} ({new_rows})")
+        check(launches["h5py"] == launches["sb0"] and launches["h5py"]["block_chol"] > 0,
+              f"{what}: launches {launches}")
+        check(appended_same, f"{what}: the appended predictions read back differently")
+        launches_all.append(launches["h5py"]["block_chol"])
+    log("formats_restart", stores=report, append_MBps=append_mbps)
+    return sum(launches_all)
+
+
 def formats_throughput(root: Path):
     """(g) reported, not checked: reading the largest version-4 fixture
     (every dataset, through the codec) beside reading the same rows written
@@ -3965,12 +4092,16 @@ def phase_formats(oi_polished, f32_it_max):
         formats_lzf()
         formats_throughput(root)
         fg_s = time.perf_counter() - t_phase - a_s - b_s - c_s - d_s
+        (root / "restart").mkdir()
+        launches_restart = formats_restart(root / "restart")
+        h_s = time.perf_counter() - t_phase - a_s - b_s - c_s - d_s - fg_s
     log("formats_h5py", loaded="h5py" in sys.modules)
     check("h5py" not in sys.modules, "formats (e): h5py was imported")
     seconds = time.perf_counter() - t_phase
-    log("formats_phase", seconds=seconds, budget_s=FORMATS_BUDGET_S, a_s=a_s, b_s=b_s, c_s=c_s, d_s=d_s, fg_s=fg_s)
+    log("formats_phase", seconds=seconds, budget_s=FORMATS_BUDGET_S, a_s=a_s, b_s=b_s, c_s=c_s, d_s=d_s, fg_s=fg_s,
+        h_s=h_s)
     check(seconds <= FORMATS_BUDGET_S, f"formats: phase 17 took {seconds:.1f} s, over {FORMATS_BUDGET_S} s")
-    return launches_oi, launches_load, launches_load_v4
+    return launches_oi, launches_load, launches_load_v4, launches_restart
 
 
 def main(argv) -> int:
@@ -4038,7 +4169,8 @@ def main(argv) -> int:
     entries[0]["launches_xval_index_grid"], entries[0]["launches_xval"] = phase_xval(host_build_s)
     entries[0]["launches_cli_run"], entries[0]["launches_cli_rerun"] = phase_cli(oi_polished, f32_it_max)
     (entries[0]["launches_formats_oi"], entries[0]["launches_formats_load_params"],
-     entries[0]["launches_formats_load_params_v4"]) = phase_formats(oi_polished, f32_it_max)
+     entries[0]["launches_formats_load_params_v4"], entries[0]["launches_formats_restart"]) = phase_formats(
+        oi_polished, f32_it_max)
 
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -1,4 +1,4 @@
-"""A reader of HDF5 files and a writer of HDF5's earliest format.
+"""A reader and a writer of HDF5 files: it creates them in HDF5's earliest format.
 
 Written in numpy and ``struct``; it needs no HDF5 library (lookup3 and
 lzf run in the port's C++ host library). Section numbers below are those
@@ -39,34 +39,56 @@ reads:
 - dimension scales (``Dataset.dims``, ``DIMENSION_LIST``'s object
   references resolved to the objects they name).
 
-It writes HDF5's earliest format, the one h5py writes unless asked for a
-later one: superblock 0, version-1 object headers, symbol-table groups,
-1-D chunked resizable datasets (``TableStore``'s columns) and N-D
-contiguous ones (netCDF variables), numeric, string and object-reference
-attributes, and dimension scales as HDF5's H5DS functions lay them out.
-Writing keeps what is on disk valid until the superblock is rewritten:
-chunks, contiguous data and global heap objects go to the end of the file
-as they come, and at ``close`` every object whose metadata changed gets a
-new object header (and, for a dataset, a new chunk B-tree; for a group, a
-new symbol table) at the end of the file, its parents up to the root
-likewise, and last the superblock points at the new root. New headers get
-their addresses before any is written, so that headers can refer to one
-another (a dimension scale and the variables it is attached to); the
-global heap objects of ``DIMENSION_LIST`` that name a moved scale are
-rewritten in place once the new headers are written. Space
-left behind is not reused, as HDF5 does not reuse it without a free-space
-manager. h5py and the HDF5 library read such a file and can append to it.
-Objects of the later formats (version-2 headers, new-style groups, dense
-attributes, version-4 layouts) and files of a later superblock are read,
-never written; a file of superblock 0 past a user block is written to as
-any other, the user block kept.
+It creates files in HDF5's earliest format, the one h5py writes unless
+asked for a later one: superblock 0, version-1 object headers,
+symbol-table groups, 1-D chunked resizable datasets (``TableStore``'s
+columns) and N-D contiguous ones (netCDF variables), numeric, string and
+object-reference attributes, and dimension scales as HDF5's H5DS
+functions lay them out. It writes into every file it reads, of
+superblocks 0 to 3, past a user block or not, with the B-tree K values
+the superblock or its extension gives. Writing keeps what is on disk
+valid until the superblock is rewritten: chunks, contiguous data and
+global heap objects go to the end of the file as they come (an unfiltered
+chunk's free rows are filled in place), and at ``close`` every object
+whose metadata changed gets a new object header (and, for a dataset, a
+new chunk B-tree; for a group, a new symbol table) at the end of the
+file, its parents up to the root likewise, and last the superblock points
+at the new root (superblocks 2 and 3: the end of the file, the root's
+address and the checksum; the flags, base and extension addresses kept).
+New headers get their addresses before any is written, so that headers
+can refer to one another (a dimension scale and the variables it is
+attached to); the global heap objects of ``DIMENSION_LIST`` that name a
+moved scale are rewritten in place once the new headers are written.
+Space left behind is not reused, as HDF5 does not reuse it without a
+free-space manager. h5py and the HDF5 library read such a file and can
+append to it.
+
+A rewritten object takes the earliest form that keeps its meaning: a
+version-1 header, or a version-2 one (with its checksum) where attribute
+creation order is tracked or unchanged dense attributes are carried; its
+changed attributes in the header; a new-style group as a symbol table,
+or as compact link messages with its link and group info where link
+creation order is tracked or a link is external; h5py lists both in the
+order it listed them. Appending to a version-4 layout carries its chunks,
+at their addresses and with their filter masks, to a version-1 B-tree
+under a version-3 layout; an appended chunk goes through the dataset's
+filters (deflate, shuffle, fletcher32, bzip2, blosc, lzf as literal runs)
+and the partly filled last chunk of a filtered dataset is decoded,
+filled, encoded and written anew. Committed datatypes are read, never
+written.
 
 A file this codec does not read raises ``FormatError``, an ``OSError``,
 which names what it found (an unknown filter, a region reference, 4-byte
 offsets, virtual or external storage, a message in the
 shared-object-header-message table, a filtered fractal heap); a group of
-such datasets is still listed and its attributes read. It never hands
-over to another reader.
+such datasets is still listed and its attributes read. A write it cannot
+make raises before the first byte of it is written, and the file then
+commits nothing of that session: a superblock 3 whose writer flags are
+set (opened to read only), a paged or persisted file-space manager or a
+shared-message table in the superblock extension, a filter without an
+encoder here (scaleoffset, n-bit, szip, an unknown id, blosc's blosclz
+and snappy), an attribute too large for a header message, a committed
+datatype. It never hands over to another reader.
 """
 
 from __future__ import annotations
@@ -83,9 +105,12 @@ from gpsat_tpu_torch.data.hdf5_structures import (
     btree2_records,
     check_filters,
     check_sum,
+    checksum,
     extensible_array_chunks,
+    filter_chunk,
     fixed_array_chunks,
     parse_filters,
+    unencodable,
     unfilter,
 )
 from gpsat_tpu_torch.data.hdf5_types import (
@@ -107,15 +132,23 @@ from gpsat_tpu_torch.data.hdf5_types import (
 __all__ = ["File", "Group", "Dataset", "Datatype", "Empty", "FormatError", "guess_chunk_rows"]
 
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
-GROUP_LEAF_K, GROUP_INTERNAL_K = 4, 16  # HDF5's defaults, in every superblock this codec writes
-CHUNK_K = 32  # the chunk B-tree's K: fixed by a version-0 superblock
+GROUP_LEAF_K, GROUP_INTERNAL_K = 4, 16  # HDF5's defaults, in the superblock this codec creates
+CHUNK_K = 32  # the chunk B-tree's K: HDF5's default, fixed by a version-0 superblock
 GHEAP_MIN = 4096  # the least size of a global heap collection
 GHEAP_MAX_OBJECTS = 0xFFFF  # object indices are 16 bits; 0 is the free space
-SUPERBLOCK_SIZE = 96
+SUPERBLOCK_SIZES = {0: 96, 1: 100, 2: 48, 3: 48}
+SUPERBLOCK_SIZE = SUPERBLOCK_SIZES[0]
+# superblock 3's file-consistency flags (byte 11): a writer, or a SWMR
+# writer, has the file open (or did not close it; h5clear clears them)
+SB_WRITE_ACCESS, SB_SWMR_WRITE = 0x01, 0x04
+MESSAGE_MAX = 0xFFFF  # a header message's body: its size is a 16-bit field
+ATTR_MAX_COMPACT, ATTR_MIN_DENSE = 8, 6  # HDF5's attribute phase change defaults (a version-2 header)
+LINK_MAX_COMPACT, LINK_MIN_DENSE = 8, 6  # and a new-style group's (the group info message)
 
 # object header message types (IV.A.2)
 NIL, DATASPACE, LINK_INFO, DATATYPE, FILL_OLD, FILL, LINK, EXTERNAL, LAYOUT = 0, 1, 2, 3, 4, 5, 6, 7, 8
-FILTERS, ATTRIBUTE, CONTINUATION, STAB, ATTR_INFO = 11, 12, 16, 17, 21
+GROUP_INFO, FILTERS, ATTRIBUTE, CONTINUATION, STAB, ATTR_INFO = 10, 11, 12, 16, 17, 21
+SHARED_TABLE, BTREE_K, FSINFO, REFCOUNT = 15, 19, 23, 22
 
 # h5py's chunk guess (h5py/_hl/filters.py): a chunk of CHUNK_BASE scaled by
 # the dataset's size, within [CHUNK_MIN, CHUNK_MAX] bytes
@@ -187,10 +220,12 @@ class _Link:
 class File:
     """An HDF5 file. ``mode``: "r" (read only; the file must exist), "r+"
     (read and write; must exist), "a" (read and write; created if missing),
-    "w" (created or truncated), "w-" (created; must not exist). A file of a
-    later superblock opens only to be read. The root group's ``keys``,
-    ``in``, ``[name]``, ``del``, ``create_group``, ``create_dataset`` and
-    ``visit_groups`` are the file's."""
+    "w" (created or truncated), "w-" (created; must not exist). The root
+    group's ``keys``, ``in``, ``[name]``, ``del``, ``create_group``,
+    ``create_dataset`` and ``visit_groups`` are the file's. A write the
+    codec refuses raises before it writes anything, and the file then
+    commits nothing of this session: ``close`` leaves it as it was
+    opened."""
 
     def __init__(self, path, mode: str = "r"):
         path = os.fspath(path)
@@ -207,13 +242,14 @@ class File:
         self._f = None
         self._base = 0  # the superblock's offset in the file: the user block's size; addresses are relative to it
         self._committed: Dict[int, Type] = {}  # committed datatypes read: header address -> type
+        self._refusal: Optional[str] = None  # the first write refused in this session
         if mode == "w-" and os.path.exists(path):
             raise FileExistsError(f"unable to create file (file exists): {path}")
         if mode in ("w", "w-"):
             self._f = open(path, "w+b")
             self._sb = bytearray(SIGNATURE + bytes([0, 0, 0, 0, 0, 8, 8, 0])
                                  + struct.pack("<HHI", GROUP_LEAF_K, GROUP_INTERNAL_K, 0) + b"\0" * 72)
-            self._sb_pos = 24
+            self._sb_pos, self.superblock_version = 24, 0
             self._eoa = SUPERBLOCK_SIZE
             self._write(0, bytes(self._sb))
             self._leaf_k, self._internal_k, self._chunk_k = GROUP_LEAF_K, GROUP_INTERNAL_K, CHUNK_K
@@ -257,6 +293,13 @@ class File:
         self._write(addr, data)
         return addr
 
+    def _refuse(self, msg: str, cls=None) -> OSError:
+        """The error of a write refused before it wrote anything (a
+        ``FormatError`` unless ``cls`` says otherwise): the file is then not
+        flushed, so that no half of a change reaches it."""
+        self._refusal = self._refusal or msg
+        return (cls or FormatError)(msg)
+
     # --- superblock (II.A) ---
     def _find_superblock(self) -> int:
         """The superblock's offset: 0, or past a user block, at 512, 1024,
@@ -272,39 +315,71 @@ class File:
 
     def _read_superblock(self) -> None:
         self._base = self._find_superblock()
-        self._f.seek(self._base)
-        head = self._f.read(SUPERBLOCK_SIZE)
-        version = self.superblock_version = head[8]
+        self._f.seek(self._base + 8)
+        version = self.superblock_version = self._f.read(1)[0]
         if version > 3:
             raise FormatError(f"{self.path}: HDF5 superblock version {version} is not one this codec reads "
                               "(it reads versions 0 to 3)")
+        size = SUPERBLOCK_SIZES[version]
+        self._f.seek(self._base)
+        head = self._f.read(size)
+        if len(head) < size:
+            raise FormatError(f"{self.path}: truncated superblock")
         sizes = (head[13], head[14]) if version < 2 else (head[9], head[10])
         if sizes != (8, 8):
             raise FormatError(f"{self.path}: {sizes[0]}-byte offsets and {sizes[1]}-byte lengths; this codec "
                               "reads 8-byte ones")
+        self._leaf_k, self._internal_k, self._chunk_k = GROUP_LEAF_K, GROUP_INTERNAL_K, CHUNK_K
         if version >= 2:
-            if len(head) < 48:
-                raise FormatError(f"{self.path}: truncated superblock")
             check_sum(head[:48], self.path, "the superblock")
-            _stored_base, _ext, eof, root_addr = struct.unpack_from("<4Q", head, 12)
-            access_info = UNDEF
+            _stored_base, ext, eof, root_addr = struct.unpack_from("<4Q", head, 12)
+            access_info, self._sb_pos = UNDEF, 28
+            if version == 3 and self.writable and head[11] & (SB_WRITE_ACCESS | SB_SWMR_WRITE):
+                raise FormatError(f"{self.path}: superblock version 3 with file-consistency flags {head[11]:#04x}: "
+                                  "a writer has the file open, or did not close it (h5clear -s clears the "
+                                  "flags); this codec opens it to read only")
+            if ext != UNDEF:
+                self._read_extension(ext)
         else:
             self._leaf_k, self._internal_k = struct.unpack_from("<HH", head, 16)
+            if version == 1:  # the chunk B-trees' K, where H5Pset_istore_k set it
+                self._chunk_k = struct.unpack_from("<H", head, 24)[0]
             self._sb_pos = pos = 24 if version == 0 else 28
             _stored_base, _free, eof, access_info = struct.unpack_from("<4Q", head, pos)
             root_addr = struct.unpack_from("<Q", head, pos + 40)[0]
         if access_info != UNDEF:
             raise FormatError(f"{self.path}: a file driver information block; this codec reads files without one")
-        if self.writable and version != 0:
-            raise FormatError(f"{self.path}: HDF5 superblock version {version}; this codec writes version 0 "
-                              "only, and opens this file to read")
-        self._chunk_k = CHUNK_K
         self._sb = bytearray(head)
         # HDF5 stores the end of the file as an absolute offset, every other address relative to the superblock
         self._eoa = max(_pad8(eof - self._base), _pad8(os.path.getsize(self.path) - self._base))
         self.root = _load(self, root_addr, "/")
         if not isinstance(self.root, Group):
             raise FormatError(f"{self.path}: the root object is not a group")
+
+    def _read_extension(self, addr: int) -> None:
+        """The superblock extension (II.B), an object header: the version-1
+        B-trees' K values where they are not HDF5's defaults (message 0x13).
+        A file opened to write is refused where the extension holds what
+        this codec's writes would leave stale: a shared-object-header-message
+        table, or a file-space manager that pages the file or persists its
+        free space (HDF5 would hand out space this codec has used)."""
+        for mtype, _, body, _ in _read_header(self, addr)[2]:
+            if mtype == BTREE_K:
+                self._chunk_k, self._internal_k, self._leaf_k = struct.unpack_from("<HHH", body, 1)
+            elif not self.writable:
+                continue
+            elif mtype == SHARED_TABLE:
+                raise FormatError(f"{self.path}: a shared-object-header-message table in the superblock "
+                                  "extension; this codec opens such a file to read only")
+            elif mtype == FSINFO:
+                if body[0] == 0:  # version 0 (HDF5 1.10.0): strategy 1 is "all, persisted"
+                    paged, persist = False, body[1] == 1
+                else:  # version 1: the strategy (1: paged), then whether free space persists
+                    paged, persist = body[1] == 1, bool(body[2])
+                if paged or persist:
+                    what = "paged file-space strategy" if paged else "persisted free-space manager"
+                    raise FormatError(f"{self.path}: a {what} (the superblock extension's file-space info); "
+                                      "this codec opens such a file to read only")
 
     # --- lifecycle ---
     def flush(self) -> None:
@@ -313,6 +388,8 @@ class File:
         file."""
         if not self.writable:
             return
+        if self._refusal:
+            raise FormatError(f"{self.path}: this session's changes are not written: {self._refusal}")
         for ds in self._attached:  # a moved dataset moves its scales' REFERENCE_LIST records
             if ds._dirty:
                 for scale in {s for scales in ds._dim_scales for s in scales}:
@@ -328,8 +405,15 @@ class File:
         end = self._base + self._eoa
         if os.fstat(self._f.fileno()).st_size < end:
             self._f.truncate(end)  # HDF5 refuses a file shorter than its end-of-file address
-        struct.pack_into("<4Q", sb, pos, self._base, UNDEF, end, UNDEF)
-        struct.pack_into("<QQIIQQ", sb, pos + 32, 0, root._addr, 1, 0, root._btree, root._heap)
+        if self.superblock_version >= 2:
+            # the end of the file and the root's header; the base and extension addresses and the flags kept
+            struct.pack_into("<QQ", sb, pos, end, root._addr)
+            struct.pack_into("<I", sb, 44, checksum(bytes(sb[:44])))
+        else:
+            struct.pack_into("<4Q", sb, pos, self._base, UNDEF, end, UNDEF)
+            # the root's symbol-table entry caches its B-tree and heap where it has a symbol table
+            cache = (1, root._btree, root._heap) if root._btree != UNDEF else (0, 0, 0)
+            struct.pack_into("<QQIIQQ", sb, pos + 32, 0, root._addr, cache[0], 0, cache[1], cache[2])
         self._write(0, bytes(sb))
         self._f.flush()
 
@@ -337,7 +421,8 @@ class File:
         if self._f is None:
             return
         try:
-            self.flush()
+            if not self._refusal:  # a refused write keeps the file as it was opened
+                self.flush()
         finally:
             self._f.close()
             self._f = None
@@ -606,7 +691,7 @@ def _read_header_v2(file: File, addr: int):
     return 2, flags, msgs
 
 
-def _header_bytes(msgs: List[Msg]) -> bytes:
+def _header_bytes(msgs: List[Msg], refcount: int = 1) -> bytes:
     """A version-1 object header holding ``msgs`` in one block, a null
     message after them up to HEADER_MIN bytes, as HDF5 leaves room to add
     messages in place."""
@@ -618,11 +703,33 @@ def _header_bytes(msgs: List[Msg]) -> bytes:
     if len(data) + 8 <= HEADER_MIN:
         data += struct.pack("<HHB3x", NIL, HEADER_MIN - len(data) - 8, 0) + b"\0" * (HEADER_MIN - len(data) - 8)
         parts.append(None)
-    return struct.pack("<BBHII4x", 1, 0, len(parts), 1, len(data)) + data
+    return struct.pack("<BBHII4x", 1, 0, len(parts), refcount, len(data)) + data
+
+
+def _header_v2_bytes(msgs: List[Tuple[int, int, bytes, int]], flags: int,
+                     phase: Optional[Tuple[int, int]] = None) -> bytes:
+    """A version-2 object header (IV.A.1.b) holding ``msgs`` (type, flags,
+    body, creation order) in chunk 0, a null message after them up to
+    HEADER_MIN bytes, and its checksum. ``flags`` keeps bits 2 and 3
+    (attribute creation order tracked, indexed); ``phase`` (the most compact
+    attributes, the least dense ones) is stored where given. No times."""
+    tracked = bool(flags & 0x04)
+    hsize = 6 if tracked else 4
+    corder = (lambda c: struct.pack("<H", c)) if tracked else (lambda c: b"")
+    data = b"".join(struct.pack("<BHB", mtype, len(body), mflags) + corder(c) + body
+                    for mtype, mflags, body, c in msgs)
+    if len(data) + hsize <= HEADER_MIN:
+        pad = HEADER_MIN - len(data) - hsize
+        data += struct.pack("<BHB", NIL, pad, 0) + corder(0) + b"\0" * pad
+    width = next(w for w in range(3) if len(data) < 1 << (8 << w)) if len(data) < 1 << 32 else 3
+    flags = (flags & 0x0C) | width | (0x10 if phase else 0)
+    blob = (b"OHDR" + bytes([2, flags]) + (struct.pack("<HH", *phase) if phase else b"")
+            + len(data).to_bytes(1 << width, "little") + data)
+    return blob + struct.pack("<I", checksum(blob))
 
 
 def _load(file: File, addr: int, name: Optional[str]):
-    version, hflags, msgs = _read_header(file, addr)
+    _, hflags, msgs = _read_header(file, addr)
     types = {m[0] for m in msgs}
     if STAB in types or LINK_INFO in types or LINK in types:
         cls = Group
@@ -634,8 +741,6 @@ def _load(file: File, addr: int, name: Optional[str]):
         cls = _Object
     obj = cls(file, addr, msgs, hflags=hflags)
     obj.name = name
-    if version == 2:
-        obj._frozen = obj._frozen or "a version-2 object header"
     return obj
 
 
@@ -720,31 +825,62 @@ class _Object:
     kept as they were read, the attributes (raw message bodies, decoded on
     demand; in creation order where the header tracks it, else by name, as
     h5py lists them), whether the header must be written anew, and why it
-    may not be (``_frozen``: a later format this codec reads only)."""
+    may not be (``_frozen``: a committed datatype, which this codec reads
+    and never writes).
+
+    A changed object gets a new header in the earliest form that keeps its
+    meaning: version 1, unless its attributes' creation order is tracked (a
+    flag of the version-2 header, each attribute's order in its message)
+    or its dense attributes are carried unchanged (HDF5 looks for dense
+    storage from a version-2 header only); then version 2. Attributes that
+    changed are all written into the header, the attribute info message
+    then pointing at no heap; unchanged dense ones keep their fractal heap
+    and B-trees, which this codec never writes inside."""
 
     def __init__(self, file: File, addr: Optional[int], msgs=(), hflags: int = 0):
         self._file = file
         self._addr = addr
+        self._parent: Optional["Group"] = None
         self.name: Optional[str] = "/" if addr is None else None
         self._frozen: Optional[str] = None
         self._attrs: Dict[str, AttrBody] = {}
+        self._attr_corder: Dict[str, int] = {}  # each attribute's creation order, where it is tracked
         self._msgs: List[Msg] = []
-        found, tracked = [], bool(hflags & 0x04)
+        self._hflags = hflags & 0x0C  # attribute creation order tracked (bit 2) and indexed (bit 3)
+        self._ainfo: Optional[Tuple[int, bytes]] = None  # the attribute info message (flags, body) as read
+        self._attr_dense = False  # attributes in a fractal heap, not in the header
+        self._phase: Optional[Tuple[int, int]] = None  # a version-2 header's attribute phase change values
+        self._refcount = 1  # a version-2 header's reference count message, where it has one
+        found = []
         for mtype, flags, body, corder in msgs:
             if mtype == ATTRIBUTE:
                 if flags & 2:
                     raise FormatError(f"{file.path}: a shared attribute message at {addr}")
                 found.append((corder, _attr_name(body), body))
             elif mtype == ATTR_INFO:
-                tracked = bool(body[1] & 1)
+                self._ainfo = (flags, body)
+                self._hflags |= (body[1] & 3) << 2
                 found.extend(self._dense_attrs(body))
-                self._frozen = "attributes in dense storage"
+            elif mtype == REFCOUNT:
+                self._refcount = struct.unpack_from("<I", body, 1)[0]
             else:
                 self._msgs.append((mtype, flags, body))
+        if hflags & 0x10:  # the phase change values follow the flags, and the times where they are stored
+            self._phase = struct.unpack("<HH", file._read(addr + 6 + (16 if hflags & 0x20 else 0), 4))
+        tracked = self._attr_tracked
         found.sort(key=(lambda a: a[0]) if tracked else (lambda a: a[1].encode("utf-8")))
         self._attrs = {name: body for _, name, body in found}
+        if tracked:
+            self._attr_corder = {name: corder for corder, name, _ in found}
+        stored = struct.unpack_from("<H", self._ainfo[1], 2)[0] if tracked and self._ainfo else 0
+        self._attr_next = max([stored, *(c + 1 for c in self._attr_corder.values())])
+        self._attrs_dirty = False  # an attribute added or replaced since the header was read
         self._dirty = addr is None
         self._pending = False
+
+    @property
+    def _attr_tracked(self) -> bool:
+        return bool(self._hflags & 0x04)
 
     def _dense_attrs(self, info: bytes):
         """The attributes of an attribute-info message (IV.A.2.v) kept in a
@@ -755,6 +891,7 @@ class _Object:
         heap_addr, name_btree = struct.unpack_from("<QQ", info, pos)
         if heap_addr == UNDEF:
             return []
+        self._attr_dense = True
         heap = FractalHeap(f._read, heap_addr, f.path)
         btype, recs = btree2_records(f._read, name_btree, f.path)
         if btype != 8:
@@ -789,15 +926,35 @@ class _Object:
         return vals.reshape(dims)
 
     def _check_writable(self):
-        if not self._file.writable:
-            raise OSError(f"{self._file.path}: file is read-only")
+        """Refuse, before anything is written, a change this object's header
+        or an ancestor's could not take."""
+        f = self._file
+        if not f.writable:
+            raise OSError(f"{f.path}: file is read-only")
         if self._frozen:
-            raise FormatError(f"{self._file.path}: the object at {self._addr} has {self._frozen}; this codec "
-                              "writes HDF5's earliest format and reads, never writes, later ones")
+            raise f._refuse(f"{f.path}: the object at {self._addr} is {self._frozen}; this codec reads it "
+                            "and does not write it")
+        obj = self
+        while obj is not None:
+            obj._check_rewritable()
+            obj = obj._parent
+
+    def _check_rewritable(self) -> None:
+        """Raise where this object's header could not be written anew."""
+
+    def _check_attrs_fit(self, extra: int = 0) -> None:
+        """Every attribute goes into the header once one changes: each must
+        fit in a header message (``extra``: the size of the one to add)."""
+        sizes = [len(b) for b in self._attrs.values() if not callable(b)] + [extra]
+        if max(sizes) > MESSAGE_MAX:
+            raise self._file._refuse(f"{self._file.path}: an attribute of {max(sizes)} bytes at {self._addr}, "
+                                     f"over the {MESSAGE_MAX} a header message holds; this codec writes "
+                                     "attributes into the object header")
 
     def _set_attr(self, name: str, value) -> None:
         self._check_writable()
         if isinstance(value, str):
+            self._check_attrs_fit()
             ref = self._file._encode_vlen_str([value])
             body = _attr_bytes(name, type_bytes(object), space_bytes(()), ref.tobytes())
         else:
@@ -809,30 +966,70 @@ class _Object:
                 arr = np.asarray(value, dtype={int: np.int64, float: np.float64, bool: np.bool_}[type(value)])
             arr = np.ascontiguousarray(arr, dtype=arr.dtype.newbyteorder("<") if arr.dtype.itemsize > 1 else None)
             body = _attr_bytes(name, type_bytes(arr.dtype), _simple_space(arr.shape), arr.tobytes())
-        self._attrs[name] = body
-        self._dirty = True
+            self._check_attrs_fit(len(body))
+        self._put_attr(name, body)
 
     def _set_attr_raw(self, name: str, body: AttrBody) -> None:
         self._check_writable()
-        self._attrs[name] = body
-        self._dirty = True
+        self._check_attrs_fit()
+        self._put_attr(name, body)
 
-    def _header_msgs(self, final: bool) -> List[Msg]:
-        return list(self._msgs) + [(ATTRIBUTE, 0, b(final) if callable(b) else b) for b in self._attrs.values()]
+    def _put_attr(self, name: str, body: AttrBody) -> None:
+        """Add or replace an attribute. Where creation order is tracked a
+        replaced one moves to the end, as h5py (which deletes it and
+        creates it anew) leaves it; else the attributes stay in name order."""
+        if self._attr_tracked:
+            self._attrs.pop(name, None)
+            self._attrs[name] = body
+            self._attr_corder[name] = self._attr_next
+            self._attr_next += 1
+        else:
+            self._attrs[name] = body
+            self._attrs = dict(sorted(self._attrs.items(), key=lambda kv: kv[0].encode("utf-8")))
+        self._attrs_dirty = self._dirty = True
+
+    def _header_msgs(self, final: bool) -> List[Tuple[int, int, bytes, int]]:
+        """The header's messages (type, flags, body, creation order)."""
+        msgs = [(m, fl, b, 0) for m, fl, b in self._msgs]
+        if self._attr_dense and not self._attrs_dirty:  # carried: the heap and B-trees as they are
+            return msgs + [(ATTR_INFO, *self._ainfo, 0)]
+        if self._attr_tracked:  # the attributes in the header, the info message kept for their order
+            info_flags = self._ainfo[0] if self._ainfo else 0
+            bits = self._hflags >> 2 & 3
+            body = (bytes([0, bits]) + struct.pack("<HQQ", self._attr_next, UNDEF, UNDEF)
+                    + (struct.pack("<Q", UNDEF) if bits & 2 else b""))
+            msgs.append((ATTR_INFO, info_flags, body, 0))
+        return msgs + [(ATTRIBUTE, 0, b(final) if callable(b) else b, self._attr_corder.get(name, 0))
+                       for name, b in self._attrs.items()]
+
+    def _header(self, final: bool) -> bytes:
+        msgs = self._header_msgs(final)
+        if not (self._attr_tracked or (self._attr_dense and not self._attrs_dirty)):
+            return _header_bytes([m[:3] for m in msgs], self._refcount)
+        if self._refcount > 1:
+            msgs.append((REFCOUNT, 0, bytes([0]) + struct.pack("<I", self._refcount), 0))
+        phase = self._phase
+        compact = sum(m[0] == ATTRIBUTE for m in msgs)
+        most, least = phase or (ATTR_MAX_COMPACT, ATTR_MIN_DENSE)
+        if compact > most:  # raised, so that HDF5 keeps them compact
+            phase = (compact, min(least, compact))
+        return _header_v2_bytes(msgs, self._hflags, phase)
 
     def _assign(self) -> bool:
         """Reserve a new header at the end of the file if this object changed;
         True when it did (its parent must point at the new address)."""
         if not self._dirty:
             return False
-        self._addr = self._file._alloc(len(_header_bytes(self._header_msgs(False))))
+        self._addr = self._file._alloc(len(self._header(False)))
         self._dirty, self._pending = False, True
         return True
 
     def _write_headers(self) -> None:
         if self._pending:
-            self._file._write(self._addr, _header_bytes(self._header_msgs(True)))
+            self._file._write(self._addr, self._header(True))
             self._pending = False
+            if self._attrs_dirty:  # the attributes now live in the header
+                self._attr_dense = False
 
 
 class Datatype(_Object):
@@ -843,7 +1040,7 @@ class Datatype(_Object):
         super().__init__(file, addr, msgs, hflags)
         body = next(b for mtype, _, b in self._msgs if mtype == DATATYPE)
         self._type = file._committed.setdefault(addr, parse_type(body)[0])
-        self._frozen = self._frozen or "a committed datatype"
+        self._frozen = "a committed datatype"
 
     @property
     def dtype(self) -> np.dtype:
@@ -851,7 +1048,7 @@ class Datatype(_Object):
 
 
 # --------------------------------------------------------------------------
-# groups (IV.A.2.c, IV.A.2.g, IV.A.2.r; III.A.1, III.C, III.D)
+# groups (IV.A.2.c, IV.A.2.f, IV.A.2.g, IV.A.2.r; III.A.1, III.C, III.D)
 # --------------------------------------------------------------------------
 
 
@@ -884,25 +1081,60 @@ def _parse_link(body: bytes):
     return name, _Link(f"user-defined (type {ltype})", info.hex()), corder
 
 
+def _link_bytes(name: str, addr: int, corder: Optional[int]) -> bytes:
+    """A hard link message (version 1): the creation order where it is
+    tracked, the UTF-8 character set where the name is not ASCII."""
+    nb = name.encode("utf-8")
+    width = 0 if len(nb) < 1 << 8 else 1 if len(nb) < 1 << 16 else 2
+    utf8 = not name.isascii()
+    flags = width | (0x04 if corder is not None else 0) | (0x10 if utf8 else 0)
+    return (bytes([1, flags]) + (struct.pack("<q", corder) if corder is not None else b"")
+            + (b"\x01" if utf8 else b"") + len(nb).to_bytes(1 << width, "little") + nb + struct.pack("<Q", addr))
+
+
 class Group(_Object):
     """A group: its links (name -> object header address, read when first
-    asked for) and the objects loaded through it. Symbol-table groups are
-    read and written; new-style groups (link messages, dense links) read."""
+    asked for) and the objects loaded through it. Symbol-table groups and
+    new-style groups (link messages, dense links) are read and written.
+
+    A group whose links change is written as a symbol table (III.C), the
+    earliest form, unless it tracks its links' creation order or holds a
+    link a symbol table cannot (an external link): then its links go into
+    the header as link messages, with the link info message (no heap: the
+    links are compact) and the group info message, its most compact links
+    raised to their number. A group whose links did not change keeps its
+    link messages as they were read."""
 
     def __init__(self, file: File, addr: Optional[int], msgs=(), hflags: int = 0):
         super().__init__(file, addr, msgs, hflags)
         self._btree = self._heap = UNDEF
-        self._link_info, self._link_msgs = None, []
-        for mtype, _, body in self._msgs:
+        self._link_info: Optional[Tuple[int, bytes]] = None
+        self._group_info: Optional[Tuple[int, bytes]] = None
+        self._link_msgs: List[bytes] = []
+        # a new-style group's link messages as read (link info, group info,
+        # links), written back while the links are unchanged; None once rebuilt
+        self._link_orig: Optional[List[Tuple[int, int, bytes, int]]] = []
+        rest = []
+        for mtype, flags, body in self._msgs:
             if mtype == STAB:
                 self._btree, self._heap = struct.unpack_from("<QQ", body, 0)
-            elif mtype == LINK_INFO:
-                self._link_info = body
-            elif mtype == LINK:
-                self._link_msgs.append(body)
-        if self._link_info is not None or self._link_msgs:
-            self._frozen = self._frozen or "a new-style group (link messages)"
-        self._msgs = [m for m in self._msgs if m[0] != STAB]
+            elif mtype in (LINK_INFO, GROUP_INFO, LINK):
+                self._link_orig.append((mtype, flags, body, 0))
+                if mtype == LINK_INFO:
+                    self._link_info = (flags, body)
+                elif mtype == GROUP_INFO:
+                    self._group_info = (flags, body)
+                else:
+                    self._link_msgs.append(body)
+            else:
+                rest.append((mtype, flags, body))
+        self._msgs = rest
+        self._stab = addr is None or self._btree != UNDEF
+        info = self._link_info[1] if self._link_info else b"\0\0"
+        self._link_track = bool(info[1] & 1)
+        self._link_next = struct.unpack_from("<q", info, 2)[0] if self._link_track else 0
+        self._link_corder: Dict[str, int] = {}  # each link's creation order, where it is tracked
+        self._link_raw: Dict[str, bytes] = {}  # a soft or external link's message, as read
         self._links: Optional[Dict[str, Union[int, _Link]]] = None if addr is not None else {}
         self._cache: Dict[str, bytes] = {}  # a symbol-table entry's cache type and scratch pad, as read
         self._objs: Dict[str, _Object] = {}
@@ -923,20 +1155,27 @@ class Group(_Object):
             self._walk_btree(self._btree, heap, links)
             self._links = dict(sorted(links.items(), key=lambda kv: kv[0].encode("utf-8")))
             return self._links
-        found = [_parse_link(body) for body in self._link_msgs]
-        tracked = False
+        bodies = list(self._link_msgs)
         if self._link_info is not None:
-            info = self._link_info
-            tracked = bool(info[1] & 1)
-            heap_addr, name_btree = struct.unpack_from("<QQ", info, 2 + (8 if tracked else 0))
+            info = self._link_info[1]
+            heap_addr, name_btree = struct.unpack_from("<QQ", info, 2 + (8 if self._link_track else 0))
             if heap_addr != UNDEF:  # dense: link messages in a fractal heap, a B-tree of type 5 over their names
                 heap = FractalHeap(f._read, heap_addr, f.path)
                 btype, recs = btree2_records(f._read, name_btree, f.path)
                 if btype != 5:
                     raise FormatError(f"{f.path}: a link name index of B-tree type {btype} at {name_btree}")
-                found.extend(_parse_link(heap.get(r[4:])) for r in recs)
-        found.sort(key=(lambda x: x[2]) if tracked else (lambda x: x[0].encode("utf-8")))
+                bodies.extend(heap.get(r[4:]) for r in recs)
+        found = []
+        for body in bodies:
+            name, target, corder = _parse_link(body)
+            found.append((name, target, corder))
+            if isinstance(target, _Link):
+                self._link_raw[name] = body
+        found.sort(key=(lambda x: x[2]) if self._link_track else (lambda x: x[0].encode("utf-8")))
         self._links = {name: target for name, target, _ in found}
+        if self._link_track:
+            self._link_corder = {name: corder for name, _, corder in found}
+            self._link_next = max([self._link_next, *(c + 1 for c in self._link_corder.values())])
         return self._links
 
     def _walk_btree(self, addr: int, heap: bytes, links: Dict[str, int]) -> None:
@@ -990,8 +1229,7 @@ class Group(_Object):
                 raise FormatError(f"{self._file.path}: {head!r} is a {target.kind} link to {target.target}; this "
                                   "codec lists soft and external links and does not follow them")
             obj = self._objs[head] = _load(self._file, target, f"{(self.name or '').rstrip('/')}/{head}")
-            if self._frozen:  # a change below would rewrite this group's header
-                obj._frozen = obj._frozen or f"a parent group with {self._frozen}"
+            obj._parent = self
         return obj[rest] if rest else obj
 
     def __delitem__(self, name: str) -> None:
@@ -1000,8 +1238,8 @@ class Group(_Object):
         if name not in links:
             raise KeyError(f"{name!r} not in {self._file.path}")
         del links[name]
-        self._objs.pop(name, None)
-        self._cache.pop(name, None)
+        for held in (self._objs, self._cache, self._link_corder, self._link_raw):
+            held.pop(name, None)
         self._links_dirty = True
 
     def create_group(self, name: str) -> "Group":
@@ -1068,22 +1306,43 @@ class Group(_Object):
 
     def _add(self, name: str, obj: _Object) -> _Object:
         self._read_links()[name] = UNDEF
-        self._links = dict(sorted(self._links.items(), key=lambda kv: kv[0].encode("utf-8")))
+        if self._link_track:  # the next creation order, the link listed last
+            self._link_corder[name] = self._link_next
+            self._link_next += 1
+        else:
+            self._links = dict(sorted(self._links.items(), key=lambda kv: kv[0].encode("utf-8")))
         self._objs[name] = obj
+        obj._parent = self
         obj.name = f"{(self.name or '').rstrip('/')}/{name}"
         self._links_dirty = True
         return obj
 
     # --- writing ---
+    def _check_rewritable(self) -> None:
+        if not self._stab and len(self._read_links()) >= MESSAGE_MAX and not self._stab_holds():
+            raise self._file._refuse(f"{self._file.path}: the group at {self._addr} holds {len(self._links)} links "
+                                     "that a symbol table cannot hold; this codec keeps them in its header, fewer "
+                                     f"than {MESSAGE_MAX}")
+
+    def _stab_holds(self) -> bool:
+        """Whether a symbol table keeps what this group's links mean: hard
+        and soft links, no creation order."""
+        return not self._link_track and all(
+            not isinstance(t, _Link) or t.kind == "soft" for t in self._read_links().values())
+
     def _assign(self) -> bool:
         """Reserve new headers for what changed below this group, then write
-        its symbol table and reserve its own header if they changed."""
+        its symbol table (or rebuild its link messages) and reserve its own
+        header if they changed."""
         for name, obj in self._objs.items():
             if obj._assign():
                 self._links[name] = obj._addr
                 self._links_dirty = True
         if self._links_dirty:
-            self._write_symbol_table()
+            self._link_orig = None
+            if self._stab or self._stab_holds():
+                self._stab = True
+                self._write_symbol_table()
             self._links_dirty = False
             self._dirty = True
         return super()._assign()
@@ -1094,16 +1353,46 @@ class Group(_Object):
         super()._write_headers()
 
     def _header_msgs(self, final: bool):
-        return [(STAB, 0, struct.pack("<QQ", self._btree, self._heap))] + super()._header_msgs(final)
+        if self._stab:
+            links = [(STAB, 0, struct.pack("<QQ", self._btree, self._heap), 0)]
+        elif self._link_orig is not None:
+            links = self._link_orig
+        else:
+            links = self._compact_links()
+        return links + super()._header_msgs(final)
+
+    def _compact_links(self) -> List[Tuple[int, int, bytes, int]]:
+        """Link info (no fractal heap, no B-trees), group info (its most
+        compact links raised to their number where they outnumber it) and
+        one link message per link."""
+        links = self._read_links()
+        info_flags, info = self._link_info or (0, b"\0\0")
+        bits = info[1] & 3
+        body = (bytes([0, bits]) + (struct.pack("<q", self._link_next) if bits & 1 else b"")
+                + struct.pack("<QQ", UNDEF, UNDEF) + (struct.pack("<Q", UNDEF) if bits & 2 else b""))
+        gflags, ginfo = self._group_info or (1, b"\0\0")
+        most, least = struct.unpack_from("<HH", ginfo, 2) if ginfo[1] & 1 else (LINK_MAX_COMPACT, LINK_MIN_DENSE)
+        estimates = ginfo[6 if ginfo[1] & 1 else 2:][:4] if ginfo[1] & 2 else b""
+        phase_bit = ginfo[1] & 1
+        if len(links) > most:
+            most, least, phase_bit = len(links), min(least, len(links)), 1
+        ginfo = bytes([0, phase_bit | (ginfo[1] & 2)]) + (struct.pack("<HH", most, least) if phase_bit else b"") + estimates
+        out = [(LINK_INFO, info_flags, body, 0), (GROUP_INFO, gflags, ginfo, 0)]
+        for name, target in links.items():
+            if isinstance(target, _Link):
+                out.append((LINK, 0, self._link_raw[name], 0))
+            else:
+                out.append((LINK, 0, _link_bytes(name, target, self._link_corder[name] if bits & 1 else None), 0))
+        return out
 
     def _write_symbol_table(self) -> None:
         """A local heap of the names, symbol-table nodes of up to 2 K_leaf
         entries each, and a B-tree over them, all at the end of the file."""
         f = self._file
-        names = list(self._links)  # sorted: HDF5 bisects
-        heap, offsets, soft = bytearray(8), [], {}  # offset 0 holds the empty string
+        names = sorted(self._links, key=lambda n: n.encode("utf-8"))  # HDF5 bisects
+        heap, offsets, soft = bytearray(8), {}, {}  # offset 0 holds the empty string
         for name in names:
-            offsets.append(len(heap))
+            offsets[name] = len(heap)
             heap += _padded(name.encode("utf-8") + b"\0")
         for name in names:
             if isinstance(self._links[name], _Link):  # a soft link's value goes in the heap too
@@ -1113,23 +1402,23 @@ class Group(_Object):
         f._write(heap_addr, struct.pack("<4sB3xQQQ", b"HEAP", 0, len(heap), 1, heap_addr + 32) + bytes(heap))
         cap = 2 * f._leaf_k
         snod_size = 8 + 40 * cap
-        groups = [list(range(i, min(i + cap, len(names)))) for i in range(0, len(names), cap)]
+        groups = [names[i:i + cap] for i in range(0, len(names), cap)]
         snod_addrs = []
         for members in groups:
             node = bytearray(snod_size)
             struct.pack_into("<4sBxH", node, 0, b"SNOD", 1, len(members))
-            for j, k in enumerate(members):
-                obj = self._objs.get(names[k])
-                target = self._links[names[k]]
-                if isinstance(obj, Group):  # a group's entry caches its symbol table, as HDF5's do
+            for j, name in enumerate(members):
+                obj = self._objs.get(name)
+                target = self._links[name]
+                if isinstance(obj, Group) and obj._stab:  # a group's entry caches its symbol table, as HDF5's do
                     cache = struct.pack("<IIQQ", 1, 0, obj._btree, obj._heap)
-                elif names[k] in soft:
-                    cache, target = struct.pack("<IIIIQ", 2, 0, soft[names[k]], 0, 0), UNDEF
-                elif obj is None and names[k] in self._cache:
-                    cache = self._cache[names[k]]
+                elif name in soft:
+                    cache, target = struct.pack("<IIIIQ", 2, 0, soft[name], 0, 0), UNDEF
+                elif obj is None and name in self._cache:
+                    cache = self._cache[name]
                 else:
                     cache = bytes(24)
-                node[8 + 40 * j:48 + 40 * j] = struct.pack("<QQ", offsets[k], target) + cache
+                node[8 + 40 * j:48 + 40 * j] = struct.pack("<QQ", offsets[name], target) + cache
             snod_addrs.append(f._append(bytes(node)))
         # the keys: heap offsets of the empty string, then of each node's last name
         left = [0] + [offsets[m[-1]] for m in groups[:-1]]
@@ -1508,63 +1797,99 @@ class Dataset(_Object):
         return out
 
     def append(self, data) -> None:
-        """Add ``data``'s rows at the end of a 1-D chunked dataset: the last
-        chunk's free rows are filled in place, the rest go into new chunks,
-        end to end at the end of the file."""
+        """Add ``data``'s rows at the end of a 1-D chunked, resizable
+        dataset. The last chunk's free rows are filled in place where it is
+        stored unfiltered; else it is decoded, filled, sent through the
+        dataset's filters again and written at the end of the file. The rest
+        go into new chunks at the end of the file, each through the filters,
+        the rows past the data holding the fill value. A version-4 layout's
+        chunks are carried over, at their addresses and with their filter
+        masks, to a version-1 B-tree under a version-3 layout, the form HDF5
+        reads in every superblock. Refusals come before anything is written."""
         f = self._file
-        if self._index_type is not None:
-            raise FormatError(f"{f.path}: the dataset at {self._addr} has a version-4 layout (a "
-                              f"{CHUNK_INDEXES[self._index_type]} chunk index); this codec appends to chunks under "
-                              "a version-1 B-tree")
         self._check_writable()
         if self._unreadable:
-            raise FormatError(self._unreadable)
-        if self._filters:
-            raise FormatError(f"{f.path}: the dataset at {self._addr} has filters; this codec appends to "
-                              "unfiltered data")
+            raise f._refuse(self._unreadable)
         if self._kind != "chunked" or self._maxshape is None or len(self._shape) != 1 or self._maxshape[0] != UNDEF:
-            raise OSError(f"{f.path}: the dataset at {self._addr} is not resizable")
+            raise f._refuse(f"{f.path}: the dataset at {self._addr} is not resizable", OSError)
+        bad = unencodable(self._filters)
+        if bad:
+            raise f._refuse(f"{f.path}: the dataset at {self._addr}: {bad}")
         t = self._type
-        t.check(f"{f.path}: dataset at {self._addr}")
+        try:
+            t.check(f"{f.path}: dataset at {self._addr}")
+        except FormatError as e:
+            raise f._refuse(str(e)) from None
         data = np.asarray(data)
-        if t.vlen_str:
-            raw = f._encode_vlen_str(data)
-        else:
-            raw = np.ascontiguousarray(data, dtype=t.storage)
-        if raw.ndim != 1:
-            raise ValueError(f"append: 1-D data expected, got shape {raw.shape}")
-        offsets, addrs, sizes, masks = self._chunk_index()
-        offsets = offsets[:, 0]
+        if data.ndim != 1:
+            raise ValueError(f"append: 1-D data expected, got shape {data.shape}")
+        raw = f._encode_vlen_str(data) if t.vlen_str else np.ascontiguousarray(data, dtype=t.storage)
+        offsets, addrs, sizes, masks = (a.astype(np.uint64) for a in self._chunk_index())
+        offsets, masks = offsets[:, 0], masks.astype(np.uint32)
+        if self._index_type is not None:  # from here on under a version-1 B-tree
+            self._index_type, self._layout_flags, self._single = None, 0, None
         n_old, c, esize = self._shape[0], self._chunk[0], t.storage.itemsize
         used = n_old % c
+        n_done = n_old
         if used and len(raw):
-            last = n_old - used
+            last, k = n_old - used, min(c - used, len(raw))
             hit = np.flatnonzero(offsets == last)
-            k = min(c - used, len(raw))
-            if len(hit):
+            if len(hit) and not self._filters:
                 f._write(int(addrs[hit[0]]) + used * esize, raw[:k].tobytes())
-            else:  # a chunk never written: write it whole
-                chunk = np.zeros(c, dtype=t.storage)
+            else:  # a filtered chunk is decoded, filled and encoded anew; a chunk never written, filled
+                chunk = self._chunk_rows(int(addrs[hit[0]]), int(sizes[hit[0]]), int(masks[hit[0]])) if len(hit) \
+                    else self._filled((c,))
                 chunk[used:used + k] = raw[:k]
-                offsets = np.r_[offsets, last].astype(np.uint64)
-                addrs = np.r_[addrs, f._append(chunk.tobytes())].astype(np.uint64)
-                sizes = np.r_[sizes, c * esize].astype(np.uint32)
+                blob, mask = self._encode(chunk)
+                if len(hit):
+                    addrs[hit[0]], sizes[hit[0]], masks[hit[0]] = f._append(blob), len(blob), mask
+                else:
+                    offsets, addrs = np.r_[offsets, last], np.r_[addrs, f._append(blob)]
+                    sizes, masks = np.r_[sizes, len(blob)], np.r_[masks, mask]
             raw = raw[k:]
             n_done = n_old + k
-        else:
-            n_done = n_old
         if len(raw):
             count = -(-len(raw) // c)
-            buf = np.zeros(count * c, dtype=t.storage)
+            buf = self._filled((count * c,))
             buf[:len(raw)] = raw
-            base = f._append(buf.tobytes())
-            offsets = np.r_[offsets, n_done + c * np.arange(count)].astype(np.uint64)
-            addrs = np.r_[addrs, base + c * esize * np.arange(count)].astype(np.uint64)
-            sizes = np.r_[sizes, np.full(count, c * esize)].astype(np.uint32)
-        self._chunks = (offsets.reshape(-1, 1), addrs, sizes, np.zeros(len(addrs), np.uint32))
+            new_off = n_done + c * np.arange(count, dtype=np.uint64)
+            if not self._filters:
+                base = f._append(buf.tobytes())
+                new_addr = base + c * esize * np.arange(count, dtype=np.uint64)
+                new_size, new_mask = np.full(count, c * esize, np.uint64), np.zeros(count, np.uint32)
+            else:  # each chunk through the filters, all written at once, end to end
+                blobs, new_mask = zip(*(self._encode(buf[j * c:(j + 1) * c]) for j in range(count)))
+                new_size = np.array([len(blob) for blob in blobs], np.uint64)
+                room = (new_size + np.uint64(7)) & ~np.uint64(7)
+                base = f._append(b"".join(_padded(blob) for blob in blobs))
+                new_addr = base + np.concatenate([[0], np.cumsum(room)[:-1]]).astype(np.uint64)
+                new_mask = np.array(new_mask, np.uint32)
+            offsets, addrs = np.r_[offsets, new_off], np.r_[addrs, new_addr]
+            sizes, masks = np.r_[sizes, new_size], np.r_[masks, new_mask]
+        order = np.argsort(offsets, kind="stable")
+        self._chunks = (offsets[order].reshape(-1, 1).astype(np.uint64), addrs[order].astype(np.uint64),
+                        sizes[order].astype(np.uint64), masks[order].astype(np.uint32))
         self._shape = (n_done + len(raw),)
         self._replace_msg(DATASPACE, space_bytes(self._shape, self._maxshape))
         self._chunks_dirty = self._dirty = True
+
+    def _chunk_rows(self, addr: int, size: int, mask: int) -> np.ndarray:
+        """One stored chunk's rows, through the filters its mask leaves on."""
+        f, t = self._file, self._type
+        buf = f._read(addr, size)
+        csize = self._chunk[0] * t.storage.itemsize
+        if self._filters:
+            buf = unfilter(buf, self._filters, mask, t.storage.itemsize, f"{f.path}: dataset {self.name}", csize)
+        if len(buf) != csize:
+            raise FormatError(f"{f.path}: dataset {self.name}: a chunk of {len(buf)} bytes where {csize} were "
+                              "expected")
+        return np.frombuffer(buf, dtype=t.storage).copy()
+
+    def _encode(self, rows: np.ndarray) -> Tuple[bytes, int]:
+        """A chunk's bytes through the dataset's filters, and its mask."""
+        if not self._filters:
+            return rows.tobytes(), 0
+        return filter_chunk(rows.tobytes(), self._filters, self._type.storage.itemsize)
 
     # --- the chunk index (III.A.1, B-tree type 1; IV.A.2.i) ---
     def _chunk_index(self):
@@ -1652,7 +1977,7 @@ class Dataset(_Object):
 
     def _set_attr(self, name: str, value) -> None:
         if self._unreadable:
-            raise FormatError(self._unreadable)
+            raise self._file._refuse(self._unreadable)
         super()._set_attr(name, value)
 
     def _assign(self) -> bool:
@@ -1662,7 +1987,7 @@ class Dataset(_Object):
         return super()._assign()
 
     def _write_chunk_btree(self) -> None:
-        offsets, addrs, sizes, _ = self._chunks
+        offsets, addrs, sizes, masks = self._chunks
         offsets = offsets[:, 0]
         if not len(offsets):
             self._index = UNDEF
@@ -1671,10 +1996,9 @@ class Dataset(_Object):
             # offset in the element's bytes, 0. A chunk's right key is the next
             # chunk's key; the last one's, as HDF5 makes it, is one chunk further
             # on in every dimension: its offset plus a chunk, and the element size
-            lefts = [(size, off, 0) for size, off in zip(sizes.tolist(), offsets.tolist())]
-            rights = lefts[1:] + [(0, int(offsets[-1]) + self._chunk[0], self._type.storage.itemsize)]
+            lefts = list(zip(sizes.tolist(), masks.tolist(), offsets.tolist(), [0] * len(offsets)))
+            rights = lefts[1:] + [(0, 0, int(offsets[-1]) + self._chunk[0], self._type.storage.itemsize)]
             self._index = _write_btree(self._file, 1, self._file._chunk_k, addrs.tolist(), lefts, rights,
-                                       lambda key: struct.pack("<IIQQ", key[0], 0, key[1], key[2]),
-                                       empty_key=b"\0" * 24)
+                                       lambda key: struct.pack("<IIQQ", *key), empty_key=b"\0" * 24)
         self._replace_msg(LAYOUT, struct.pack("<BBBQII", 3, 2, 2, self._index, self._chunk[0],
                                               self._type.storage.itemsize))

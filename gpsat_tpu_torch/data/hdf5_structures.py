@@ -1,5 +1,5 @@
 """HDF5's later on-disk structures for the port's codec (``data/hdf5.py``):
-the metadata checksum, the filter pipeline, fractal heaps, version-2
+the metadata checksum, the filter pipeline (both ways), fractal heaps, version-2
 B-trees and the chunk indexes of version-4 layouts (fixed and extensible
 arrays, B-trees of chunk records). Section numbers are those of the HDF5
 File Format Specification version 3.0. Each reader takes ``read(addr, n)
@@ -215,6 +215,87 @@ def unfilter(data: bytes, filters: List[Filter], mask: int, itemsize: int, where
         else:
             raise FormatError(f"{where}: {flt.label()} is not one this codec applies")
     return data
+
+
+# the blosc filter's compressor codes (hdf5-blosc's client value 6) that
+# data/blosc.py encodes, by its names; lz4hc writes lz4 streams
+BLOSC_ENCODERS = {1: "lz4", 2: "lz4", 4: "zlib", 5: "zstd"}
+
+
+def unencodable(filters: List[Filter]) -> Optional[str]:
+    """Why a chunk cannot be sent through ``filters`` (a filter this codec
+    has no encoder for), or None."""
+    for flt in filters:
+        if flt.id not in (DEFLATE, SHUFFLE, FLETCHER32, BZIP2, LZF, BLOSC):
+            return f"{flt.label()} has no encoder in this codec (it encodes deflate, shuffle, fletcher32, " \
+                   "bzip2, lzf and blosc)"
+        if flt.id in (DEFLATE, SHUFFLE) and not flt.client and not flt.flags & 1:
+            return f"{flt.label()} is mandatory and has no client data, without which HDF5's filter fails"
+        if flt.id == BLOSC:
+            code = flt.client[6] if len(flt.client) > 6 else 0
+            if code not in BLOSC_ENCODERS:
+                return f"{flt.label()} with compressor code {code}: this codec's blosc encoder writes lz4, " \
+                       "zlib and zstd"
+            if BLOSC_ENCODERS[code] == "zstd":
+                import importlib.util
+
+                if importlib.util.find_spec("zstandard") is None:
+                    return f"{flt.label()} with zstd: the zstandard module is not installed"
+    return None
+
+
+def _lzf_literals(data: bytes) -> bytes:
+    """An lzf stream of literal runs only (a control byte of the run's
+    length less one before each run of at most 32 bytes): what lzf_decode
+    and h5py's lzf filter read, never shorter than the data."""
+    n = len(data)
+    if not n:
+        return b""
+    runs = -(-n // 32)
+    body = np.zeros(runs * 32, np.uint8)
+    body[:n] = np.frombuffer(data, np.uint8)
+    last = n - 32 * (runs - 1)
+    control = np.full((runs, 1), 31, np.uint8)
+    control[-1] = last - 1
+    return np.hstack([control, body.reshape(runs, 32)]).reshape(-1)[:33 * (runs - 1) + 1 + last].tobytes()
+
+
+def filter_chunk(data: bytes, filters: List[Filter], itemsize: int) -> Tuple[bytes, int]:
+    """Send one chunk through ``filters`` in pipeline order (the inverse of
+    ``unfilter``); its bytes and its filter mask (bit i set: filter i not
+    applied). Each filter takes its parameters from its client data, as
+    HDF5's do; deflate and shuffle without client data fail in HDF5 (a
+    shuffle over a variable-length type has none), and an optional filter
+    that fails is skipped, its mask bit set, as HDF5 skips it."""
+    mask = 0
+    for i, flt in enumerate(filters):
+        c = flt.client
+        if flt.id in (DEFLATE, SHUFFLE) and not c:
+            mask |= 1 << i
+            continue
+        if flt.id == DEFLATE:
+            data = zlib.compress(data, c[0] if c else 6)
+        elif flt.id == SHUFFLE:
+            size = c[0] if c else itemsize
+            n = len(data) // size
+            if size > 1 and n > 1:
+                body = np.frombuffer(data, dtype=np.uint8, count=n * size).reshape(n, size).T
+                data = body.tobytes() + data[n * size:]
+        elif flt.id == FLETCHER32:
+            data = data + struct.pack("<I", fletcher32(data))
+        elif flt.id == BZIP2:
+            data = bz2.compress(data, c[0] if c and 1 <= c[0] <= 9 else 9)
+        elif flt.id == LZF:
+            data = _lzf_literals(data)
+        elif flt.id == BLOSC:
+            from gpsat_tpu_torch.data.blosc import blosc_encode
+
+            code = c[6] if len(c) > 6 else 0
+            data = blosc_encode(data, c[2] if len(c) > 2 and c[2] else itemsize, cname=BLOSC_ENCODERS[code],
+                                shuffle=c[5] if len(c) > 5 else 1)
+        else:
+            raise FormatError(f"{flt.label()} has no encoder in this codec")
+    return data, mask
 
 
 # --------------------------------------------------------------------------

@@ -152,18 +152,16 @@ def test_superblocks_headers_and_groups_read_as_h5py(libver, track, tmp_path):
         g = f["many"]
         # a new-style group (link messages, dense past 8) where the low bound or creation order asks for one
         assert (g._link_info is not None) == (libver == "v108" or track)
-    # a later format is read, never written; a symbol-table group beside it is
-    if libver == "v108":
-        with pytest.raises(hdf5.FormatError, match="superblock version 2"):
-            hdf5.File(path, "r+")
-        return
+    # every form is written to: an attribute on the group of dense links and
+    # attributes, a dataset beside it; h5py lists both in their order
+    with h5py.File(path, "r") as h:
+        keys, attrs = list(h.keys()), list(h["many"].attrs.keys())
     with hdf5.File(path, "r+") as f:
-        if track:
-            with pytest.raises(hdf5.FormatError, match="new-style group|version-2 object header|dense storage"):
-                f["many"].attrs["x"] = "y"
-        else:
-            f["many"].attrs["x"] = "y"
-            f.create_dataset("y", np.arange(3.0), contiguous=True)
+        f["many"].attrs["x"] = "y"
+        f.create_dataset("y", np.arange(3.0), contiguous=True)
+    with h5py.File(path, "r") as h:
+        assert list(h.keys()) == (keys + ["y"] if track else sorted(keys + ["y"]))
+        assert list(h["many"].attrs.keys()) == (attrs + ["x"] if track else sorted(attrs + ["x"]))
     _same_as_h5py(path)
 
 
@@ -609,8 +607,8 @@ def test_committed_datatypes_read_as_h5py(libver, tmp_path):
 @pytest.mark.parametrize("size", [512, 4096])
 @pytest.mark.parametrize("libver", ["earliest", "latest"])
 def test_user_block_files_read_as_h5py(libver, size, tmp_path):
-    # every address relative to the superblock past the user block; a file
-    # of superblock 0 also written to, which h5py reads with its user block
+    # every address relative to the superblock past the user block; the
+    # file also written to, which h5py reads with its user block
     path = str(tmp_path / "ub.h5")
     with h5py.File(path, "w", libver=libver, userblock_size=size) as f:
         f.create_dataset("c", data=np.arange(100), chunks=(7,), maxshape=(None,))
@@ -619,8 +617,6 @@ def test_user_block_files_read_as_h5py(libver, size, tmp_path):
     with open(path, "r+b") as fh:
         fh.write(b"a user's block")
     assert _same_as_h5py(path) == (3 if libver == "latest" else 0)
-    if libver == "latest":
-        return
     with hdf5.File(path, "r+") as f:
         f["c"].append(np.arange(5))
         f.create_dataset("y", np.arange(3.0), contiguous=True)
@@ -839,16 +835,35 @@ def _case_file(path, kind):
         FX._hdf5_call("H5Pset_shared_mesg_nindexes", fid, ctypes.c_uint(1))
         FX._hdf5_call("H5Pset_shared_mesg_index", fid, ctypes.c_uint(0),
                       ctypes.c_uint(0x0008 if kind == "shared_datatype_table" else 0x0002), ctypes.c_uint(0))
+    if kind in ("paged_file", "persisted_free_space"):
+        paged = kind == "paged_file"
+        fcpl.set_file_space_strategy(h5py.h5f.FSPACE_STRATEGY_PAGE if paged else h5py.h5f.FSPACE_STRATEGY_FSM_AGGR,
+                                     not paged, 1)
+        if paged:
+            fcpl.set_file_space_page_size(4096)
     latest = kind.startswith("layout_v4") or kind in ("superblock_checksum", "virtual_dataset", "earray_checksum",
-                                                      "append_version4", "filtered_fractal_heap")
+                                                      "filtered_fractal_heap", "superblock_writer_flag",
+                                                      "paged_file", "persisted_free_space")
     fapl = h5py.h5p.create(h5py.h5p.FILE_ACCESS)
     fapl.set_libver_bounds(*((h5py.h5f.LIBVER_LATEST,) * 2 if latest else (h5py.h5f.LIBVER_EARLIEST,
                                                                             h5py.h5f.LIBVER_LATEST)))
     with h5py.File(h5py.h5f.create(path.encode(), h5py.h5f.ACC_TRUNC, fcpl=fcpl, fapl=fapl)) as f:
         if kind == "fletcher32_mismatch":
             f.create_dataset("v", data=data, chunks=(8,), fletcher32=True)
-        elif kind in ("layout_v4_extensible_array", "append_version4"):
+        elif kind == "layout_v4_extensible_array":
             f.create_dataset("v", data=data, chunks=(8,), maxshape=(None,))
+        elif kind == "unencodable_filter_append":
+            f.create_dataset("v", data=data, chunks=(8,), maxshape=(None,), scaleoffset=3)
+        elif kind == "blosclz_append":  # blosc's default compressor, which the codec decodes and does not encode
+            dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+            dcpl.set_chunk((8,))
+            dcpl.set_filter(FX.BLOSC_ID, h5py.h5z.FLAG_OPTIONAL, (2, 2, 8, 64, 5, 1, 0))
+            ds = h5py.Dataset(h5py.h5d.create(f.id, b"v", h5py.h5t.IEEE_F64LE,
+                                              h5py.h5s.create_simple((40,), (h5py.h5s.UNLIMITED,)), dcpl=dcpl))
+            for lo in range(0, 40, 8):
+                ds.id.write_direct_chunk((lo,), blosc_encode(data[lo:lo + 8].tobytes(), 8, cname="lz4"))
+        elif kind == "committed_datatype_attribute":
+            f["v"] = np.dtype("f8")
         elif kind == "earray_checksum":  # past the index block's four elements: a data block
             f.create_dataset("v", data=data, chunks=(2,), maxshape=(None,))
         elif kind == "layout_v4_fixed_array":
@@ -884,6 +899,11 @@ def _case_file(path, kind):
             f.create_dataset("v", data=data)
     if kind == "fletcher32_mismatch":
         _flip_chunk_byte(path, "v")
+    if kind == "superblock_writer_flag":  # as a writer that did not close the file leaves it
+        raw = bytearray(Path(path).read_bytes())
+        raw[11] |= 0x01
+        raw[44:48] = struct.pack("<I", hdf5_structures.lookup3(bytes(raw[:44])))
+        Path(path).write_bytes(bytes(raw))
     if kind == "superblock_checksum":
         with open(path, "r+b") as fh:
             fh.seek(28)  # the end-of-file address
@@ -910,25 +930,43 @@ REFUSALS = {
     "virtual_dataset": "virtual",
     "external_storage": "external files",
     "earray_checksum": "checksum of the extensible array data block",
-    "append_version4": "version-4 layout \\(a extensible array chunk index\\); this codec appends",
     "shared_datatype_table": "its datatype in the shared-object-header-message table",
     "shared_dataspace": "a shared message of type 1 \\(a shared dataspace",
     "filtered_fractal_heap": "fractal heap at \\d+ is filtered",
 }
+# what the codec reads and does not write: refused when the file is opened
+# to write, or when the object is changed, before a byte is written
+WRITE_REFUSALS = {
+    "superblock_writer_flag": "file-consistency flags 0x01: a writer has the file open",
+    "paged_file": "a paged file-space strategy",
+    "persisted_free_space": "a persisted free-space manager",
+    "shared_table_write": "a shared-object-header-message table in the superblock extension",
+    "unencodable_filter_append": r"filter 6 \(scaleoffset\) has no encoder in this codec",
+    "blosclz_append": r"filter 32001 \(blosc\) with compressor code 0: this codec's blosc encoder",
+    "committed_datatype_attribute": "is a committed datatype; this codec reads it and does not write it",
+}
 
 
-@pytest.mark.parametrize("kind", sorted(REFUSALS))
+@pytest.mark.parametrize("kind", sorted(REFUSALS) + sorted(WRITE_REFUSALS))
 def test_codec_names_what_it_refuses(kind, tmp_path):
     path = str(tmp_path / "r.h5")
-    _case_file(path, kind)
-    with pytest.raises(hdf5.FormatError, match=REFUSALS[kind]):
+    _case_file(path, "shared_datatype_table" if kind == "shared_table_write" else kind)
+    before = Path(path).read_bytes()
+    with pytest.raises(hdf5.FormatError, match={**REFUSALS, **WRITE_REFUSALS}[kind]):
+        if kind in WRITE_REFUSALS:
+            with hdf5.File(path, "r+") as f:
+                if kind == "committed_datatype_attribute":
+                    f["v"].attrs["x"] = 1.0
+                else:
+                    f["v"].append(np.arange(3.0))
         with hdf5.File(path, "r") as f:
-            if kind == "append_version4":
-                f["v"].append(np.arange(3.0))
-            elif kind == "filtered_fractal_heap":
+            if kind == "filtered_fractal_heap":
                 f["v"].keys()
             else:
                 f["v"][()]
+    assert Path(path).read_bytes() == before
+    if kind in ("paged_file", "persisted_free_space", "committed_datatype_attribute"):
+        _same_as_h5py(path)  # and it reads as h5py reads it
 
 
 @pytest.mark.parametrize("kind", ["layout_v4_extensible_array", "layout_v4_fixed_array", "unknown_filter_lzf",

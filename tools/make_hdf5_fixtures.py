@@ -26,6 +26,11 @@ Needs h5py and the JAX package (it runs on the CPU, with
   chunks stored unfiltered), single-chunk, implicit and version-2 B-tree
   indexes, and h5py's lzf filter with one chunk stored raw; netCDF-C's
   committed enum, compound and vlen types; a 512-byte user block;
+- two results stores as the JAX package's TableStore writes them through
+  h5py, at libver "latest" with deflate+shuffle columns and at "v108"
+  (chunk B-trees of K = 8): each the first half of chip_smoke.py's
+  ``restart_oi`` run, which phase 17 (h) restarts (no expected frame: the
+  rows come from a fit on the CPU);
 - ``expected.npz``: each fixture's frame as the JAX package's readers
   (``gpsat_tpu.data.pytables_compat.read_table``,
   ``gpsat_tpu.data.netcdf.read_netcdf``) give it, through h5py; its
@@ -33,17 +38,19 @@ Needs h5py and the JAX package (it runs on the CPU, with
 - ``MANIFEST.txt``: the files and what h5py could not lay out the way
   PyTables or netCDF-C would.
 
-The writers are also what ``tests/test_torch_hdf5_formats.py`` calls to
-write its variants.
+The writers are also what ``tests/test_torch_hdf5_formats.py`` and
+``tests/test_torch_hdf5_append.py`` call to write their variants.
 """
 
 from __future__ import annotations
 
 import argparse
 import bz2
+import contextlib
 import json
 import pickle
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -531,6 +538,156 @@ PYTABLES_VARIANTS = ("plain", "zlib", "blosc", "bzip2")
 
 
 # --------------------------------------------------------------------------
+# results stores as the JAX package writes them (its TableStore over h5py)
+# --------------------------------------------------------------------------
+
+# the filters of a store's columns, as h5py's create_dataset takes them
+COLUMN_FILTERS = {None: {}, "gzip": dict(compression="gzip", shuffle=True), "fletcher32": dict(fletcher32=True),
+                  "lzf": dict(compression="lzf")}
+# filters h5py lacks, laid over a store's numeric columns by refilter_store:
+# (filter id, client data for the element size and the chunk's rows)
+DIRECT_FILTERS = {"blosc": (BLOSC_ID, lambda size, rows: (2, 2, size, size * rows, 5, 1, BLOSC_LZ4)),
+                  "bzip2": (BZIP2_ID, lambda size, rows: (9,))}
+
+
+def create_h5py_store(path, libver="earliest", track_order=False, istore_k=None, sym_k=None) -> None:
+    """An empty HDF5 file as h5py creates one at ``libver`` (a LIBVER key or
+    an h5py libver): the root group tracking the creation order of its
+    links and attributes where ``track_order``; H5Pset_istore_k and
+    H5Pset_sym_k where given (at libver "earliest" a chunk K makes a
+    version-1 superblock; at later bounds the K values go in the superblock
+    extension). The JAX TableStore then opens it with h5py's default
+    bounds, as a user's later sessions do."""
+    import ctypes
+
+    import h5py
+
+    h5f, h5p = h5py.h5f, h5py.h5p
+    bound = {"earliest": h5f.LIBVER_EARLIEST, "v108": h5f.LIBVER_V18, "v110": h5f.LIBVER_V110,
+             "latest": h5f.LIBVER_LATEST}
+    lv = LIBVER.get(libver, libver)
+    low, high = lv if isinstance(lv, tuple) else (lv, "latest")
+    fcpl = h5p.create(h5p.FILE_CREATE)
+    if track_order:
+        fcpl.set_link_creation_order(h5p.CRT_ORDER_TRACKED | h5p.CRT_ORDER_INDEXED)
+        fcpl.set_attr_creation_order(h5p.CRT_ORDER_TRACKED | h5p.CRT_ORDER_INDEXED)
+    if istore_k:
+        _hdf5_call("H5Pset_istore_k", ctypes.c_int64(fcpl.id), ctypes.c_uint(istore_k))
+    if sym_k:  # (the group B-trees' K, the symbol-table nodes' K)
+        _hdf5_call("H5Pset_sym_k", ctypes.c_int64(fcpl.id), ctypes.c_uint(sym_k[0]), ctypes.c_uint(sym_k[1]))
+    fapl = h5p.create(h5p.FILE_ACCESS)
+    fapl.set_libver_bounds(bound[low], bound[high])
+    h5f.create(str(path).encode(), h5f.ACC_TRUNC, fcpl=fcpl, fapl=fapl).close()
+
+
+@contextlib.contextmanager
+def column_filters(kind):
+    """While the block runs, every dataset h5py creates goes through the
+    filters COLUMN_FILTERS[kind]: how the JAX TableStore's columns get them
+    (but fletcher32, which HDF5 does not apply to variable-length strings)."""
+    import h5py
+
+    real, extra = h5py.Group.create_dataset, COLUMN_FILTERS[kind]
+
+    def create(self, name, *args, **kw):
+        vlen = np.asarray(kw.get("data", ())).dtype == object
+        return real(self, name, *args, **kw, **({} if vlen and kind == "fletcher32" else extra))
+
+    h5py.Group.create_dataset = create
+    try:
+        yield
+    finally:
+        h5py.Group.create_dataset = real
+
+
+def refilter_store(path, kind) -> None:
+    """Lay DIRECT_FILTERS[kind] over every numeric column of the store at
+    ``path``: each is read, deleted and written anew with the filter in its
+    pipeline (optional, as PyTables sets it) and its chunks encoded here
+    (blosc by the port's own encoder, bzip2 by ``bz2``) and written by
+    write_direct_chunk, with its attributes; string columns stay as they
+    are."""
+    import h5py
+    from h5py import h5d, h5p, h5s, h5t
+
+    from gpsat_tpu_torch.data.blosc import blosc_encode
+
+    fid, client = DIRECT_FILTERS[kind]
+    with h5py.File(path, "a") as f:
+        for table in list(f):
+            grp = f[table]
+            for name in list(grp):
+                ds = grp[name]
+                if ds.dtype.kind not in "biuf" or ds.chunks is None:
+                    continue
+                data, attrs, rows = ds[()], dict(ds.attrs), ds.chunks[0]
+                del grp[name]
+                dcpl = h5p.create(h5p.DATASET_CREATE)
+                dcpl.set_chunk((rows,))
+                dcpl.set_filter(fid, h5py.h5z.FLAG_OPTIONAL, client(data.dtype.itemsize, rows))
+                dsid = h5d.create(grp.id, name.encode(), h5t.py_create(data.dtype),
+                                  h5s.create_simple((len(data),), (h5s.UNLIMITED,)), dcpl=dcpl)
+                for lo in range(0, len(data), rows):
+                    chunk = np.zeros(rows, data.dtype)
+                    part = data[lo:lo + rows]
+                    chunk[:len(part)] = part
+                    raw = chunk.tobytes()
+                    blob = blosc_encode(raw, data.dtype.itemsize, cname="lz4", shuffle=1) if kind == "blosc" \
+                        else bz2.compress(raw, 9)
+                    dsid.write_direct_chunk((lo,), blob, filter_mask=0)
+                for k, v in attrs.items():
+                    grp[name].attrs[k] = v
+
+
+# chip_smoke.py phase 17 (h)'s stores: file -> (libver, column filters,
+# create_h5py_store's settings); the v1.8 store's chunk B-trees of K = 8 (a K
+# values message in the superblock extension) keep it small
+RESTART_STORES = {"restart_latest_gzip.h5": ("latest", "gzip", {}),
+                  "restart_v108.h5": ("v108", None, {"istore_k": 8})}
+# the tables a run writes per expert, in the order it appends them
+PER_EXPERT = ("run_details", "preds", "lengthscales", "kernel_variance", "likelihood_variance")
+
+
+def write_restart_stores(out: Path) -> None:
+    """The first half of chip_smoke.restart_oi's run in each of
+    RESTART_STORES, written by the JAX TableStore over h5py as a run that
+    stopped halfway leaves its store: the config and every expert location
+    (written when the run starts), then each per-expert table's rows of the
+    first half of the experts in two appends (a third, then the rest, so
+    that each column's last chunk is partly filled). The rows come from the
+    port's run of all the experts on the CPU, one thread."""
+    import torch
+
+    import chip_smoke as cs
+    from gpsat_tpu.data.store import TableStore as JStore
+    from gpsat_tpu_torch.data.store import TableStore as TStore
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            full = Path(tmp) / "full.h5"
+            cs.restart_oi(full, "cpu")
+            with TStore(str(full), mode="r") as s:
+                tables = {t: s.select(t) for t in s.keys()}
+    finally:
+        torch.set_num_threads(threads)
+    rd = tables["run_details"]
+    first = rd.index[:len(rd) // 2]
+    for name, (libver, filters, settings) in RESTART_STORES.items():
+        path = out / name
+        create_h5py_store(path, libver, **settings)
+        with column_filters(filters), JStore(str(path)) as store:
+            store.append("oi_config", tables["oi_config"])
+            store.append("expert_locs", tables["expert_locs"])
+            for t in PER_EXPERT:
+                df = tables[t][tables[t].index.isin(first)]
+                cut = max(1, len(df) // 3)
+                store.append(t, df.iloc[:cut])
+                store.append(t, df.iloc[cut:])
+
+
+# --------------------------------------------------------------------------
 # the fixtures and their expected frames
 # --------------------------------------------------------------------------
 
@@ -598,6 +755,19 @@ def check_structure(path: Path) -> None:
             assert all(f[k].id.get_type().committed() for k in ("flag", "obs", "ragged"))
         elif path.name == "nc_user_block.nc":
             assert f.userblock_size == 512 and raw[512:520] == b"\x89HDF\r\n\x1a\n"
+        elif path.name in RESTART_STORES:  # version-2 headers throughout, the columns as asked
+            libver, filters, settings = RESTART_STORES[path.name]
+            assert raw[8] == (3 if libver == "latest" else 2), raw[8]
+            if settings:  # the chunk K from the K values message in the superblock extension
+                from gpsat_tpu_torch.data import hdf5
+
+                with hdf5.File(path, "r") as c:
+                    assert c._chunk_k == settings["istore_k"], c._chunk_k
+            cols = [f[t][c] for t in f for c in f[t]]
+            assert {c.compression for c in cols} == {COLUMN_FILTERS[filters].get("compression")}
+            want = {"latest": "extensible array", "v108": "v1 B-tree"}[libver]
+            assert {chunk_index_type(c) for c in cols} == {want}
+            assert all(len(c) % c.chunks[0] for c in f["preds"].values()), "the last chunks are full"
         else:
             raise ValueError(f"no structure to check in {path.name}")
 
@@ -623,6 +793,7 @@ def frame_arrays(df):
 
 
 def make(out: Path) -> None:
+    """Every fixture with an expected frame, and expected.npz, into ``out``."""
     import h5py
 
     import chip_smoke as cs
@@ -664,14 +835,29 @@ def make(out: Path) -> None:
     for name in (V4_RESULTS, *V4_NETCDF):
         check_structure(out / name)
     np.savez_compressed(out / "expected.npz", meta=np.array(json.dumps(entries)), **arrays)
+    print(f"wrote {len(entries)} expected frames to {out}")
+
+
+def write_manifest(out: Path) -> None:
+    """MANIFEST.txt: the files in ``out`` and how the stand-ins differ."""
+    import h5py
+
     files = sorted(p.name for p in out.iterdir() if p.suffix in (".h5", ".nc"))
     manifest = [
         "HDF5 fixtures of the port's codec (tools/make_hdf5_fixtures.py; written by h5py "
         f"{h5py.__version__}, HDF5 {h5py.version.hdf5_version}).",
-        "expected.npz holds each file's frame as the JAX package's h5py readers give it.",
+        "expected.npz holds each file's frame as the JAX package's h5py readers give it (not the restart_*",
+        "stores': their rows come from a fit on the CPU, whose last bits depend on the CPU; chip_smoke.py",
+        "phase 17 (h) holds them to themselves before and after a restart).",
         "",
         "Files:",
         *[f"  {p} ({(out / p).stat().st_size} bytes)" for p in files],
+        "",
+        "Stand-ins: h5py wrote every file. pytables_*.h5, results_store.h5 and v4_results_store.h5 stand in",
+        "for PyTables' files, nc_*.nc and v4_*.nc for netCDF-C's; restart_latest_gzip.h5 and restart_v108.h5",
+        "are what the JAX package's TableStore itself writes through h5py (the first half of",
+        "chip_smoke.restart_oi's run, at libver \"latest\" with deflate+shuffle columns and at \"v108\" with the",
+        "chunk B-trees' K of 8 in the superblock extension), not stand-ins.",
         "",
         "What h5py could not lay out the way PyTables or netCDF-C would:",
         "- PyTables writes its string attributes as its own fixed-length types and pickles with protocol 0;",
@@ -691,13 +877,18 @@ def make(out: Path) -> None:
         "  that reader takes a committed datatype for a variable, and its CF decode refuses compounds.",
     ]
     (out / "MANIFEST.txt").write_text("\n".join(manifest) + "\n")
-    print(f"wrote {len(files)} files and {len(entries)} expected frames to {out}")
+    print(f"wrote {len(files)} files to {out}")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "tests" / "fixtures" / "hdf5"))
-    make(Path(ap.parse_args(argv).out))
+    out = Path(ap.parse_args(argv).out)
+    make(out)
+    write_restart_stores(out)
+    for name in RESTART_STORES:
+        check_structure(out / name)
+    write_manifest(out)
     return 0
 
 

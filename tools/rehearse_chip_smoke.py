@@ -192,6 +192,8 @@ def _formats_codec():
         cs.formats_load_params_v4(root / "load_v4", launches, stored)
         cs.formats_lzf()
         cs.formats_throughput(root)
+        (root / "restart").mkdir()
+        cs.formats_restart(root / "restart")
     cs.log("formats_h5py", loaded="h5py" in sys.modules)
     cs.check("h5py" not in sys.modules, "formats (e): h5py was imported")
 
