@@ -243,7 +243,14 @@ Phases (each prints on its own lines; any failure raises):
              deflate+shuffle columns; superblock 2) and into the codec's
              superblock-0 copy of each: the stored rows unchanged, the new
              rows 0.0 from the copy's, kernel 1 launched alike; then
-             200,000 rows appended to each store's predictions (MB/s)
+             200,000 rows appended to each store's predictions (MB/s); (a)
+             also reads the codec's last formats: a shared-message table,
+             a filtered fractal heap, 4-byte offsets, external and virtual
+             variables, region references; (i) phase 7's observations from
+             a virtual netCDF file (the fixture vds_obs.nc) over eight
+             granule files the port's writer writes: the data source of `cli
+             local_expert_oi`, (c)'s checks, and the virtual read holding
+             every row exactly, timed beside the same rows read from one file
 
 Then one {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 Imports nothing of JAX or of gpsat_tpu.
@@ -528,6 +535,10 @@ FORMATS_BUDGET_S = 60.0
 FORMATS_V4_RESULTS, FORMATS_LZF, FORMATS_LZF_REPS = "v4_results_store.h5", "v4_lzf.nc", 20
 # (g) each timing the median of this many repeats, after one untimed
 FORMATS_READ_REPS = 15
+# (i) phase 7's observations as a virtual netCDF file (the fixture) whose
+# variables map consecutive rows of this many granule files, named
+# relative to it
+FORMATS_VDS, FORMATS_VDS_GRANULES = "vds_obs.nc", 8
 # (h) results stores that h5py wrote (tools/make_hdf5_fixtures.py: the JAX
 # TableStore over h5py, at libver "latest" with deflate+shuffle columns and
 # at "v108" unfiltered), each the first half of restart_oi's run over phase
@@ -3343,10 +3354,34 @@ def phase_xval(host_build_s):
     return launches_a, launches_c
 
 
+def vds_granules(n: int):
+    """(file name, first row, end row) of each of phase 17 (i)'s granule
+    files over ``n`` observation rows."""
+    bounds = np.linspace(0, n, FORMATS_VDS_GRANULES + 1).astype(int)
+    return [(f"vds_obs_granule_{i:02d}.nc", int(bounds[i]), int(bounds[i + 1])) for i in range(FORMATS_VDS_GRANULES)]
+
+
+def vds_files(root: Path) -> Path:
+    """Phase 7's observations as phase 17 (i) reads them: the granules of
+    ``vds_granules`` written by DataLoader.write_to_netcdf (the port's
+    writer), the virtual fixture beside them. Its path."""
+    import shutil
+
+    import pandas as pd
+
+    from gpsat_tpu_torch.dataloader import DataLoader
+
+    frame = pd.DataFrame(pipeline_inputs()[0])
+    for name, lo, hi in vds_granules(len(frame)):
+        DataLoader.write_to_netcdf(frame.iloc[lo:hi], str(root / name))
+    return Path(shutil.copy(FORMATS_DIR / FORMATS_VDS, root / FORMATS_VDS))
+
+
 def cli_inputs(root: Path, obs_format: str = "h5"):
     """Phase 7's inputs as the workflow's files: the observations as a .h5
-    store (table "data", the port's TableStore) or, with ``obs_format``
-    "nc", as one netCDF file (DataLoader.write_to_netcdf), the expert and
+    store (table "data", the port's TableStore), with ``obs_format`` "nc"
+    as one netCDF file (DataLoader.write_to_netcdf), with "vds" as the
+    virtual netCDF file over granule files (``vds_files``), the expert and
     prediction locations as CSV, and a local_expert_oi config with phase
     7's model settings whose results store is results.h5 beside them.
     Returns the config's path and phase 7's expert locations."""
@@ -3359,6 +3394,8 @@ def cli_inputs(root: Path, obs_format: str = "h5"):
     if obs_format == "nc":
         DataLoader.write_to_netcdf(pd.DataFrame(obs), str(root / "obs.nc"))
         source = {"data_source": str(root / "obs.nc")}
+    elif obs_format == "vds":
+        source = {"data_source": str(vds_files(root))}
     else:
         with TableStore(str(root / "obs.h5"), mode="w") as s:
             s.append("data", pd.DataFrame(obs))
@@ -3385,8 +3422,9 @@ def cli_run(oi_polished, f32_it_max, root: Path, obs_format: str = "h5", tag: st
             what: str = "cli (a)"):
     """(a) LocalExpertOI.run through `gpsat_tpu_torch.cli local_expert_oi`,
     held to phase 7's sweep; phase 17 (c) runs it on observations in a
-    netCDF file (``obs_format`` "nc"). Returns kernel 1's launches, the
-    results store's path and the bucket width."""
+    netCDF file (``obs_format`` "nc"), (i) in a virtual one ("vds").
+    Returns kernel 1's launches, the results store's path and the bucket
+    width."""
     import pandas as pd
     import torch
 
@@ -3638,14 +3676,44 @@ def frame_differences(df, entry: dict, arrays: dict) -> list:
     return out
 
 
+def region_frame(f, name: str):
+    """Every element the region references in ``f[name]`` select, as a
+    frame: per reference its index, the dataset it names (``f[ref]``), the
+    selection's shape and each value (``dataset[ref]``, in order, as
+    float64). ``f`` is an h5py File or the codec's."""
+    import pandas as pd
+
+    rows = {"ref": [], "dataset": [], "shape": [], "value": []}
+    for i, ref in enumerate(f[name][()]):
+        ds = f[ref]
+        vals = np.asarray(ds[ref])
+        rows["ref"] += [i] * vals.size
+        rows["dataset"] += [ds.name] * vals.size
+        rows["shape"] += ["x".join(map(str, vals.shape))] * vals.size
+        rows["value"] += vals.astype(np.float64).reshape(-1).tolist()
+    return pd.DataFrame({"ref": np.array(rows["ref"], np.int64), "dataset": np.array(rows["dataset"], object),
+                         "shape": np.array(rows["shape"], object), "value": np.array(rows["value"], np.float64)})
+
+
 def read_fixture(entry: dict, directory: Path = FORMATS_DIR):
-    """An expected entry's frame as the port reads its file."""
+    """An expected entry's frame as the port reads its file (from the
+    fixtures' directory where the entry says "chdir": its external files'
+    relative names lead there)."""
+    import contextlib
+
+    from gpsat_tpu_torch.data import hdf5
     from gpsat_tpu_torch.data import pytables_compat as PT
     from gpsat_tpu_torch.data.netcdf import read_netcdf
 
     path = str(directory / entry["file"])
     if entry["reader"] == "pytables":
         return PT.read_table(path, entry["key"])
+    if entry["reader"] == "regions":
+        with hdf5.File(path, "r") as f:
+            return region_frame(f, entry["key"])
+    if entry.get("chdir"):
+        with contextlib.chdir(directory):
+            return read_netcdf(entry["file"], variables=entry.get("variables"))
     return read_netcdf(path, variables=entry.get("variables"))
 
 
@@ -4060,6 +4128,48 @@ def formats_throughput(root: Path):
           f"{len(seen)} structures")
 
 
+def formats_virtual_read(root: Path):
+    """(i), after the run: the virtual file's rows (read_netcdf through the
+    codec, each of the four variables gathered from the granules) equal
+    the same rows written to one file by DataLoader.write_to_netcdf and
+    read back, and phase 7's observation rows, exactly; the medians of
+    FORMATS_READ_REPS reads of each, seconds and MB/s of the payload."""
+    import statistics
+
+    import pandas as pd
+
+    from gpsat_tpu_torch.data.netcdf import read_netcdf
+    from gpsat_tpu_torch.dataloader import DataLoader
+
+    obs = pipeline_inputs()[0]
+    frame = pd.DataFrame(obs)
+    direct = root / "obs_direct.nc"
+    DataLoader.write_to_netcdf(frame, str(direct))
+    vds = root / FORMATS_VDS
+
+    def median_s(path):
+        seconds = []
+        for _ in range(FORMATS_READ_REPS):
+            t0 = time.perf_counter()
+            read_netcdf(str(path))
+            seconds.append(time.perf_counter() - t0)
+        return statistics.median(seconds)
+
+    got, want = read_netcdf(str(vds)), read_netcdf(str(direct))
+    rows = {"index": np.arange(len(frame)), **{c: np.asarray(v) for c, v in obs.items()}}
+    flat = got.reset_index()
+    exact = {c: bool(c in flat and flat[c].dtype == v.dtype and np.array_equal(flat[c].to_numpy(), v))
+             for c, v in rows.items()}
+    same = bool(got.equals(want) and list(got.columns) == list(want.columns) and got.index.equals(want.index))
+    payload = sum(v.nbytes for v in rows.values())
+    vds_s, direct_s = median_s(vds), median_s(direct)
+    log("formats_vds_read", rows=len(got), granules=FORMATS_VDS_GRANULES, payload_bytes=payload, exact=exact,
+        same_as_one_file=same, reps=FORMATS_READ_REPS, vds_read_s=vds_s, vds_MBps=payload / vds_s / 1e6,
+        one_file_read_s=direct_s, one_file_MBps=payload / direct_s / 1e6, vds_over_one_file=vds_s / direct_s)
+    check(all(exact.values()) and same, f"formats (i): the virtual file's rows differ: exact {exact}, "
+          f"same as one file {same}")
+
+
 def phase_formats(oi_polished, f32_it_max):
     """Phase 17: the readers' formats on the card's machine, with no h5py:
     (a) the HDF5 fixtures against expected.npz (version-4 layouts, lzf,
@@ -4069,8 +4179,10 @@ def phase_formats(oi_polished, f32_it_max):
     load_params from a PyTables results store, and from its version-4 copy,
     (e) h5py never imported, (f) the lzf decoders, C++ and Python, (g) the
     largest version-4 fixture's open, index walk and read beside its rows'
-    under v1.8, and lookup3's share of its read, C++ against Python.
-    Returns kernel 1's launches in (c), (d) and (d)'s version-4 run."""
+    under v1.8, and lookup3's share of its read, C++ against Python, (h)
+    restarts into stores h5py wrote, (i) phase 7 from a virtual netCDF
+    file over granule files through `cli local_expert_oi`. Returns kernel
+    1's launches in (c), (d), (d)'s version-4 run, (h) and (i)."""
     import tempfile
 
     t_phase = time.perf_counter()
@@ -4095,13 +4207,18 @@ def phase_formats(oi_polished, f32_it_max):
         (root / "restart").mkdir()
         launches_restart = formats_restart(root / "restart")
         h_s = time.perf_counter() - t_phase - a_s - b_s - c_s - d_s - fg_s
+        (root / "vds").mkdir()
+        launches_vds, _, _ = cli_run(oi_polished, f32_it_max, root / "vds", obs_format="vds", tag="formats_vds",
+                                     what="formats (i)")
+        formats_virtual_read(root / "vds")
+        i_s = time.perf_counter() - t_phase - a_s - b_s - c_s - d_s - fg_s - h_s
     log("formats_h5py", loaded="h5py" in sys.modules)
     check("h5py" not in sys.modules, "formats (e): h5py was imported")
     seconds = time.perf_counter() - t_phase
     log("formats_phase", seconds=seconds, budget_s=FORMATS_BUDGET_S, a_s=a_s, b_s=b_s, c_s=c_s, d_s=d_s, fg_s=fg_s,
-        h_s=h_s)
+        h_s=h_s, i_s=i_s)
     check(seconds <= FORMATS_BUDGET_S, f"formats: phase 17 took {seconds:.1f} s, over {FORMATS_BUDGET_S} s")
-    return launches_oi, launches_load, launches_load_v4, launches_restart
+    return launches_oi, launches_load, launches_load_v4, launches_restart, launches_vds
 
 
 def main(argv) -> int:
@@ -4169,8 +4286,8 @@ def main(argv) -> int:
     entries[0]["launches_xval_index_grid"], entries[0]["launches_xval"] = phase_xval(host_build_s)
     entries[0]["launches_cli_run"], entries[0]["launches_cli_rerun"] = phase_cli(oi_polished, f32_it_max)
     (entries[0]["launches_formats_oi"], entries[0]["launches_formats_load_params"],
-     entries[0]["launches_formats_load_params_v4"], entries[0]["launches_formats_restart"]) = phase_formats(
-        oi_polished, f32_it_max)
+     entries[0]["launches_formats_load_params_v4"], entries[0]["launches_formats_restart"],
+     entries[0]["launches_formats_vds"]) = phase_formats(oi_polished, f32_it_max)
 
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -5,16 +5,18 @@ lzf run in the port's C++ host library). Section numbers below are those
 of the HDF5 File Format Specification version 3.0. It reads what h5py
 writes under every library-version bound, "latest" included, and the
 PyTables and netCDF-C layouts as h5py reproduces them (the datatypes and
-dataspaces in ``data/hdf5_types.py``; checksums, filters, fractal heaps,
-version-2 B-trees and the version-4 chunk indexes in
-``data/hdf5_structures.py``). Files that PyTables, c-blosc or netCDF-C
-wrote themselves have not been held to it:
-``tests/fixtures/hdf5/MANIFEST.txt`` lists how the stand-ins differ. It
-reads:
+dataspaces in ``data/hdf5_types.py``; serialised selections in
+``data/hdf5_selections.py``; checksums, filters, fractal heaps, version-2
+B-trees and the version-4 chunk indexes in ``data/hdf5_structures.py``).
+Files that PyTables, c-blosc or netCDF-C wrote themselves have not been
+held to it: ``tests/fixtures/hdf5/MANIFEST.txt`` lists how the stand-ins
+differ. It reads:
 
 - superblocks of versions 0 to 3 (II.A) at offset 0 or past a user block
-  (512, 1024, 2048 ... bytes), 8-byte addresses and lengths; the checksum
-  of versions 2 and 3 checked;
+  (512, 1024, 2048 ... bytes), with addresses and lengths of 8 or 4 bytes
+  (``H5Pset_sizes``) carried through every structure below, all ones the
+  undefined address at either width; the checksum of versions 2 and 3
+  checked;
 - object headers of versions 1 and 2 (IV.A.1), continuation blocks
   followed, version 2's checksums checked;
 - groups as symbol tables (a version-1 B-tree of type 0 over ``SNOD``
@@ -25,6 +27,16 @@ reads:
   external links listed, not followed;
 - attributes in the header (messages of versions 1 to 3) and in dense
   storage (IV.A.2.v: a fractal heap under a version-2 B-tree);
+- shared messages: the shared-object-header-message table of the
+  superblock extension (II.B, III.E ``SMTB``), its indexes (lists or
+  version-2 B-trees) by the message types they share; a dataspace,
+  datatype, fill value, filter pipeline or attribute shared in the
+  table's fractal heap (a shared message of version 3, type 1), in the
+  header or in dense storage; a message the index tracks but its one user
+  keeps (stored in the header, flagged shareable) read as it stands;
+- fractal heaps with I/O filters (III.G: a group created with filters
+  keeps its dense links in one): each direct block and huge object
+  through the heap's pipeline;
 - compact, contiguous and chunked datasets (layout messages of versions 1
   to 4, IV.A.2.i): N-D chunks under the version-1 B-tree of type 1 or a
   version-4 index (a single chunk, implicit chunks, a fixed array, an
@@ -33,9 +45,20 @@ reads:
   shuffle, fletcher32, lzf, blosc, bzip2) as each chunk's filter mask
   says, partial edge chunks stored unfiltered where the layout says so,
   missing chunks as the fill value (IV.A.2.e, IV.A.2.f);
+- external storage (IV.A.2.h): the data laid end to end across files
+  named in a local heap, at each slot's offset, a relative name taken
+  from the working directory as HDF5 takes it by default;
+- virtual datasets (IV.A.2.i, layout class 3): each mapping's source
+  selection copied into its virtual selection, the source file "." or
+  looked for as HDF5 looks (absolute, the file's directory, the working
+  directory), a missing file or dataset left as the fill value;
 - datatypes stored in the header or committed (a shared datatype message
   pointing at a committed datatype's header), for datasets and
   attributes; committed datatypes themselves as ``Datatype`` objects;
+- region references (datatype class 7, type 1) as ``RegionReference``
+  values: ``file[ref]`` is the object, ``dataset[ref]`` the elements its
+  selection (none, all, points, hyperslabs of encoding versions 1 to 3)
+  picks, in h5py's order and shape;
 - dimension scales (``Dataset.dims``, ``DIMENSION_LIST``'s object
   references resolved to the objects they name).
 
@@ -78,17 +101,20 @@ filled, encoded and written anew. Committed datatypes are read, never
 written.
 
 A file this codec does not read raises ``FormatError``, an ``OSError``,
-which names what it found (an unknown filter, a region reference, 4-byte
-offsets, virtual or external storage, a message in the
-shared-object-header-message table, a filtered fractal heap); a group of
+which names what it found (an unknown filter, a virtual mapping that is
+unlimited or names its sources printf-style, mappings of an encoding
+other than version 0, a version-4 reference of HDF5 1.12, 2-byte offsets
+or lengths); a group of
 such datasets is still listed and its attributes read. A write it cannot
 make raises before the first byte of it is written, and the file then
 commits nothing of that session: a superblock 3 whose writer flags are
-set (opened to read only), a paged or persisted file-space manager or a
-shared-message table in the superblock extension, a filter without an
-encoder here (scaleoffset, n-bit, szip, an unknown id, blosc's blosclz
-and snappy), an attribute too large for a header message, a committed
-datatype. It never hands over to another reader.
+set, addresses or lengths of other than 8 bytes, a paged or persisted
+file-space manager or a shared-message table in the superblock extension
+(each opened to read only), a filter without an encoder here
+(scaleoffset, n-bit, szip, an unknown id, blosc's blosclz and snappy), an
+append to an external or virtual dataset, an attribute too large for a
+header message, a committed datatype. It never hands over to another
+reader.
 """
 
 from __future__ import annotations
@@ -99,6 +125,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 
+from gpsat_tpu_torch.data.hdf5_selections import RegionReference, Selection, parse_selection
 from gpsat_tpu_torch.data.hdf5_structures import (
     FractalHeap,
     btree2_chunks,
@@ -126,18 +153,18 @@ from gpsat_tpu_torch.data.hdf5_types import (
     space_bytes,
     string_type_bytes,
     type_bytes,
+    uint,
     vlen_seq_type_bytes,
 )
 
-__all__ = ["File", "Group", "Dataset", "Datatype", "Empty", "FormatError", "guess_chunk_rows"]
+__all__ = ["File", "Group", "Dataset", "Datatype", "Empty", "FormatError", "RegionReference", "guess_chunk_rows"]
 
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
 GROUP_LEAF_K, GROUP_INTERNAL_K = 4, 16  # HDF5's defaults, in the superblock this codec creates
 CHUNK_K = 32  # the chunk B-tree's K: HDF5's default, fixed by a version-0 superblock
 GHEAP_MIN = 4096  # the least size of a global heap collection
 GHEAP_MAX_OBJECTS = 0xFFFF  # object indices are 16 bits; 0 is the free space
-SUPERBLOCK_SIZES = {0: 96, 1: 100, 2: 48, 3: 48}
-SUPERBLOCK_SIZE = SUPERBLOCK_SIZES[0]
+SUPERBLOCK_SIZE = 96  # a version-0 superblock of 8-byte addresses, the one this codec creates
 # superblock 3's file-consistency flags (byte 11): a writer, or a SWMR
 # writer, has the file open (or did not close it; h5clear clears them)
 SB_WRITE_ACCESS, SB_SWMR_WRITE = 0x01, 0x04
@@ -243,6 +270,13 @@ class File:
         self._base = 0  # the superblock's offset in the file: the user block's size; addresses are relative to it
         self._committed: Dict[int, Type] = {}  # committed datatypes read: header address -> type
         self._refusal: Optional[str] = None  # the first write refused in this session
+        self._so = self._sl = 8  # the sizes of offsets and lengths (the superblock's; this codec creates 8)
+        # the shared-message table's indexes: (message type flags, fractal heap address) each
+        self._sohm: List[Tuple[int, int]] = []
+        self._sohm_heaps: Dict[int, FractalHeap] = {}
+        # the directory of the file as opened: where a virtual dataset's source files are looked for first
+        self._dir = os.path.dirname(os.path.abspath(path))
+        self._sources: Dict[str, "File"] = {}  # virtual datasets' source files, open until this file closes
         if mode == "w-" and os.path.exists(path):
             raise FileExistsError(f"unable to create file (file exists): {path}")
         if mode in ("w", "w-"):
@@ -282,6 +316,15 @@ class File:
         self._f.seek(self._base + addr)
         self._f.write(data)
 
+    def _addr(self, buf: bytes, pos: int) -> int:
+        """The address at ``buf[pos:]``, of the file's size of offsets
+        (UNDEF where undefined)."""
+        return uint(buf, pos, self._so)
+
+    def _length(self, buf: bytes, pos: int) -> int:
+        """The length at ``buf[pos:]``, of the file's size of lengths."""
+        return uint(buf, pos, self._sl)
+
     def _alloc(self, n: int) -> int:
         addr = self._eoa
         self._eoa += _pad8(n)
@@ -314,39 +357,55 @@ class File:
                           "power of two within the file)")
 
     def _read_superblock(self) -> None:
+        """The superblock (II.A): versions 0 and 1 give the group B-trees' K
+        (and version 1 the chunk B-trees'), four addresses and the root
+        group's symbol-table entry; versions 2 and 3 four addresses and a
+        checksum. Every address and length in the file is as wide as its
+        sizes of offsets and lengths say (8 or 4 bytes; HDF5 overflows a
+        fractal heap's block sizes at 2); a file of 4 is opened to read
+        only."""
         self._base = self._find_superblock()
-        self._f.seek(self._base + 8)
-        version = self.superblock_version = self._f.read(1)[0]
+        self._f.seek(self._base)
+        head = self._f.read(16)
+        version = self.superblock_version = head[8]
         if version > 3:
             raise FormatError(f"{self.path}: HDF5 superblock version {version} is not one this codec reads "
                               "(it reads versions 0 to 3)")
-        size = SUPERBLOCK_SIZES[version]
+        so, sl = (head[13], head[14]) if version < 2 else (head[9], head[10])
+        if so not in (4, 8) or sl not in (4, 8):
+            raise FormatError(f"{self.path}: {so}-byte offsets and {sl}-byte lengths; this codec reads 4- and 8-byte "
+                              "ones")
+        if self.writable and (so, sl) != (8, 8):
+            raise FormatError(f"{self.path}: {so}-byte offsets and {sl}-byte lengths; this codec opens such a file "
+                              "to read only (it writes 8-byte ones)")
+        self._so, self._sl = so, sl
+        # versions 0 and 1: 24 or 28 bytes, four addresses and the root's symbol-table entry (its name's
+        # offset, a length; its header's address; the cache type, 4 reserved bytes and the scratch pad); 2
+        # and 3: 12 bytes, four addresses and the checksum
+        fixed = {0: 24, 1: 28}.get(version, 12)
+        size = fixed + 4 * so + (sl + so + 24 if version < 2 else 4)
         self._f.seek(self._base)
         head = self._f.read(size)
         if len(head) < size:
             raise FormatError(f"{self.path}: truncated superblock")
-        sizes = (head[13], head[14]) if version < 2 else (head[9], head[10])
-        if sizes != (8, 8):
-            raise FormatError(f"{self.path}: {sizes[0]}-byte offsets and {sizes[1]}-byte lengths; this codec "
-                              "reads 8-byte ones")
         self._leaf_k, self._internal_k, self._chunk_k = GROUP_LEAF_K, GROUP_INTERNAL_K, CHUNK_K
-        if version >= 2:
-            check_sum(head[:48], self.path, "the superblock")
-            _stored_base, ext, eof, root_addr = struct.unpack_from("<4Q", head, 12)
-            access_info, self._sb_pos = UNDEF, 28
+        addrs = [self._addr(head, fixed + so * i) for i in range(4)]
+        self._sb_pos = fixed if version < 2 else fixed + 2 * so  # where flush rewrites the addresses
+        if version >= 2:  # the base, the superblock extension, the end of the file, the root group's header
+            check_sum(head, self.path, "the superblock")
+            (_stored_base, ext, eof, root_addr), access_info = addrs, UNDEF
             if version == 3 and self.writable and head[11] & (SB_WRITE_ACCESS | SB_SWMR_WRITE):
                 raise FormatError(f"{self.path}: superblock version 3 with file-consistency flags {head[11]:#04x}: "
                                   "a writer has the file open, or did not close it (h5clear -s clears the "
                                   "flags); this codec opens it to read only")
             if ext != UNDEF:
                 self._read_extension(ext)
-        else:
+        else:  # the base, the free-space info (unused), the end of the file, the file-access info
+            _stored_base, _free, eof, access_info = addrs
             self._leaf_k, self._internal_k = struct.unpack_from("<HH", head, 16)
             if version == 1:  # the chunk B-trees' K, where H5Pset_istore_k set it
                 self._chunk_k = struct.unpack_from("<H", head, 24)[0]
-            self._sb_pos = pos = 24 if version == 0 else 28
-            _stored_base, _free, eof, access_info = struct.unpack_from("<4Q", head, pos)
-            root_addr = struct.unpack_from("<Q", head, pos + 40)[0]
+            root_addr = self._addr(head, fixed + 4 * so + sl)
         if access_info != UNDEF:
             raise FormatError(f"{self.path}: a file driver information block; this codec reads files without one")
         self._sb = bytearray(head)
@@ -358,14 +417,17 @@ class File:
 
     def _read_extension(self, addr: int) -> None:
         """The superblock extension (II.B), an object header: the version-1
-        B-trees' K values where they are not HDF5's defaults (message 0x13).
-        A file opened to write is refused where the extension holds what
-        this codec's writes would leave stale: a shared-object-header-message
+        B-trees' K values where they are not HDF5's defaults (message 0x13),
+        and the shared-object-header-message table (message 0x0F). A file
+        opened to write is refused where the extension holds what this
+        codec's writes would leave stale: a shared-object-header-message
         table, or a file-space manager that pages the file or persists its
         free space (HDF5 would hand out space this codec has used)."""
         for mtype, _, body, _ in _read_header(self, addr)[2]:
             if mtype == BTREE_K:
                 self._chunk_k, self._internal_k, self._leaf_k = struct.unpack_from("<HHH", body, 1)
+            elif mtype == SHARED_TABLE and not self.writable:
+                self._read_shared_table(self._addr(body, 1), body[1 + self._so])
             elif not self.writable:
                 continue
             elif mtype == SHARED_TABLE:
@@ -426,6 +488,9 @@ class File:
         finally:
             self._f.close()
             self._f = None
+            for src in self._sources.values():
+                src.close()
+            self._sources.clear()
 
     def __enter__(self):
         return self
@@ -440,7 +505,7 @@ class File:
     def __contains__(self, name: str) -> bool:
         return name in self.root
 
-    def __getitem__(self, name: str):
+    def __getitem__(self, name: Union[str, RegionReference]):
         return self.root[name]
 
     def __delitem__(self, name: str):
@@ -459,6 +524,28 @@ class File:
     @property
     def attrs(self) -> "Attributes":
         return self.root.attrs
+
+    def _source(self, name: str) -> Optional["File"]:
+        """A virtual dataset's source file ``name``, opened to read (once
+        while this file is open, as HDF5 caches them), found as HDF5 looks
+        by default (``H5F_prefix_open_file`` with no prefix set): an
+        absolute name as given, else its last component; then that in this
+        file's directory, then from the working directory. None if not
+        found."""
+        if name == ".":
+            return self
+        candidates = []
+        if os.path.isabs(name):
+            candidates.append(name)
+            name = os.path.basename(name)
+        candidates += [os.path.join(self._dir, name), name]
+        path = next((c for c in candidates if os.path.isfile(c)), None)
+        if path is None:
+            return None
+        path = os.path.abspath(path)
+        if path not in self._sources:
+            self._sources[path] = File(path, "r")
+        return self._sources[path]
 
     # --- object references ---
     def deref(self, addr: int) -> "_Object":
@@ -484,36 +571,92 @@ class File:
         self._by_addr[addr] = obj = _load(self, addr, None)
         return obj
 
-    # --- committed datatypes (IV.A.2.d; shared messages, IV.A.2) ---
-    def _shared_type(self, body: bytes, what: str) -> Type:
-        """The datatype a shared datatype message points to: a committed
-        datatype's object header (a shared message of version 1, 2 or 3,
-        type 2). A message in the shared-object-header-message table
-        (version 3, type 1) is refused."""
+    # --- shared messages (IV.A.2; the shared-message table, II.B and III.E) ---
+    def _read_shared_table(self, addr: int, n: int) -> None:
+        """The shared-object-header-message table (``SMTB``): per index, its
+        version, type (0 a list, 1 a version-2 B-tree), the message types it
+        shares (bit t for message type t), the least size shared, the list
+        and B-tree cutoffs, the messages it holds, the index's address and
+        its fractal heap's. A shared message names its heap object by heap
+        ID, so reading needs each index's heap and message types only; the
+        list or B-tree (each record a message's hash and where it is: in the
+        heap, or still in the header of its one user, which keeps it as a
+        plain message flagged shareable) is not walked."""
+        so = self._so
+        entry = 14 + 2 * so
+        buf = self._read(addr, 4 + n * entry + 4)
+        if buf[:4] != b"SMTB":
+            raise FormatError(f"{self.path}: no shared-object-header-message table at {addr}")
+        check_sum(buf, self.path, f"the shared-object-header-message table at {addr}")
+        for i in range(n):
+            pos = 4 + i * entry
+            if buf[pos] != 0:
+                raise FormatError(f"{self.path}: a shared-message index of version {buf[pos]}")
+            flags = struct.unpack_from("<H", buf, pos + 2)[0]
+            self._sohm.append((flags, self._addr(buf, pos + 14 + so)))
+
+    def _sohm_heap(self, mtype: int, what: str) -> FractalHeap:
+        """The fractal heap of the shared-message index of ``mtype`` (an old
+        fill-value message's is the fill value's, as ``H5SM__type_to_flag``
+        maps it)."""
+        bit = FILL if mtype == FILL_OLD else mtype
+        for flags, heap_addr in self._sohm:
+            if flags >> bit & 1:
+                heap = self._sohm_heaps.get(heap_addr)
+                if heap is None:
+                    heap = self._sohm_heaps[heap_addr] = FractalHeap(self._read, heap_addr, self.path, self._so,
+                                                                     self._sl)
+                return heap
+        raise FormatError(f"{what}: a message of type {mtype} shared in the shared-object-header-message table, "
+                          "which has no index of that type")
+
+    def _shared_message(self, mtype: int, body: bytes, what: str) -> bytes:
+        """The body of the message of type ``mtype`` that a shared message
+        points to: an object in the shared-message table's heap (version 3,
+        type 1: an 8-byte heap ID), or a message in another object header
+        (versions 1 and 2, version 3 type 2: a committed datatype's)."""
         version, kind = body[0], body[1]
         if version == 3 and kind == 1:
-            raise FormatError(f"{what} has its datatype in the shared-object-header-message table; this codec "
-                              "reads committed datatypes and datatypes stored in the header")
-        if version not in (1, 2, 3):
-            raise FormatError(f"{what}: shared message version {version}")
-        addr = struct.unpack_from("<Q", body, 16 if version == 1 else 2)[0]
+            return self._sohm_heap(mtype, what).get(body[2:10])
+        if version not in (1, 2, 3) or (version == 3 and kind != 2):
+            raise FormatError(f"{what}: shared message version {version}, type {kind}")
+        # version 1: its type, 6 reserved bytes and a length before the address
+        addr = self._addr(body, 8 + self._sl if version == 1 else 2)
+        found = [b for t, flags, b, _ in _read_header(self, addr)[2] if t == mtype and not flags & 2]
+        if not found:
+            raise FormatError(f"{what}: no message of type {mtype} in the object header at {addr}")
+        return found[0]
+
+    def _shared_type(self, body: bytes, what: str) -> Type:
+        """The datatype a shared datatype message points to: a committed
+        datatype (its header address kept, for the ``Datatype`` read through
+        it) or one in the shared-message table."""
+        if body[0] == 3 and body[1] == 1:
+            return parse_type(self._shared_message(DATATYPE, body, what))[0]
+        addr = self._addr(body, 8 + self._sl if body[0] == 1 else 2)
         t = self._committed.get(addr)
         if t is None:
-            found = [b for mtype, flags, b, _ in _read_header(self, addr)[2] if mtype == DATATYPE and not flags & 2]
-            if not found:
-                raise FormatError(f"{what}: no committed datatype at {addr}")
-            t = self._committed[addr] = parse_type(found[0])[0]
+            t = self._committed[addr] = parse_type(self._shared_message(DATATYPE, body, what))[0]
         return t
 
     # --- values ---
     def _decode(self, raw: np.ndarray, t: Type) -> np.ndarray:
         """Values as h5py gives them from their bytes on disk (``raw``, of
         ``t.storage``): variable-length elements from the global heap, fixed
-        strings as HDF5 converts them, enums of FALSE and TRUE as bool."""
+        strings as HDF5 converts them, enums of FALSE and TRUE as bool,
+        object references as 8-byte addresses, region references as
+        ``RegionReference`` values."""
         if t.vlen == "str":
             return self._decode_vlen_str(raw.reshape(-1)).reshape(raw.shape)
         if t.vlen == "seq":
             return self._decode_vlen_seq(raw, t.base)
+        if t.region:
+            return self._decode_regions(raw)
+        if t.cls == 7:  # the address in the first bytes of the size of offsets: H5DS's are 8 wide whatever that is
+            addrs = raw.astype(np.uint64)
+            if raw.dtype.itemsize > self._so:
+                addrs &= np.uint64((1 << 8 * self._so) - 1)
+            return addrs
         raw = fix_strings(raw, t)
         if t.dtype.kind == "b" and t.storage.kind != "b":
             return raw.astype(bool)
@@ -527,18 +670,20 @@ class File:
         objs = self._gcols.get(addr)
         if objs is not None:
             return objs
-        head = self._read(addr, 16)
+        head = self._read(addr, 8 + self._sl)
         if head[:4] != b"GCOL":
             raise FormatError(f"{self.path}: no global heap collection at {addr}")
-        size = struct.unpack_from("<Q", head, 8)[0]
+        size = self._length(head, 8)
         buf = self._read(addr, size)
-        objs, pos = {}, 16
-        while pos + 16 <= size:
-            idx, _nrefs, n = struct.unpack_from("<HH4xQ", buf, pos)
+        # each object: its index, reference count, 4 reserved bytes and size (padded to 8), its bytes padded to 8
+        objs, pos, obj_head = {}, _pad8(8 + self._sl), _pad8(8 + self._sl)
+        while pos + obj_head <= size:
+            idx = struct.unpack_from("<H", buf, pos)[0]
+            n = self._length(buf, pos + 8)
             if idx == 0:  # the free space: the rest of the collection
                 break
-            objs[idx] = buf[pos + 16:pos + 16 + n]
-            pos += 16 + _pad8(n)
+            objs[idx] = buf[pos + obj_head:pos + obj_head + n]
+            pos += obj_head + _pad8(n)
         self._gcols[addr] = objs
         return objs
 
@@ -596,6 +741,19 @@ class File:
         out[:] = strs[inverse.ravel()]
         return out
 
+    def _decode_regions(self, refs: np.ndarray) -> np.ndarray:
+        """Region references (a global heap collection's address and an
+        object's index, each object the referenced object header's address
+        and a serialised selection) -> an object array of
+        ``RegionReference``; None where no reference was written."""
+        out = np.empty(refs.size, dtype=object)
+        for i, (addr, idx) in enumerate(zip(refs["addr"].reshape(-1).tolist(), refs["idx"].reshape(-1).tolist())):
+            if addr in (0, UNDEF):
+                continue
+            blob = self._gheap_object(addr, idx)
+            out[i] = RegionReference(self._addr(blob, 0), parse_selection(blob, self._so)[0])
+        return out.reshape(refs.shape)
+
     def _decode_vlen_seq(self, refs: np.ndarray, base: Type) -> np.ndarray:
         """Variable-length sequence references -> an object array of arrays."""
         out = np.empty(refs.size, dtype=object)
@@ -649,7 +807,7 @@ def _read_header(file: File, addr: int) -> Tuple[int, int, List[Tuple[int, int, 
             body = buf[pos + 8:pos + 8 + msize]
             pos += 8 + msize
             if mtype == CONTINUATION:
-                blocks.append(struct.unpack_from("<QQ", body, 0))
+                blocks.append((file._addr(body, 0), file._length(body, file._so)))
             elif mtype != NIL:
                 msgs.append((mtype, flags, body, 0))
     return 1, 0, msgs
@@ -680,7 +838,7 @@ def _read_header_v2(file: File, addr: int):
             body = buf[pos + hsize:pos + hsize + msize]
             pos += hsize + msize
             if mtype == CONTINUATION:
-                caddr, clen = struct.unpack_from("<QQ", body, 0)
+                caddr, clen = file._addr(body, 0), file._length(body, file._so)
                 cbuf = file._read(caddr, clen)
                 if cbuf[:4] != b"OCHK":
                     raise FormatError(f"{file.path}: no object header continuation block at {caddr}")
@@ -785,24 +943,25 @@ def _attr_name(body: bytes) -> str:
 
 def _parse_attr(file: File, body: bytes, what: str):
     """(datatype, dims, offset of the data) of an attribute message of
-    version 1, 2 or 3; dims None for a null dataspace. A shared datatype
-    is read from its committed datatype's header."""
+    version 1, 2 or 3; dims None for a null dataspace. A shared datatype or
+    dataspace (flags bits 0 and 1) is read where it is shared: a committed
+    datatype's header, or the shared-message table."""
     version = body[0]
     name_size, type_size, space_size = struct.unpack_from("<HHH", body, 2)
     if version == 1:
         pos = 8 + _pad8(name_size)
         t, _ = parse_type(body, pos)
         pos += _pad8(type_size)
-        dims, _ = parse_space(body[pos:pos + space_size])
+        dims, _ = parse_space(body[pos:pos + space_size], file._sl)
         return t, dims, pos + _pad8(space_size)
     if version in (2, 3):
-        if body[1] & 2:
-            raise FormatError(f"{what} has a shared dataspace; this codec reads dataspaces stored in the "
-                              "attribute")
         pos = 8 + (1 if version == 3 else 0) + name_size
         t = file._shared_type(body[pos:pos + type_size], what) if body[1] & 1 else parse_type(body, pos)[0]
         pos += type_size
-        dims, _ = parse_space(body[pos:pos + space_size])
+        space = body[pos:pos + space_size]
+        if body[1] & 2:
+            space = file._shared_message(DATASPACE, space, what)
+        dims, _ = parse_space(space, file._sl)
         return t, dims, pos + space_size
     raise FormatError(f"{what}: attribute message version {version}")
 
@@ -854,8 +1013,8 @@ class _Object:
         found = []
         for mtype, flags, body, corder in msgs:
             if mtype == ATTRIBUTE:
-                if flags & 2:
-                    raise FormatError(f"{file.path}: a shared attribute message at {addr}")
+                if flags & 2:  # in the shared-message table (the file is then read only)
+                    body = file._shared_message(ATTRIBUTE, body, f"{file.path}: an attribute at {addr}")
                 found.append((corder, _attr_name(body), body))
             elif mtype == ATTR_INFO:
                 self._ainfo = (flags, body)
@@ -888,20 +1047,20 @@ class _Object:
         name, body) each."""
         f = self._file
         pos = 2 + (2 if info[1] & 1 else 0)
-        heap_addr, name_btree = struct.unpack_from("<QQ", info, pos)
+        heap_addr, name_btree = f._addr(info, pos), f._addr(info, pos + f._so)
         if heap_addr == UNDEF:
             return []
         self._attr_dense = True
-        heap = FractalHeap(f._read, heap_addr, f.path)
-        btype, recs = btree2_records(f._read, name_btree, f.path)
+        heap = FractalHeap(f._read, heap_addr, f.path, f._so, f._sl)
+        btype, recs = btree2_records(f._read, name_btree, f.path, f._so, f._sl)
         if btype != 8:
             raise FormatError(f"{f.path}: an attribute name index of B-tree type {btype} at {name_btree}")
         out = []
         for r in recs:
             mflags, corder = struct.unpack_from("<BI", r, 8)
-            if mflags & 2:
-                raise FormatError(f"{f.path}: a shared attribute in dense storage at {self._addr}")
-            body = heap.get(r[:8])
+            # a shared attribute's heap ID is the shared-message table's heap's
+            where = f._sohm_heap(ATTRIBUTE, f"{f.path}: an attribute at {self._addr}") if mflags & 2 else heap
+            body = where.get(r[:8])
             out.append((corder, _attr_name(body), body))
         return out
 
@@ -1052,9 +1211,10 @@ class Datatype(_Object):
 # --------------------------------------------------------------------------
 
 
-def _parse_link(body: bytes):
+def _parse_link(body: bytes, so: int = 8):
     """A link message: (name, target, creation order); the target is an
-    object header address for a hard link, a ``_Link`` otherwise."""
+    object header address (``so`` bytes) for a hard link, a ``_Link``
+    otherwise."""
     flags, pos = body[1], 2
     ltype = 0
     if flags & 0x08:
@@ -1070,7 +1230,7 @@ def _parse_link(body: bytes):
     name = body[pos:pos + n].decode("utf-8")
     pos += n
     if ltype == 0:
-        return name, struct.unpack_from("<Q", body, pos)[0], corder
+        return name, uint(body, pos, so), corder
     size = struct.unpack_from("<H", body, pos)[0]
     info = body[pos + 2:pos + 2 + size]
     if ltype == 1:
@@ -1117,7 +1277,7 @@ class Group(_Object):
         rest = []
         for mtype, flags, body in self._msgs:
             if mtype == STAB:
-                self._btree, self._heap = struct.unpack_from("<QQ", body, 0)
+                self._btree, self._heap = file._addr(body, 0), file._addr(body, file._so)
             elif mtype in (LINK_INFO, GROUP_INFO, LINK):
                 self._link_orig.append((mtype, flags, body, 0))
                 if mtype == LINK_INFO:
@@ -1146,11 +1306,7 @@ class Group(_Object):
             return self._links
         f = self._file
         if self._btree != UNDEF:
-            head = f._read(self._heap, 32)
-            if head[:4] != b"HEAP":
-                raise FormatError(f"{f.path}: no local heap at {self._heap}")
-            size, _free, data_addr = struct.unpack_from("<QQQ", head, 8)
-            heap = f._read(data_addr, size)
+            heap = _local_heap(f, self._heap)
             links: Dict[str, int] = {}
             self._walk_btree(self._btree, heap, links)
             self._links = dict(sorted(links.items(), key=lambda kv: kv[0].encode("utf-8")))
@@ -1158,16 +1314,17 @@ class Group(_Object):
         bodies = list(self._link_msgs)
         if self._link_info is not None:
             info = self._link_info[1]
-            heap_addr, name_btree = struct.unpack_from("<QQ", info, 2 + (8 if self._link_track else 0))
+            pos = 2 + (8 if self._link_track else 0)
+            heap_addr, name_btree = f._addr(info, pos), f._addr(info, pos + f._so)
             if heap_addr != UNDEF:  # dense: link messages in a fractal heap, a B-tree of type 5 over their names
-                heap = FractalHeap(f._read, heap_addr, f.path)
-                btype, recs = btree2_records(f._read, name_btree, f.path)
+                heap = FractalHeap(f._read, heap_addr, f.path, f._so, f._sl)
+                btype, recs = btree2_records(f._read, name_btree, f.path, f._so, f._sl)
                 if btype != 5:
                     raise FormatError(f"{f.path}: a link name index of B-tree type {btype} at {name_btree}")
                 bodies.extend(heap.get(r[4:]) for r in recs)
         found = []
         for body in bodies:
-            name, target, corder = _parse_link(body)
+            name, target, corder = _parse_link(body, f._so)
             found.append((name, target, corder))
             if isinstance(target, _Link):
                 self._link_raw[name] = body
@@ -1179,13 +1336,20 @@ class Group(_Object):
         return self._links
 
     def _walk_btree(self, addr: int, heap: bytes, links: Dict[str, int]) -> None:
+        """A group B-tree node (signature, type 0, level, entries, siblings;
+        then keys, heap offsets of lengths' size, between child addresses)
+        and, at level 0, its symbol-table nodes: entries of a name's heap
+        offset (a length), the header's address, the cache type, 4 reserved
+        bytes and the scratch pad."""
         f = self._file
-        head = f._read(addr, 24)
+        so, sl = f._so, f._sl
+        head = f._read(addr, 8 + 2 * so)
         if head[:4] != b"TREE" or head[4] != 0:
             raise FormatError(f"{f.path}: no group B-tree node at {addr}")
         level, n = head[5], struct.unpack_from("<H", head, 6)[0]
-        body = f._read(addr + 24, 16 * n + 8)
-        children = struct.unpack_from(f"<{2 * n + 1}Q", body, 0)[1::2]
+        body = f._read(addr + 8 + 2 * so, (sl + so) * n + sl)
+        children = [f._addr(body, sl + (sl + so) * i) for i in range(n)]
+        esize = sl + so + 24
         for child in children:
             if level:
                 self._walk_btree(child, heap, links)
@@ -1194,15 +1358,17 @@ class Group(_Object):
             if node[:4] != b"SNOD":
                 raise FormatError(f"{f.path}: no symbol-table node at {child}")
             count = struct.unpack_from("<H", node, 6)[0]
-            entries = f._read(child + 8, 40 * count)
+            entries = f._read(child + 8, esize * count)
             for j in range(count):
-                name_off, header, cache_type, _, value_off = struct.unpack_from("<QQIII", entries, 40 * j)
+                e = esize * j
+                name_off, header = f._length(entries, e), f._addr(entries, e + sl)
+                cache_type, value_off = struct.unpack_from("<I4xI", entries, e + sl + so)
                 name = heap[name_off:heap.index(b"\0", name_off)].decode("utf-8")
                 if cache_type == 2:  # a soft link: its value in the local heap
                     links[name] = _Link("soft", heap[value_off:heap.index(b"\0", value_off)].decode("utf-8"))
                 else:
                     links[name] = header
-                    self._cache[name] = entries[40 * j + 16:40 * j + 40]
+                    self._cache[name] = entries[e + sl + so:e + esize]
 
     # --- the surface ---
     def keys(self) -> List[str]:
@@ -1217,7 +1383,9 @@ class Group(_Object):
         obj = self[head]
         return isinstance(obj, Group) and rest in obj
 
-    def __getitem__(self, name: str):
+    def __getitem__(self, name: Union[str, RegionReference]):
+        if isinstance(name, RegionReference):  # the object it names, as h5py's group[ref]
+            return self._file.deref(name.addr)
         head, _, rest = name.strip("/").partition("/")
         links = self._read_links()
         if head not in links:
@@ -1428,6 +1596,16 @@ class Group(_Object):
         self._heap = heap_addr
 
 
+def _local_heap(f: File, addr: int) -> bytes:
+    """The data segment of the local heap at ``addr`` (III.D: ``HEAP``, its
+    version, 3 reserved bytes, the segment's size, the free list's offset,
+    the segment's address)."""
+    head = f._read(addr, 8 + 2 * f._sl + f._so)
+    if head[:4] != b"HEAP":
+        raise FormatError(f"{f.path}: no local heap at {addr}")
+    return f._read(f._addr(head, 8 + 2 * f._sl), f._length(head, 8))
+
+
 def _write_btree(f: File, node_type: int, k: int, children: List[int], left, right, encode_key,
                  empty_key: bytes) -> int:
     """A version-1 B-tree over ``children`` (level 0), each between its
@@ -1536,8 +1714,11 @@ REF_LIST_TYPE = compound_type_bytes([("dataset", 0, OBJ_REF_TYPE), ("dimension",
 
 
 class Dataset(_Object):
-    """A dataset, read whole (``read()``, ``ds[()]``); a 1-D chunked one
-    written by this codec is appended to."""
+    """A dataset, read whole (``read()``, ``ds[()]``) or through a region
+    reference (``ds[ref]``); a 1-D chunked one written by this codec is
+    appended to. Its data may lie in the file (compact, contiguous,
+    chunked), in external files (``_read_external``) or in other datasets
+    (virtual, ``_read_virtual``)."""
 
     def __init__(self, file: File, addr: Optional[int], msgs=(), hflags: int = 0):
         super().__init__(file, addr, msgs, hflags)
@@ -1551,6 +1732,8 @@ class Dataset(_Object):
         # a version-4 layout's chunk index: its type (CHUNK_INDEXES), the
         # layout's flags and, for a single chunk, its filtered size and mask
         self._index_type, self._layout_flags, self._single = None, 0, None
+        self._external: Optional[bytes] = None  # the external data files message, where the data lie in files of their own
+        self._vds: Optional[Tuple[int, int]] = None  # a virtual dataset's mappings: (collection, index) in the global heap
         self._shape = self._maxshape = None
         self._type: Optional[Type] = None
         self._dim_scales = self._ref_list = None  # what this codec attaches, when writing
@@ -1558,20 +1741,19 @@ class Dataset(_Object):
         if addr is None:
             return
         fill_new = fill_old = None
+        what = f"{file.path}: the dataset at {addr}"
         for mtype, flags, body in self._msgs:
-            if mtype == DATATYPE and flags & 2:  # a committed datatype
+            if flags & 2:  # shared: a committed datatype, or a message in the shared-message table
                 try:
-                    self._type = file._shared_type(body, f"{file.path}: the dataset at {addr}")
+                    if mtype == DATATYPE:
+                        self._type = file._shared_type(body, what)
+                        continue
+                    body = file._shared_message(mtype, body, what)
                 except FormatError as e:
                     self._unreadable = str(e)
-                continue
-            if flags & 2 and mtype in (DATASPACE, FILL_OLD, FILL, FILTERS):
-                self._unreadable = f"{file.path}: the dataset at {addr} has a shared message of type {mtype} " \
-                                   "(a shared dataspace, fill value or filter pipeline); this codec reads it " \
-                                   "stored in the dataset's header"
-                continue
+                    continue
             if mtype == DATASPACE:
-                self._shape, self._maxshape = parse_space(body)
+                self._shape, self._maxshape = parse_space(body, file._sl)
             elif mtype == DATATYPE:
                 self._type, _ = parse_type(body)
             elif mtype == FILL:
@@ -1581,7 +1763,7 @@ class Dataset(_Object):
             elif mtype == FILTERS:
                 self._filters = parse_filters(body)
             elif mtype == EXTERNAL:
-                self._unreadable = f"{file.path}: the dataset at {addr} is stored in external files"
+                self._external = body
             elif mtype == LAYOUT:
                 self._parse_layout(body)
         self._fill = fill_new if fill_new is not None else fill_old
@@ -1593,16 +1775,17 @@ class Dataset(_Object):
     def _parse_layout(self, body: bytes) -> None:
         """The data layout message (IV.A.2.i), versions 1 to 4: compact,
         contiguous and chunked data, chunks under a version-1 B-tree
-        (versions 1 to 3) or any version-4 chunk index; virtual data is
-        noted and refused when the data is read."""
+        (versions 1 to 3) or any version-4 chunk index, and virtual data
+        (version 4: its mappings' global heap object)."""
         version = body[0]
-        where = f"{self._file.path}: the dataset at {self._addr}"
+        f = self._file
+        where = f"{f.path}: the dataset at {self._addr}"
         if version in (1, 2):
             ndims, cls = body[1], body[2]
             pos = 8
             if cls in (1, 2):
-                addr = struct.unpack_from("<Q", body, pos)[0]
-                pos += 8
+                addr = f._addr(body, pos)
+                pos += f._so
             dims = struct.unpack_from(f"<{ndims}I", body, pos)
             pos += 4 * ndims
             if cls == 0:
@@ -1621,11 +1804,11 @@ class Dataset(_Object):
             n = struct.unpack_from("<H", body, 2)[0]
             self._kind, self._compact = "compact", body[4:4 + n]
         elif cls == 1:
-            self._kind, self._data_addr = "contiguous", struct.unpack_from("<Q", body, 2)[0]
+            self._kind, self._data_addr = "contiguous", f._addr(body, 2)
         elif cls == 2 and version == 3:
             ndims = body[2]
-            self._kind, self._index = "chunked", struct.unpack_from("<Q", body, 3)[0]
-            self._chunk = tuple(struct.unpack_from(f"<{ndims}I", body, 11)[:-1])
+            self._kind, self._index = "chunked", f._addr(body, 3)
+            self._chunk = tuple(struct.unpack_from(f"<{ndims}I", body, 3 + f._so)[:-1])
         elif cls == 2:
             # flags (bit 0: partial edge chunks not filtered; bit 1: a single
             # chunk's filtered size and mask follow), the chunk's dims (the
@@ -1638,17 +1821,19 @@ class Dataset(_Object):
             pos += 1
             if index == 1:
                 if flags & 2:
-                    self._single = struct.unpack_from("<QI", body, pos)
-                    pos += 12
+                    self._single = (f._length(body, pos), struct.unpack_from("<I", body, pos + f._sl)[0])
+                    pos += f._sl + 4
             elif index in (3, 4, 5):
                 pos += {3: 1, 4: 5, 5: 6}[index]  # the index's parameters: its own header holds them too
             elif index != 2:
                 self._unreadable = f"{where} has a version-4 layout with a chunk index of type {index}"
                 return
             self._kind, self._chunk, self._index_type, self._layout_flags = "chunked", tuple(dims[:-1]), index, flags
-            self._index = struct.unpack_from("<Q", body, pos)[0]
+            self._index = f._addr(body, pos)
+        elif cls == 3 and version == 4:
+            self._kind, self._vds = "virtual", (f._addr(body, 2), struct.unpack_from("<I", body, 2 + f._so)[0])
         else:
-            self._unreadable = f"{where} has a layout of class {cls} (virtual); this codec does not read it"
+            self._unreadable = f"{where} has a layout of class {cls}, version {version}"
 
     # --- the surface ---
     @property
@@ -1732,10 +1917,23 @@ class Dataset(_Object):
         self._type.check(f"{self._file.path}: dataset {self.name or self._addr}")
 
     def __getitem__(self, key):
+        if isinstance(key, RegionReference):
+            return self._region(key)
         data = self.read()
         if key is Ellipsis:
             return data
         return data[key]  # ds[()] of a scalar is its value, as h5py gives it
+
+    def _region(self, ref: RegionReference):
+        """The elements a region reference selects in this dataset, in
+        HDF5's order and h5py's shape (``Selection.shape``)."""
+        if ref.addr != self._addr:
+            raise ValueError(f"{self._file.path}: the region reference names the object at {ref.addr}, not "
+                             f"dataset {self.name or self._addr}")
+        data = self.read()
+        if self._shape is None or not self._shape:
+            return data
+        return ref.selection.take(data).reshape(ref.selection.shape(self._shape))
 
     def read(self):
         """The whole dataset (``Empty`` for a null dataspace)."""
@@ -1743,9 +1941,14 @@ class Dataset(_Object):
         t, f = self._type, self._file
         if self._shape is None:
             return Empty(t.dtype)
+        if self._kind == "virtual":
+            return self._read_virtual()
         shape, n = self._shape, int(np.prod(self._shape))
         full = shape + t.storage.shape  # an array datatype's dims after the dataset's, as numpy lays them out
-        if self._kind == "compact":
+        if self._external is not None:
+            raw = np.frombuffer(self._read_external(n * t.storage.itemsize), dtype=t.storage,
+                                count=n).reshape(full).copy()
+        elif self._kind == "compact":
             raw = np.frombuffer(self._compact, dtype=t.storage, count=n).reshape(full).copy()
         elif self._kind == "contiguous":
             if self._data_addr == UNDEF or n == 0:
@@ -1755,6 +1958,98 @@ class Dataset(_Object):
         else:
             raw = self._read_chunked()
         return f._decode(raw, t)
+
+    def _read_external(self, nbytes: int) -> bytes:
+        """The data in external files (the external data files message,
+        IV.A.2.h: version, the slots allocated and used, the local heap of
+        their names; per slot the name's offset in it, an offset in that
+        file and a size): laid end to end across the slots, bytes past a
+        file's end zeros and past the slots the fill value. A relative name
+        is relative to the working directory, where HDF5 looks by default
+        (no efile prefix set or in the environment)."""
+        f, body = self._file, self._external
+        where = f"{f.path}: dataset {self.name or self._addr}"
+        if body[0] != 1:
+            raise FormatError(f"{where}: an external data files message of version {body[0]}")
+        used = struct.unpack_from("<H", body, 6)[0]
+        names = _local_heap(f, f._addr(body, 8))
+        parts, got, pos = [], 0, 8 + f._so
+        for i in range(used):
+            name_off, offset, size = (f._length(body, pos + f._sl * k) for k in range(3))
+            pos += 3 * f._sl
+            want = min(size, nbytes - got)  # an unlimited slot's size is UNDEF
+            if want <= 0:
+                break
+            name = names[name_off:names.index(b"\0", name_off)].decode("utf-8")
+            try:
+                with open(name, "rb") as fh:
+                    fh.seek(offset)
+                    data = fh.read(want)
+            except FileNotFoundError:
+                raise FormatError(f"{where}: its external file {name!r} (slot {i}) is not found from the working "
+                                  f"directory {os.getcwd()}") from None
+            parts.append(data + b"\0" * (want - len(data)))
+            got += want
+        data = b"".join(parts)
+        if got < nbytes:
+            data += self._filled(self._shape).tobytes()[got:]
+        return data
+
+    def _virtual_mappings(self) -> List[Tuple[str, str, Selection, Selection]]:
+        """A virtual dataset's mappings (its global heap object, version 0:
+        the count of mappings in the file's size of lengths, then each one's
+        source file and dataset names, null-terminated, and its source and
+        virtual selections; a checksum last). "%%" in a name is "%"; a
+        printf-style name ("%b") or an unlimited selection is refused."""
+        f = self._file
+        where = f"{f.path}: virtual dataset {self.name or self._addr}"
+        blob = f._gheap_object(*self._vds)
+        check_sum(blob, f.path, f"the mappings of {where}")
+        if blob[0] != 0:
+            raise FormatError(f"{where}: mappings of encoding version {blob[0]}; this codec reads version 0")
+        count, pos, out = f._length(blob, 1), 1 + f._sl, []
+        for _ in range(count):
+            names = []
+            for _ in range(2):
+                end = blob.index(b"\0", pos)
+                names.append(blob[pos:end].decode("utf-8"))
+                pos = end + 1
+            src_sel, pos = parse_selection(blob, pos)
+            vsel, pos = parse_selection(blob, pos)
+            for label, name in zip(("source file", "source dataset"), names):
+                if "%b" in name:
+                    raise FormatError(f"{where}: a printf-style {label} name {name!r} (%b, the block of an "
+                                      "unlimited mapping); this codec reads fixed mappings")
+            if src_sel.unlimited or vsel.unlimited:
+                raise FormatError(f"{where}: an unlimited mapping of {names[0]}:{names[1]}; this codec reads fixed "
+                                  "mappings")
+            out.append((names[0].replace("%%", "%"), names[1].replace("%%", "%"), src_sel, vsel))
+        return out
+
+    def _read_virtual(self) -> np.ndarray:
+        """A virtual dataset (IV.A.2.i, class 3): the fill value, then each
+        mapping's source selection copied, element by element in order, into
+        its virtual selection. The source file "." is this file; another is
+        looked for as HDF5 looks by default: where given if absolute (then
+        by its last component), in this file's directory, then as given
+        from the working directory. A missing source file or dataset leaves
+        its elements the fill value, as h5py reads it."""
+        f = self._file
+        out = f._decode(self._filled(self._shape), self._type)
+        for file_name, ds_name, src_sel, vsel in self._virtual_mappings():
+            src = f._source(file_name)
+            if src is None or ds_name not in src:
+                continue
+            ds = src[ds_name]
+            if not isinstance(ds, Dataset) or ds.shape is None:
+                raise FormatError(f"{f.path}: the source {file_name}:{ds_name} of virtual dataset "
+                                  f"{self.name or self._addr} is not a dataset with data")
+            try:
+                vsel.put(out, src_sel.take(np.asarray(ds.read())))
+            except (IndexError, ValueError) as e:
+                raise FormatError(f"{f.path}: virtual dataset {self.name or self._addr}: the mapping of "
+                                  f"{file_name}:{ds_name} does not fit: {e}") from None
+        return out
 
     def _filled(self, shape) -> np.ndarray:
         """An array of ``shape`` holding the fill value (zeros if none)."""
@@ -1810,6 +2105,10 @@ class Dataset(_Object):
         self._check_writable()
         if self._unreadable:
             raise f._refuse(self._unreadable)
+        if self._kind == "virtual" or self._external is not None:
+            what = "a virtual dataset" if self._vds else "stored in external files"
+            raise f._refuse(f"{f.path}: the dataset at {self._addr} is {what}; this codec reads it and does not "
+                            "append to it")
         if self._kind != "chunked" or self._maxshape is None or len(self._shape) != 1 or self._maxshape[0] != UNDEF:
             raise f._refuse(f"{f.path}: the dataset at {self._addr} is not resizable", OSError)
         bad = unencodable(self._filters)
@@ -1899,13 +2198,16 @@ class Dataset(_Object):
             self._chunks = self._v4_chunks()
         if self._chunks is None:
             rank = len(self._chunk)
-            entry = np.dtype([("size", "<u4"), ("mask", "<u4"), ("offs", "<u8", (rank + 1,)), ("child", "<u8")])
+            # a key (the chunk's size, its filter mask, its offsets at 8 bytes each) and a child's address
+            entry = np.dtype([("size", "<u4"), ("mask", "<u4"), ("offs", "<u8", (rank + 1,)),
+                              ("child", f"<u{self._file._so}")])
             rows = [np.zeros(0, entry)]
             if self._index != UNDEF:
                 self._walk_chunks(self._index, entry, rows)
             arr = np.concatenate(rows)
             arr = arr[np.lexsort(arr["offs"][:, :rank].T[::-1])] if len(arr) else arr
-            self._chunks = (arr["offs"][:, :rank].copy(), arr["child"].copy(), arr["size"].copy(), arr["mask"].copy())
+            self._chunks = (arr["offs"][:, :rank].copy(), arr["child"].astype(np.uint64), arr["size"].copy(),
+                            arr["mask"].copy())
         return self._chunks
 
     def _v4_chunks(self):
@@ -1933,15 +2235,15 @@ class Dataset(_Object):
             keys = np.arange(int(np.prod(grid)), dtype=np.int64)
             addrs = (addr + keys * nbytes).astype(np.uint64)
         elif self._index_type == 3:
-            keys, addrs, sizes, masks = fixed_array_chunks(f._read, addr, f.path)
+            keys, addrs, sizes, masks = fixed_array_chunks(f._read, addr, f.path, f._so, f._sl)
         elif self._index_type == 4:
             unlim = [i for i, m in enumerate(maxshape) if m == UNDEF]
             if len(unlim) != 1:
                 raise FormatError(f"{f.path}: an extensible array chunk index over {len(unlim)} unlimited dims")
             order = unlim + [i for i in range(rank) if i != unlim[0]]
-            keys, addrs, sizes, masks = extensible_array_chunks(f._read, addr, f.path)
+            keys, addrs, sizes, masks = extensible_array_chunks(f._read, addr, f.path, f._so, f._sl)
         else:
-            keys, addrs, sizes, masks = btree2_chunks(f._read, addr, f.path, rank)
+            keys, addrs, sizes, masks = btree2_chunks(f._read, addr, f.path, rank, f._so, f._sl)
         if keys.ndim == 1:  # element indices -> scaled offsets, the first of ``order`` varying slowest
             inner = [grid[i] for i in order[1:]]
             slow, rest = np.divmod(keys, int(np.prod(inner)))
@@ -1960,11 +2262,11 @@ class Dataset(_Object):
 
     def _walk_chunks(self, addr: int, entry: np.dtype, rows: list) -> None:
         f = self._file
-        head = f._read(addr, 24)
+        head = f._read(addr, 8 + 2 * f._so)  # signature, type, level, entries, the siblings' addresses
         if head[:4] != b"TREE" or head[4] != 1:
             raise FormatError(f"{f.path}: no chunk B-tree node at {addr}")
         level, n = head[5], struct.unpack_from("<H", head, 6)[0]
-        found = np.frombuffer(f._read(addr + 24, entry.itemsize * n), dtype=entry, count=n)
+        found = np.frombuffer(f._read(addr + 8 + 2 * f._so, entry.itemsize * n), dtype=entry, count=n)
         if level:
             for child in found["child"].tolist():
                 self._walk_chunks(child, entry, rows)

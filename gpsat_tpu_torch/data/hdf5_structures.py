@@ -3,8 +3,9 @@ the metadata checksum, the filter pipeline (both ways), fractal heaps, version-2
 B-trees and the chunk indexes of version-4 layouts (fixed and extensible
 arrays, B-trees of chunk records). Section numbers are those of the HDF5
 File Format Specification version 3.0. Each reader takes ``read(addr, n)
--> bytes`` and the file's path (for messages); every signature and
-checksum is checked.
+-> bytes``, the file's path (for messages) and the file's sizes of offsets
+and lengths (``so``, ``sl``: 8 or 4 bytes, as the superblock gives
+them); every signature and checksum is checked.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from gpsat_tpu_torch.data.hdf5_types import UNDEF, FormatError, limit_enc_size
+from gpsat_tpu_torch.data.hdf5_types import UNDEF, FormatError, limit_enc_size, uint
 
 _M = 0xFFFF_FFFF
 Reader = Callable[[int, int], bytes]
@@ -303,15 +304,15 @@ def filter_chunk(data: bytes, filters: List[Filter], itemsize: int) -> Tuple[byt
 # --------------------------------------------------------------------------
 
 
-def btree2_records(read: Reader, addr: int, path: str) -> Tuple[int, List[bytes]]:
+def btree2_records(read: Reader, addr: int, path: str, so: int = 8, sl: int = 8) -> Tuple[int, List[bytes]]:
     """The type and the records of the version-2 B-tree at ``addr``, in key
     order."""
-    head = read(addr, 38)
+    head = read(addr, 16 + so + 2 + sl + 4)
     if head[:4] != b"BTHD":
         raise FormatError(f"{path}: no version-2 B-tree header at {addr}")
     check_sum(head, path, f"the version-2 B-tree header at {addr}")
     btype, node_size, rec_size, depth = struct.unpack_from("<BIHH", head, 5)
-    root, root_n = struct.unpack_from("<QH", head, 16)
+    root, root_n = uint(head, 16, so), struct.unpack_from("<H", head, 16 + so)[0]
     if root == UNDEF:
         return btype, []
     # H5B2__hdr_init: the most records a node at each depth holds, and the
@@ -320,7 +321,7 @@ def btree2_records(read: Reader, addr: int, path: str) -> Tuple[int, List[bytes]
     count_size = limit_enc_size(leaf_max)
     cum_max, cum_size = [leaf_max], [0]
     for d in range(1, depth + 1):
-        ptr = 8 + count_size + cum_size[d - 1]
+        ptr = so + count_size + cum_size[d - 1]
         m = (node_size - (10 + ptr)) // (rec_size + ptr)
         cum_max.append((m + 1) * cum_max[d - 1] + m)
         cum_size.append(limit_enc_size(cum_max[d]))
@@ -339,9 +340,9 @@ def btree2_records(read: Reader, addr: int, path: str) -> Tuple[int, List[bytes]
             return
         children = []
         for _ in range(n + 1):
-            child = struct.unpack_from("<Q", buf, pos)[0]
-            cn = int.from_bytes(buf[pos + 8:pos + 8 + count_size], "little")
-            pos += 8 + count_size + cum_size[d - 1]
+            child = uint(buf, pos, so)
+            cn = int.from_bytes(buf[pos + so:pos + so + count_size], "little")
+            pos += so + count_size + cum_size[d - 1]
             children.append((child, cn))
         check_sum(buf[:pos + 4], path, f"the version-2 B-tree node at {node}")
         for i, (child, cn) in enumerate(children):
@@ -371,21 +372,29 @@ def _bit(bitmap: bytes, i: int) -> bool:
     return bool(bitmap[i // 8] & (0x80 >> (i % 8)))
 
 
-def _entries(raw: bytes, n: int, esize: int, filtered: bool, first: int) -> Chunks:
+def _le(a: np.ndarray) -> np.ndarray:
+    """Rows of little-endian bytes [n, width] as unsigned integers; all ones
+    read as UNDEF."""
+    out = np.zeros(len(a), np.uint64)
+    for k in range(a.shape[1]):
+        out |= a[:, k].astype(np.uint64) << np.uint64(8 * k)
+    out[out == np.uint64((1 << 8 * a.shape[1]) - 1)] = np.uint64(UNDEF)
+    return out
+
+
+def _entries(raw: bytes, n: int, esize: int, filtered: bool, first: int, so: int = 8) -> Chunks:
     """``n`` elements of ``esize`` bytes, the first of index ``first``: a
-    chunk's address, and for filtered chunks its size (in the element's
-    bytes after the address but the last four) and its filter mask."""
+    chunk's address (``so`` bytes), and for filtered chunks its size (in the
+    element's bytes after the address but the last four) and its filter
+    mask."""
     a = np.frombuffer(raw, np.uint8, n * esize).reshape(n, esize)
-    addr = a[:, :8].copy().view("<u8").reshape(-1)
+    addr = _le(a[:, :so])
     keep = addr != UNDEF
     idx = np.arange(first, first + n, dtype=np.int64)[keep]
     if not filtered:
         return idx, addr[keep], None, None
-    width = esize - 12
-    size = np.zeros(n, np.uint64)
-    for k in range(width):
-        size |= a[:, 8 + k].astype(np.uint64) << np.uint64(8 * k)
-    mask = a[:, 8 + width:esize].copy().view("<u4").reshape(-1)
+    size = _le(a[:, so:esize - 4])
+    mask = a[:, esize - 4:esize].copy().view("<u4").reshape(-1)
     return idx, addr[keep], size[keep], mask[keep]
 
 
@@ -397,36 +406,37 @@ def _concat(parts: List[Chunks], filtered: bool) -> Chunks:
     return tuple(np.concatenate(c) if c[0] is not None else None for c in cols)
 
 
-def fixed_array_chunks(read: Reader, addr: int, path: str) -> Chunks:
+def fixed_array_chunks(read: Reader, addr: int, path: str, so: int = 8, sl: int = 8) -> Chunks:
     """The chunks of a fixed array (``FAHD``, then ``FADB``): one element
     per chunk of the chunk grid, in pages of 2^page_bits elements past that
     many, each page with its checksum and a bit in the data block's
     page-init bitmap."""
-    head = _checked(read, addr, 28, b"FAHD", path, "fixed array header")
+    head = _checked(read, addr, 8 + sl + so + 4, b"FAHD", path, "fixed array header")
     client, esize, page_bits = head[5], head[6], head[7]
-    nelmts, dblk = struct.unpack_from("<QQ", head, 8)
+    nelmts, dblk = uint(head, 8, sl), uint(head, 8 + sl, so)
     filtered = client == 1
     if dblk == UNDEF or nelmts == 0:
         return _concat([], filtered)
     page = 1 << page_bits
     npages = -(-nelmts // page) if nelmts > page else 0
-    prefix = 14 + (npages + 7) // 8
+    start = 6 + so  # signature, version, client, the header's address
+    prefix = start + (npages + 7) // 8
     what = "fixed array data block"
     if not npages:
         buf = _checked(read, dblk, prefix + nelmts * esize + 4, b"FADB", path, what)
-        return _entries(buf[prefix:], nelmts, esize, filtered, 0)
-    bitmap = _checked(read, dblk, prefix + 4, b"FADB", path, what)[14:prefix]
+        return _entries(buf[prefix:], nelmts, esize, filtered, 0, so)
+    bitmap = _checked(read, dblk, prefix + 4, b"FADB", path, what)[start:prefix]
     parts = []
     for p in range(npages):
         if _bit(bitmap, p):
             n = min(page, nelmts - p * page)
             at = dblk + prefix + 4 + p * (page * esize + 4)
             pbuf = _checked(read, at, n * esize + 4, b"", path, "fixed array data block page")
-            parts.append(_entries(pbuf, n, esize, filtered, p * page))
+            parts.append(_entries(pbuf, n, esize, filtered, p * page, so))
     return _concat(parts, filtered)
 
 
-def extensible_array_chunks(read: Reader, addr: int, path: str) -> Chunks:
+def extensible_array_chunks(read: Reader, addr: int, path: str, so: int = 8, sl: int = 8) -> Chunks:
     """The chunks of an extensible array (``EAHD``): elements first in the
     index block (``EAIB``), then in data blocks (``EADB``) whose addresses
     the index block holds for the first super blocks and secondary blocks
@@ -434,9 +444,11 @@ def extensible_array_chunks(read: Reader, addr: int, path: str) -> Chunks:
     2^((u + 1) // 2) times the least data block's elements
     (``H5EA__hdr_init``). A data block of more than 2^page_bits elements is
     paged, its pages marked in its secondary block's page-init bitmap."""
-    head = _checked(read, addr, 72, b"EAHD", path, "extensible array header")
+    # twelve bytes, six lengths (the counts and sizes of blocks, the most
+    # elements set, the elements), the index block's address, the checksum
+    head = _checked(read, addr, 12 + 6 * sl + so + 4, b"EAHD", path, "extensible array header")
     client, esize, max_bits, iblk_elmts, dblk_min, sblk_min_ptrs, page_bits = head[5:12]
-    iblock = struct.unpack_from("<Q", head, 60)[0]
+    iblock = uint(head, 12 + 6 * sl, so)
     filtered = client == 1
     if iblock == UNDEF:
         return _concat([], filtered)
@@ -449,20 +461,21 @@ def extensible_array_chunks(read: Reader, addr: int, path: str) -> Chunks:
     page = 1 << page_bits
     in_iblock = 2 * (sblk_min_ptrs.bit_length() - 1)  # super blocks whose data blocks the index block holds
     n_dblk_addrs, n_sblk_addrs = 2 * (sblk_min_ptrs - 1), nsblks - in_iblock
-    size = 14 + iblk_elmts * esize + 8 * (n_dblk_addrs + n_sblk_addrs) + 4
+    start = 6 + so  # a block's signature, version, class and header address
+    size = start + iblk_elmts * esize + so * (n_dblk_addrs + n_sblk_addrs) + 4
     buf = _checked(read, iblock, size, b"EAIB", path, "extensible array index block")
-    parts = [_entries(buf[14:], iblk_elmts, esize, filtered, 0)]
-    pos = 14 + iblk_elmts * esize
-    dblk_addrs = struct.unpack_from(f"<{n_dblk_addrs}Q", buf, pos)
-    sblk_addrs = struct.unpack_from(f"<{n_sblk_addrs}Q", buf, pos + 8 * n_dblk_addrs)
-    dprefix = 14 + off_size  # a data block's signature, version, class, header address and offset
+    parts = [_entries(buf[start:], iblk_elmts, esize, filtered, 0, so)]
+    pos = start + iblk_elmts * esize
+    dblk_addrs = [uint(buf, pos + so * i, so) for i in range(n_dblk_addrs)]
+    sblk_addrs = [uint(buf, pos + so * (n_dblk_addrs + i), so) for i in range(n_sblk_addrs)]
+    dprefix = start + off_size  # and a data block's offset
 
     def data_block(a: int, u: int, j: int, pages: Optional[bytes]) -> None:
         """The j-th data block of super block u, at ``a``."""
         n, first = dblk_n[u], iblk_elmts + start_idx[u] + j * dblk_n[u]
         if pages is None:
             b = _checked(read, a, dprefix + n * esize + 4, b"EADB", path, "extensible array data block")
-            parts.append(_entries(b[dprefix:], n, esize, filtered, first))
+            parts.append(_entries(b[dprefix:], n, esize, filtered, first, so))
             return
         _checked(read, a, dprefix + 4, b"EADB", path, "extensible array data block")
         npages = n // page
@@ -470,7 +483,7 @@ def extensible_array_chunks(read: Reader, addr: int, path: str) -> Chunks:
             if _bit(pages, j * npages + p):
                 b = _checked(read, a + dprefix + 4 + p * (page * esize + 4), page * esize + 4, b"", path,
                              "extensible array data block page")
-                parts.append(_entries(b, page, esize, filtered, first + p * page))
+                parts.append(_entries(b, page, esize, filtered, first + p * page, so))
 
     for u in range(in_iblock):
         if dblk_n[u] > page:
@@ -484,28 +497,29 @@ def extensible_array_chunks(read: Reader, addr: int, path: str) -> Chunks:
         u = in_iblock + s
         paged = dblk_n[u] > page
         init = ndblks[u] * ((dblk_n[u] // page + 7) // 8) if paged else 0
-        b = _checked(read, sblk, 14 + off_size + init + 8 * ndblks[u] + 4, b"EASB", path,
+        b = _checked(read, sblk, dprefix + init + so * ndblks[u] + 4, b"EASB", path,
                      "extensible array secondary block")
-        pages = b[14 + off_size:14 + off_size + init] if paged else None
-        for j, a in enumerate(struct.unpack_from(f"<{ndblks[u]}Q", b, 14 + off_size + init)):
+        pages = b[dprefix:dprefix + init] if paged else None
+        for j in range(ndblks[u]):
+            a = uint(b, dprefix + init + so * j, so)
             if a != UNDEF:
                 data_block(a, u, j, pages)
     return _concat(parts, filtered)
 
 
-def btree2_chunks(read: Reader, addr: int, path: str, rank: int) -> Chunks:
+def btree2_chunks(read: Reader, addr: int, path: str, rank: int, so: int = 8, sl: int = 8) -> Chunks:
     """The chunks of a version-2 B-tree of type 10 (unfiltered: an address
     and the scaled offsets) or 11 (filtered: an address, the chunk's size,
     its filter mask and the scaled offsets); keys are the scaled offsets,
     [n, rank]."""
-    btype, recs = btree2_records(read, addr, path)
+    btype, recs = btree2_records(read, addr, path, so, sl)
     if btype not in (10, 11):
         raise FormatError(f"{path}: a chunk index of version-2 B-tree type {btype} at {addr}")
     n = len(recs)
-    esize = (len(recs[0]) if n else 8 + 8 * rank + (12 if btype == 11 else 0)) - 8 * rank
+    esize = (len(recs[0]) if n else so + 8 * rank + (so + 4 if btype == 11 else 0)) - 8 * rank
     a = np.frombuffer(b"".join(recs), np.uint8).reshape(n, esize + 8 * rank)
     scaled = a[:, esize:].copy().view("<u8").reshape(n, rank).astype(np.int64)
-    idx, addrs, sizes, masks = _entries(a[:, :esize].tobytes(), n, esize, btype == 11, 0)
+    idx, addrs, sizes, masks = _entries(a[:, :esize].tobytes(), n, esize, btype == 11, 0, so)
     return scaled[idx], addrs, sizes, masks
 
 
@@ -519,29 +533,58 @@ class FractalHeap:
     Managed objects come from direct blocks found by walking the doubling
     table of indirect blocks once; tiny objects from the ID itself; huge
     objects from their own blocks, through the heap's version-2 B-tree when
-    the ID does not hold their address."""
+    the ID does not hold their address.
 
-    def __init__(self, read: Reader, addr: int, path: str):
-        self._read, self.path = read, path
-        head = read(addr, 142)
+    A heap with I/O filters (a group created with a filter keeps its dense
+    links in one) holds its pipeline in the header, after the root direct
+    block's filtered size and filter mask; an indirect block then gives each
+    direct child's filtered size and mask beside its address, and a huge
+    object's mask and size before filtering sit beside its address in the ID
+    or in the B-tree's records (type 2, else 1). Each block and huge object
+    goes through ``unfilter`` before it is read; a direct block's checksum is
+    over its bytes after."""
+
+    def __init__(self, read: Reader, addr: int, path: str, so: int = 8, sl: int = 8):
+        self._read, self.path, self.so, self.sl = read, path, so, sl
+        # signature, version, ID length, filters' size, flags, the largest
+        # managed object (14 bytes); the next huge ID, the huge objects'
+        # B-tree, then the free space, its manager and counts of space and
+        # objects (L O L O L L L L L L L L); the doubling table: width,
+        # starting and largest direct block sizes, the heap's size in bits,
+        # the root's starting rows, the root's address and its rows
+        fixed = 22 + 12 * sl + 3 * so
+        head = read(addr, fixed)
         if head[:4] != b"FRHP":
             raise FormatError(f"{path}: no fractal heap header at {addr}")
         self.id_len, filter_len, self.flags, self.max_man = struct.unpack_from("<HHBI", head, 5)
-        self.huge_btree = struct.unpack_from("<Q", head, 22)[0]
-        self.width, self.start, self.max_direct, max_bits, _, root, rows = struct.unpack_from("<HQQHHQH", head, 110)
-        size = 142 + (12 + filter_len if filter_len else 0) + 4
-        check_sum(read(addr, size), path, f"the fractal heap header at {addr}")
+        self.huge_btree = uint(head, 14 + sl, so)
+        pos = 14 + 10 * sl + 2 * so  # the doubling table
+        self.width = struct.unpack_from("<H", head, pos)[0]
+        self.start, self.max_direct = uint(head, pos + 2, sl), uint(head, pos + 2 + sl, sl)
+        max_bits = struct.unpack_from("<H", head, pos + 2 + 2 * sl)[0]
+        root = uint(head, pos + 6 + 2 * sl, so)
+        rows = struct.unpack_from("<H", head, pos + 6 + 2 * sl + so)[0]
+        size = fixed + (sl + 4 + filter_len if filter_len else 0) + 4
+        full = read(addr, size)
+        check_sum(full, path, f"the fractal heap header at {addr}")
+        self.filters: List[Filter] = []
+        root_size, root_mask = self.start, 0
         if filter_len:
-            raise FormatError(f"{path}: the fractal heap at {addr} is filtered; this codec reads unfiltered heaps")
+            root_size, root_mask = uint(full, fixed, sl), struct.unpack_from("<I", full, fixed + sl)[0]
+            self.filters = parse_filters(full[fixed + sl + 4:fixed + sl + 4 + filter_len])
+            bad = check_filters(self.filters)
+            if bad:
+                raise FormatError(f"{path}: the fractal heap at {addr}: {bad}")
         self.off_size = (max_bits + 7) // 8
         self.len_size = min((self.max_direct.bit_length() - 1 + 7) // 8, limit_enc_size(self.max_man))
         self.max_dblock_rows = (self.max_direct.bit_length() - 1) - (self.start.bit_length() - 1) + 2
-        self._blocks: List[Tuple[int, int, int]] = []  # (heap offset, address, size) of each direct block
+        # (heap offset, address, size, stored size, filter mask) of each direct block
+        self._blocks: List[Tuple[int, int, int, int, int]] = []
         self._cache: Dict[int, bytes] = {}
-        self._huge: Optional[Dict[int, Tuple[int, int]]] = None
+        self._huge: Optional[Dict[int, Tuple[int, int, int, int]]] = None
         if root != UNDEF:
             if rows == 0:
-                self._blocks.append((0, root, self.start))
+                self._blocks.append((0, root, self.start, root_size, root_mask))
             else:
                 self._walk_indirect(root, rows, 0)
         self._blocks.sort()
@@ -551,41 +594,72 @@ class FractalHeap:
         return self.start << max(row - 1, 0)
 
     def _walk_indirect(self, addr: int, rows: int, block_off: int) -> None:
+        so, sl = self.so, self.sl
         k = min(rows, self.max_dblock_rows) * self.width
         n = max(rows - self.max_dblock_rows, 0) * self.width
-        size = 5 + 8 + self.off_size + 8 * (k + n) + 4
-        buf = self._read(addr, size)
+        direct = so + (sl + 4 if self.filters else 0)  # a direct child: its address, and filtered, size and mask
+        head = 5 + so + self.off_size
+        buf = self._read(addr, head + direct * k + so * n + 4)
         if buf[:4] != b"FHIB":
             raise FormatError(f"{self.path}: no fractal heap indirect block at {addr}")
         check_sum(buf, self.path, f"the fractal heap indirect block at {addr}")
-        children = struct.unpack_from(f"<{k + n}Q", buf, 5 + 8 + self.off_size)
         off = block_off
-        for i, child in enumerate(children):
+        for i in range(k + n):
             row = i // self.width
             bsize = self._row_size(row)
+            pos = head + direct * i if i < k else head + direct * k + so * (i - k)
+            child = uint(buf, pos, so)
             if child != UNDEF:
-                if i < k:
-                    self._blocks.append((off, child, bsize))
-                else:  # an indirect child: rows enough to span its size
+                if i >= k:  # an indirect child: rows enough to span its size
                     sub_rows = (bsize.bit_length() - 1) - ((self.start * self.width).bit_length() - 1) + 1
                     self._walk_indirect(child, sub_rows, off)
+                elif self.filters:
+                    self._blocks.append((off, child, bsize, uint(buf, pos + so, sl),
+                                         struct.unpack_from("<I", buf, pos + so + sl)[0]))
+                else:
+                    self._blocks.append((off, child, bsize, bsize, 0))
             off += bsize
 
+    def _unfilter(self, data: bytes, mask: int, size: int, what: str) -> bytes:
+        if not self.filters:
+            return data
+        return unfilter(data, self.filters, mask, 1, f"{self.path}: {what}", size)
+
     def _block(self, j: int) -> bytes:
-        off, addr, size = self._blocks[j]
+        off, addr, size, stored, mask = self._blocks[j]
         buf = self._cache.get(j)
         if buf is None:
-            buf = self._read(addr, size)
+            buf = self._unfilter(self._read(addr, stored), mask, size, f"the fractal heap direct block at {addr}")
             if buf[:4] != b"FHDB":
                 raise FormatError(f"{self.path}: no fractal heap direct block at {addr}")
             if self.flags & 2:  # checksummed direct blocks: the sum of the block with its field zeroed
-                at = 5 + 8 + self.off_size
-                stored = struct.unpack_from("<I", buf, at)[0]
-                if checksum(buf[:at] + b"\0\0\0\0" + buf[at + 4:]) != stored:
+                at = 5 + self.so + self.off_size
+                stored_sum = struct.unpack_from("<I", buf, at)[0]
+                if checksum(buf[:at] + b"\0\0\0\0" + buf[at + 4:]) != stored_sum:
                     raise FormatError(f"{self.path}: the checksum of the fractal heap direct block at {addr} "
                                       "does not match")
             self._cache[j] = buf
         return buf
+
+    def _huge_records(self) -> Dict[int, Tuple[int, int, int, int]]:
+        """The huge objects' B-tree: ID -> (address, stored size, filter
+        mask, size)."""
+        if self._huge is None:
+            so, sl = self.so, self.sl
+            btype, recs = btree2_records(self._read, self.huge_btree, self.path, so, sl)
+            want = 2 if self.filters else 1
+            if btype != want:
+                raise FormatError(f"{self.path}: huge fractal heap objects under a version-2 B-tree of type "
+                                  f"{btype}; this heap's are of type {want}")
+            self._huge = {}
+            for r in recs:
+                a, n = uint(r, 0, so), uint(r, so, sl)
+                if self.filters:  # address, stored size, mask, size, ID
+                    mask, size = struct.unpack_from("<I", r, so + sl)[0], uint(r, so + sl + 4, sl)
+                    self._huge[uint(r, so + 2 * sl + 4, sl)] = (a, n, mask, size)
+                else:  # address, size, ID
+                    self._huge[uint(r, so + sl, sl)] = (a, n, 0, n)
+        return self._huge
 
     def get(self, heap_id: bytes) -> bytes:
         b0 = heap_id[0]
@@ -610,21 +684,18 @@ class FractalHeap:
                 return heap_id[1:1 + n]
             n = (((b0 & 0x0F) << 8) | heap_id[1]) + 1
             return heap_id[2:2 + n]
-        if kind == 1:  # huge: in a block of its own
-            if self.id_len >= 17:
-                addr, n = struct.unpack_from("<QQ", heap_id, 1)
-                return self._read(addr, n)
-            key = int.from_bytes(heap_id[1:self.id_len], "little")
-            if self._huge is None:
-                btype, recs = btree2_records(self._read, self.huge_btree, self.path)
-                if btype != 1:
-                    raise FormatError(f"{self.path}: huge fractal heap objects under a version-2 B-tree of "
-                                      f"type {btype}; this codec reads type 1 (unfiltered)")
-                self._huge = {}
-                for r in recs:
-                    a, n = struct.unpack_from("<QQ", r, 0)
-                    self._huge[int.from_bytes(r[16:], "little")] = (a, n)
-            if key not in self._huge:
-                raise FormatError(f"{self.path}: no huge fractal heap object {key}")
-            return self._read(*self._huge[key])
+        if kind == 1:  # huge: in a block of its own, its address in the ID where the ID has room for it
+            so, sl = self.so, self.sl
+            if self.filters and self.id_len >= 1 + so + 2 * sl + 4:
+                a, n, mask, size = uint(heap_id, 1, so), uint(heap_id, 1 + so, sl), \
+                    struct.unpack_from("<I", heap_id, 1 + so + sl)[0], uint(heap_id, 5 + so + sl, sl)
+            elif not self.filters and self.id_len >= 1 + so + sl:
+                a, n = uint(heap_id, 1, so), uint(heap_id, 1 + so, sl)
+                mask, size = 0, n
+            else:
+                key = int.from_bytes(heap_id[1:self.id_len], "little")
+                if key not in self._huge_records():
+                    raise FormatError(f"{self.path}: no huge fractal heap object {key}")
+                a, n, mask, size = self._huge[key]
+            return self._unfilter(self._read(a, n), mask, size, f"the huge fractal heap object at {a}")
         raise FormatError(f"{self.path}: fractal heap ID of type {kind}")

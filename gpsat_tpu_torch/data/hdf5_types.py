@@ -12,17 +12,22 @@ datatype maps to the numpy dtype h5py gives for it:
 - opaque (5): ``V{n}``;
 - compound (6): a structured dtype with the members' names, offsets and
   the type's size, members nested and with subarray shapes;
-- object references (7): ``<u8``, the object header's address;
+- object references (7, type 0): ``<u8``, the object header's address
+  (stored in the file's size of offsets); region references (7, type 1):
+  ``object``, each a ``RegionReference`` (``data/hdf5_selections.py``) once
+  the codec has read its global heap object;
 - enums (8): the base integer dtype, with h5py's ``enum`` metadata; an
   enum of exactly FALSE = 0 and TRUE = 1 is ``bool`` (h5py's rule);
 - variable-length strings and sequences (9): ``object`` (``str``; an
   array of the base type);
 - arrays (10): a subarray dtype.
 
-A datatype the codec does not read (time, VAX floats, region and version-4
-references, a variable-length member inside a compound or an array) is
-still parsed, so its object is listed; reading its values raises
-``FormatError`` naming it.
+A datatype the codec does not read (time, VAX floats, version-4 references,
+a variable-length member or a region reference inside a compound or an
+array) is still parsed, so its object is listed; reading its values raises
+``FormatError`` naming it. Addresses and lengths are as wide as the file's
+superblock says (``uint``); a type's own size says how wide its references
+are.
 """
 
 from __future__ import annotations
@@ -34,9 +39,15 @@ import numpy as np
 
 UNDEF = 0xFFFF_FFFF_FFFF_FFFF  # the undefined address, and H5S_UNLIMITED
 
-# a variable-length element on disk: its length, the global heap
-# collection's address and the object's index in it (IV.A.2.d, class 9)
-VLEN_REF = np.dtype([("len", "<u4"), ("addr", "<u8"), ("idx", "<u4")])
+
+def vlen_ref(size: int) -> np.dtype:
+    """A variable-length element on disk, ``size`` bytes: its length, the
+    global heap collection's address (the file's size of offsets) and the
+    object's index in it (IV.A.2.d, class 9)."""
+    return np.dtype([("len", "<u4"), ("addr", f"<u{size - 8}"), ("idx", "<u4")])
+
+
+VLEN_REF = vlen_ref(16)  # with 8-byte addresses, the only ones this codec writes
 
 # string padding (class 3 bit field bits 0-3)
 NULLTERM, NULLPAD, SPACEPAD = 0, 1, 2
@@ -48,6 +59,14 @@ class FormatError(OSError):
 
 def _pad8(n: int) -> int:
     return (n + 7) & ~7
+
+
+def uint(buf: bytes, pos: int, width: int) -> int:
+    """The little-endian unsigned integer of ``width`` bytes at ``pos``: an
+    address or a length in the file's sizes. All ones, HDF5's undefined
+    address and H5S_UNLIMITED at any width, reads as UNDEF."""
+    v = int.from_bytes(buf[pos:pos + width], "little")
+    return UNDEF if v == (1 << 8 * width) - 1 else v
 
 
 def limit_enc_size(n: int) -> int:
@@ -69,14 +88,16 @@ class Type:
     values read as (``dtype``) and the dtype of its bytes on disk
     (``storage``). ``vlen`` is "str", "seq" or None; ``base`` the element
     type of a sequence; ``strpad`` the padding of a fixed-length string;
-    ``unreadable`` why its values cannot be read, or None."""
+    ``region`` whether it is a region reference; ``unreadable`` why its
+    values cannot be read, or None."""
 
-    __slots__ = ("raw", "cls", "dtype", "storage", "vlen", "base", "strpad", "unreadable", "members")
+    __slots__ = ("raw", "cls", "dtype", "storage", "vlen", "base", "strpad", "unreadable", "members", "region")
 
     def __init__(self, raw: bytes, cls: int):
         self.raw, self.cls = raw, cls
         self.dtype = self.storage = None
         self.vlen = self.base = self.strpad = self.unreadable = None
+        self.region = False
         self.members = None  # a compound's [(name, offset, Type)], or an array's base as [(None, 0, Type)]
 
     @property
@@ -126,22 +147,25 @@ def parse_type(raw: bytes, pos: int = 0) -> Tuple[Type, int]:
         t.dtype = np.dtype(f"V{size}")
     elif cls == 6:
         pos = _parse_compound(t, raw, pos, version, b0 | (b1 << 8), size)
-    elif cls == 7:
-        if version >= 4 or (b0 & 0x0F) != 0:
-            t.unreadable = ("a region reference" if (b0 & 0x0F) == 1 else
-                            f"a reference of type {b0 & 0x0F}, datatype version {version}")
+    elif cls == 7:  # an address of the file's size of offsets; a region's, a global heap ID
+        if version >= 4 or (b0 & 0x0F) > 1:
+            t.unreadable = f"a reference of type {b0 & 0x0F}, datatype version {version}" + (
+                " (HDF5 1.12's H5R_REF)" if version >= 4 else "")
+        elif b0 & 0x0F:
+            t.region, t.dtype = True, np.dtype(object)
+            t.storage = np.dtype([("addr", f"<u{size - 4}"), ("idx", "<u4")])
         else:
-            t.dtype = np.dtype("<u8")
+            t.dtype, t.storage = np.dtype("<u8"), np.dtype(f"<u{size}")
     elif cls == 8:
         pos = _parse_enum(t, raw, pos, version, b0 | (b1 << 8))
     elif cls == 9:
         base, pos = parse_type(raw, pos)
-        t.base, t.storage, t.dtype = base, VLEN_REF, np.dtype(object)
+        t.base, t.storage, t.dtype = base, vlen_ref(size), np.dtype(object)
         t.vlen = "str" if (b0 & 0x0F) == 1 else "seq"
         if t.vlen == "seq" and base.unreadable:
             t.unreadable = base.unreadable
-        elif t.vlen == "seq" and (base.vlen or base.dtype is None):
-            t.unreadable = "a variable-length sequence of variable-length elements"
+        elif t.vlen == "seq" and (base.vlen or base.region or base.dtype is None):
+            t.unreadable = "a variable-length sequence of variable-length elements or region references"
     elif cls == 10:
         ndims = raw[pos]
         if version < 3:  # dims, then a permutation index for each, after 3 reserved bytes
@@ -152,8 +176,8 @@ def parse_type(raw: bytes, pos: int = 0) -> Tuple[Type, int]:
             pos += 1 + 4 * ndims
         base, pos = parse_type(raw, pos)
         t.members = [(None, 0, base)]
-        if base.unreadable or base.vlen:
-            t.unreadable = base.unreadable or "an array of variable-length elements"
+        if base.unreadable or base.vlen or base.region:
+            t.unreadable = base.unreadable or "an array of variable-length elements or region references"
         else:
             t.dtype = np.dtype((base.dtype, tuple(dims)))
             t.storage = np.dtype((base.storage, tuple(dims)))
@@ -183,12 +207,13 @@ def _parse_compound(t: Type, raw: bytes, pos: int, version: int, n: int, size: i
             pos += 28
         mt, pos = parse_type(raw, pos)
         members.append((name, offset, mt))
-        if mt.unreadable or mt.vlen:
-            t.unreadable = mt.unreadable or f"a variable-length member {name!r} in a compound"
+        if mt.unreadable or mt.vlen or mt.region:
+            t.unreadable = mt.unreadable or f"a variable-length or region-reference member {name!r} in a compound"
             continue
         names.append(name)
         offsets.append(offset)
-        formats.append(np.dtype((mt.dtype, dims)) if dims else mt.dtype)
+        member = mt.storage if mt.cls == 7 else mt.dtype  # a reference member keeps its width
+        formats.append(np.dtype((member, dims)) if dims else member)
         storage.append(np.dtype((mt.storage, dims)) if dims else mt.storage)
     t.members = members
     if not t.unreadable:
@@ -311,9 +336,11 @@ def space_bytes(dims: Tuple[int, ...], maxdims: Optional[Tuple[int, ...]] = None
     return out
 
 
-def parse_space(raw: bytes) -> Tuple[Optional[Tuple[int, ...]], Optional[Tuple[int, ...]]]:
-    """(dims, maxdims) of a dataspace message of version 1 or 2: dims () for
-    a scalar and None for a null dataspace, maxdims None when not stored."""
+def parse_space(raw: bytes, sl: int = 8) -> Tuple[Optional[Tuple[int, ...]], Optional[Tuple[int, ...]]]:
+    """(dims, maxdims) of a dataspace message of version 1 or 2, each size
+    ``sl`` bytes (the file's size of lengths): dims () for a scalar and None
+    for a null dataspace, maxdims None when not stored, an unlimited one
+    UNDEF."""
     version, rank, flags = raw[0], raw[1], raw[2]
     if version == 1:
         pos, kind = 8, 1 if rank else 0
@@ -323,6 +350,6 @@ def parse_space(raw: bytes) -> Tuple[Optional[Tuple[int, ...]], Optional[Tuple[i
         raise FormatError(f"dataspace message version {version} is not one this codec reads")
     if kind == 2:
         return None, None
-    dims = struct.unpack_from(f"<{rank}Q", raw, pos)
-    maxdims = struct.unpack_from(f"<{rank}Q", raw, pos + 8 * rank) if flags & 1 else None
-    return tuple(dims), (tuple(maxdims) if maxdims is not None else None)
+    dims = tuple(uint(raw, pos + sl * i, sl) for i in range(rank))
+    maxdims = tuple(uint(raw, pos + sl * (rank + i), sl) for i in range(rank)) if flags & 1 else None
+    return dims, maxdims

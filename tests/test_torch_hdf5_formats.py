@@ -2,8 +2,11 @@
 that PyTables and netCDF-4 files use and on what h5py writes under its
 usual options (libver "latest": every version-4 chunk index, by filter and
 rank; the lzf filter, its C++ and Python decoders; committed datatypes;
-user blocks): every variant written here by h5py and read through the
-port, held to h5py and to the JAX package's h5py readers
+user blocks; and the files it once refused, read since: the shared-message
+table, filtered fractal heaps, 4-byte offsets, external and virtual
+storage, region references, whose own cases are in
+tests/test_torch_hdf5_shared.py): every variant written here by h5py and
+read through the port, held to h5py and to the JAX package's h5py readers
 (``gpsat_tpu.data.pytables_compat.read_table``,
 ``gpsat_tpu.data.netcdf.read_netcdf``) exactly; the port's netCDF writer
 against the JAX writer; the fixtures of tests/fixtures/hdf5 against their
@@ -64,9 +67,24 @@ def _one_torch_thread():
 # --------------------------------------------------------------------------
 
 
-def _same(want, got, what):
+def _same(want, got, what, files=None):
+    """``got`` (the codec's) is ``want`` (h5py's); region references are
+    held through ``files`` (h5py's File, the codec's): each names the same
+    object, and selects the same values there in the same shape."""
     if isinstance(want, h5py.Empty):
         assert isinstance(got, hdf5.Empty) and got.dtype == want.dtype, what
+    elif isinstance(want, h5py.RegionReference):  # a scalar's
+        _same(np.array([want], object), np.array([got], object), what, files)
+    elif isinstance(want, np.ndarray) and want.dtype == object and want.size and isinstance(
+            want.reshape(-1)[0], h5py.RegionReference):
+        assert got.dtype == object and got.shape == want.shape, what
+        h, c = files
+        for w, g in zip(want.reshape(-1), got.reshape(-1)):
+            if not w:
+                assert g is None, what
+                continue
+            assert isinstance(g, hdf5.RegionReference) and c[g].name == h[w].name, (what, h[w].name)
+            _same(h[w][w], c[g][g], f"{what} -> {h[w].name}")
     elif isinstance(want, np.ndarray) and want.dtype == object and want.size and isinstance(
             want.reshape(-1)[0], h5py.Reference):
         assert got.dtype == np.uint64 and got.shape == want.shape, what  # object references: header addresses
@@ -92,10 +110,11 @@ def _same(want, got, what):
 
 
 def _walk(h, c, path="/"):
+    files = (h.file, c._file)
     assert c.attrs.keys() == list(h.attrs.keys()), path
     for k in h.attrs.keys():
         if k not in ("REFERENCE_LIST", "DIMENSION_LIST"):
-            _same(h.attrs[k], c.attrs[k], f"{path} attr {k}")
+            _same(h.attrs[k], c.attrs[k], f"{path} attr {k}", files)
     if isinstance(h, h5py.Datatype):
         assert isinstance(c, hdf5.Datatype) and c.dtype == h.dtype, path
         return
@@ -110,7 +129,7 @@ def _walk(h, c, path="/"):
                     c[k]
         return
     assert c.shape == h.shape, path
-    _same(h[()], c[()], path)
+    _same(h[()], c[()], path, files)
     for axis in range(h.ndim):
         assert [s.name for _, s in c.dims[axis].items()] == [s.name for s in h.dims[axis].values()], path
 
@@ -182,9 +201,9 @@ def test_dense_links_and_attributes_beyond_one_block(tmp_path):
         walks.append(rows)
         return real_walk(self, addr, rows, off)
 
-    def records(read, addr, path):
+    def records(read, addr, path, *sizes):
         depths.append(struct.unpack_from("<H", read(addr, 14), 12)[0])
-        return real_records(read, addr, path)
+        return real_records(read, addr, path, *sizes)
 
     hdf5_structures.FractalHeap._walk_indirect = walk
     hdf5.btree2_records = records
@@ -826,8 +845,8 @@ def _case_file(path, kind):
 
     data = np.arange(40.0)
     fcpl = h5py.h5p.create(h5py.h5p.FILE_CREATE)
-    if kind == "four_byte_offsets":
-        fcpl.set_sizes(4, 4)
+    if kind in ("four_byte_offsets", "two_byte_offsets"):
+        fcpl.set_sizes(*((4, 4) if kind == "four_byte_offsets" else (2, 2)))
     if kind == "user_block":
         fcpl.set_userblock(512)
     if kind in ("shared_datatype_table", "shared_dataspace"):  # one index of the shared-message table
@@ -843,7 +862,8 @@ def _case_file(path, kind):
             fcpl.set_file_space_page_size(4096)
     latest = kind.startswith("layout_v4") or kind in ("superblock_checksum", "virtual_dataset", "earray_checksum",
                                                       "filtered_fractal_heap", "superblock_writer_flag",
-                                                      "paged_file", "persisted_free_space")
+                                                      "paged_file", "persisted_free_space", "virtual_unlimited",
+                                                      "virtual_printf")
     fapl = h5py.h5p.create(h5py.h5p.FILE_ACCESS)
     fapl.set_libver_bounds(*((h5py.h5f.LIBVER_LATEST,) * 2 if latest else (h5py.h5f.LIBVER_EARLIEST,
                                                                             h5py.h5f.LIBVER_LATEST)))
@@ -882,6 +902,20 @@ def _case_file(path, kind):
             layout = h5py.VirtualLayout(shape=(40,), dtype="f8")
             layout[:] = h5py.VirtualSource(f["x"])
             f.create_virtual_dataset("v", layout)
+        elif kind in ("virtual_unlimited", "virtual_printf"):  # over x as it grows; over files src-0.h5, src-1.h5 ...
+            unlimited = h5py.h5s.UNLIMITED
+            f.create_dataset("x", data=data, maxshape=(None,), chunks=(8,))
+            dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+            vspace = h5py.h5s.create_simple((40,), (unlimited,))
+            if kind == "virtual_unlimited":
+                vspace.select_hyperslab((0,), (1,), block=(unlimited,))
+                sspace = h5py.h5s.create_simple((40,), (unlimited,))
+                sspace.select_hyperslab((0,), (1,), block=(unlimited,))
+                dcpl.set_virtual(vspace, b".", b"/x", sspace)
+            else:
+                vspace.select_hyperslab((0,), (unlimited,), stride=(10,), block=(10,))
+                dcpl.set_virtual(vspace, b"src-%b.h5", b"/x", h5py.h5s.create_simple((10,)))
+            h5py.h5d.create(f.id, b"v", h5py.h5t.IEEE_F64LE, vspace, dcpl=dcpl)
         elif kind == "external_storage":
             f.create_dataset("v", data=data, external=[(path + ".raw", 0, h5py.h5f.UNLIMITED)])
         elif kind in ("shared_datatype_table", "shared_dataspace"):  # the second user of a message shares it
@@ -924,19 +958,18 @@ def _case_file(path, kind):
 REFUSALS = {
     "fletcher32_mismatch": "fletcher32 checksum mismatch",
     "unknown_applied_filter": r"filter 32004 \(lzf\) is not one this codec applies",
-    "region_reference": "region reference",
-    "four_byte_offsets": "4-byte offsets",
     "superblock_checksum": "checksum of the superblock",
-    "virtual_dataset": "virtual",
-    "external_storage": "external files",
     "earray_checksum": "checksum of the extensible array data block",
-    "shared_datatype_table": "its datatype in the shared-object-header-message table",
-    "shared_dataspace": "a shared message of type 1 \\(a shared dataspace",
-    "filtered_fractal_heap": "fractal heap at \\d+ is filtered",
+    "virtual_unlimited": r"an unlimited mapping of \.:/x; this codec reads fixed mappings",
+    "virtual_printf": "a printf-style source file name 'src-%b.h5'",
+    "two_byte_offsets": "2-byte offsets and 2-byte lengths; this codec reads 4- and 8-byte ones",
 }
 # what the codec reads and does not write: refused when the file is opened
 # to write, or when the object is changed, before a byte is written
 WRITE_REFUSALS = {
+    "four_byte_offsets_write": "4-byte offsets and 4-byte lengths; this codec opens such a file to read only",
+    "external_append": "is stored in external files; this codec reads it and does not append to it",
+    "virtual_append": "is a virtual dataset; this codec reads it and does not append to it",
     "superblock_writer_flag": "file-consistency flags 0x01: a writer has the file open",
     "paged_file": "a paged file-space strategy",
     "persisted_free_space": "a persisted free-space manager",
@@ -947,10 +980,15 @@ WRITE_REFUSALS = {
 }
 
 
+# the file of a write refusal, where it is a read case's
+WRITE_CASE_FILES = {"shared_table_write": "shared_datatype_table", "four_byte_offsets_write": "four_byte_offsets",
+                    "external_append": "external_storage", "virtual_append": "virtual_dataset"}
+
+
 @pytest.mark.parametrize("kind", sorted(REFUSALS) + sorted(WRITE_REFUSALS))
 def test_codec_names_what_it_refuses(kind, tmp_path):
     path = str(tmp_path / "r.h5")
-    _case_file(path, "shared_datatype_table" if kind == "shared_table_write" else kind)
+    _case_file(path, WRITE_CASE_FILES.get(kind, kind))
     before = Path(path).read_bytes()
     with pytest.raises(hdf5.FormatError, match={**REFUSALS, **WRITE_REFUSALS}[kind]):
         if kind in WRITE_REFUSALS:
@@ -965,17 +1003,32 @@ def test_codec_names_what_it_refuses(kind, tmp_path):
             else:
                 f["v"][()]
     assert Path(path).read_bytes() == before
-    if kind in ("paged_file", "persisted_free_space", "committed_datatype_attribute"):
+    if kind in ("paged_file", "persisted_free_space", "committed_datatype_attribute", *WRITE_CASE_FILES):
         _same_as_h5py(path)  # and it reads as h5py reads it
 
 
-@pytest.mark.parametrize("kind", ["layout_v4_extensible_array", "layout_v4_fixed_array", "unknown_filter_lzf",
-                                  "committed_datatype", "user_block"])
+# what the codec refused before it read version-4 layouts, lzf, committed
+# datatypes and user blocks, and then the shared-message table, filtered
+# fractal heaps, 4-byte offsets, external and virtual storage and region
+# references: each file's superblock version
+FORMERLY_REFUSED = {"layout_v4_extensible_array": 3, "layout_v4_fixed_array": 3, "unknown_filter_lzf": 0,
+                    "committed_datatype": 0, "user_block": 0, "shared_datatype_table": 2, "shared_dataspace": 2,
+                    "filtered_fractal_heap": 3, "four_byte_offsets": 0, "external_storage": 0, "virtual_dataset": 3,
+                    "region_reference": 0}
+
+
+@pytest.mark.parametrize("kind", list(FORMERLY_REFUSED))
 def test_formerly_refused_files_read_as_h5py(kind, tmp_path):
-    # what the codec refused before it read version-4 layouts, lzf, committed
-    # datatypes and user blocks
     path = str(tmp_path / "r.h5")
     _case_file(path, kind)
-    assert _same_as_h5py(path) == (3 if kind.startswith("layout_v4") else 0)
+    assert _same_as_h5py(path) == FORMERLY_REFUSED[kind]
     with hdf5.File(path, "r") as f:
-        np.testing.assert_array_equal(f["v"][()], np.arange(40.0))
+        if kind == "region_reference":  # x[1:3], through the reference
+            ref = f["v"][0]
+            np.testing.assert_array_equal(f[ref][ref], np.arange(40.0)[1:3])
+        elif kind == "filtered_fractal_heap":
+            assert f["v"].keys() == [f"link_{i:03d}" for i in range(30)]
+        elif kind.startswith("shared_"):
+            np.testing.assert_array_equal(f["v"][()], np.zeros(40, [("a", "<i4"), ("b", "<f8")]))
+        else:
+            np.testing.assert_array_equal(f["v"][()], np.arange(40.0))

@@ -250,19 +250,54 @@ def results_store(path, experts, seed=0, libver="earliest", chunk_rows=32):
 # --------------------------------------------------------------------------
 
 
+def _bounds(libver):
+    """(low, high) of h5py's library-version bounds for a LIBVER key or an
+    h5py libver, as h5f constants."""
+    import h5py
+
+    h5f = h5py.h5f
+    bound = {"earliest": h5f.LIBVER_EARLIEST, "v108": h5f.LIBVER_V18, "v110": h5f.LIBVER_V110,
+             "latest": h5f.LIBVER_LATEST}
+    lv = LIBVER.get(libver, libver)
+    low, high = lv if isinstance(lv, tuple) else (lv, "latest")
+    return bound[low], bound[high]
+
+
+def create_file(path, libver="earliest", track_order=False, userblock=0, fcpl_fn=None):
+    """An h5py File created as ``h5py.File(path, "w", libver=..., track_order=...,
+    userblock_size=...)`` creates it, with ``fcpl_fn(fcpl)`` then setting
+    what h5py's File does not (the sizes of offsets, the shared-message
+    table, the root group's link filters)."""
+    import h5py
+
+    h5p = h5py.h5p
+    fcpl = h5p.create(h5p.FILE_CREATE)
+    if track_order:
+        fcpl.set_link_creation_order(h5p.CRT_ORDER_TRACKED | h5p.CRT_ORDER_INDEXED)
+        fcpl.set_attr_creation_order(h5p.CRT_ORDER_TRACKED | h5p.CRT_ORDER_INDEXED)
+    if userblock:
+        fcpl.set_userblock(userblock)
+    if fcpl_fn is not None:
+        fcpl_fn(fcpl)
+    fapl = h5p.create(h5p.FILE_ACCESS)
+    fapl.set_libver_bounds(*_bounds(libver))
+    return h5py.File(h5py.h5f.create(str(path).encode(), h5py.h5f.ACC_TRUNC, fcpl=fcpl, fapl=fapl))
+
+
 def write_netcdf_variant(path, libver="earliest", track_order=False, layout="contiguous", extra=0, phony=False,
-                         cf_time=True, seed=0, userblock=0):
+                         cf_time=True, seed=0, userblock=0, extra_attrs=None, fcpl_fn=None):
     """A netCDF-4-layout file as h5py can lay it out: dimension scales x
     (7), y (11) and t (5) with coordinate variables, a [7, 11, 5] float
     variable and a [11, 5] int variable, a string variable over x; the
     library-version bounds and creation order as given (netCDF-C: v1.8,
     tracked); ``layout`` "contiguous", "chunked" (edge chunks: chunks of
     (3, 4, 2)) or "filtered" (those chunks through shuffle, deflate and
-    fletcher32); ``extra`` more variables over x, each with as many
-    attributes (dense links and attributes past 8); ``phony`` a dimension
-    with no coordinate variable, as netCDF-C writes it; ``cf_time`` t in
-    "days since" with a _FillValue, else plain integers; ``userblock``
-    bytes of a user block before the superblock (0: none)."""
+    fletcher32); ``extra`` more variables over x, each with
+    ``extra_attrs`` attributes (as many as ``extra`` unless given; dense
+    links and attributes past 8); ``phony`` a dimension with no coordinate
+    variable, as netCDF-C writes it; ``cf_time`` t in "days since" with a
+    _FillValue, else plain integers; ``userblock`` bytes of a user block
+    before the superblock (0: none); ``fcpl_fn`` as create_file takes it."""
     import h5py
 
     rng = np.random.default_rng(seed)
@@ -271,7 +306,11 @@ def write_netcdf_variant(path, libver="earliest", track_order=False, layout="con
         kw = {"chunks": (3, 4, 2)}
         if layout == "filtered":
             kw.update(compression="gzip", shuffle=True, fletcher32=True)
-    with h5py.File(path, "w", libver=LIBVER[libver], track_order=track_order, userblock_size=userblock) as f:
+    if fcpl_fn is None:
+        opened = h5py.File(path, "w", libver=LIBVER[libver], track_order=track_order, userblock_size=userblock)
+    else:
+        opened = create_file(path, libver, track_order, userblock, fcpl_fn)
+    with opened as f:
         f.attrs["_NCProperties"] = np.bytes_(b"version=2,netcdf=4.9.2,hdf5=1.14.6")
         f.attrs["title"] = "gpsat fixture"
         x = f.create_dataset("x", data=np.linspace(-1.0, 1.0, 7))
@@ -305,7 +344,7 @@ def write_netcdf_variant(path, libver="earliest", track_order=False, layout="con
         for i in range(extra):
             v = f.create_dataset(f"v{(7 * i) % extra:02d}", data=rng.normal(size=7))
             v.dims[0].attach_scale(x)
-            for j in range(extra):
+            for j in range(extra if extra_attrs is None else extra_attrs):
                 v.attrs[f"a{j:02d}"] = np.int64(i * j)
 
 
@@ -525,6 +564,161 @@ def write_committed_types(path):
         f.create_dataset("count", data=np.arange(7, dtype=np.int32) * 3).dims[0].attach_scale(x)
 
 
+# --------------------------------------------------------------------------
+# what the codec read last: the shared-message table, filtered fractal
+# heaps, 4-byte offsets, external and virtual storage, region references
+# --------------------------------------------------------------------------
+
+# every message type HDF5 shares (H5O_SHMESG_*_FLAG: bit t for message type t)
+SHARED_TYPES = {"dataspace": 0x0002, "datatype": 0x0008, "fill": 0x0020, "filters": 0x0800, "attribute": 0x1000}
+
+
+def shared_table(fcpl, index="list", min_size=0) -> None:
+    """Share every message type HDF5 can share through the shared-message
+    table of ``fcpl``, from ``min_size`` bytes up: in one index, kept a
+    list ("list") or a version-2 B-tree from its first message ("btree"),
+    or in one index per type ("per_type")."""
+    import ctypes
+
+    fid = ctypes.c_int64(fcpl.id)
+    groups = [[flag] for flag in SHARED_TYPES.values()] if index == "per_type" else [list(SHARED_TYPES.values())]
+    _hdf5_call("H5Pset_shared_mesg_nindexes", fid, ctypes.c_uint(len(groups)))
+    for i, flags in enumerate(groups):
+        _hdf5_call("H5Pset_shared_mesg_index", fid, ctypes.c_uint(i), ctypes.c_uint(sum(flags)),
+                   ctypes.c_uint(min_size))
+    if index == "btree":  # lists of no message: a B-tree from the first
+        _hdf5_call("H5Pset_shared_mesg_phase_change", fid, ctypes.c_uint(0), ctypes.c_uint(0))
+
+
+def link_filters(gcpl, kind="deflate") -> None:
+    """The filters a group created with ``gcpl`` (a file's: its root)
+    sends its dense links' fractal heap through: deflate, or deflate and
+    fletcher32 (HDF5 refuses shuffle on a group)."""
+    import ctypes
+
+    gid = ctypes.c_int64(gcpl.id)
+    _hdf5_call("H5Pset_deflate", gid, ctypes.c_uint(6))
+    if kind != "deflate":
+        _hdf5_call("H5Pset_fletcher32", gid)
+
+
+def write_external(path, raw_name):
+    """A netCDF-shaped file whose variables lie in an external file
+    ``raw_name`` (named as given, so relative to the working directory
+    where it is relative): x (6) and y (5) scales, "z" [6, 5] f4 in two
+    slots of ``raw_name`` past an offset, "count" [5] i2 in a third, the
+    rest of the file left as HDF5 leaves it."""
+    import h5py
+
+    rng = np.random.default_rng(12)
+    with h5py.File(path, "w", libver=LIBVER["v108"], track_order=True) as f:
+        x = f.create_dataset("x", data=np.arange(6, dtype=np.float64))
+        x.make_scale("x")
+        y = f.create_dataset("y", data=np.arange(5, dtype=np.int32) * 10)
+        y.make_scale("y")
+        z = f.create_dataset("z", shape=(6, 5), dtype="f4", external=[(raw_name, 64, 48), (raw_name, 160, 72)])
+        z[...] = rng.normal(size=(6, 5)).astype(np.float32)
+        z.attrs["units"] = "m"
+        count = f.create_dataset("count", shape=(5,), dtype="i2", external=[(raw_name, 256, 10)])
+        count[...] = np.arange(5, dtype=np.int16) * 3 - 4
+        for axis, dim in enumerate((x, y)):
+            z.dims[axis].attach_scale(dim)
+        count.dims[0].attach_scale(y)
+
+
+def write_virtual(path, source_name):
+    """A netCDF-shaped file whose variables are virtual: x (12) and y (5)
+    scales, "local" [12] stored in the file, "v" [12] f8 mapped from the
+    source file ``source_name`` (a strided hyperslab of its "a"), from
+    "local" in the same file (".") and from a file that does not exist
+    (fill -1.0), "w" [12, 5] i4 a 2-D block and two blocks together (an
+    irregular hyperslab; HDF5 takes no point selection in a mapping) of the
+    source's "b" and a dataset the source does not hold (fill 7).
+    ``source_name`` is written beside ``path``; the mappings name it
+    relative to it."""
+    import h5py
+
+    src = Path(path).parent / source_name
+    with h5py.File(src, "w") as s:
+        s["a"] = np.arange(20, dtype=np.float64) * 0.5
+        s["b"] = np.arange(24, dtype=np.int32).reshape(4, 6) - 5
+    with h5py.File(path, "w", track_order=True) as f:  # a virtual layout needs the bounds to reach v1.10
+        x = f.create_dataset("x", data=np.arange(12, dtype=np.float64))
+        x.make_scale("x")
+        y = f.create_dataset("y", data=np.arange(5, dtype=np.int32))
+        y.make_scale("y")
+        local = f.create_dataset("local", data=np.arange(12, dtype=np.float64) + 100)
+        v = h5py.VirtualLayout(shape=(12,), dtype="f8")
+        v[0:6] = h5py.VirtualSource(source_name, "a", shape=(20,))[0:12:2]
+        v[6:10] = h5py.VirtualSource(".", "local", shape=(12,))[2:6]
+        v[10:12] = h5py.VirtualSource("missing_source.h5", "a", shape=(2,))
+        f.create_virtual_dataset("v", v, fillvalue=-1.0)
+        w = h5py.VirtualLayout(shape=(12, 5), dtype="i4")
+        w[2:6, 1:4] = h5py.VirtualSource(source_name, "b", shape=(4, 6))[0:4, 2:5]
+        w[8:9, 0:5] = h5py.VirtualSource(source_name, "no_such_dataset", shape=(1, 5))
+        f.create_virtual_dataset("w", w, fillvalue=7)
+        _irregular_mapping(f["w"], src, "b", [((3, 4), (1, 2)), ((0, 0), (1, 1))], [((10, 0), (1, 2)), ((11, 3), (1, 1))])
+        for name, dims in (("local", [x]), ("v", [x]), ("w", [x, y])):
+            for axis, d in enumerate(dims):
+                f[name].dims[axis].attach_scale(d)
+
+
+def _irregular_mapping(ds, src_path, src_name, src_blocks, blocks, file_name=None):
+    """Re-create the virtual dataset ``ds`` with one mapping more, of
+    irregular hyperslabs (h5py's VirtualLayout takes one slice per dim):
+    the union of ``src_blocks`` ((start, count) each) of ``src_name`` in
+    ``src_path`` (named ``file_name``, by default its file name) to that
+    of ``blocks``."""
+    import h5py
+
+    def union(space, parts):
+        space.select_none()
+        for start, count in parts:
+            space.select_hyperslab(start, count, op=h5py.h5s.SELECT_OR)
+        return space
+
+    f, name = ds.file, ds.name
+    dcpl = ds.id.get_create_plist()
+    vspace = union(h5py.h5s.create_simple(ds.shape), blocks)
+    with h5py.File(src_path, "r") as s:
+        sspace = union(h5py.h5s.create_simple(s[src_name].shape), src_blocks)
+    dcpl.set_virtual(vspace, (file_name or Path(src_path).name).encode(), f"/{src_name}".encode(), sspace)
+    dtype, attrs = ds.dtype, dict(ds.attrs)
+    del f[name]
+    h5py.h5d.create(f.id, name.encode(), h5py.h5t.py_create(dtype), h5py.h5s.create_simple(ds.shape), dcpl=dcpl)
+    for k, v in attrs.items():
+        f[name].attrs[k] = v
+
+
+def write_region_refs(path, libver="earliest"):
+    """Region references (a dataset "refs" of them, and an attribute) into
+    "x" [4, 6] f8 and "y" [30] i4: a block, a strided hyperslab, two
+    hyperslabs together, points, everything and nothing, as h5py makes
+    them; ``libver`` sets their selections' encodings (earliest: version
+    1; latest: version 3 hyperslabs and version 2 points)."""
+    import h5py
+
+    with h5py.File(path, "w", libver=LIBVER.get(libver, libver)) as f:
+        x = f.create_dataset("x", data=np.arange(24.0).reshape(4, 6) / 4)
+        y = f.create_dataset("y", data=np.arange(30, dtype=np.int32) * 3 - 7)
+
+        def made(ds, select):
+            sid = ds.id.get_space()
+            select(sid)
+            return h5py.h5r.create(ds.id, b".", h5py.h5r.DATASET_REGION, sid)
+
+        two = made(x, lambda s: (s.select_hyperslab((0, 0), (2, 2)),
+                                 s.select_hyperslab((2, 3), (1, 3), op=h5py.h5s.SELECT_OR)))
+        refs = [x.regionref[1:3, 2:5], y.regionref[2:29:4], two,
+                made(y, lambda s: s.select_elements(np.array([[17], [3], [25]], dtype=np.uint64))),
+                made(x, lambda s: s.select_elements(np.array([[3, 1], [0, 0], [2, 5]], dtype=np.uint64))),
+                x.regionref[...], made(y, lambda s: s.select_none()), x.regionref[::3, 1::2]]
+        r = f.create_dataset("refs", (len(refs),), dtype=h5py.regionref_dtype)
+        for i, ref in enumerate(refs):
+            r[i] = ref
+        x.attrs.create("ref", refs[1], dtype=h5py.regionref_dtype)
+
+
 NETCDF_VARIANTS = {
     "nc_earliest": dict(),
     "nc_netcdf_c": dict(libver="v108", track_order=True),
@@ -563,10 +757,6 @@ def create_h5py_store(path, libver="earliest", track_order=False, istore_k=None,
     import h5py
 
     h5f, h5p = h5py.h5f, h5py.h5p
-    bound = {"earliest": h5f.LIBVER_EARLIEST, "v108": h5f.LIBVER_V18, "v110": h5f.LIBVER_V110,
-             "latest": h5f.LIBVER_LATEST}
-    lv = LIBVER.get(libver, libver)
-    low, high = lv if isinstance(lv, tuple) else (lv, "latest")
     fcpl = h5p.create(h5p.FILE_CREATE)
     if track_order:
         fcpl.set_link_creation_order(h5p.CRT_ORDER_TRACKED | h5p.CRT_ORDER_INDEXED)
@@ -576,7 +766,7 @@ def create_h5py_store(path, libver="earliest", track_order=False, istore_k=None,
     if sym_k:  # (the group B-trees' K, the symbol-table nodes' K)
         _hdf5_call("H5Pset_sym_k", ctypes.c_int64(fcpl.id), ctypes.c_uint(sym_k[0]), ctypes.c_uint(sym_k[1]))
     fapl = h5p.create(h5p.FILE_ACCESS)
-    fapl.set_libver_bounds(bound[low], bound[high])
+    fapl.set_libver_bounds(*_bounds(libver))
     h5f.create(str(path).encode(), h5f.ACC_TRUNC, fcpl=fcpl, fapl=fapl).close()
 
 
@@ -705,6 +895,50 @@ V4_NETCDF = {
 }
 
 
+# what the codec read last, each read through the JAX package's readers:
+# file -> (writer of the file (and of what it names beside it), the reader
+# of its expected frame: "netcdf"; "netcdf_here", read from its own
+# directory, where its relative external names lead; or "regions",
+# chip_smoke.region_frame of its region references)
+CODEC_FIXTURES = {
+    "nc_shared_messages.nc": (lambda path: write_netcdf_variant(
+        path, libver="v108", layout="filtered", extra=9,
+        fcpl_fn=lambda p: shared_table(p, "list")), "netcdf"),
+    "nc_filtered_heap.nc": (lambda path: write_netcdf_variant(
+        path, libver="v108", track_order=True, extra=30, extra_attrs=1, fcpl_fn=link_filters), "netcdf"),
+    "nc_four_byte.nc": (lambda path: write_netcdf_variant(
+        path, libver="v108", layout="chunked", extra=9,
+        fcpl_fn=lambda p: p.set_sizes(4, 4)), "netcdf"),
+    "nc_external.nc": (lambda path: write_external(path, "nc_external.raw"), "netcdf_here"),
+    "nc_virtual.nc": (lambda path: write_virtual(path, "nc_virtual_src.h5"), "netcdf"),
+    "region_refs.h5": (lambda path: write_region_refs(path, "latest"), "regions"),
+}
+
+
+def write_vds_obs(path) -> None:
+    """chip_smoke.py phase 17 (i)'s observations file: phase 7's rows
+    (``pipeline_inputs``) as a netCDF file whose variables ("index", a
+    dimension scale, then x, y, z; the dtypes of ``cli_inputs``' netCDF
+    file) are virtual, each the same variable of ``vds_granules``' files,
+    named relative to it. The granules are not written: the card writes
+    them with the port's own writer."""
+    import h5py
+
+    import chip_smoke as cs
+
+    obs, _, _ = cs.pipeline_inputs()
+    n = len(obs["x"])
+    with h5py.File(path, "w") as f:
+        for name, dtype in (("index", "<i8"), ("x", "<f8"), ("y", "<f8"), ("z", "<f8")):
+            layout = h5py.VirtualLayout(shape=(n,), dtype=dtype)
+            for granule, lo, hi in cs.vds_granules(n):
+                layout[lo:hi] = h5py.VirtualSource(granule, f"/{name}", shape=(hi - lo,))
+            f.create_virtual_dataset(name, layout)
+        f["index"].make_scale("index")
+        for name in ("x", "y", "z"):
+            f[name].dims[0].attach_scale(f["index"])
+
+
 def check_structure(path: Path) -> None:
     """Each fixture of the later formats holds what it is there for: the
     chunk index of each dataset (HDF5's own word on it), the structures'
@@ -732,7 +966,8 @@ def check_structure(path: Path) -> None:
             assert index == {"p": "extensible array", "q": "extensible array"}, index
             for k in index:
                 ds = f[k].id
-                offsets = [ds.get_chunk_info(i).chunk_offset for i in range(ds.get_num_chunks())]
+                offsets = []  # one walk of the index (get_chunk_info(i) walks it again for every i)
+                ds.chunk_iter(lambda info: offsets.append(info.chunk_offset))
                 assert max(c * 70_000 + r for r, c in offsets) >= EA_FIRST_PAGED, f"{k}: no paged data block"
             has(b"EASB")
         elif path.name == "v4_farray.nc":
@@ -755,6 +990,26 @@ def check_structure(path: Path) -> None:
             assert all(f[k].id.get_type().committed() for k in ("flag", "obs", "ragged"))
         elif path.name == "nc_user_block.nc":
             assert f.userblock_size == 512 and raw[512:520] == b"\x89HDF\r\n\x1a\n"
+        elif path.name == "nc_shared_messages.nc":  # the table; past 50 messages its index is a B-tree
+            has(b"SMTB", b"BTHD")
+        elif path.name == "nc_filtered_heap.nc":  # the root's links in a heap with a pipeline, past one block
+            heaps = [i for i in range(len(raw) - 9) if raw.startswith(b"FRHP", i)]
+            assert any(int.from_bytes(raw[i + 7:i + 9], "little") for i in heaps), "no fractal heap has filters"
+            has(b"FHIB")
+        elif path.name == "nc_four_byte.nc":
+            assert raw[8] == 2 and raw[9:11] == b"\x04\x04", raw[8:11]
+        elif path.name == "nc_external.nc":
+            assert [f[k].id.get_create_plist().get_external_count() for k in ("z", "count")] == [2, 1]
+        elif path.name == "nc_virtual.nc":
+            assert [len(f[k].virtual_sources()) for k in ("v", "w")] == [3, 3]
+        elif path.name == "region_refs.h5":
+            assert f["refs"].dtype == h5py.regionref_dtype and raw[8] == 3
+        elif path.name == "vds_obs.nc":
+            import chip_smoke as cs
+
+            granules = {g for g, _, _ in cs.vds_granules(len(f["x"]))}
+            assert all(len(f[k].virtual_sources()) == len(granules) for k in ("index", "x", "y", "z"))
+            assert {s.file_name for k in f for s in f[k].virtual_sources()} == granules
         elif path.name in RESTART_STORES:  # version-2 headers throughout, the columns as asked
             libver, filters, settings = RESTART_STORES[path.name]
             assert raw[8] == (3 if libver == "latest" else 2), raw[8]
@@ -832,7 +1087,20 @@ def make(out: Path) -> None:
         write(out / name)
         kw = {"variables": variables} if variables else {}
         expect(name, "netcdf", None, JN.read_netcdf(str(out / name), **kw), **kw)
-    for name in (V4_RESULTS, *V4_NETCDF):
+    for name, (write, reader) in CODEC_FIXTURES.items():
+        if reader == "regions":
+            write(out / name)
+            with h5py.File(out / name, "r") as f:
+                expect(name, "regions", "refs", cs.region_frame(f, "refs"))
+        elif reader == "netcdf_here":
+            with contextlib.chdir(out):
+                write(name)
+                expect(name, "netcdf", None, JN.read_netcdf(name), chdir=True)
+        else:
+            write(out / name)
+            expect(name, "netcdf", None, JN.read_netcdf(str(out / name)))
+    write_vds_obs(out / cs.FORMATS_VDS)
+    for name in (V4_RESULTS, *V4_NETCDF, *CODEC_FIXTURES, cs.FORMATS_VDS):
         check_structure(out / name)
     np.savez_compressed(out / "expected.npz", meta=np.array(json.dumps(entries)), **arrays)
     print(f"wrote {len(entries)} expected frames to {out}")
@@ -842,7 +1110,7 @@ def write_manifest(out: Path) -> None:
     """MANIFEST.txt: the files in ``out`` and how the stand-ins differ."""
     import h5py
 
-    files = sorted(p.name for p in out.iterdir() if p.suffix in (".h5", ".nc"))
+    files = sorted(p.name for p in out.iterdir() if p.suffix in (".h5", ".nc", ".raw"))
     manifest = [
         "HDF5 fixtures of the port's codec (tools/make_hdf5_fixtures.py; written by h5py "
         f"{h5py.__version__}, HDF5 {h5py.version.hdf5_version}).",
@@ -875,6 +1143,15 @@ def write_manifest(out: Path) -> None:
         "- nc_committed_types.nc commits its enum, compound and vlen types in the root group as netCDF-C",
         "  does; its expected frame reads the variables the JAX reader can (\"variables\" in the entry):",
         "  that reader takes a committed datatype for a variable, and its CF decode refuses compounds.",
+        "- nc_shared_messages.nc (every message type shared through one index of the shared-message table),",
+        "  nc_filtered_heap.nc (the root group's links in a deflated fractal heap), nc_four_byte.nc (4-byte",
+        "  offsets and lengths), nc_external.nc (variables in nc_external.raw, named relative to the working",
+        "  directory: its expected frame is read from this directory) and nc_virtual.nc (virtual variables over",
+        "  nc_virtual_src.h5, the file itself and a missing file) are netCDF-shaped files of settings netCDF-C",
+        "  does not use; region_refs.h5 holds region references, its expected frame every element they select",
+        "  (chip_smoke.region_frame, through h5py).",
+        "- vds_obs.nc maps chip_smoke.py phase 7's observation rows from granule files that are not here:",
+        "  phase 17 (i) writes them with the port's own writer.",
     ]
     (out / "MANIFEST.txt").write_text("\n".join(manifest) + "\n")
     print(f"wrote {len(files)} files to {out}")

@@ -194,6 +194,9 @@ def _formats_codec():
         cs.formats_throughput(root)
         (root / "restart").mkdir()
         cs.formats_restart(root / "restart")
+        (root / "vds").mkdir()
+        cs.vds_files(root / "vds")
+        cs.formats_virtual_read(root / "vds")
     cs.log("formats_h5py", loaded="h5py" in sys.modules)
     cs.check("h5py" not in sys.modules, "formats (e): h5py was imported")
 
